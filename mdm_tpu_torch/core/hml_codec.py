@@ -1,0 +1,50 @@
+"""HumanML3D / KIT-ML feature decode ("hml_vec" -> joint positions).
+
+Counterpart of mdm_tpu/core/hml_codec.py (:59-106). The per-frame vector is
+``[root_rot_vel(1) | root_lin_vel_xz(2) | root_y(1) | ric (J-1)*3 | rot
+(J-1)*6 | local_vel J*3 | foot_contact(4)]``; decode integrates the root
+yaw and planar velocity and rotates the root-relative joints into the world
+frame (reference motion_process.py:366-452).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import quaternions as Q
+
+
+def feature_dim(joints_num: int) -> int:
+    return 4 + (joints_num - 1) * 3 + (joints_num - 1) * 6 + joints_num * 3 + 4
+
+
+def recover_root_rot_pos(data: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """data [..., T, D] -> (r_rot_quat [..., T, 4], r_pos [..., T, 3])."""
+    rot_vel = data[..., 0]
+    # Frame t accumulates the velocities of frames < t (exclusive prefix sum).
+    shifted = torch.cat([torch.zeros_like(rot_vel[..., :1]), rot_vel[..., :-1]], dim=-1)
+    r_rot_ang = torch.cumsum(shifted, dim=-1)
+    zeros = torch.zeros_like(r_rot_ang)
+    r_rot_quat = torch.stack([torch.cos(r_rot_ang), zeros, torch.sin(r_rot_ang), zeros], dim=-1)
+
+    r_pos_local = torch.zeros(data.shape[:-1] + (3,), dtype=data.dtype, device=data.device)
+    r_pos_local[..., 1:, 0] = data[..., :-1, 1]  # planar velocity of frames < t
+    r_pos_local[..., 1:, 2] = data[..., :-1, 2]
+    # Rotate each step's local velocity into the world frame, then integrate.
+    r_pos = torch.cumsum(Q.qrot(Q.qinv(r_rot_quat), r_pos_local), dim=-2)
+    r_pos[..., 1] = data[..., 3]
+    return r_rot_quat, r_pos
+
+
+def recover_from_ric(data: torch.Tensor, joints_num: int) -> torch.Tensor:
+    """Decode hml features [..., T, D] to joint positions [..., T, J, 3]."""
+    r_rot_quat, r_pos = recover_root_rot_pos(data)
+    positions = data[..., 4: (joints_num - 1) * 3 + 4]
+    positions = positions.reshape(positions.shape[:-1] + (joints_num - 1, 3))
+    # Rotate local joints into the world frame by the inverse root yaw.
+    inv_rot = Q.qinv(r_rot_quat)[..., None, :].expand(positions.shape[:-1] + (4,))
+    positions = Q.qrot(inv_rot, positions)
+    positions[..., 0] += r_pos[..., None, 0]
+    positions[..., 2] += r_pos[..., None, 2]
+    return torch.cat([r_pos[..., None, :], positions], dim=-2)

@@ -1,0 +1,89 @@
+"""Gaussian diffusion q/p algebra as plain functions on tensors.
+
+Counterpart of mdm_tpu/diffusion/gaussian.py (:26-153) for sampling:
+q_sample, the posterior, and p_mean_variance with the inpainting hook for
+START_X / EPSILON prediction under FIXED_SMALL / FIXED_LARGE variance.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .schedule import MeanType, Schedule, VarType
+
+
+def extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Gather per-sample coefficients and shape-broadcast: [T] x [B] -> [B,1,..]."""
+    return table[t].reshape(t.shape + (1,) * (ndim - 1))
+
+
+def q_sample(sched: Schedule, x_start, t, noise):
+    """Sample x_t ~ q(x_t | x_0)."""
+    nd = x_start.dim()
+    return (extract(sched.sqrt_alphas_cumprod, t, nd) * x_start
+            + extract(sched.sqrt_one_minus_alphas_cumprod, t, nd) * noise)
+
+
+def q_posterior_mean_variance(sched: Schedule, x_start, x_t, t):
+    nd = x_t.dim()
+    mean = (extract(sched.posterior_mean_coef1, t, nd) * x_start
+            + extract(sched.posterior_mean_coef2, t, nd) * x_t)
+    variance = extract(sched.posterior_variance, t, nd)
+    log_variance = extract(sched.posterior_log_variance_clipped, t, nd)
+    return mean, variance, log_variance
+
+
+def predict_xstart_from_eps(sched: Schedule, x_t, t, eps):
+    nd = x_t.dim()
+    return (extract(sched.sqrt_recip_alphas_cumprod, t, nd) * x_t
+            - extract(sched.sqrt_recipm1_alphas_cumprod, t, nd) * eps)
+
+
+class PMeanVariance(NamedTuple):
+    mean: torch.Tensor
+    variance: torch.Tensor
+    log_variance: torch.Tensor
+    pred_xstart: torch.Tensor
+
+
+def apply_inpainting(model_output, inpainting_mask, inpainted_motion):
+    """Overwrite the x0 prediction inside the mask with ground truth
+    (reference gaussian_diffusion.py:300-307; START_X prediction only)."""
+    return torch.where(inpainting_mask, inpainted_motion, model_output)
+
+
+def p_mean_variance(
+    sched: Schedule,
+    model_output: torch.Tensor,
+    x: torch.Tensor,
+    t: torch.Tensor,
+    *,
+    mean_type: MeanType = MeanType.START_X,
+    var_type: VarType = VarType.FIXED_SMALL,
+    clip_denoised: bool = False,
+    inpainting_mask: Optional[torch.Tensor] = None,
+    inpainted_motion: Optional[torch.Tensor] = None,
+) -> PMeanVariance:
+    """Turn a raw model output into (mean, var, pred_x0) of p(x_{t-1}|x_t)."""
+    nd = x.dim()
+    if inpainting_mask is not None and inpainted_motion is not None:
+        if mean_type != MeanType.START_X:
+            raise ValueError("inpainting requires START_X prediction")
+        model_output = apply_inpainting(model_output, inpainting_mask, inpainted_motion)
+
+    if var_type == VarType.FIXED_LARGE:
+        model_variance = extract(sched.fixed_large_variance, t, nd)
+        model_log_variance = extract(sched.log_fixed_large_variance, t, nd)
+    else:  # FIXED_SMALL
+        model_variance = extract(sched.posterior_variance, t, nd)
+        model_log_variance = extract(sched.posterior_log_variance_clipped, t, nd)
+
+    if mean_type == MeanType.START_X:
+        pred_xstart = model_output
+    else:  # EPSILON
+        pred_xstart = predict_xstart_from_eps(sched, x, t, model_output)
+    if clip_denoised:
+        pred_xstart = pred_xstart.clamp(-1.0, 1.0)
+    model_mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)
+    return PMeanVariance(model_mean, model_variance, model_log_variance, pred_xstart)

@@ -1,0 +1,63 @@
+"""Carry mdm_tpu (flax) parameters into the port's torch state_dict.
+
+The inverse of mdm_tpu/models/convert.py (:28-60, :96-127): flax Dense
+kernels [in, out] become torch Linear weights [out, in]; the q/k/v Dense
+layers of each attention block are packed into ``in_proj_weight`` [3D, D]
+and ``in_proj_bias`` [3D]; LayerNorm ``scale`` becomes ``weight``. The tree
+arrives as nested dicts of numpy arrays (callers convert with
+``jax.tree_util.tree_map(np.asarray, params)``), so this module needs no jax.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from .mdm import MDMConfig
+
+
+def _linear(p: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    return {f"{prefix}.weight": np.asarray(p["kernel"]).T,
+            f"{prefix}.bias": np.asarray(p["bias"])}
+
+
+def _layernorm(p: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    return {f"{prefix}.weight": np.asarray(p["scale"]),
+            f"{prefix}.bias": np.asarray(p["bias"])}
+
+
+def _encoder_layer(p: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    a = p["self_attn"]
+    names = ("q_proj", "k_proj", "v_proj")
+    out = {
+        f"{prefix}.self_attn.in_proj_weight": np.concatenate(
+            [np.asarray(a[n]["kernel"]).T for n in names], axis=0),
+        f"{prefix}.self_attn.in_proj_bias": np.concatenate(
+            [np.asarray(a[n]["bias"]) for n in names], axis=0),
+        **_linear(a["out_proj"], f"{prefix}.self_attn.out_proj"),
+        **_linear(p["linear1"], f"{prefix}.linear1"),
+        **_linear(p["linear2"], f"{prefix}.linear2"),
+        **_layernorm(p["norm1"], f"{prefix}.norm1"),
+        **_layernorm(p["norm2"], f"{prefix}.norm2"),
+    }
+    return out
+
+
+def state_dict_from_flax(params: Mapping, config: MDMConfig) -> Dict[str, torch.Tensor]:
+    """flax MDM params (``model.init``'s ``{"params": ...}`` or its inner
+    tree) -> a state_dict that ``MDM(config).load_state_dict(.., strict=True)``
+    accepts."""
+    p = params.get("params", params)
+    sd = {
+        **_linear(p["embed_timestep"]["time_embed_0"], "embed_timestep.time_embed.0"),
+        **_linear(p["embed_timestep"]["time_embed_2"], "embed_timestep.time_embed.2"),
+        **_linear(p["input_process"]["poseEmbedding"], "input_process.poseEmbedding"),
+        **_linear(p["output_process"]["poseFinal"], "output_process.poseFinal"),
+    }
+    if config.cond_mode == "text":
+        sd.update(_linear(p["embed_text"], "embed_text"))
+    for i in range(config.num_layers):
+        sd.update(_encoder_layer(p["seqTransEncoder"][f"layers_{i}"],
+                                 f"seqTransEncoder.layers.{i}"))
+    return {k: torch.tensor(v, dtype=torch.float32) for k, v in sd.items()}

@@ -1,0 +1,177 @@
+"""MDM denoiser, trans_enc architecture, in PyTorch.
+
+Counterpart of mdm_tpu/models/mdm.py (MDM.__call__ :213-348 and
+cfg_denoiser :388-424) for the sampling slice: ``arch='trans_enc'``,
+``cond_mode`` ``text`` (pooled embedding) or ``no_cond``,
+``emb_policy='add'``, optional ``mask_frames``. Layout ``x: [B, T, D]``;
+conditioning is a :class:`Conditioning` dataclass of tensors. Parameter
+names follow the reference torch MDM, so its state_dicts load directly.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .layers import TimestepEmbedder, TransformerEncoder, init_weights_
+
+_TODO = {
+    "arch": "ROADMAP Queue 1 item 6 (trans_dec / gru)",
+    "cond_mode": "ROADMAP Queue 1 item 2 (action conditioning)",
+    "emb_policy": "ROADMAP Queue 1 item 6 ('cat' conditioning tokens)",
+    "data_rep": "ROADMAP Queue 1 item 6 (rot_vel input/output process)",
+}
+_SUPPORTED = {
+    "arch": ("trans_enc",),
+    "cond_mode": ("text", "no_cond"),
+    "emb_policy": ("add",),
+    "data_rep": ("hml_vec", "rot6d", "xyz"),
+}
+
+
+@dataclass(frozen=True)
+class MDMConfig:
+    njoints: int = 263
+    nfeats: int = 1
+    latent_dim: int = 512
+    ff_size: int = 1024
+    num_layers: int = 8
+    num_heads: int = 4
+    data_rep: str = "hml_vec"
+    arch: str = "trans_enc"
+    cond_mode: str = "text"  # text | no_cond
+    text_dim: int = 512  # CLIP pooled width
+    emb_policy: str = "add"
+    pos_embed_max_len: int = 5000
+    mask_frames: bool = False
+    compute_dtype: str = "float32"  # float32 | bfloat16
+
+    @property
+    def input_feats(self) -> int:
+        return self.njoints * self.nfeats
+
+
+@dataclass(frozen=True)
+class Conditioning:
+    """Fixed-shape conditioning tensors; None = absent."""
+
+    frames_mask: Optional[torch.Tensor] = None  # [B, T] bool, True = valid frame
+    text_embed: Optional[torch.Tensor] = None  # [B, text_dim] pooled embedding
+    cond_drop: Optional[torch.Tensor] = None  # [B] bool: drop the condition (CFG)
+
+    def replace(self, **changes) -> "Conditioning":
+        return dataclasses.replace(self, **changes)
+
+    def to(self, device) -> "Conditioning":
+        return Conditioning(**{f.name: None if getattr(self, f.name) is None
+                               else getattr(self, f.name).to(device)
+                               for f in dataclasses.fields(self)})
+
+
+def _mask_cond(cond: torch.Tensor, drop: Optional[torch.Tensor]) -> torch.Tensor:
+    """Zero the condition for dropped samples (reference mask_cond)."""
+    if drop is None:
+        return cond
+    keep = 1.0 - drop.to(cond.dtype)
+    return cond * keep.reshape((-1,) + (1,) * (cond.dim() - 1))
+
+
+class InputProcess(nn.Module):
+    def __init__(self, input_feats: int, latent_dim: int):
+        super().__init__()
+        self.poseEmbedding = nn.Linear(input_feats, latent_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, S, F] -> [B, S, d]
+        return self.poseEmbedding(x)
+
+
+class OutputProcess(nn.Module):
+    def __init__(self, input_feats: int, latent_dim: int):
+        super().__init__()
+        self.poseFinal = nn.Linear(latent_dim, input_feats)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:  # [B, S, d] -> [B, S, F]
+        return self.poseFinal(h)
+
+
+class MDM(nn.Module):
+    """Motion Diffusion Model denoiser: (x_t, t, cond) -> x0_hat."""
+
+    def __init__(self, config: MDMConfig):
+        super().__init__()
+        for name, allowed in _SUPPORTED.items():
+            if getattr(config, name) not in allowed:
+                raise NotImplementedError(
+                    f"MDMConfig.{name}={getattr(config, name)!r} is not ported yet: {_TODO[name]}")
+        self.config = config
+        self.compute_dtype = getattr(torch, config.compute_dtype)
+        d = config.latent_dim
+        self.embed_timestep = TimestepEmbedder(d, config.pos_embed_max_len)
+        if config.cond_mode == "text":
+            self.embed_text = nn.Linear(config.text_dim, d)
+        self.input_process = InputProcess(config.input_feats, d)
+        self.seqTransEncoder = TransformerEncoder(
+            d, config.num_heads, config.ff_size, config.num_layers, self.compute_dtype)
+        self.output_process = OutputProcess(config.input_feats, d)
+
+    def init_weights(self, generator: torch.Generator) -> "MDM":
+        """Seeded random weights drawn from a CPU ``generator``."""
+        init_weights_(self, generator)
+        return self
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                cond: Conditioning = Conditioning(), deterministic: bool = True
+                ) -> torch.Tensor:
+        cfg = self.config
+        B, S, _ = x.shape
+        cdt = self.compute_dtype
+        time_emb = self.embed_timestep(timesteps)  # [B, d]
+
+        if cfg.cond_mode == "text":
+            if cond.text_embed is None:
+                raise ValueError("cond_mode='text' requires Conditioning.text_embed")
+            te = cond.text_embed
+            te = te[:, None, :] if te.dim() == 2 else te  # [B, 1, Dt]
+            text_emb = self.embed_text(_mask_cond(te, cond.cond_drop))
+            emb_tokens = text_emb + time_emb[:, None, :]
+        else:
+            emb_tokens = time_emb[:, None, :]
+
+        h = self.input_process(x).to(cdt)
+        pad_mask = None
+        if cfg.mask_frames and cond.frames_mask is not None:
+            pad_mask = ~cond.frames_mask[:, :S]
+
+        n_emb = emb_tokens.shape[1]
+        seq = torch.cat([emb_tokens.to(cdt), h], dim=1)
+        pe = self.embed_timestep.pe  # the one sinusoidal table, shared as in the reference
+        seq = seq + pe[: seq.shape[1]][None].to(cdt)
+        if pad_mask is not None:
+            pad_mask = torch.cat(
+                [torch.zeros((B, n_emb), dtype=torch.bool, device=x.device), pad_mask], dim=1)
+        out = self.seqTransEncoder(seq, pad_mask, deterministic)[:, n_emb:]
+        return self.output_process(out.float())
+
+
+def cfg_denoiser(model: nn.Module, guidance_scale: float):
+    """Classifier-free guidance as ONE double-batched forward.
+
+    Returns model_fn(x, t, cond) computing ``uncond + s * (cond - uncond)``
+    with both branches in one batch (the reference runs two forwards,
+    sampler_util.py:27-34)."""
+
+    def model_fn(x: torch.Tensor, t: torch.Tensor, cond: Conditioning) -> torch.Tensor:
+        B = x.shape[0]
+        dup = lambda v: None if v is None else torch.cat([v, v], dim=0)
+        drop = torch.cat([torch.zeros(B, dtype=torch.bool, device=x.device),
+                          torch.ones(B, dtype=torch.bool, device=x.device)])
+        cond2 = Conditioning(frames_mask=dup(cond.frames_mask),
+                             text_embed=dup(cond.text_embed), cond_drop=drop)
+        out = model(dup(x), dup(t), cond2)
+        out_cond, out_uncond = out[:B], out[B:]
+        return out_uncond + guidance_scale * (out_cond - out_uncond)
+
+    return model_fn

@@ -1,0 +1,55 @@
+"""mdm_tpu_torch imports neither jax nor flax: every module imports and a
+tiny generation runs in a fresh interpreter where both are blocked."""
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "mdm_tpu_torch"
+
+_PROGRAM = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import torch
+import mdm_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(mdm_tpu_torch.__path__, "mdm_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+from mdm_tpu_torch.diffusion import Schedule
+from mdm_tpu_torch.models import MDM, Conditioning, MDMConfig
+from mdm_tpu_torch.sampling import MotionGenerator
+model = MDM(MDMConfig(latent_dim=64, ff_size=128, num_layers=1, num_heads=2))
+model.init_weights(torch.Generator().manual_seed(0))
+gen = MotionGenerator(model, Schedule.create("cosine", 100, "2"))
+out = gen.generate(Conditioning(text_embed=torch.zeros(1, 512)), 1, 6, torch.Generator())
+assert out["joints"].shape == (1, 6, 22, 3) and torch.isfinite(out["joints"]).all()
+assert not any(m.split(".")[0] in ("jax", "flax", "mdm_tpu")
+               for m, mod in sys.modules.items() if mod is not None)
+print(" ".join(names))
+"""
+
+# The counterparts of the sampling slice's mdm_tpu modules.
+SLICE = {"ops._mask", "ops.layer_inference", "ops._build", "models.layers", "models.mdm",
+         "models.bridge", "diffusion.schedule", "diffusion.gaussian", "diffusion.samplers",
+         "core.quaternions", "core.hml_codec", "sampling.text", "sampling.pipeline", "serving"}
+
+
+def test_port_runs_with_jax_and_flax_blocked():
+    res = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert {f"mdm_tpu_torch.{m}" for m in SLICE} <= set(res.stdout.split())
+
+
+def test_no_source_file_names_jax():
+    for path in PKG.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.replace(",", " ").split()
+            if words[:1] in (["import"], ["from"]):
+                assert not {"jax", "flax", "mdm_tpu"} & {w.split(".")[0] for w in words[1:2]}, \
+                    f"{path.relative_to(REPO)}: {line}"
