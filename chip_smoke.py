@@ -1,14 +1,22 @@
 #!/usr/bin/env python3
 """Smoke test of mdm_tpu_torch on one NVIDIA GPU.
 
-Builds the hand-written CUDA kernels from mdm_tpu_torch/csrc, holds the
-encoder-layer kernel chain against its plain PyTorch version at the shapes
-the sampling path gives it, then drives that path through its entry points
-at the flagship width (latent 512, 8 layers, 4 heads, ff 1024, bf16):
-MotionGenerator.generate at B=32 x T=196 with 50 respaced cosine DDPM steps
-and CFG 2.5, and the serving Predictor answering three prompts at batch 1.
-Weights are random, drawn from a seed. It checks that every encoder layer
-of every step went through the kernel chain.
+Builds the hand-written CUDA kernels from mdm_tpu_torch/csrc and drives the
+port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
+1024, bf16) with random weights drawn from a seed:
+
+- sampling (phases 2-4): the encoder-layer kernel chain against its plain
+  PyTorch version, MotionGenerator.generate at B=32 x T=196 with 50
+  respaced cosine DDPM steps and CFG 2.5, and the serving Predictor
+  answering three prompts at batch 1;
+- training (phases 5-8): the train attention block and the encoder tail,
+  forward and backward, against their plain versions at the flagship
+  training layer shape; the in-kernel Philox dropout against the injected
+  bits of the two dump kernels; three train steps on the card against the
+  CPU; 30 flagship train steps (B=128, T=196, dropout 0.1) through
+  make_train_step, timed; and a TrainLoop resume that must be bit exact.
+
+Each path checks that every layer call went through its kernels.
 
 Run from the repository root, with one CUDA device:  python3 chip_smoke.py
 The last line of its output is {"ok": true, "device": {...}}; the line
@@ -20,6 +28,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -29,6 +38,26 @@ BF16_TOL = dict(atol=2 ** -4, rtol=2 ** -6)  # one or two bf16 ulps: see test_to
 F32_TOL = dict(atol=1e-4, rtol=1e-4)  # f32 sums in another order; TF32 off on both sides
 KERNEL_SOURCE = "mdm_tpu_torch/csrc/layer_inference.cu"
 REPLACES = "mdm_tpu/ops/layer_inference.py:107"
+# Training chains, kernel vs plain: max |kernel - plain| <= REL * max |plain|
+# per output. bf16: both round at the same points, but a value near a bf16
+# rounding boundary may round either way after another summation order,
+# and the flip carries into later products (a few ulps at 2^-8 each).
+# f32: summation order alone.
+TRAIN_REL = {"bfloat16": 2 ** -5, "float32": 1e-5}
+TRAIN_SHAPE = dict(B=128, S=197, D=512, H=4, F=1024)  # S = 1 condition token + 196 frames
+RATE = 0.1
+TRAIN_KERNELS = {  # name -> (source, TPU kernel it replaces)
+    "fused_train_attention_block.forward": ("mdm_tpu_torch/csrc/attention_train_block.cu",
+                                            "mdm_tpu/ops/attention_train_block.py:286"),
+    "fused_train_attention_block.backward": ("mdm_tpu_torch/csrc/attention_train_block.cu",
+                                             "mdm_tpu/ops/attention_train_block.py:334"),
+    "fused_encoder_tail.forward": ("mdm_tpu_torch/csrc/encoder_tail.cu",
+                                   "mdm_tpu/ops/encoder_tail.py:309"),
+    "fused_encoder_tail.backward": ("mdm_tpu_torch/csrc/encoder_tail.cu",
+                                    "mdm_tpu/ops/encoder_tail.py:358"),
+    "dropout_bits": ("mdm_tpu_torch/csrc/dropout_bits.cu", "mdm_tpu/ops/attention_dropout.py:237"),
+    "tail_dropout_bits": ("mdm_tpu_torch/csrc/dropout_bits.cu", "mdm_tpu/ops/encoder_tail.py:463"),
+}
 
 
 def _layer_inputs(torch, B, S, D, F, dtype, mask, seed=0):
@@ -85,6 +114,339 @@ def compare_layer(torch, li, B, S, D, F, H, dtype, mask):
     return row
 
 
+def _randn(torch, g, *shape, sc=1.0):
+    return torch.randn(*shape, generator=g) * sc
+
+
+def _rel_check(torch, name, got, ref, rel, scale_ref=None):
+    """max |got - ref| and its ratio to max |scale_ref| (default ref);
+    raises past rel."""
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = (ref if scale_ref is None else scale_ref).float().abs().max().item()
+    if not torch.isfinite(got).all() or err > rel * scale:
+        raise AssertionError(f"{name}: kernel disagrees with plain version: max abs err {err} "
+                             f"vs {rel} x max |plain| {scale}")
+    return err, err / max(scale, 1e-30)
+
+
+def _block_operands(torch, B, S, D, H, dtype, mask, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: _randn(torch, g, *s, sc=sc)
+    ops = [r(B, S, D), r(3 * D, D, sc=D ** -0.5), r(3 * D, sc=0.1), r(D, D, sc=D ** -0.5),
+           r(D, sc=0.1)]
+    dout = r(B, S, D)
+    bits = torch.randint(0, 2 ** 32, (B, H, S, S), generator=g, dtype=torch.int64)
+    kpm = None
+    if mask == "bool":  # ragged lengths on some rows
+        kpm = torch.zeros(B, S, dtype=torch.bool)
+        for b in range(0, B, 3):
+            kpm[b, S - 1 - (7 * b) % (S // 2):] = True
+    elif mask == "float":
+        kpm = r(B, S)
+    to = lambda t: t.cuda().to(dtype)
+    return ([to(t) for t in ops], to(dout), bits.to(torch.uint32).cuda(),
+            None if kpm is None else kpm.cuda())
+
+
+def _tail_operands(torch, B, S, D, F, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: _randn(torch, g, *s, sc=sc)
+    ops = [r(B, S, D), r(B, S, D), 1 + r(D, sc=0.1), r(D, sc=0.1), r(F, D, sc=D ** -0.5),
+           r(F, sc=0.1), r(D, F, sc=F ** -0.5), r(D, sc=0.1), 1 + r(D, sc=0.1), r(D, sc=0.1)]
+    dz = r(B, S, D)
+    bits = [torch.randint(0, 2 ** 32, (B, S, n), generator=g, dtype=torch.int64)
+            .to(torch.uint32).cuda() for n in (D, F, D)]
+    to = lambda t: t.cuda().to(dtype)
+    return [to(t) for t in ops], to(dz), bits
+
+
+def _fwd_bwd(torch, fn, ops, dout):
+    """Kernel forward and the kernel backward's gradients of every operand."""
+    leaves = [t.clone().requires_grad_() for t in ops]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, dout)
+    return out.detach(), grads
+
+
+def _split_qkv(grads):
+    """(dx, dWqkv, dbqkv, dWo, dbo) -> the TPU kernel's nine gradients, each
+    beside the tensor whose largest value sets its scale. The q/k/v slices
+    take their packed tensor's: dbk is zero in exact arithmetic (adding one
+    vector to every key adds a per-row constant to the logits, which the
+    softmax ignores), so both sides of it hold only the rounding noise of
+    the dk column sums."""
+    dx, dwqkv, dbqkv, dwo, dbo = grads
+    return ([(dx, dx)] + [(g, dwqkv) for g in dwqkv.chunk(3)]
+            + [(g, dbqkv) for g in dbqkv.chunk(3)] + [(dwo, dwo), (dbo, dbo)])
+
+
+def _own_scale(grads):
+    return [(g, g) for g in grads]
+
+
+def compare_train_chain(torch, name, fn, plain_fwd, plain_bwd, ops, dout, dtype, names,
+                        timed=True, split=_own_scale):
+    """A training chain (forward and backward) against its plain versions on
+    the same inputs; times both in turns (plain, kernel, kernel, plain)."""
+    out, grads = _fwd_bwd(torch, fn, ops, dout)
+    torch.cuda.synchronize()
+    rel = TRAIN_REL[str(dtype).split(".")[-1]]
+    errs = {"out": _rel_check(torch, f"{name} out", out, plain_fwd(), rel)}
+    grads, pgrads = split(grads), split(plain_bwd())
+    if len(grads) != len(names):
+        raise AssertionError(f"{name}: {len(grads)} gradients, expected {len(names)}")
+    for n, (g, _), (p, scale) in zip(names, grads, pgrads):
+        errs[n] = _rel_check(torch, f"{name} {n}", g, p.to(g.dtype), rel, scale)
+    row = dict(chain=name, dtype=str(dtype).split(".")[-1], shape=list(ops[0].shape),
+               max_abs_err_fwd=errs["out"][0],
+               max_abs_err_bwd=max(e[0] for k, e in errs.items() if k != "out"),
+               max_rel_err=max(e[1] for e in errs.values()), rel_tol=rel)
+    if timed:
+        leaves = [t.clone().requires_grad_() for t in ops]
+        graph_out = fn(*leaves)
+        kf = lambda: fn(*ops)
+        kb = lambda: torch.autograd.grad(graph_out, leaves, dout, retain_graph=True)
+        with torch.no_grad():
+            p1, k1, k2, p2 = (_time_ms(torch, f) for f in (plain_fwd, kf, kf, plain_fwd))
+        q1, j1, j2, q2 = (_time_ms(torch, f) for f in (plain_bwd, kb, kb, plain_bwd))
+        row.update(fwd_ms=(k1 + k2) / 2, fwd_plain_ms=(p1 + p2) / 2,
+                   bwd_ms=(j1 + j2) / 2, bwd_plain_ms=(q1 + q2) / 2)
+    print("train chain", json.dumps(row))
+    return row
+
+
+def phase_train_kernels(torch, TB, ET, shape, dtype, mask, timed=True):
+    """Phase 5: block and tail, forward and all gradients, kernel vs plain."""
+    B, S, D, H, F = (shape[k] for k in ("B", "S", "D", "H", "F"))
+    (x, wqkv, bqkv, wo, bo), dout, bits, kpm = _block_operands(torch, B, S, D, H, dtype, mask)
+    block = compare_train_chain(
+        torch, "attention block",
+        lambda *o: TB.fused_train_attention_block(*o, H, RATE, 0, kpm, bits),
+        lambda: TB.train_attention_block_reference(x, wqkv, bqkv, wo, bo, H, RATE, bits, kpm),
+        lambda: TB.train_attention_block_bwd_reference(x, wqkv, bqkv, wo, H, dout, RATE, bits,
+                                                       kpm),
+        [x, wqkv, bqkv, wo, bo], dout, dtype,
+        ["dx", "dWq", "dWk", "dWv", "dbq", "dbk", "dbv", "dWo", "dbo"], timed, _split_qkv)
+    ops, dz, tbits = _tail_operands(torch, B, S, D, F, dtype)
+    tail = compare_train_chain(
+        torch, "encoder tail",
+        lambda *o: ET.fused_encoder_tail(*o, RATE, 0, tbits),
+        lambda: ET.encoder_tail_reference(*ops, RATE, tbits),
+        lambda: ET.encoder_tail_bwd_reference(*ops, dz, RATE, tbits),
+        ops, dz, dtype, ["dx", "dattn", "dg1", "dbl1", "dW1", "db1", "dW2", "db2", "dg2", "dbl2"],
+        timed)
+    return block, tail
+
+
+def phase_random_stream(torch, TB, ET, DB, shape, dev):
+    """Phase 6: dump kernels == the Philox stream computed with torch ops;
+    in-kernel Philox == injected dumped bits, bitwise, forward and every
+    gradient; keep fraction; two backward runs bitwise equal."""
+    B, S, D, H, F = (shape[k] for k in ("B", "S", "D", "H", "F"))
+    seed = 20240601
+    rows = {}
+    bits = DB.dropout_bits(seed, B, H, S, device=dev)
+    ar = lambda n: torch.arange(n, device=dev)
+    plain_bits = lambda: DB.philox_bits(seed, ar(B)[:, None], ar(H)[None, :], S, S, device=dev)
+    if not torch.equal(bits.to(torch.int64), plain_bits()):
+        raise AssertionError("dropout_bits dump differs from the Philox stream")
+    tbits = DB.tail_dropout_bits(seed, B, S, D, F, device=dev)
+    plain_tail = lambda: [DB.philox_bits(seed, ar(B), site, S, n, device=dev)
+                          for site, n in enumerate((D, F, D))]
+    if not all(torch.equal(a.to(torch.int64), b) for a, b in zip(tbits, plain_tail())):
+        raise AssertionError("tail_dropout_bits dump differs from the Philox stream")
+    thr = DB.keep_threshold(RATE)
+    for name, t in [("attention", bits)] + [(f"tail site {i}", b) for i, b in enumerate(tbits)]:
+        kept = (t.to(torch.int64) < thr).double().mean().item()
+        print(f"keep fraction {name}: {kept:.6f} (rate {RATE})")
+        if abs(kept - (1 - RATE)) > 0.005:
+            raise AssertionError(f"keep fraction {kept} of {name} is not within 0.5% of 0.9")
+    with torch.no_grad():
+        for name, fn, plain in (
+                ("dropout_bits", lambda: DB.dropout_bits(seed, B, H, S, device=dev), plain_bits),
+                ("tail_dropout_bits", lambda: DB.tail_dropout_bits(seed, B, S, D, F, device=dev),
+                 plain_tail)):
+            p1, k1, k2, p2 = (_time_ms(torch, f) for f in (plain, fn, fn, plain))
+            rows[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, max_abs_err=0.0)
+
+    dtype = torch.bfloat16
+    (x, wqkv, bqkv, wo, bo), dout, _, kpm = _block_operands(torch, B, S, D, H, dtype, "bool")
+    cases = [("attention block", [x, wqkv, bqkv, wo, bo], dout,
+              lambda b: lambda *o: TB.fused_train_attention_block(*o, H, RATE, seed, kpm, b),
+              bits)]
+    ops, dz, _ = _tail_operands(torch, B, S, D, F, dtype)
+    cases.append(("encoder tail", ops, dz,
+                  lambda b: lambda *o: ET.fused_encoder_tail(*o, RATE, seed, b), tbits))
+    for name, ops_, d, make, injected in cases:
+        out_p, grads_p = _fwd_bwd(torch, make(None), ops_, d)
+        out_i, grads_i = _fwd_bwd(torch, make(injected), ops_, d)
+        _, grads_p2 = _fwd_bwd(torch, make(None), ops_, d)
+        if not (torch.equal(out_p, out_i) and all(map(torch.equal, grads_p, grads_i))):
+            raise AssertionError(f"{name}: in-kernel Philox differs from the injected dump")
+        if not all(map(torch.equal, grads_p, grads_p2)):
+            raise AssertionError(f"{name}: two backward runs differ")
+        print(f"{name}: Philox == injected bits, bitwise, forward and {len(grads_p)} grads; "
+              f"two backward runs bitwise equal")
+    return rows
+
+
+def _train_batch(torch, rng, B, T, dev, njoints=263):
+    from mdm_tpu_torch.models import Conditioning
+
+    x = torch.from_numpy(rng.normal(size=(B, T, njoints)).astype(np.float32)).to(dev)
+    return {"x": x, "mask": torch.ones(B, T, dtype=torch.bool, device=dev),
+            "cond": Conditioning(text_embed=torch.from_numpy(
+                rng.normal(size=(B, 512)).astype(np.float32)).to(dev))}
+
+
+def phase_step_card_vs_cpu(torch, dev):
+    """Phase 7: three train steps at a small f32 width, rate 0, identical
+    weights and draws, card against CPU."""
+    from mdm_tpu_torch.diffusion import Schedule
+    from mdm_tpu_torch.models import MDM, MDMConfig
+    from mdm_tpu_torch.train import OptimConfig, TrainStepConfig, create_train_state, make_train_step
+
+    small = MDMConfig(latent_dim=128, ff_size=256, num_layers=2, num_heads=4, dropout=0.0)
+    lr, steps, B, T = 1e-4, 3, 4, 32
+    config = TrainStepConfig(optim=OptimConfig(lr=lr))
+    runs = []
+    for device in ("cpu", dev):
+        model = MDM(small).init_weights(torch.Generator().manual_seed(3)).to(device)
+        state = create_train_state(model, config.optim)
+        step = make_train_step(Schedule.create("cosine", 1000).to(device), config)
+        rng = np.random.default_rng(5)
+        metrics = []
+        for i in range(steps):
+            batch = _train_batch(torch, rng, B, T, device)
+            draws = {"t": torch.from_numpy(rng.integers(0, 1000, B)).to(device),
+                     "noise": torch.from_numpy(rng.normal(size=(B, T, 263)).astype(np.float32)
+                                               ).to(device),
+                     "cond_drop": torch.from_numpy(rng.random(B) < 0.1).to(device)}
+            state, m = step(state, batch, i, draws=draws)
+            metrics.append({k: v.item() for k, v in m.items()})
+        runs.append((state, metrics))
+    (cpu, m_cpu), (card, m_card) = runs
+    for a, b in zip(m_cpu, m_card):
+        for k in a:
+            if abs(a[k] - b[k]) > 1e-4 * max(abs(a[k]), 1e-3):
+                raise AssertionError(f"step metric {k}: cpu {a[k]} vs card {b[k]}")
+    # AdamW moves a coordinate by at most ~lr per step, whatever its gradient:
+    # a near-zero gradient may take the opposite sign on the two sides.
+    tol = 2 * lr * steps
+    p_cpu, p_card = cpu.params(), card.params()
+    perr = max((p_cpu[k] - p_card[k].cpu()).abs().max().item() for k in p_cpu)
+    eerr = max((cpu.ema_params[k] - card.ema_params[k].cpu()).abs().max().item()
+               for k in p_cpu)
+    print(f"train step f32 card vs cpu, {steps} steps: loss {m_cpu[-1]['loss']:.6f} / "
+          f"{m_card[-1]['loss']:.6f}, params max abs err {perr:.3g}, EMA {eerr:.3g} "
+          f"(tolerance {tol}; metrics 1e-4 relative)")
+    if not (perr <= tol and eerr <= tol):
+        raise AssertionError("train step on the card disagrees with the CPU")
+
+
+class _StepData:
+    """Synthetic batches with the iter_from contract (a pure function of the step)."""
+
+    def __init__(self, torch, dev, B, T):
+        self.torch, self.dev, self.B, self.T = torch, dev, B, T
+
+    def __iter__(self):
+        return self.iter_from(0)
+
+    def iter_from(self, start):
+        i = start
+        while True:
+            yield _train_batch(self.torch, np.random.default_rng(100 + i), self.B, self.T, "cpu")
+            i += 1
+
+
+def phase_flagship_train(torch, TB, ET, dev):
+    """Phase 8: the training path at the flagship (main path of this slice),
+    timed; then a small TrainLoop resume that must be bitwise exact."""
+    from mdm_tpu_torch.diffusion import Schedule
+    from mdm_tpu_torch.models import MDM, MDMConfig
+    from mdm_tpu_torch.train import (LoopConfig, OptimConfig, TrainLoop, TrainStepConfig,
+                                     create_train_state, make_train_step, step_key)
+
+    B, T = 128, 196
+    cfg = MDMConfig(njoints=263, compute_dtype="bfloat16", dropout=RATE, **FLAGSHIP)
+    model = MDM(cfg).init_weights(torch.Generator().manual_seed(0)).to(dev)
+    sched = Schedule.create("cosine", 1000).to(dev)
+    batch = {"x": torch.from_numpy(np.random.default_rng(0).normal(size=(B, T, 263))
+                                   .astype(np.float32)).to(dev),
+             "mask": torch.ones(B, T, dtype=torch.bool, device=dev)}
+    from mdm_tpu_torch.models import Conditioning
+    batch["cond"] = Conditioning(text_embed=torch.zeros(B, 512, device=dev))
+    fit = make_train_step(sched, TrainStepConfig(optim=OptimConfig(lr=1e-3)))
+    state = create_train_state(model, OptimConfig(lr=1e-3))
+
+    steps = 30
+    for counts in (TB.LAUNCHES, ET.LAUNCHES):  # counts from here on are the main path's
+        counts["fwd"] = counts["bwd"] = 0
+    losses = []
+    for i in range(steps):
+        state, m = fit(state, batch, step_key(0, i))
+        losses.append(m["loss"])
+    losses = torch.stack(losses).cpu().numpy()
+    launches = {f"{n}.{d}": c[d] for n, c in (("fused_train_attention_block", TB.LAUNCHES),
+                                               ("fused_encoder_tail", ET.LAUNCHES))
+                for d in ("fwd", "bwd")}
+    expected = cfg.num_layers * steps
+    if any(v != expected for v in launches.values()):
+        raise AssertionError(f"training launched {launches}, expected {expected} each "
+                             f"({cfg.num_layers} layers x {steps} steps)")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite training loss: {losses}")
+    first, last = losses[:10].mean(), losses[-10:].mean()
+    print(f"flagship train B={B} T={T} bf16 dropout {RATE}, lr 1e-3: loss first 10 "
+          f"{first:.5f}, last 10 {last:.5f}; launches {launches}")
+    if not last < first:
+        raise AssertionError("the training loss did not descend")
+
+    step = make_train_step(sched, TrainStepConfig(optim=OptimConfig(lr=1e-4)))
+    for i in range(5):
+        state, _ = step(state, batch, step_key(1, i))
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(20):
+        state, m = step(state, batch, step_key(1, 5 + i))
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / 20
+    print(f"train_step_ms_b128_bf16: {step_ms:.3f} ms/step (CUDA events, 20 steps after 5 warm; "
+          f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)")
+
+    # TrainLoop: 6 steps straight == 3 steps + checkpoint + resume + 3 steps, bitwise.
+    small = MDMConfig(latent_dim=128, ff_size=256, num_layers=2, num_heads=4,
+                      compute_dtype="bfloat16", dropout=RATE)
+    optim = OptimConfig(lr=1e-3)
+    loop_step = make_train_step(sched, TrainStepConfig(optim=optim))
+
+    def run(save_dir, n):
+        model = MDM(small).init_weights(torch.Generator().manual_seed(1)).to(dev)
+        loop = TrainLoop(loop_step, create_train_state(model, optim), _StepData(torch, dev, 8, 32),
+                         LoopConfig(save_dir=save_dir, num_steps=n, log_interval=100,
+                                    save_interval=3), rng_seed=11)
+        loop.run()
+        return loop.state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        straight = run(os.path.join(tmp, "a"), 6)
+        run(os.path.join(tmp, "b"), 3)
+        resumed = run(os.path.join(tmp, "b"), 6)
+    same = lambda a, b: all(torch.equal(a[k], b[k]) for k in a)
+    exp_avg = lambda s: {str(i): s.optimizer.state[p]["exp_avg"]
+                         for i, p in enumerate(s.model.parameters())}
+    if not (resumed.step == straight.step == 6 and same(straight.params(), resumed.params())
+            and same(straight.ema_params, resumed.ema_params)
+            and same(exp_avg(straight), exp_avg(resumed))):
+        raise AssertionError("TrainLoop resume is not bit exact")
+    print("TrainLoop: 6 steps == 3 steps + checkpoint + resume + 3 steps, bitwise "
+          "(params, EMA, AdamW moments)")
+    return launches, step_ms
+
+
 def main():
     import torch
 
@@ -94,6 +456,9 @@ def main():
     from mdm_tpu_torch.diffusion import Schedule
     from mdm_tpu_torch.models import MDM, Conditioning, MDMConfig
     from mdm_tpu_torch.ops import _build
+    from mdm_tpu_torch.ops import attention_train_block as TB
+    from mdm_tpu_torch.ops import dropout_bits as DB
+    from mdm_tpu_torch.ops import encoder_tail as ET
     from mdm_tpu_torch.ops import layer_inference as li
     from mdm_tpu_torch.sampling import GenerationConfig, HashTextEmbedder, MotionGenerator
     from mdm_tpu_torch.serving import Predictor, PredictorConfig
@@ -204,7 +569,41 @@ def main():
     kernels = [dict(name="fused_layer_inference", route="cuda", source=KERNEL_SOURCE,
                     replaces=REPLACES, launches=launches,
                     max_abs_err=max(r["max_abs_err"] for r in flagship),
-                    ms=flagship[0]["ms"], plain_ms=flagship[0]["plain_ms"])]
+                    ms=flagship[0]["ms"], plain_ms=flagship[0]["plain_ms"], path="sampling")]
+
+    # Phase 5: the training chains against their plain versions, at the
+    # flagship training layer shape (bool mask with ragged rows) and at a
+    # small f32 shape with a float additive row.
+    block, tail = phase_train_kernels(torch, TB, ET, TRAIN_SHAPE, torch.bfloat16, "bool")
+    phase_train_kernels(torch, TB, ET, dict(B=3, S=37, D=128, H=4, F=256), torch.float32,
+                        "float", timed=False)
+
+    # Phase 6: the random stream. The dump kernels' launches are counted
+    # over this phase, the path that drives them.
+    DB.LAUNCHES.update(dropout_bits=0, tail_dropout_bits=0)
+    dumps = phase_random_stream(torch, TB, ET, DB, TRAIN_SHAPE, dev)
+    dump_launches = dict(DB.LAUNCHES)
+
+    # Phase 7: the step, card against CPU.
+    phase_step_card_vs_cpu(torch, dev)
+
+    # Phase 8: flagship training (the training path's launch counts).
+    train_launches, step_ms = phase_flagship_train(torch, TB, ET, dev)
+
+    for name, row in (("fused_train_attention_block", block), ("fused_encoder_tail", tail)):
+        for d, key in (("forward", "fwd"), ("backward", "bwd")):
+            source, replaces = TRAIN_KERNELS[f"{name}.{d}"]
+            kernels.append(dict(name=f"{name}.{d}", route="cuda", source=source,
+                                replaces=replaces, launches=train_launches[f"{name}.{key}"],
+                                max_abs_err=row[f"max_abs_err_{key}"], ms=row[f"{key}_ms"],
+                                plain_ms=row[f"{key}_plain_ms"], path="training"))
+    for name in ("dropout_bits", "tail_dropout_bits"):
+        source, replaces = TRAIN_KERNELS[name]
+        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                            launches=dump_launches[name], **dumps[name],
+                            path="random-stream check"))
+    if any(k["launches"] <= 0 for k in kernels):
+        raise AssertionError(f"a kernel was never launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,10 @@ It mirrors mdm_tpu's module paths and public names. Ported so far: the
 single-device text-to-motion sampling slice (trans_enc MDM, respaced
 cosine DDPM with classifier-free guidance, hml_vec decode, the hash text
 embedder and the serving wrapper), with the whole encoder layer as a chain
-of hand-written Hopper kernels (ops/layer_inference.py). It imports torch
-and numpy, never jax or flax.
+of hand-written Hopper kernels (ops/layer_inference.py); and single-device
+training (train/: losses, AdamW + EMA, the train step and loop,
+checkpoints), whose encoder layers run the train attention block and the
+encoder tail, forward and backward, as hand-written kernel chains
+(ops/attention_train_block.py, ops/encoder_tail.py). It imports torch and
+numpy, never jax or flax.
 """

@@ -1,8 +1,9 @@
 """Gaussian diffusion q/p algebra as plain functions on tensors.
 
-Counterpart of mdm_tpu/diffusion/gaussian.py (:26-153) for sampling:
-q_sample, the posterior, and p_mean_variance with the inpainting hook for
-START_X / EPSILON prediction under FIXED_SMALL / FIXED_LARGE variance.
+Counterpart of mdm_tpu/diffusion/gaussian.py (:26-153, :209-214):
+q_sample, the posterior, p_mean_variance with the inpainting hook for
+START_X / EPSILON prediction under FIXED_SMALL / FIXED_LARGE variance, and
+the per-sample reductions of the training losses.
 """
 from __future__ import annotations
 
@@ -16,6 +17,16 @@ from .schedule import MeanType, Schedule, VarType
 def extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Gather per-sample coefficients and shape-broadcast: [T] x [B] -> [B,1,..]."""
     return table[t].reshape(t.shape + (1,) * (ndim - 1))
+
+
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    """Mean over every axis but the first."""
+    return x.mean(dim=tuple(range(1, x.dim())))
+
+
+def sum_flat(x: torch.Tensor) -> torch.Tensor:
+    """Sum over every axis but the first."""
+    return x.sum(dim=tuple(range(1, x.dim())))
 
 
 def q_sample(sched: Schedule, x_start, t, noise):

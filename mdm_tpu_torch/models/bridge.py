@@ -6,6 +6,9 @@ layers of each attention block are packed into ``in_proj_weight`` [3D, D]
 and ``in_proj_bias`` [3D]; LayerNorm ``scale`` becomes ``weight``. The tree
 arrives as nested dicts of numpy arrays (callers convert with
 ``jax.tree_util.tree_map(np.asarray, params)``), so this module needs no jax.
+``train_state_from_flax`` carries a whole JAX ``TrainState`` (params, the
+optax AdamW moments and count, EMA, step) into the port's train state: the
+moments and the EMA have the params' tree, so they map the same way.
 """
 from __future__ import annotations
 
@@ -61,3 +64,38 @@ def state_dict_from_flax(params: Mapping, config: MDMConfig) -> Dict[str, torch.
         sd.update(_encoder_layer(p["seqTransEncoder"][f"layers_{i}"],
                                  f"seqTransEncoder.layers.{i}"))
     return {k: torch.tensor(v, dtype=torch.float32) for k, v in sd.items()}
+
+
+def _adam_state(opt_state):
+    """optax's ScaleByAdamState (count, mu, nu) inside a chain's tuples."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            found = _adam_state(s)
+            if found is not None:
+                return found
+    return None
+
+
+@torch.no_grad()
+def train_state_from_flax(state, into):
+    """Load a JAX TrainState (numpy leaves) into the port's TrainState
+    ``into`` (mdm_tpu_torch.train.state), whose model has the same config:
+    parameters, AdamW's exp_avg/exp_avg_sq/step from optax's mu/nu/count,
+    the EMA and the step. Returns ``into``."""
+    config = into.model.config
+    into.model.load_state_dict(state_dict_from_flax(state.params, config), strict=True)
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("no optax Adam state (mu, nu) in the TrainState's opt_state")
+    mu, nu = state_dict_from_flax(adam.mu, config), state_dict_from_flax(adam.nu, config)
+    count = float(np.asarray(adam.count))
+    for name, p in into.model.named_parameters():
+        into.optimizer.state[p] = {"step": torch.tensor(count), "exp_avg": mu[name].to(p.device),
+                                   "exp_avg_sq": nu[name].to(p.device)}
+    if into.ema_params is not None:
+        for name, t in state_dict_from_flax(state.ema_params, config).items():
+            into.ema_params[name].copy_(t)
+    into.step = int(np.asarray(state.step))
+    return into

@@ -1,12 +1,15 @@
 """Transformer building blocks with torch checkpoint layout.
 
-Counterpart of mdm_tpu/models/layers.py for the deterministic (sampling)
-path. The encoder layer holds torch.nn.TransformerEncoderLayer's own
-parameter names (``self_attn.in_proj_weight`` [3D, D], ``in_proj_bias``,
+Counterpart of mdm_tpu/models/layers.py. The encoder layer holds
+torch.nn.TransformerEncoderLayer's own parameter names
+(``self_attn.in_proj_weight`` [3D, D], ``in_proj_bias``,
 ``self_attn.out_proj``, ``linear1``, ``linear2``, ``norm1``, ``norm2``) —
 the layout mdm_tpu/models/convert.py reads — so published checkpoints load
-without conversion. Its forward is the whole-layer kernel chain
-(ops/layer_inference.py), as the JAX package's AUTO sampling path is.
+without conversion. Its deterministic forward is the whole-layer kernel
+chain (ops/layer_inference.py), as the JAX package's AUTO sampling path
+is; its training forward is the train attention block followed by the
+encoder tail (ops/attention_train_block.py, ops/encoder_tail.py), as the
+AUTO single-device train step is (JAX layers.py:377-386).
 """
 from __future__ import annotations
 
@@ -17,10 +20,21 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.attention_train_block import fused_train_attention_block
+from ..ops.encoder_tail import fused_encoder_tail
 from ..ops.layer_inference import fused_layer_inference
 
-TRAINING_TODO = ("training forward (deterministic=False) is not ported yet: "
-                 "ROADMAP Queue 1 item 5 (Training)")
+_INT32_MAX = 2 ** 31 - 1
+
+
+def draw_seeds(rng: Optional[torch.Generator], n: int) -> list:
+    """n int32 dropout seeds from a CPU generator (JAX's per-layer
+    ``randint(make_rng("dropout"), (), 0, int32 max)``); drawn on the host,
+    so passing them to a kernel never waits for the card. No generator
+    gives zeros, for rate-0 training."""
+    if rng is None:
+        return [0] * n
+    return torch.randint(0, _INT32_MAX, (n,), generator=rng).tolist()
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -85,10 +99,11 @@ class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder layer (torch default semantics, exact-erf GELU)."""
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
         self.compute_dtype = compute_dtype
+        self.dropout = dropout
         self.self_attn = _SelfAttention(d_model)
         self.linear1 = nn.Linear(d_model, ff_size)
         self.linear2 = nn.Linear(ff_size, d_model)
@@ -103,8 +118,9 @@ class TransformerEncoderLayer(nn.Module):
                 self.linear2.weight, self.linear2.bias, self.norm2.weight, self.norm2.bias)
 
     def _kernel_weights(self, dt: torch.dtype):
-        """The parameters in dtype dt, cast once and reused until a parameter
-        is replaced or updated in place (load_state_dict, .to)."""
+        """The parameters in dtype dt, detached, cast once and reused until a
+        parameter is replaced or updated in place (load_state_dict, .to):
+        for sampling only, since no gradient flows through the cache."""
         params = self._params()
         if all(p.dtype == dt for p in params):
             return params
@@ -115,30 +131,47 @@ class TransformerEncoderLayer(nn.Module):
         return self._cast[1]
 
     def forward(self, x: torch.Tensor, padding_bias: Optional[torch.Tensor] = None,
-                deterministic: bool = True) -> torch.Tensor:
-        if not deterministic:
-            raise NotImplementedError(TRAINING_TODO)
+                deterministic: bool = True, rng: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """``rng``: the step's CPU generator, from which a training forward
+        draws this layer's two dropout seeds (attention block, tail)."""
         kpm = None
         if padding_bias is not None:
             kpm = padding_bias.reshape(padding_bias.shape[0], -1)[:, -x.shape[1]:].float()
         cdt = self.compute_dtype or x.dtype
-        return fused_layer_inference(x.to(cdt), *self._kernel_weights(cdt),
-                                     self.num_heads, key_padding_mask=kpm)
+        if deterministic:
+            return fused_layer_inference(x.to(cdt), *self._kernel_weights(cdt),
+                                         self.num_heads, key_padding_mask=kpm)
+        if rng is None and self.dropout > 0.0:
+            raise ValueError("a training forward with dropout needs the step's generator")
+        seed_attn, seed_tail = draw_seeds(rng, 2)
+        # The casts sit inside the autograd graph: the parameter gradients
+        # come back rounded to cdt, as the JAX wrappers' casts make them.
+        a = self.self_attn
+        x = x.to(cdt)
+        attn = fused_train_attention_block(
+            x, a.in_proj_weight, a.in_proj_bias, a.out_proj.weight, a.out_proj.bias,
+            self.num_heads, self.dropout, seed_attn, key_padding_mask=kpm)
+        return fused_encoder_tail(
+            x, attn, self.norm1.weight, self.norm1.bias, self.linear1.weight, self.linear1.bias,
+            self.linear2.weight, self.linear2.bias, self.norm2.weight, self.norm2.bias,
+            self.dropout, seed_tail)
 
 
 class TransformerEncoder(nn.Module):
     def __init__(self, d_model: int, num_heads: int, ff_size: int, num_layers: int,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(d_model, num_heads, ff_size, compute_dtype)
+            TransformerEncoderLayer(d_model, num_heads, ff_size, compute_dtype, dropout)
             for _ in range(num_layers))
 
     def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True, rng: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         bias = key_padding_bias(padding_mask)
         for layer in self.layers:
-            x = layer(x, bias, deterministic)
+            x = layer(x, bias, deterministic, rng)
         return x
 
 

@@ -1,11 +1,14 @@
 """MDM denoiser, trans_enc architecture, in PyTorch.
 
 Counterpart of mdm_tpu/models/mdm.py (MDM.__call__ :213-348 and
-cfg_denoiser :388-424) for the sampling slice: ``arch='trans_enc'``,
+cfg_denoiser :388-424) for sampling and training: ``arch='trans_enc'``,
 ``cond_mode`` ``text`` (pooled embedding) or ``no_cond``,
 ``emb_policy='add'``, optional ``mask_frames``. Layout ``x: [B, T, D]``;
 conditioning is a :class:`Conditioning` dataclass of tensors. Parameter
 names follow the reference torch MDM, so its state_dicts load directly.
+A training forward (``deterministic=False``) draws every dropout mask from
+the step's CPU ``torch.Generator``: the sequence dropout's seed and each
+layer's two kernel seeds.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .layers import TimestepEmbedder, TransformerEncoder, init_weights_
+from .layers import TimestepEmbedder, TransformerEncoder, draw_seeds, init_weights_
 
 _TODO = {
     "arch": "ROADMAP Queue 1 item 6 (trans_dec / gru)",
@@ -47,7 +50,9 @@ class MDMConfig:
     emb_policy: str = "add"
     pos_embed_max_len: int = 5000
     mask_frames: bool = False
+    dropout: float = 0.1
     compute_dtype: str = "float32"  # float32 | bfloat16
+    remat: bool = False  # rematerialised layers: not ported
 
     @property
     def input_feats(self) -> int:
@@ -79,6 +84,16 @@ def _mask_cond(cond: torch.Tensor, drop: Optional[torch.Tensor]) -> torch.Tensor
     return cond * keep.reshape((-1,) + (1,) * (cond.dim() - 1))
 
 
+def sequence_dropout(x: torch.Tensor, rate: float, rng: torch.Generator) -> torch.Tensor:
+    """flax nn.Dropout on the input sequence: keep with probability 1-rate,
+    scale kept values by 1/(1-rate) in x's dtype. The mask is drawn on x's
+    device from a generator seeded by one draw of the step's CPU ``rng``."""
+    keep_prob = 1.0 - rate
+    g = torch.Generator(x.device).manual_seed(draw_seeds(rng, 1)[0])
+    keep = torch.rand(x.shape, generator=g, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class InputProcess(nn.Module):
     def __init__(self, input_feats: int, latent_dim: int):
         super().__init__()
@@ -106,6 +121,9 @@ class MDM(nn.Module):
             if getattr(config, name) not in allowed:
                 raise NotImplementedError(
                     f"MDMConfig.{name}={getattr(config, name)!r} is not ported yet: {_TODO[name]}")
+        if config.remat:
+            raise NotImplementedError("MDMConfig.remat=True is not ported yet: ROADMAP Queue 1 "
+                                      "item 5 (Training: remat)")
         self.config = config
         self.compute_dtype = getattr(torch, config.compute_dtype)
         d = config.latent_dim
@@ -114,7 +132,8 @@ class MDM(nn.Module):
             self.embed_text = nn.Linear(config.text_dim, d)
         self.input_process = InputProcess(config.input_feats, d)
         self.seqTransEncoder = TransformerEncoder(
-            d, config.num_heads, config.ff_size, config.num_layers, self.compute_dtype)
+            d, config.num_heads, config.ff_size, config.num_layers, self.compute_dtype,
+            config.dropout)
         self.output_process = OutputProcess(config.input_feats, d)
 
     def init_weights(self, generator: torch.Generator) -> "MDM":
@@ -123,8 +142,10 @@ class MDM(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                cond: Conditioning = Conditioning(), deterministic: bool = True
-                ) -> torch.Tensor:
+                cond: Conditioning = Conditioning(), deterministic: bool = True,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``rng``: the step's CPU generator; a training forward
+        (``deterministic=False``) with dropout draws all its masks from it."""
         cfg = self.config
         B, S, _ = x.shape
         cdt = self.compute_dtype
@@ -149,10 +170,14 @@ class MDM(nn.Module):
         seq = torch.cat([emb_tokens.to(cdt), h], dim=1)
         pe = self.embed_timestep.pe  # the one sinusoidal table, shared as in the reference
         seq = seq + pe[: seq.shape[1]][None].to(cdt)
+        if not deterministic and cfg.dropout > 0.0:
+            if rng is None:
+                raise ValueError("a training forward with dropout needs the step's generator")
+            seq = sequence_dropout(seq, cfg.dropout, rng)
         if pad_mask is not None:
             pad_mask = torch.cat(
                 [torch.zeros((B, n_emb), dtype=torch.bool, device=x.device), pad_mask], dim=1)
-        out = self.seqTransEncoder(seq, pad_mask, deterministic)[:, n_emb:]
+        out = self.seqTransEncoder(seq, pad_mask, deterministic, rng)[:, n_emb:]
         return self.output_process(out.float())
 
 

@@ -1,10 +1,11 @@
 """Build the hand-written CUDA kernels at first use and bind them with ctypes.
 
 The sources under ``mdm_tpu_torch/csrc/`` have a plain C interface, so they
-compile with ``nvcc`` alone (no PyTorch headers) into one shared library in
-``mdm_tpu_torch/_build/``, named by a hash of the sources and flags: a
-changed source builds anew, an unchanged one loads from the cache. Nothing
-is built or imported from outside the repository. The compiler's
+compile with ``nvcc`` alone (no PyTorch headers): one ``nvcc -c`` per
+source, all started together, then one link into a shared library in
+``mdm_tpu_torch/_build/``, named by a hash of the sources, headers and
+flags: a changed source builds anew, an unchanged one loads from the cache.
+Nothing is built or imported from outside the repository. The compiler's
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside the
 library as ``<name>.log``.
 """
@@ -21,16 +22,30 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("layer_inference.cu",)
+SOURCES = ("layer_inference.cu", "gemm.cu", "attention_train_block.cu", "encoder_tail.cu",
+           "dropout_bits.cu")
+HEADERS = ("common.cuh", "philox.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_DROP = [_P, _I, _U, _F, _I]  # bits, seed, threshold, 1/(1-rate), mode (philox.cuh::Dropout)
 # name -> argtypes of each exported C function; every one returns a cudaError_t.
 SIGNATURES = {
     "mdm_gemm_bias_act": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mdm_attention_rowmask": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mdm_residual_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mdm_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mdm_colsum": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "mdm_attn_train_fwd": [_P, _P, *_DROP, _P, _I, _I, _I, _I, _I, _P],
+    "mdm_attn_train_bwd": [_P, _P, *_DROP, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mdm_tail_ln1_fwd": [_P, _P, *_DROP, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mdm_tail_gelu_dropout": [_P, *_DROP, _P, _I, _I, _I, _I, _P],
+    "mdm_tail_ln2_fwd": [_P, _P, *_DROP, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mdm_tail_ln2_bwd": [_P, _P, *_DROP, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mdm_tail_gelu_bwd": [_P, _P, *_DROP, _P, _P, _I, _I, _I, _I, _P],
+    "mdm_tail_ln1_bwd": [_P, _P, *_DROP, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mdm_philox_dump": [_P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -46,30 +61,39 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"mdm_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the sources unless the hashed library already exists."""
+    """Compile the sources unless the hashed library already exists: one
+    ``nvcc -c`` per source in parallel, then one link."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-8000:]}")
-        os.replace(tmp, so)  # atomic: a concurrent process never loads a partial library
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        outs = [p.communicate()[0] for p in procs]  # waits for every compile
+        log = "".join(f"== {s}\n{o}" for s, o in zip(SOURCES, outs))
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        if not failed:
+            lib = os.path.join(tmp, "lib.so")
+            res = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs],
+                                 capture_output=True, text=True)
+            log += f"== link\n{res.stdout}{res.stderr}"
+            if res.returncode != 0:
+                failed = ["link"]
+        so.with_suffix(".log").write_text(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{log[-8000:]}")
+        os.replace(lib, so)  # atomic: a concurrent process never loads a partial library
     return so
 
 

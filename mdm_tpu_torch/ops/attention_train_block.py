@@ -1,0 +1,283 @@
+"""The training self-attention block with probability dropout, forward and
+backward, as chains of hand-written Hopper kernels.
+
+Replaces mdm_tpu/ops/attention_train_block.py: ``_call_fwd`` (kernel #2,
+``pallas_call`` at :286,294) and ``_call_bwd`` (kernel #3, at :334,344),
+which run one program per batch cell with the four [D, D] weights resident
+in VMEM. On the card the block is three launches forward and seven
+backward (``csrc/gemm.cu``, ``csrc/attention_train_block.cu``):
+
+    forward   qkv  = x . Wqkv^T + bqkv                  gemm        (dt)
+              ctx  = dropout(softmax(q k^T/sqrt(Dh) + m)) v
+                                                        attn_fwd    (dt)
+              out  = ctx . Wo^T + bo                    gemm        (dt)
+    backward  dctx = dO . Wo                            gemm        (dt)
+              ctx, dq, dk, dv (recomputed p, replayed bits)
+                                                        attn_bwd_dq, attn_bwd_dkv
+              dWo  = dO^T ctx, dWqkv = dqkv^T x         gemm, split-K (f32)
+              dbo, dbqkv                                colsum      (f32)
+              dx   = dqkv . Wqkv                        gemm        (dt)
+
+What bounds it on an H100, and what the design does about it: at the
+flagship step (B=128, S=197, D=512) the products carry ~85% of the ~0.3
+TFLOP of a layer's forward and backward, so it is bound by tensor-core
+throughput; every product runs WMMA bf16 fragments with f32 accumulators.
+No [B, H, S, S] tensor is stored in either direction: the backward
+recomputes the probabilities and replays the dropout bits, which are
+Philox4x32-10 keyed on the element's (batch, head, row, column), never on
+a tile or thread. The weight gradients reduce over all B*S rows in fixed
+split-K chunks summed in order, and the column sums in fixed row chunks:
+no float atomics, so two backward runs are bitwise equal. The backward
+reuses the forward's qkv instead of recomputing it (one GEMM less, 6*M*D
+bytes of activation memory more per layer).
+
+The rounding points are the TPU kernel's: q/k/v, the dropped probabilities
+w = keep ? p/(1-rate) : 0, ctx and out to dt; backward dctx, the recomputed
+ctx, dv, dlog, dq, dk to dt, dx accumulated in f32 over the three
+projections then cast to dt; dbo sums dO in f32. The weight and bias
+gradients come back rounded to dt, as ``_block_core_bwd``'s ``cast``.
+
+``train_attention_block_reference`` and ``train_attention_block_bwd_reference``
+are the plain PyTorch versions with those rounding points; the wrapper
+runs them for a CPU tensor, drawing the same Philox bits on the CPU
+(ops/dropout_bits.py) when none are injected.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import _build
+from ._chain import (HEAD_DIMS, check_dtype, check_shapes, colsum, dev, dropout_args, gemm,
+                     ptr, splits_for, stream)
+from ._mask import row_bias_contrib
+from .dropout_bits import dropout_bits, keep_factors
+
+LAUNCHES = {"fwd": 0, "bwd": 0}  # kernel-chain launches, one per block call
+
+
+def _scale(head_dim: int) -> float:
+    return float(np.float32(1.0 / np.sqrt(head_dim)))
+
+
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, S, D] -> [B, H, S, Dh]."""
+    B, S, D = t.shape
+    return t.reshape(B, S, num_heads, D // num_heads).transpose(1, 2)
+
+
+def _merge(t: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, Dh] -> [B, S, H*Dh]."""
+    B, H, S, Dh = t.shape
+    return t.transpose(1, 2).reshape(B, S, H * Dh)
+
+
+def _probs(x, wqkv, bqkv, num_heads, key_padding_mask):
+    """q, k, v [B, H, S, Dh] in dt and the softmax p [B, H, S, S] in f32."""
+    dt = x.dtype
+    D = x.shape[-1]
+    qkv = (x.float() @ wqkv.to(dt).float().T + bqkv.to(dt).float()).to(dt)
+    q, k, v = (_heads(t, num_heads) for t in qkv.split(D, dim=-1))
+    logits = q.float() @ k.float().transpose(-1, -2) * _scale(D // num_heads)
+    if key_padding_mask is not None:
+        logits = logits + row_bias_contrib(key_padding_mask)[:, None, None, :]
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return q, k, v, e / e.sum(dim=-1, keepdim=True)
+
+
+def _keep(bits, rate):
+    if rate <= 0.0:
+        return None
+    if bits is None:
+        raise ValueError("rate > 0 needs the dropout bits")
+    return keep_factors(bits, rate)
+
+
+def train_attention_block_reference(
+    x: torch.Tensor,  # [B, S, D] heads packed in D
+    wqkv, bqkv,  # self_attn.in_proj_weight [3D, D] / in_proj_bias [3D]
+    wo, bo,  # self_attn.out_proj [D, D] / [D]
+    num_heads: int,
+    rate: float = 0.0,
+    bits: Optional[torch.Tensor] = None,  # [B, H, S, S] uint32, needed when rate > 0
+    key_padding_mask: Optional[torch.Tensor] = None,  # [B, S] bool True=ignore, or additive f32
+) -> torch.Tensor:
+    """Plain forward at _fwd_kernel's rounding points; parameters are first
+    rounded to x's dtype as the kernel's wrapper does."""
+    dt = x.dtype
+    _, _, v, p = _probs(x, wqkv, bqkv, num_heads, key_padding_mask)
+    keep = _keep(bits, rate)
+    w = (p if keep is None else p * keep).to(dt)
+    ctx = _merge((w.float() @ v.float()).to(dt))
+    return (ctx.float() @ wo.to(dt).float().T + bo.to(dt).float()).to(dt)
+
+
+def train_attention_block_bwd_reference(
+    x, wqkv, bqkv, wo, num_heads: int, dout: torch.Tensor, rate: float = 0.0,
+    bits: Optional[torch.Tensor] = None, key_padding_mask: Optional[torch.Tensor] = None,
+):
+    """Plain backward at _bwd_kernel's rounding points. Returns (dx in dt,
+    dWqkv [3D, D], dbqkv [3D], dWo [D, D], dbo [D]), the last four in f32
+    (summed over the batch, as the TPU kernel's accumulators)."""
+    dt = x.dtype
+    D = x.shape[-1]
+    q, k, v, p = _probs(x, wqkv, bqkv, num_heads, key_padding_mask)
+    keep = _keep(bits, rate)
+    w16 = (p if keep is None else p * keep).to(dt)
+    dob = dout.to(dt)
+    dctx = _heads((dob.float() @ wo.to(dt).float()).to(dt), num_heads)  # dctx_h in dt
+    ctx = _merge((w16.float() @ v.float()).to(dt))
+    dwo = torch.einsum("bsn,bsk->nk", dob.float(), ctx.float())
+    dbo = dout.float().sum(dim=(0, 1))
+    dv = (w16.float().transpose(-1, -2) @ dctx.float()).to(dt)
+    dp = dctx.float() @ v.float().transpose(-1, -2)
+    if keep is not None:
+        dp = keep * dp
+    dlog = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * _scale(D // num_heads)).to(dt)
+    dq = (dlog.float() @ k.float()).to(dt)
+    dk = (dlog.float().transpose(-1, -2) @ q.float()).to(dt)
+    dqkv = torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=-1)  # [B, S, 3D] dt
+    dwqkv = torch.einsum("bsn,bsk->nk", dqkv.float(), x.float())
+    dbqkv = dqkv.float().sum(dim=(0, 1))
+    dx = (dqkv.float() @ wqkv.to(dt).float()).to(dt)
+    return dx, dwqkv, dbqkv, dwo, dbo
+
+
+def _check(x, wqkv, bqkv, wo, bo, num_heads, mask, bits):
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, S, D], got {tuple(x.shape)}")
+    check_dtype(x, "attention block")
+    B, S, D = x.shape
+    if D % num_heads or D // num_heads not in HEAD_DIMS:
+        raise ValueError(f"head dim of d_model {D} / {num_heads} heads not in {HEAD_DIMS}")
+    check_shapes(x, [(wqkv, (3 * D, D)), (bqkv, (3 * D,)), (wo, (D, D)), (bo, (D,)),
+                     (mask, (B, S)), (bits, (B, num_heads, S, S))], "attention block")
+    if bits is not None and bits.dtype != torch.uint32:
+        raise ValueError(f"bits must be uint32, got {bits.dtype}")
+
+
+def _fwd_cuda(x, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed):
+    """The forward chain; returns (out [B, S, D], qkv [B*S, 3D])."""
+    _check(x, wqkv, bqkv, wo, bo, num_heads, mask, bits)
+    B, S, D = x.shape
+    dt = x.dtype
+    xs = dev(x).view(B * S, D)
+    qkv = gemm(xs, dev(wqkv), bias=dev(bqkv))
+    ctx = torch.empty((B * S, D), dtype=dt, device=x.device)
+    lib = _build.load_library()
+    _build.check(lib.mdm_attn_train_fwd(ptr(qkv), ptr(mask), *dropout_args(bits, seed, rate),
+                                        ptr(ctx), B, S, num_heads, D // num_heads,
+                                        check_dtype(x, "attention block"), stream(x)),
+                 "attention forward")
+    out = gemm(ctx, dev(wo), bias=dev(bo))
+    LAUNCHES["fwd"] += 1
+    return out.view(B, S, D), qkv
+
+
+def _bwd_cuda(x, qkv, wqkv, wo, mask, bits, num_heads, rate, seed, dout):
+    B, S, D = x.shape
+    M, dt = B * S, x.dtype
+    xs = dev(x).view(M, D)
+    do = dev(dout, dt).view(M, D)
+    wqkv, wo = dev(wqkv), dev(wo)
+    dctx = gemm(do, wo, b_kn=True)
+    ctx = torch.empty((M, D), dtype=dt, device=x.device)
+    dqkv = torch.empty((M, 3 * D), dtype=dt, device=x.device)
+    stats = torch.empty((3, B * num_heads * S), dtype=torch.float32, device=x.device)
+    lib = _build.load_library()
+    _build.check(lib.mdm_attn_train_bwd(ptr(qkv), ptr(mask), *dropout_args(bits, seed, rate),
+                                        ptr(dctx), ptr(ctx), ptr(dqkv), ptr(stats), B, S,
+                                        num_heads, D // num_heads, check_dtype(x, "attention"),
+                                        stream(x)), "attention backward")
+    dwo = gemm(do, ctx, a_km=True, b_kn=True, out_f32=True, splits=splits_for(D, D, M))
+    dbo = colsum(do)
+    dwqkv = gemm(dqkv, xs, a_km=True, b_kn=True, out_f32=True, splits=splits_for(3 * D, D, M))
+    dbqkv = colsum(dqkv)
+    dx = gemm(dqkv, wqkv, b_kn=True)
+    LAUNCHES["bwd"] += 1
+    return dx.view(B, S, D), dwqkv, dbqkv, dwo, dbo
+
+
+class _TrainBlock(torch.autograd.Function):
+    """Seed-replay VJP: the backward recomputes p and replays the bits."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed):
+        ctx.meta = (num_heads, rate, seed)
+        ctx.save_for_backward(x, wqkv, bqkv, wo, mask)
+        if x.device.type == "cuda":
+            out, ctx.qkv = _fwd_cuda(x, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed)
+            ctx.bits = bits
+            return out
+        if rate > 0.0 and bits is None:  # the kernel's own Philox stream, drawn on the CPU
+            bits = dropout_bits(seed, x.shape[0], num_heads, x.shape[1])
+        ctx.qkv, ctx.bits = None, bits
+        return train_attention_block_reference(x, wqkv, bqkv, wo, bo, num_heads, rate, bits,
+                                               mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, wqkv, bqkv, wo, mask = ctx.saved_tensors
+        num_heads, rate, seed = ctx.meta
+        if ctx.qkv is not None:
+            grads = _bwd_cuda(x, ctx.qkv, wqkv, wo, mask, ctx.bits, num_heads, rate, seed, dout)
+        else:
+            grads = train_attention_block_bwd_reference(x, wqkv, bqkv, wo, num_heads, dout,
+                                                        rate, ctx.bits, mask)
+        dx, dwqkv, dbqkv, dwo, dbo = grads
+        dt = x.dtype
+        return (dx, dwqkv.to(dt), dbqkv.to(dt), dwo.to(dt), dbo.to(dt),
+                None, None, None, None, None)
+
+
+def _mask_row(x, key_padding_mask):
+    if key_padding_mask is None:
+        return None
+    m = row_bias_contrib(key_padding_mask)
+    return dev(m) if x.device.type == "cuda" else m
+
+
+def fused_train_attention_block(
+    x: torch.Tensor,  # [B, S, D] heads packed in D
+    wqkv, bqkv, wo, bo,  # torch layout: in_proj [3D, D] / [3D], out_proj [D, D] / [D]
+    num_heads: int,
+    rate: float,
+    seed: int,  # int32, drawn per layer per step
+    key_padding_mask: Optional[torch.Tensor] = None,  # [B, S] bool True=ignore, or additive f32
+    bits: Optional[torch.Tensor] = None,  # [B, H, S, S] uint32: injected (use_prng=False)
+) -> torch.Tensor:
+    """Whole training attention block with probability dropout,
+    differentiable in x and the four weights and biases.
+
+    Parameters are cast to x's dtype inside the autograd graph, so their
+    gradients come back rounded to it. On a CPU tensor the plain versions
+    run; on a CUDA tensor the kernel chains run (forward and backward each
+    add one to ``LAUNCHES``) or raise. ``bits`` replaces the in-kernel
+    Philox draw with the given bits."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_train_attention_block runs on cpu or cuda, not {x.device}")
+    dt = x.dtype
+    if bits is not None and x.device.type == "cuda":
+        bits = dev(bits)
+    return _TrainBlock.apply(x, wqkv.to(dt), bqkv.to(dt), wo.to(dt), bo.to(dt),
+                             _mask_row(x, key_padding_mask), bits, num_heads, float(rate),
+                             int(seed))
+
+
+@torch.no_grad()
+def fused_block_attention_inference(
+    x: torch.Tensor, wqkv, bqkv, wo, bo, num_heads: int,
+    key_padding_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Forward-only block at rate 0 (sampling): the training forward chain
+    with no dropout; not differentiable."""
+    if x.device.type == "cpu":
+        return train_attention_block_reference(x, wqkv, bqkv, wo, bo, num_heads,
+                                               key_padding_mask=key_padding_mask)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_block_attention_inference runs on cpu or cuda, not {x.device}")
+    dt = x.dtype
+    return _fwd_cuda(x, wqkv.to(dt), bqkv.to(dt), wo.to(dt), bo.to(dt),
+                     _mask_row(x, key_padding_mask), None, num_heads, 0.0, 0)[0]

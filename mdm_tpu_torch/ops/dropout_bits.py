@@ -1,0 +1,115 @@
+"""The dropout bit stream of the training kernels, and its two dump entry points.
+
+The TPU kernels seed the hardware PRNG with ``seed + program_id(0)`` and
+draw bits in a fixed per-cell order (mdm_tpu/ops/attention_train_block.py,
+encoder_tail.py). On Hopper every element draws its own word from
+Philox4x32-10 (``csrc/philox.cuh``), keyed on the int32 ``seed`` with the
+counter (column, row, site, batch index): an element's bits depend on its
+coordinates only, never on a tile or thread, so the backward kernels replay
+the forward's mask whatever their tiling. ``site`` is the head in the
+attention block and 0/1/2 for the tail's attn-out/ffn-hidden/ffn-out masks.
+
+``philox_bits`` is the plain PyTorch version of that generator (int64
+arithmetic, exact). The dumps replace the TPU test kernels
+``attention_dropout.py::dropout_bits`` and ``encoder_tail.py::tail_dropout_bits``
+and keep their layouts; they exist to pin the in-kernel stream against the
+injected-bits path. The keep rule is ``_keep_threshold``'s: keep where
+``bits < t`` with ``t = min(round((1 - rate) 2^32), 2^32 - 1)``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+
+LAUNCHES = {"dropout_bits": 0, "tail_dropout_bits": 0}
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+
+
+def keep_threshold(rate: float) -> int:
+    """uint32 threshold t with P(bits < t) == 1 - rate."""
+    return min(int(round((1.0 - rate) * 2.0 ** 32)), 2 ** 32 - 1)
+
+
+def keep_factors(bits: torch.Tensor, rate: float) -> torch.Tensor:
+    """f32 keep factor of each element: 1/(1-rate) where bits < t, else 0."""
+    inv_keep = float(np.float32(1.0 / (1.0 - rate)))
+    kept = bits.to(torch.int64) < keep_threshold(rate)  # uint32 has no CPU compare
+    return torch.where(kept, inv_keep, 0.0).to(torch.float32)
+
+
+def _mulhilo(m: int, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit halves of m * c for uint32 values held in int64."""
+    p_lo = m * (c & 0xFFFF)
+    p_hi = m * (c >> 16)
+    t = ((p_hi & 0xFFFF) << 16) + p_lo
+    return (p_hi >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32(counter, key) -> Tuple[torch.Tensor, ...]:
+    """Philox4x32-10 on int64 tensors holding uint32 words (Salmon et al.,
+    SC'11): ``counter`` four broadcastable tensors, ``key`` two ints."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in counter)
+    k0, k1 = key[0] & _MASK32, key[1] & _MASK32
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _W0) & _MASK32, (k1 + _W1) & _MASK32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox_bits(seed: int, b: torch.Tensor, site, rows: int, cols: int,
+                device=None) -> torch.Tensor:
+    """Word 0 of Philox(counter=(col, row, site, b), key=(seed, 0)) for every
+    (b, site, row, col): b and site broadcast against [rows, cols]. Returns
+    int64 holding the uint32 bits, shape [*broadcast(b, site), rows, cols]."""
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
+    b = torch.as_tensor(b, dtype=torch.int64, device=device)[..., None, None]
+    site = torch.as_tensor(site, dtype=torch.int64, device=device)[..., None, None]
+    return philox4x32((c, r, site, b), (int(seed), 0))[0]
+
+
+def _dump(name: str, seed: int, shape_sites, out_shapes, device) -> Tuple[torch.Tensor, ...]:
+    lib = _build.load_library()
+    outs = tuple(torch.empty(s, dtype=torch.uint32, device=device) for s in out_shapes)
+    st = torch.cuda.current_stream(device).cuda_stream
+    for out, (B, H, site, R, C) in zip(outs, shape_sites):
+        _build.check(lib.mdm_philox_dump(out.data_ptr(), int(seed), B, H, site, R, C, st), name)
+    LAUNCHES[name] += 1
+    return outs
+
+
+def dropout_bits(seed: int, B: int, num_heads: int, S: int, device="cpu") -> torch.Tensor:
+    """[B, H, S, S] uint32: the bits the attention block draws for head h,
+    query row i, key column j (attention_dropout.py::dropout_bits layout)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        b = torch.arange(B)[:, None]
+        h = torch.arange(num_heads)[None, :]
+        return philox_bits(seed, b, h, S, S).to(torch.uint32)
+    # site -1: the heads are the sites, out[b, h] holds site h.
+    return _dump("dropout_bits", seed, [(B, num_heads, -1, S, S)],
+                 [(B, num_heads, S, S)], device)[0]
+
+
+def tail_dropout_bits(seed: int, B: int, S: int, D: int, F: int, device="cpu"
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The tail's three masks' bits: attn-out [B,S,D] (site 0), ffn-hidden
+    [B,S,F] (site 1), ffn-out [B,S,D] (site 2) (encoder_tail.py layout)."""
+    device = torch.device(device)
+    shapes = [(B, S, D), (B, S, F), (B, S, D)]
+    if device.type == "cpu":
+        b = torch.arange(B)
+        return tuple(philox_bits(seed, b, site, S, n).to(torch.uint32)
+                     for site, (_, _, n) in enumerate(shapes))
+    return _dump("tail_dropout_bits", seed,
+                 [(B, 1, site, S, n) for site, (_, _, n) in enumerate(shapes)], shapes, device)

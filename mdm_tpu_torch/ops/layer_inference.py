@@ -33,36 +33,24 @@ to the working type only at q/k/v, P, ctx, attn, y, the GELU output and z;
 the LN2 residual y32 + o stays f32; LayerNorm variance is E[s^2] - E[s]^2.
 
 ``layer_inference_reference`` is the plain PyTorch version with the same
-signature and the same rounding points. ``fused_layer_inference`` uses it
-for a tensor on the CPU; on a CUDA tensor it launches the kernels or raises.
+signature and the same rounding points: the training block's and tail's
+plain versions at rate 0, whose rounding points these are too.
+``fused_layer_inference`` uses it for a tensor on the CPU; on a CUDA
+tensor it launches the kernels or raises.
 """
 from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from . import _build
+from ._chain import DTYPES, HEAD_DIMS, dev
 from ._mask import row_bias_contrib
+from .attention_train_block import train_attention_block_reference
+from .encoder_tail import encoder_tail_reference
 
 LAUNCHES = 0  # kernel-chain launches of fused_layer_inference (one per layer call)
-
-_LN_EPS = 1e-5
-_INV_SQRT2 = float(np.float32(1.0 / np.sqrt(2.0)))
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
-
-
-def _scale(head_dim: int) -> float:
-    return float(np.float32(1.0 / np.sqrt(head_dim)))
-
-
-def _layernorm(s: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Row LayerNorm in f32 with one-pass variance (encoder_tail.py::_ln_fwd)."""
-    mu = s.mean(dim=-1, keepdim=True)
-    var = (s * s).mean(dim=-1, keepdim=True) - mu * mu
-    return (s - mu) * torch.rsqrt(var + _LN_EPS) * g + b
 
 
 def layer_inference_reference(
@@ -80,28 +68,9 @@ def layer_inference_reference(
     points: every product is ``a.float() @ w.float().T + b.float()`` (the
     TPU kernel's preferred_element_type=f32), parameters are first rounded
     to x's dtype as the kernel's wrapper does."""
-    B, S, D = x.shape
-    dt = x.dtype
-    H = num_heads
-    Dh = D // H
-    par = lambda t: t.to(dt).float()
-    lin = lambda a, w, b: a.float() @ par(w).T + par(b)
-
-    qkv = lin(x, wqkv, bqkv).to(dt)
-    q, k, v = (t.reshape(B, S, H, Dh).transpose(1, 2) for t in qkv.split(D, dim=-1))
-    logits = q.float() @ k.float().transpose(-1, -2) * _scale(Dh)
-    if key_padding_mask is not None:
-        logits = logits + row_bias_contrib(key_padding_mask)[:, None, None, :]
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
-    ctx = (p.to(dt).float() @ v.float()).to(dt).transpose(1, 2).reshape(B, S, D)
-    attn = lin(ctx, wo, bo).to(dt)
-
-    y32 = _layernorm(x.float() + attn.float(), par(g1), par(bl1))
-    u = lin(y32.to(dt), w1, b1)
-    hd = (u * 0.5 * (1.0 + torch.erf(u * _INV_SQRT2))).to(dt)
-    o = lin(hd, w2, b2)
-    return _layernorm(y32 + o, par(g2), par(bl2)).to(dt)
+    attn = train_attention_block_reference(x, wqkv, bqkv, wo, bo, num_heads,
+                                           key_padding_mask=key_padding_mask)
+    return encoder_tail_reference(x, attn, g1, bl1, w1, b1, w2, b2, g2, bl2)
 
 
 def check_kernel_operands(x: torch.Tensor, weights, num_heads: int,
@@ -110,14 +79,14 @@ def check_kernel_operands(x: torch.Tensor, weights, num_heads: int,
     device, dtype or shape the kernels would read out of bounds with."""
     if x.dim() != 3:
         raise ValueError(f"x must be [B, S, D], got {tuple(x.shape)}")
-    if x.dtype not in _DTYPES:
+    if x.dtype not in DTYPES:
         raise ValueError(f"kernel dtype must be float32 or bfloat16, got {x.dtype}")
     B, S, D = x.shape
     F = weights[6].shape[0]
     if D % num_heads:
         raise ValueError(f"d_model {D} is not divisible by num_heads {num_heads}")
-    if D // num_heads not in _HEAD_DIMS:
-        raise ValueError(f"head dim {D // num_heads} not in {_HEAD_DIMS}")
+    if D // num_heads not in HEAD_DIMS:
+        raise ValueError(f"head dim {D // num_heads} not in {HEAD_DIMS}")
     if D % 16 or F % 16:
         raise ValueError(f"d_model {D} and ff_size {F} must be multiples of 16")
     shapes = [(3 * D, D), (3 * D,), (D, D), (D,), (D,), (D,), (F, D), (F,), (D, F), (D,),
@@ -129,12 +98,6 @@ def check_kernel_operands(x: torch.Tensor, weights, num_heads: int,
         if tuple(t.shape) != shape or t.device != x.device:
             raise ValueError(f"operand {i + 1}: {tuple(t.shape)} on {t.device}, "
                              f"expected {shape} on {x.device}")
-
-
-def _dev(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """Contiguous, 16-byte aligned copy in dt (a no-op when it already is)."""
-    t = t.to(dt).contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def fused_layer_inference(
@@ -161,12 +124,12 @@ def fused_layer_inference(
     B, S, D = x.shape
     M = B * S
     dt = x.dtype
-    code = _DTYPES[dt]
-    xs = _dev(x, dt)
-    wqkv, bqkv, wo, bo, g1, bl1, w1, b1, w2, b2, g2, bl2 = (_dev(t, dt) for t in weights)
+    code = DTYPES[dt]
+    xs = dev(x, dt)
+    wqkv, bqkv, wo, bo, g1, bl1, w1, b1, w2, b2, g2, bl2 = (dev(t, dt) for t in weights)
     mask = None
     if key_padding_mask is not None:
-        mask = _dev(row_bias_contrib(key_padding_mask), torch.float32)
+        mask = dev(row_bias_contrib(key_padding_mask), torch.float32)
 
     lib = _build.load_library()
     with torch.cuda.device(x.device):

@@ -1,0 +1,18 @@
+"""Single-device training: the train step, AdamW + EMA state, the loop,
+checkpoints (counterpart of mdm_tpu/train)."""
+from .checkpoints import (  # noqa: F401
+    find_resume_checkpoint,
+    load_args,
+    restore_checkpoint,
+    save_args,
+    save_checkpoint,
+)
+from .loop import LoopConfig, TrainLoop  # noqa: F401
+from .state import (  # noqa: F401
+    OptimConfig,
+    TrainState,
+    apply_gradients,
+    create_train_state,
+    make_optimizer,
+)
+from .train_step import TrainStepConfig, make_train_step, quartile_metrics, step_key  # noqa: F401

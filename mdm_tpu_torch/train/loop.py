@@ -1,0 +1,151 @@
+"""Host-side training loop around the train step.
+
+Counterpart of mdm_tpu/train/loop.py (:28-189; reference
+train/training_loop.py:37-475) on one device: it feeds batches, logs KVs,
+checkpoints and runs the eval/generate callbacks.
+
+Resume is bit exact: the step's randomness is ``step_key(rng_seed, step)``,
+a pure function of the step index (JAX's ``fold_in``), a data iterable
+with ``iter_from(step)`` is fast-forwarded to the resumed step, and every
+kernel reduction runs in a fixed order. Metric sums stay on the device
+until a log window closes, so the host reads the card once per window.
+
+Env hook: MDM_TPU_TRAINING_TEST=1 stops after the first save (the
+reference's DIFFUSION_TRAINING_TEST seam, training_loop.py:241).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, Optional
+
+import torch
+
+from .checkpoints import find_resume_checkpoint, restore_checkpoint, save_args, save_checkpoint
+from .logger import KVLogger
+from .platforms import NoPlatform, TrainPlatform
+from .state import TrainState
+from .train_step import step_key
+
+
+@dataclass
+class LoopConfig:
+    save_dir: str = "save/run"
+    num_steps: int = 600_000
+    log_interval: int = 1_000
+    save_interval: int = 50_000
+    eval_during_training: bool = False
+    gen_during_training: bool = False
+    resume: bool = True
+    # explicit checkpoint to resume from; a checkpoint in save_dir wins
+    # (reference training_loop.py:131)
+    resume_checkpoint: str = ""
+
+
+def _to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
+    """The batch's tensors (and its Conditioning) on ``device``."""
+    return {k: v.to(device) if isinstance(v, torch.Tensor) or dataclasses.is_dataclass(v)
+            else v for k, v in batch.items()}
+
+
+class TrainLoop:
+    def __init__(
+        self,
+        train_step: Callable,
+        state: TrainState,
+        data_iter: Iterable,
+        config: LoopConfig,
+        *,
+        args: Optional[Dict[str, Any]] = None,
+        platform: Optional[TrainPlatform] = None,
+        eval_fn: Optional[Callable[[Any, int], Dict[str, float]]] = None,
+        gen_fn: Optional[Callable[[Any, int], Optional[str]]] = None,
+        rng_seed: int = 10,
+    ):
+        self.train_step = train_step
+        self.state = state
+        self.config = config
+        self.platform = platform or NoPlatform(config.save_dir)
+        self.logger = KVLogger(config.save_dir)
+        self.eval_fn = eval_fn
+        self.gen_fn = gen_fn
+        self.rng_seed = rng_seed
+        self.device = next(state.model.parameters()).device
+
+        os.makedirs(config.save_dir, exist_ok=True)
+        if args is not None:
+            save_args(config.save_dir, args)
+            self.platform.report_args(args, "args")
+
+        if config.resume:
+            found = find_resume_checkpoint(config.save_dir)
+            if not found and config.resume_checkpoint:
+                found = (config.resume_checkpoint, -1)
+            if found:
+                path, step = found
+                print(f"resuming from {path}" + (f" (step {step})" if step >= 0 else ""))
+                self.state = restore_checkpoint(path, self.state)
+
+        if hasattr(data_iter, "iter_from"):
+            self.data_iter = data_iter.iter_from(self.step)
+        else:
+            self.data_iter = iter(data_iter)
+
+    @property
+    def step(self) -> int:
+        return self.state.step
+
+    def run(self):
+        cfg = self.config
+        t_last = time.time()
+        acc: Optional[Dict[str, torch.Tensor]] = None  # metric sums of the window, on device
+        acc_n = 0
+        batch_size = None
+        while self.step < cfg.num_steps:
+            batch = _to_device(next(self.data_iter), self.device)
+            if batch_size is None:
+                batch_size = int(batch["x"].shape[0]) if "x" in batch else 0
+            self.state, metrics = self.train_step(self.state, batch,
+                                                  step_key(self.rng_seed, self.step))
+            if acc is None:
+                acc = {k: v.clone() for k, v in metrics.items()}
+            else:
+                for k, v in metrics.items():
+                    acc[k] += v
+            acc_n += 1
+
+            step = self.step
+            if step % cfg.log_interval == 0 or step == cfg.num_steps:
+                # One read of the card per window; it also waits for every
+                # step of the window, so steps_per_sec is end to end.
+                for k, v in acc.items():
+                    self.logger.logkv(k, v.item() / acc_n)
+                window, acc, acc_n = acc_n, None, 0
+                self.logger.logkv("step", step)
+                sps = window / max(time.time() - t_last, 1e-9)
+                self.logger.logkv("steps_per_sec", sps)
+                if batch_size:
+                    self.logger.logkv("samples_per_sec", sps * batch_size)
+                t_last = time.time()
+                for k, v in self.logger.dumpkvs().items():
+                    self.platform.report_scalar(k, v, step, group_name="Loss")
+
+            if step % cfg.save_interval == 0 or step == cfg.num_steps:
+                self.save()
+                if self.eval_fn and cfg.eval_during_training:
+                    for k, v in (self.eval_fn(self.state, step) or {}).items():
+                        self.platform.report_scalar(k, v, step, group_name="Eval")
+                if self.gen_fn and cfg.gen_during_training:
+                    media = self.gen_fn(self.state, step)
+                    for m in ([media] if isinstance(media, str) else media or []):
+                        self.platform.report_media("Motion", "gen", step, m)
+                if os.environ.get("MDM_TPU_TRAINING_TEST", ""):
+                    print("MDM_TPU_TRAINING_TEST set: stopping after first save")
+                    return
+
+    def save(self):
+        path = save_checkpoint(self.config.save_dir, self.step, self.state)
+        print(f"saved checkpoint {path}")
+        return path

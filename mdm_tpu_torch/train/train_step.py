@@ -1,0 +1,121 @@
+"""One training step on one device: loss, gradients, AdamW and EMA.
+
+Counterpart of mdm_tpu/train/train_step.py::make_train_step (:69-258) for
+a single device (no mesh, no shard_map). Per step, in this order: draw t,
+the noise and the CFG condition dropout, q_sample, the model's training
+forward (dropout from the step's generator), the losses, the backward
+through the hand-written kernels, the metrics, AdamW and the EMA.
+
+Randomness is a pure function of the step's integer ``key`` (the
+counterpart of ``jax.random.fold_in(base, step)``, see ``step_key``): a
+CPU generator seeded with it gives the model's dropout seeds, and a device
+generator seeded from that gives t, the noise and the condition dropout.
+``draws`` replaces those three draws, so tests can feed the step the
+draws that the JAX step made.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..diffusion import gaussian as G
+from ..diffusion.losses import LossConfig, training_losses
+from ..diffusion.schedule import Schedule
+from .resample import LossAwareState, loss_aware_sample_t, loss_aware_update, uniform_sample_t
+from .state import OptimConfig, TrainState, apply_gradients, global_norm
+
+
+@dataclass(frozen=True)
+class TrainStepConfig:
+    loss: LossConfig = LossConfig()
+    optim: OptimConfig = OptimConfig()
+    cond_mask_prob: float = 0.1  # CFG condition dropout
+    # 'uniform' (reference default) or 'loss-second-moment'
+    schedule_sampler: str = "uniform"
+
+
+def step_key(rng_seed: int, step: int) -> int:
+    """The step's 63-bit key, a pure function of (rng_seed, step)."""
+    return int(np.random.SeedSequence([rng_seed, step]).generate_state(1, np.uint64)[0] >> 1)
+
+
+def step_generators(key: int, device) -> Tuple[torch.Generator, torch.Generator]:
+    """(CPU generator for the dropout seeds, device generator for the draws)."""
+    cpu = torch.Generator().manual_seed(key)
+    dev = torch.Generator(device).manual_seed(int(torch.randint(0, 2 ** 62, (), generator=cpu)))
+    return cpu, dev
+
+
+def quartile_metrics(losses: torch.Tensor, t: torch.Tensor, num_timesteps: int
+                     ) -> Dict[str, torch.Tensor]:
+    """Mean loss per timestep quartile (reference training_loop.py:469-475)."""
+    quartile = (4 * t) // num_timesteps
+    out = {}
+    for q in range(4):
+        sel = (quartile == q).to(losses.dtype)
+        out[f"loss_q{q}"] = (losses * sel).sum() / sel.sum().clamp_min(1.0)
+    return out
+
+
+def make_train_step(sched: Schedule, config: TrainStepConfig, *,
+                    get_xyz: Optional[Callable] = None):
+    """Returns ``step(state, batch, key, sampler_state=None, *, draws=None)``.
+
+    ``batch``: a dict with ``x`` [B, T, D], ``mask`` [B, T] bool and a
+    ``cond`` Conditioning, on the model's device (``sched`` too). ``key``:
+    the step's integer key. ``draws``: optional dict of ``t`` [B] int,
+    ``noise`` like x and ``cond_drop`` [B] bool. Returns ``(state,
+    metrics)``, plus the new sampler state under 'loss-second-moment'. The
+    state is updated in place; after the step each parameter's ``.grad``
+    holds the gradient the update used. Metrics stay on the device."""
+    loss_aware = config.schedule_sampler == "loss-second-moment"
+    if not loss_aware and config.schedule_sampler != "uniform":
+        raise ValueError(f"unknown schedule_sampler {config.schedule_sampler!r}")
+
+    def step(state: TrainState, batch: Dict, key: int,
+             sampler_state: Optional[LossAwareState] = None, *, draws: Optional[Dict] = None):
+        x_start, mask, cond = batch["x"], batch["mask"], batch["cond"]
+        B, device = x_start.shape[0], x_start.device
+        rng, gen = step_generators(key, device)
+        weights = torch.ones((B,), dtype=torch.float32, device=device)
+        if draws is not None:
+            t, noise, drop = draws["t"], draws["noise"], draws["cond_drop"]
+        else:
+            if loss_aware:
+                t, weights = loss_aware_sample_t(gen, sampler_state, B)
+            else:
+                t, weights = uniform_sample_t(gen, B, sched.num_timesteps, device)
+            noise = torch.randn(x_start.shape, generator=gen, device=device, dtype=x_start.dtype)
+            drop = torch.rand((B,), generator=gen, device=device) < config.cond_mask_prob
+        x_t = G.q_sample(sched, x_start, t, noise)
+        if config.cond_mask_prob > 0:
+            cond = cond.replace(cond_drop=drop, frames_mask=mask)
+        else:
+            cond = cond.replace(frames_mask=mask)
+
+        model = state.model
+        params = list(model.parameters())
+        for p in params:
+            p.grad = None
+        model_out = model(x_t, sched.model_timesteps(t), cond, deterministic=False, rng=rng)
+        terms = training_losses(sched, model_out, x_start, x_t, t, noise, mask[..., None],
+                                config.loss, get_xyz=get_xyz)
+        loss = (weights * terms["loss"]).mean()
+        loss.backward()
+        with torch.no_grad():
+            grad_norm = global_norm(p.grad for p in params if p.grad is not None)
+            param_norm = global_norm(params)
+        apply_gradients(state, config.optim)
+
+        losses = terms["loss"].detach()
+        metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "param_norm": param_norm,
+                   **{k: v.detach().mean() for k, v in terms.items() if k != "loss"},
+                   **quartile_metrics(losses, t, sched.num_timesteps)}
+        if loss_aware:
+            return state, metrics, loss_aware_update(sampler_state, t, losses)
+        return state, metrics
+
+    return step

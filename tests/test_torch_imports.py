@@ -1,5 +1,6 @@
-"""mdm_tpu_torch imports neither jax nor flax: every module imports and a
-tiny generation runs in a fresh interpreter where both are blocked."""
+"""mdm_tpu_torch imports neither jax nor flax: every module imports, and a
+tiny generation and a tiny train step run, in a fresh interpreter where
+both are blocked."""
 import subprocess
 import sys
 from pathlib import Path
@@ -28,15 +29,24 @@ model.init_weights(torch.Generator().manual_seed(0))
 gen = MotionGenerator(model, Schedule.create("cosine", 100, "2"))
 out = gen.generate(Conditioning(text_embed=torch.zeros(1, 512)), 1, 6, torch.Generator())
 assert out["joints"].shape == (1, 6, 22, 3) and torch.isfinite(out["joints"]).all()
+from mdm_tpu_torch.train import OptimConfig, TrainStepConfig, create_train_state, make_train_step
+state = create_train_state(model, OptimConfig())
+batch = {"x": torch.randn(2, 6, 263), "mask": torch.ones(2, 6, dtype=torch.bool),
+         "cond": Conditioning(text_embed=torch.zeros(2, 512))}
+state, metrics = make_train_step(Schedule.create("cosine", 100), TrainStepConfig())(state, batch, 0)
+assert state.step == 1 and torch.isfinite(metrics["loss"])
 assert not any(m.split(".")[0] in ("jax", "flax", "mdm_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print(" ".join(names))
 """
 
-# The counterparts of the sampling slice's mdm_tpu modules.
+# The counterparts of the sampling and training slices' mdm_tpu modules.
 SLICE = {"ops._mask", "ops.layer_inference", "ops._build", "models.layers", "models.mdm",
          "models.bridge", "diffusion.schedule", "diffusion.gaussian", "diffusion.samplers",
-         "core.quaternions", "core.hml_codec", "sampling.text", "sampling.pipeline", "serving"}
+         "core.quaternions", "core.hml_codec", "sampling.text", "sampling.pipeline", "serving",
+         "ops._chain", "ops.dropout_bits", "ops.attention_train_block", "ops.encoder_tail",
+         "diffusion.losses", "train.resample", "train.state", "train.train_step",
+         "train.checkpoints", "train.logger", "train.platforms", "train.loop"}
 
 
 def test_port_runs_with_jax_and_flax_blocked():

@@ -138,7 +138,7 @@ def test_other_devices_raise():
 
 def test_c_signatures_match_the_source():
     """Every ctypes binding declares as many arguments as its C function."""
-    src = (_build.CSRC / "layer_inference.cu").read_text()
+    src = "".join((_build.CSRC / name).read_text() for name in _build.SOURCES)
     found = {m.group(1): m.group(2) for m in re.finditer(
         r'extern "C" int (\w+)\(([^)]*)\)', src)}
     assert set(found) == set(_build.SIGNATURES)

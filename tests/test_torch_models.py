@@ -180,9 +180,8 @@ def test_unported_options_raise():
         tm.MDM(tm.MDMConfig(**SMALL, arch="trans_dec"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.MDM(tm.MDMConfig(**SMALL, cond_mode="action"))
-    layer = tl.TransformerEncoderLayer(128, 4, 256)
-    with pytest.raises(NotImplementedError, match="Training"):
-        layer(torch.zeros(1, 4, 128), None, False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.MDM(tm.MDMConfig(**SMALL, remat=True))
 
 
 def test_init_weights_is_seeded():
