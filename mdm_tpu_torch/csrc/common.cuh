@@ -1,5 +1,6 @@
-// Small device helpers shared by the training kernels (gemm.cu,
-// attention_train_block.cu, encoder_tail.cu, dropout_bits.cu).
+// Small device helpers shared by every kernel source (gemm.cu,
+// layer_inference.cu, attention_train_block.cu, encoder_tail.cu,
+// dropout_bits.cu).
 #pragma once
 
 #include <cuda_runtime.h>

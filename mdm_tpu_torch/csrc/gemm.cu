@@ -1,11 +1,14 @@
-// The matrix products and column sums of the training kernel chains
-// (ops/attention_train_block.py, ops/encoder_tail.py). Together with the
-// attention and row kernels they replace the bodies of the TPU kernels
+// The matrix products of every kernel chain, and the column sums of the
+// training chains: the sampling layer (ops/layer_inference.py), the train
+// attention block (ops/attention_train_block.py) and the encoder tail
+// (ops/encoder_tail.py). Together with the attention and row kernels they
+// replace the bodies of the TPU kernels
+// mdm_tpu/ops/layer_inference.py::_layer_kernel,
 // mdm_tpu/ops/attention_train_block.py::_fwd_kernel/_bwd_kernel and
 // mdm_tpu/ops/encoder_tail.py::_fwd_kernel/_bwd_kernel, whose products run
 // on the MXU with f32 accumulation.
 //
-//   C[M,N] = op(A) . op(B) (+ bias[N]) (+ R[M,N])
+//   C[M,N] = act(op(A) . op(B) (+ bias[N])) (+ R[M,N]),  act: identity or GELU
 //   op(A): A stored [M,K] (a_km = 0) or [K,M] (a_km = 1, the dW = dY^T X form)
 //   op(B): B stored [N,K] (b_kn = 0, a torch weight: x W^T) or [K,N] (b_kn = 1,
 //          the backward's dY W form)
@@ -60,7 +63,13 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int ld, in
                                           int rmax, int cmax, bool vec) {
   if (vec) {
     constexpr int VPR = COLS / 8;
-    for (int v = threadIdx.x; v < ROWS * VPR; v += G_THREADS) {
+    static_assert(ROWS * VPR % G_THREADS == 0, "every thread copies whole vectors");
+    // A fixed trip count, unrolled, so that each thread's offsets stay in
+    // registers across the K loop; a strided loop recomputes them at every
+    // K step, and the products spend much of their time there.
+#pragma unroll
+    for (int i = 0; i < ROWS * VPR / G_THREADS; ++i) {
+      const int v = threadIdx.x + i * G_THREADS;
       const int r = v / VPR, c = (v % VPR) * 8;
       const int gr = r0 + r, gc = c0 + c;
       const bool ok = gr < rmax && gc < cmax;
@@ -82,7 +91,8 @@ template <typename TO, bool AKM, bool BKN>
 __global__ void __launch_bounds__(G_THREADS)
 gemm_bf16_wmma(const bf16* __restrict__ A, const bf16* __restrict__ B,
                const bf16* __restrict__ bias, const float* __restrict__ R,
-               TO* __restrict__ C, int M, int N, int K, int kchunk, bool vec_a, bool vec_b) {
+               TO* __restrict__ C, int M, int N, int K, int kchunk, bool gelu, bool vec_a,
+               bool vec_b) {
   using L = GemmSmem<AKM, BKN>;
   __shared__ __align__(128) unsigned char smem[L::BYTES];
   bf16* As = reinterpret_cast<bf16*>(smem);
@@ -162,6 +172,7 @@ gemm_bf16_wmma(const bf16* __restrict__ A, const bf16* __restrict__ B,
     if (gr < M && gc < N) {
       float v = Cs[r * G_LDC + c];
       if (bias) v += mdm::to_f(bias[gc]);
+      if (gelu) v = mdm::gelu_exact(v);
       if (R) v += R[(size_t)gr * N + gc];
       C[(size_t)gr * N + gc] = mdm::from_f<TO>(v);
     }
@@ -176,7 +187,7 @@ template <bool AKM, bool BKN>
 __global__ void __launch_bounds__(256)
 gemm_f32_fma(const float* __restrict__ A, const float* __restrict__ B,
              const float* __restrict__ bias, const float* __restrict__ R,
-             float* __restrict__ C, int M, int N, int K, int kchunk) {
+             float* __restrict__ C, int M, int N, int K, int kchunk, bool gelu) {
   __shared__ float As[FK][FM + 4];
   __shared__ float Bs[FK][FN + 4];
   const int tid = threadIdx.x;
@@ -225,6 +236,7 @@ gemm_f32_fma(const float* __restrict__ A, const float* __restrict__ B,
       if (gc < N) {
         float v = acc[i][j];
         if (bias) v += bias[gc];
+        if (gelu) v = mdm::gelu_exact(v);
         if (R) v += R[(size_t)gr * N + gc];
         C[(size_t)gr * N + gc] = v;
       }
@@ -261,53 +273,55 @@ __global__ void colsum_chunks(const T* __restrict__ in, float* __restrict__ work
 
 template <typename TO, bool AKM, bool BKN>
 void launch_bf16(const void* a, const void* b, const void* bias, const float* r, void* c,
-                 int M, int N, int K, int kchunk, int splits, cudaStream_t st) {
+                 int M, int N, int K, int kchunk, int splits, bool gelu, cudaStream_t st) {
   dim3 grid((N + GN - 1) / GN, (M + GM - 1) / GM, splits);
   // 16-byte vectors need the stored rows' contiguous extent to be a multiple of 8.
   const bool vec_a = (AKM ? M : K) % 8 == 0 && (kchunk % 8 == 0 || AKM);
   const bool vec_b = (BKN ? N : K) % 8 == 0 && (kchunk % 8 == 0 || BKN);
   gemm_bf16_wmma<TO, AKM, BKN><<<grid, G_THREADS, 0, st>>>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-      static_cast<const bf16*>(bias), r, static_cast<TO*>(c), M, N, K, kchunk, vec_a, vec_b);
+      static_cast<const bf16*>(bias), r, static_cast<TO*>(c), M, N, K, kchunk, gelu, vec_a,
+      vec_b);
 }
 
 template <typename TO>
 int dispatch_bf16(int a_km, int b_kn, const void* a, const void* b, const void* bias,
                   const float* r, void* c, int M, int N, int K, int kchunk, int splits,
-                  cudaStream_t st) {
-  if (!a_km && !b_kn) launch_bf16<TO, false, false>(a, b, bias, r, c, M, N, K, kchunk, splits, st);
-  else if (!a_km && b_kn) launch_bf16<TO, false, true>(a, b, bias, r, c, M, N, K, kchunk, splits, st);
-  else if (a_km && b_kn) launch_bf16<TO, true, true>(a, b, bias, r, c, M, N, K, kchunk, splits, st);
-  else launch_bf16<TO, true, false>(a, b, bias, r, c, M, N, K, kchunk, splits, st);
+                  bool gelu, cudaStream_t st) {
+  if (!a_km && !b_kn) launch_bf16<TO, false, false>(a, b, bias, r, c, M, N, K, kchunk, splits, gelu, st);
+  else if (!a_km && b_kn) launch_bf16<TO, false, true>(a, b, bias, r, c, M, N, K, kchunk, splits, gelu, st);
+  else if (a_km && b_kn) launch_bf16<TO, true, true>(a, b, bias, r, c, M, N, K, kchunk, splits, gelu, st);
+  else launch_bf16<TO, true, false>(a, b, bias, r, c, M, N, K, kchunk, splits, gelu, st);
   return 0;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (A, B, bias; R is always f32). out_f32:
-// C is f32, otherwise dtype. splits > 1: split-K over `work` (f32
-// [splits, M, N]); then C must be f32 and bias and R null.
+// C is f32, otherwise dtype. gelu: the exact GELU after the bias. splits >
+// 1: split-K over `work` (f32 [splits, M, N]); then C must be f32, bias and
+// R null and gelu 0.
 extern "C" int mdm_gemm(const void* a, const void* b, const void* bias, const void* r, void* c,
                         void* work, int M, int N, int K, int a_km, int b_kn, int dtype,
-                        int out_f32, int splits, void* stream) {
+                        int out_f32, int splits, int gelu, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
-  if (splits > 1 && (!out_f32 || bias || r || !work)) return (int)cudaErrorInvalidValue;
+  if (splits > 1 && (!out_f32 || bias || r || gelu || !work)) return (int)cudaErrorInvalidValue;
   const int kchunk = splits > 1 ? ((K + splits - 1) / splits + GK - 1) / GK * GK : K;
   void* dst = splits > 1 ? work : c;
   const float* rr = static_cast<const float*>(r);
   if (dtype == 1) {
-    if (out_f32) dispatch_bf16<float>(a_km, b_kn, a, b, bias, rr, dst, M, N, K, kchunk, splits, st);
-    else dispatch_bf16<bf16>(a_km, b_kn, a, b, bias, rr, dst, M, N, K, kchunk, splits, st);
+    if (out_f32) dispatch_bf16<float>(a_km, b_kn, a, b, bias, rr, dst, M, N, K, kchunk, splits, gelu, st);
+    else dispatch_bf16<bf16>(a_km, b_kn, a, b, bias, rr, dst, M, N, K, kchunk, splits, gelu, st);
   } else if (dtype == 0) {
     dim3 grid((N + FN - 1) / FN, (M + FM - 1) / FM, splits);
     const float *A = static_cast<const float*>(a), *B = static_cast<const float*>(b);
     const float* bs = static_cast<const float*>(bias);
     float* C = static_cast<float*>(dst);
-    if (!a_km && !b_kn) gemm_f32_fma<false, false><<<grid, 256, 0, st>>>(A, B, bs, rr, C, M, N, K, kchunk);
-    else if (!a_km && b_kn) gemm_f32_fma<false, true><<<grid, 256, 0, st>>>(A, B, bs, rr, C, M, N, K, kchunk);
-    else if (a_km && b_kn) gemm_f32_fma<true, true><<<grid, 256, 0, st>>>(A, B, bs, rr, C, M, N, K, kchunk);
-    else gemm_f32_fma<true, false><<<grid, 256, 0, st>>>(A, B, bs, rr, C, M, N, K, kchunk);
+    if (!a_km && !b_kn) gemm_f32_fma<false, false><<<grid, 256, 0, st>>>(A, B, bs, rr, C, M, N, K, kchunk, gelu);
+    else if (!a_km && b_kn) gemm_f32_fma<false, true><<<grid, 256, 0, st>>>(A, B, bs, rr, C, M, N, K, kchunk, gelu);
+    else if (a_km && b_kn) gemm_f32_fma<true, true><<<grid, 256, 0, st>>>(A, B, bs, rr, C, M, N, K, kchunk, gelu);
+    else gemm_f32_fma<true, false><<<grid, 256, 0, st>>>(A, B, bs, rr, C, M, N, K, kchunk, gelu);
   } else {
     return (int)cudaErrorInvalidValue;
   }

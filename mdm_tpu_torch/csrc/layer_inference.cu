@@ -8,13 +8,16 @@
 // here as a short chain of kernels that pass activations through device
 // memory (L2 at these sizes):
 //
-//   gemm_bias_act        qkv  = x . Wqkv^T + b                 (dt)
+//   gemm (gemm.cu)       qkv  = x . Wqkv^T + b                 (dt)
 //   attention_rowmask    ctx  = softmax(q k^T / sqrt(Dh) + m) v (dt)
-//   gemm_bias_act        attn = ctx . Wo^T + bo                 (dt)
+//   gemm                 attn = ctx . Wo^T + bo                 (dt)
 //   residual_layernorm   y    = LN1(x + attn)                   (dt and f32)
-//   gemm_bias_act        h    = gelu(y . W1^T + b1)             (dt)
-//   gemm_bias_act        o    = h . W2^T + b2                   (f32)
+//   gemm, GELU epilogue  h    = gelu(y . W1^T + b1)             (dt)
+//   gemm                 o    = h . W2^T + b2                   (f32)
 //   residual_layernorm   z    = LN2(y32 + o)                    (dt)
+//
+// The products are gemm.cu's, shared with the training chains; this file
+// holds the layer's attention and residual LayerNorm.
 //
 // Precision contract (the TPU kernel's): products accumulate in f32; values
 // are rounded to the working type dt only at q/k/v, P, ctx, attn, y, the
@@ -33,212 +36,21 @@
 // Every entry point has a plain C interface (bound with ctypes) and returns
 // cudaGetLastError() right after its launch.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <mma.h>
 
+#include "common.cuh"
+
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using mdm::bf16;
+using mdm::cp_async16;
+using mdm::cp_async_commit;
+using mdm::cp_async_wait;
+using mdm::from_f;
+using mdm::to_f;
+using mdm::warp_max;
+using mdm::warp_sum;
 
 namespace {
-
-constexpr float kLnEps = 1e-5f;
-constexpr float kInvSqrt2 = 0.70710678118654752f;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float gelu_exact(float u) {
-  return u * 0.5f * (1.0f + erff(u * kInvSqrt2));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// 16-byte asynchronous copy global -> shared; src_bytes == 0 zero-fills.
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src,
-                                           int src_bytes) {
-  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem_src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// ---------------------------------------------------------------- GEMM, bf16
-// C[M,N] = act(A[M,K] . W[N,K]^T + bias[N]); A, W, bias bf16, f32 accumulate.
-// Block tile 128x64x32, 8 warps in a 4x2 grid, each warp 32x32 (2x2 WMMA
-// 16x16x16 fragments). Requires K % 8 == 0 (16-byte rows); M, N and K are
-// otherwise ragged and masked here.
-constexpr int GB_M = 128, GB_N = 64, GB_K = 32;
-constexpr int G_LDS = GB_K + 8;  // bf16 per shared row: keeps 32-byte fragment alignment
-constexpr int G_LDC = GB_N + 4;  // f32 per staging row
-constexpr int G_THREADS = 256;
-constexpr int G_SMEM_AB = 2 * (GB_M + GB_N) * G_LDS * 2;
-constexpr int G_SMEM_C = GB_M * G_LDC * 4;
-constexpr int G_SMEM = G_SMEM_AB > G_SMEM_C ? G_SMEM_AB : G_SMEM_C;
-
-template <typename TO, bool GELU>
-__global__ void __launch_bounds__(G_THREADS)
-gemm_bf16_wmma(const bf16* __restrict__ A, const bf16* __restrict__ W,
-               const bf16* __restrict__ bias, TO* __restrict__ C, int M, int N,
-               int K) {
-  __shared__ __align__(128) unsigned char smem[G_SMEM];
-  bf16* As = reinterpret_cast<bf16*>(smem);        // [2][GB_M][G_LDS]
-  bf16* Bs = As + 2 * GB_M * G_LDS;                // [2][GB_N][G_LDS]
-  float* Cs = reinterpret_cast<float*>(smem);      // [GB_M][G_LDC], after the K loop
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
-
-  auto load_tile = [&](int stage, int k0) {
-    bf16* as = As + stage * GB_M * G_LDS;
-    bf16* bs = Bs + stage * GB_N * G_LDS;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // A: 128 rows x 4 vectors of 8
-      int v = tid + i * G_THREADS;
-      int r = v >> 2, c = (v & 3) * 8;
-      int gr = m0 + r, gc = k0 + c;
-      bool ok = gr < M && gc < K;
-      cp_async16(as + r * G_LDS + c, ok ? A + (size_t)gr * K + gc : A, ok ? 16 : 0);
-    }
-    {  // W: 64 rows x 4 vectors of 8
-      int r = tid >> 2, c = (tid & 3) * 8;
-      int gr = n0 + r, gc = k0 + c;
-      bool ok = gr < N && gc < K;
-      cp_async16(bs + r * G_LDS + c, ok ? W + (size_t)gr * K + gc : W, ok ? 16 : 0);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int nk = (K + GB_K - 1) / GB_K;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load_tile((kt + 1) & 1, (kt + 1) * GB_K);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* as = As + (kt & 1) * GB_M * G_LDS;
-    const bf16* bs = Bs + (kt & 1) * GB_N * G_LDS;
-#pragma unroll
-    for (int kk = 0; kk < GB_K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wm * 32 + i * 16) * G_LDS + kk, G_LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], bs + (wn * 32 + j * 16) * G_LDS + kk, G_LDS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * G_LDC + wn * 32 + j * 16,
-                              acc[i][j], G_LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < GB_M * GB_N; idx += G_THREADS) {
-    int r = idx / GB_N, c = idx % GB_N;
-    int gr = m0 + r, gc = n0 + c;
-    if (gr < M && gc < N) {
-      float v = Cs[r * G_LDC + c] + to_f(bias[gc]);
-      if (GELU) v = gelu_exact(v);
-      C[(size_t)gr * N + gc] = from_f<TO>(v);
-    }
-  }
-}
-
-// ----------------------------------------------------------------- GEMM, f32
-// The float32 path (compute_dtype="float32"): plain FMA, 64x64x16 tiles,
-// 256 threads with a 4x4 register block each. Fully ragged.
-constexpr int FB_M = 64, FB_N = 64, FB_K = 16;
-
-template <bool GELU>
-__global__ void __launch_bounds__(256)
-gemm_f32_fma(const float* __restrict__ A, const float* __restrict__ W,
-             const float* __restrict__ bias, float* __restrict__ C, int M, int N,
-             int K) {
-  __shared__ float As[FB_K][FB_M + 4];
-  __shared__ float Ws[FB_K][FB_N + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * FB_M, n0 = blockIdx.x * FB_N;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += FB_K) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int v = tid + i * 256;
-      int r = v / FB_K, c = v % FB_K;
-      int gk = k0 + c;
-      As[c][r] = (m0 + r < M && gk < K) ? A[(size_t)(m0 + r) * K + gk] : 0.0f;
-      Ws[c][r] = (n0 + r < N && gk < K) ? W[(size_t)(n0 + r) * K + gk] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FB_K; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ws[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int gr = m0 + ty * 4 + i;
-    if (gr >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int gc = n0 + tx * 4 + j;
-      if (gc < N) {
-        float v = acc[i][j] + bias[gc];
-        if (GELU) v = gelu_exact(v);
-        C[(size_t)gr * N + gc] = v;
-      }
-    }
-  }
-}
 
 // ------------------------------------------------------ attention, bf16 WMMA
 // qkv [B*S, 3D] (q | k | v, head h at columns h*DH), mask [B, S] additive f32
@@ -476,22 +288,13 @@ residual_layernorm(const TI* __restrict__ a, const TI* __restrict__ r,
   sq = warp_sum(sq);
   const float mu = sum / D;
   const float var = sq / D - mu * mu;
-  const float rstd = rsqrtf(var + kLnEps);
+  const float rstd = rsqrtf(var + mdm::kLnEps);
   for (int c = lane; c < D; c += 32) {
     float s = to_f(a[off + c]) + to_f(r[off + c]);
     float v = (s - mu) * rstd * to_f(g[c]) + to_f(beta[c]);
     out[off + c] = from_f<T>(v);
     if (out32) out32[off + c] = v;
   }
-}
-
-template <typename TO, bool GELU>
-void launch_gemm_bf16(const void* a, const void* w, const void* bias, void* c, int M,
-                      int N, int K, cudaStream_t st) {
-  dim3 grid((N + GB_N - 1) / GB_N, (M + GB_M - 1) / GB_M);
-  gemm_bf16_wmma<TO, GELU><<<grid, G_THREADS, 0, st>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(bias), static_cast<TO*>(c), M, N, K);
 }
 
 template <int DH>
@@ -519,36 +322,6 @@ extern "C" const char* mdm_error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Pointers are device pointers.
-extern "C" int mdm_gemm_bias_act(const void* a, const void* w, const void* bias, void* c,
-                                 int M, int N, int K, int dtype, int out_f32, int gelu,
-                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    dim3 grid((N + FB_N - 1) / FB_N, (M + FB_M - 1) / FB_M);
-    const float* A = static_cast<const float*>(a);
-    const float* Wp = static_cast<const float*>(w);
-    const float* bp = static_cast<const float*>(bias);
-    float* Cp = static_cast<float*>(c);
-    if (gelu)
-      gemm_f32_fma<true><<<grid, 256, 0, st>>>(A, Wp, bp, Cp, M, N, K);
-    else
-      gemm_f32_fma<false><<<grid, 256, 0, st>>>(A, Wp, bp, Cp, M, N, K);
-  } else if (dtype == 1) {
-    if (K % 8 != 0) return (int)cudaErrorInvalidValue;
-    if (out_f32) {
-      if (gelu) launch_gemm_bf16<float, true>(a, w, bias, c, M, N, K, st);
-      else launch_gemm_bf16<float, false>(a, w, bias, c, M, N, K, st);
-    } else {
-      if (gelu) launch_gemm_bf16<bf16, true>(a, w, bias, c, M, N, K, st);
-      else launch_gemm_bf16<bf16, false>(a, w, bias, c, M, N, K, st);
-    }
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
 extern "C" int mdm_attention_rowmask(const void* qkv, const void* mask, void* ctx, int B,
                                      int S, int H, int Dh, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -32,10 +32,9 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _DROP = [_P, _I, _U, _F, _I]  # bits, seed, threshold, 1/(1-rate), mode (philox.cuh::Dropout)
 # name -> argtypes of each exported C function; every one returns a cudaError_t.
 SIGNATURES = {
-    "mdm_gemm_bias_act": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mdm_attention_rowmask": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mdm_residual_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "mdm_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mdm_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mdm_colsum": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mdm_attn_train_fwd": [_P, _P, *_DROP, _P, _I, _I, _I, _I, _I, _P],
     "mdm_attn_train_bwd": [_P, _P, *_DROP, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

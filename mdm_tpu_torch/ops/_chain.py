@@ -1,6 +1,7 @@
-"""Launch helpers shared by the training kernel chains (attention_train_block,
-encoder_tail): operand preparation, the products and column sums of
-``csrc/gemm.cu``, and the dropout arguments of ``csrc/philox.cuh``.
+"""Launch helpers shared by the kernel chains (layer_inference,
+attention_train_block, encoder_tail): operand preparation, the products and
+column sums of ``csrc/gemm.cu``, and the dropout arguments of
+``csrc/philox.cuh``.
 
 Every helper launches asynchronously on the tensor's current stream,
 allocates its outputs with ``torch.empty`` and raises on a nonzero
@@ -72,8 +73,9 @@ def splits_for(m: int, n: int, k: int) -> int:
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, a_km: bool = False, b_kn: bool = False,
          bias: Optional[torch.Tensor] = None, r: Optional[torch.Tensor] = None,
-         out_f32: bool = False, splits: int = 1) -> torch.Tensor:
-    """C = op(A) . op(B) (+ bias) (+ r), f32 accumulation (csrc/gemm.cu).
+         out_f32: bool = False, gelu: bool = False, splits: int = 1) -> torch.Tensor:
+    """C = act(op(A) . op(B) (+ bias)) (+ r), f32 accumulation (csrc/gemm.cu);
+    act is the exact GELU when gelu, else the identity.
 
     op(A) is A [M, K], or A^T when a_km (A stored [K, M]); op(B) is B^T for
     a torch weight B [N, K], or B itself when b_kn (B stored [K, N]). C is
@@ -89,7 +91,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, a_km: bool = False, b_kn: bool = F
     lib = _build.load_library()
     _build.check(lib.mdm_gemm(ptr(a), ptr(b), ptr(bias), ptr(r), ptr(out), ptr(work), M, N, K,
                               int(a_km), int(b_kn), DTYPES[a.dtype], int(out_f32), splits,
-                              stream(a)), "gemm")
+                              int(gelu), stream(a)), "gemm")
     return out
 
 

@@ -4,14 +4,16 @@ Replaces mdm_tpu/ops/layer_inference.py::fused_layer_inference, the Pallas
 kernel that runs a layer as one program per batch cell with every weight
 resident in VMEM. A flagship layer's ~4.2 MB of bf16 weights do not fit in
 an SM's shared memory, so the layer here is seven launches of the
-hand-written kernels in ``mdm_tpu_torch/csrc/layer_inference.cu``:
+hand-written kernels in ``mdm_tpu_torch/csrc/``: the products of
+``gemm.cu`` (shared with the training chains), the attention and
+LayerNorm of ``layer_inference.cu``:
 
-    qkv  = x . Wqkv^T + bqkv          gemm_bias_act        (dt)
+    qkv  = x . Wqkv^T + bqkv          gemm                 (dt)
     ctx  = softmax(qk^T/sqrt(Dh)+m) v attention_rowmask    (dt)
-    attn = ctx . Wo^T + bo            gemm_bias_act        (dt)
+    attn = ctx . Wo^T + bo            gemm                 (dt)
     y    = LN1(x + attn)              residual_layernorm   (dt, and y32 in f32)
-    h    = gelu(y . W1^T + b1)        gemm_bias_act        (dt)
-    o    = h . W2^T + b2              gemm_bias_act        (f32)
+    h    = gelu(y . W1^T + b1)        gemm, GELU epilogue  (dt)
+    o    = h . W2^T + b2              gemm                 (f32)
     z    = LN2(y32 + o)               residual_layernorm   (dt)
 
 What bounds it on an H100, and what the design does about it:
@@ -45,7 +47,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._chain import DTYPES, HEAD_DIMS, dev
+from ._chain import DTYPES, HEAD_DIMS, dev, ptr, stream
 from ._mask import row_bias_contrib
 from .attention_train_block import train_attention_block_reference
 from .encoder_tail import encoder_tail_reference
@@ -136,18 +138,21 @@ def fused_layer_inference(
         empty = lambda n, t=dt: torch.empty((M, n), dtype=t, device=x.device)
         qkv, ctx, attn, y, h, z = empty(3 * D), empty(D), empty(D), empty(D), empty(F), empty(D)
         y32, o = empty(D, torch.float32), empty(D, torch.float32)
-        st = torch.cuda.current_stream(x.device).cuda_stream
-        p = lambda t: None if t is None else t.data_ptr()
-        gemm = lib.mdm_gemm_bias_act
-        _build.check(gemm(p(xs), p(wqkv), p(bqkv), p(qkv), M, 3 * D, D, code, 0, 0, st), "qkv gemm")
-        _build.check(lib.mdm_attention_rowmask(p(qkv), p(mask), p(ctx), B, S, num_heads,
+        st = stream(x)
+
+        def gemm(a, w, b, c, n, k, out_f32=0, gelu=0):  # c = act(a . w^T + b), csrc/gemm.cu
+            _build.check(lib.mdm_gemm(ptr(a), ptr(w), ptr(b), None, ptr(c), None, M, n, k, 0, 0,
+                                      code, out_f32, 1, gelu, st), "gemm")
+
+        gemm(xs, wqkv, bqkv, qkv, 3 * D, D)
+        _build.check(lib.mdm_attention_rowmask(ptr(qkv), ptr(mask), ptr(ctx), B, S, num_heads,
                                                D // num_heads, code, st), "attention")
-        _build.check(gemm(p(ctx), p(wo), p(bo), p(attn), M, D, D, code, 0, 0, st), "out_proj gemm")
-        _build.check(lib.mdm_residual_layernorm(p(xs), p(attn), p(g1), p(bl1), p(y), p(y32),
-                                                M, D, code, 0, st), "norm1")
-        _build.check(gemm(p(y), p(w1), p(b1), p(h), M, F, D, code, 0, 1, st), "linear1 gemm")
-        _build.check(gemm(p(h), p(w2), p(b2), p(o), M, D, F, code, 1, 0, st), "linear2 gemm")
-        _build.check(lib.mdm_residual_layernorm(p(y32), p(o), p(g2), p(bl2), p(z), None,
+        gemm(ctx, wo, bo, attn, D, D)
+        _build.check(lib.mdm_residual_layernorm(ptr(xs), ptr(attn), ptr(g1), ptr(bl1), ptr(y),
+                                                ptr(y32), M, D, code, 0, st), "norm1")
+        gemm(y, w1, b1, h, F, D, gelu=1)
+        gemm(h, w2, b2, o, D, F, out_f32=1)
+        _build.check(lib.mdm_residual_layernorm(ptr(y32), ptr(o), ptr(g2), ptr(bl2), ptr(z), None,
                                                 M, D, code, 1, st), "norm2")
     LAUNCHES += 1
     return z.view(B, S, D)
