@@ -14,9 +14,19 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   training layer shape; the in-kernel Philox dropout against the injected
   bits of the two dump kernels; three train steps on the card against the
   CPU; 30 flagship train steps (B=128, T=196, dropout 0.1) through
-  make_train_step, timed; and a TrainLoop resume that must be bit exact.
+  make_train_step, timed; and a TrainLoop resume that must be bit exact;
+- the opt-in attention routes (phases 9-11): kernels #7/#8, #10, #11 and
+  #12 against their plain versions, #7/#8's in-kernel Philox against
+  dumped bits; #10 and #12 called as direct entry points; the sampling
+  shootout's ``pallas`` variant (v2 attention + fused tail) through
+  MotionGenerator.generate at B=32 x 50 steps, and its ``block``/``tail``
+  variants; the training shootout's ``drop`` variant (dropout attention
+  kernel + the plain tail), 30 flagship steps, timed.
 
-Each path checks that every layer call went through its kernels.
+Each path checks that every layer call went through its kernels. Each
+kernel's line carries its bound: the larger of its bytes (each input read
+once, each output written once) over 3.35 TB/s and its FLOPs over 989
+TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak.
 
 Run from the repository root, with one CUDA device:  python3 chip_smoke.py
 The last line of its output is {"ok": true, "device": {...}}; the line
@@ -47,10 +57,11 @@ TRAIN_REL = {"bfloat16": 2 ** -5, "float32": 1e-5}
 ZERO_IN_EXACT = ("dbk",)  # gradients that are zero in exact arithmetic (see _split_qkv)
 TRAIN_SHAPE = dict(B=128, S=197, D=512, H=4, F=1024)  # S = 1 condition token + 196 frames
 RATE = 0.1
+ATTENTION_SOURCE = "mdm_tpu_torch/csrc/attention.cu"
 TRAIN_KERNELS = {  # name -> (source, TPU kernel it replaces)
-    "fused_train_attention_block.forward": ("mdm_tpu_torch/csrc/attention_train_block.cu",
+    "fused_train_attention_block.forward": (ATTENTION_SOURCE,
                                             "mdm_tpu/ops/attention_train_block.py:286"),
-    "fused_train_attention_block.backward": ("mdm_tpu_torch/csrc/attention_train_block.cu",
+    "fused_train_attention_block.backward": (ATTENTION_SOURCE,
                                              "mdm_tpu/ops/attention_train_block.py:334"),
     "fused_encoder_tail.forward": ("mdm_tpu_torch/csrc/encoder_tail.cu",
                                    "mdm_tpu/ops/encoder_tail.py:309"),
@@ -59,6 +70,20 @@ TRAIN_KERNELS = {  # name -> (source, TPU kernel it replaces)
     "dropout_bits": ("mdm_tpu_torch/csrc/dropout_bits.cu", "mdm_tpu/ops/attention_dropout.py:237"),
     "tail_dropout_bits": ("mdm_tpu_torch/csrc/dropout_bits.cu", "mdm_tpu/ops/encoder_tail.py:463"),
 }
+ATTN_SHAPE = dict(B=64, S=197, D=512, H=4)  # sampling attention: CFG batch 2 x 32, 1 + 196 tokens
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (on-chip-measurement guide)
+BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
+
+
+def bound(flops, nbytes):
+    """(least ms, what bounds it): bytes over the HBM rate or FLOPs over the
+    bf16 peak, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def _layer_inputs(torch, B, S, D, F, dtype, mask, seed=0):
@@ -511,6 +536,379 @@ def phase_flagship_train(torch, TB, ET, dev):
     return launches, step_ms
 
 
+def compare_forward(torch, name, kernel, plain, rel, timed=False):
+    """A forward-only kernel against its plain version on the same inputs;
+    times both in turns (plain, kernel, kernel, plain) when asked."""
+    with torch.no_grad():
+        out = kernel()
+        torch.cuda.synchronize()
+        err, rel_err = _rel_check(torch, name, out, plain(), rel)
+        row = dict(max_abs_err=err, rel_err=rel_err, rel_tol=rel)
+        if timed:
+            p1, k1, k2, p2 = (_time_ms(torch, f) for f in (plain, kernel, kernel, plain))
+            row.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+    print("attention kernel", name, json.dumps(row))
+    return row
+
+
+def _heads(t, H):
+    """[B, S, D] -> a [B, H, S, Dh] view."""
+    B, S, D = t.shape
+    return t.view(B, S, H, D // H).transpose(1, 2)
+
+
+def _ragged_mask(torch, B, S):
+    kpm = torch.zeros(B, S, dtype=torch.bool)
+    for b in range(0, B, 3):
+        kpm[b, S - 1 - (7 * b) % (S // 2):] = True
+    return kpm
+
+
+def phase_attention_kernels(torch, dev):
+    """Phase 9: kernels #11, #10, #12 and #7/#8 against their plain versions
+    at the shapes of their paths (bf16) and at a small f32 shape; #7/#8's
+    in-kernel Philox against dumped bits, bitwise. Returns each kernel's
+    row of the kernels line but its launches."""
+    import torch.nn.functional as F
+    from mdm_tpu_torch.ops import attention as A
+    from mdm_tpu_torch.ops import attention_block as AB
+    from mdm_tpu_torch.ops import attention_dropout as AD
+    from mdm_tpu_torch.ops import attention_v2 as V2
+    from mdm_tpu_torch.ops import dropout_bits as DB
+
+    rows = {}
+    bf, f32 = torch.bfloat16, torch.float32
+    rel_bf, rel_f32 = TRAIN_REL["bfloat16"], TRAIN_REL["float32"]
+    g = torch.Generator().manual_seed(0)
+    r = lambda *shape, sc=1.0, dt=bf: (_randn(torch, g, *shape, sc=sc)).to(dt).to(dev)
+    bias_of = lambda kpm, dt: torch.where(kpm, -1e9, 0.0).to(dt)[:, None, None, :]
+
+    def lib_ms(fn):
+        with torch.no_grad():
+            return _time_ms(torch, fn)
+
+    # #11 at the sampling attention shape, no mask and the ragged bool mask.
+    B, S, D, H = (ATTN_SHAPE[k] for k in ("B", "S", "D", "H"))
+    q, k, v = r(B, S, D), r(B, S, D), r(B, S, D)
+    kpm = _ragged_mask(torch, B, S).to(dev)
+    errs = []
+    for mask in (None, kpm):
+        row = compare_forward(torch, f"fused_attention_v2 mask={mask is not None}",
+                              lambda: V2.fused_attention_v2(q, k, v, H, mask),
+                              lambda: V2.attention_v2_reference(q, k, v, H, mask), rel_bf,
+                              timed=mask is not None)
+        errs.append(row["max_abs_err"])
+    qs, ks, vs = r(3, 37, 128, dt=f32), r(3, 37, 128, dt=f32), r(3, 37, 128, dt=f32)
+    frow = r(3, 37, dt=f32)
+    compare_forward(torch, "fused_attention_v2 f32 float row",
+                    lambda: V2.fused_attention_v2(qs, ks, vs, 4, frow),
+                    lambda: V2.attention_v2_reference(qs, ks, vs, 4, frow), rel_f32)
+    out_bytes = B * S * D * 4
+    rows["fused_attention_v2"] = dict(
+        row, max_abs_err=max(errs),
+        library_ms=lib_ms(lambda: F.scaled_dot_product_attention(
+            _heads(q, H), _heads(k, H), _heads(v, H), attn_mask=bias_of(kpm, bf))),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(4 * B * S * S * D, nbytes(q, k, v, kpm) + out_bytes))))
+
+    # #10 on [B, H, S, Dh]: no bias, the ragged mask's row, a full per-head bias.
+    qh, kh, vh = (_heads(t, H).contiguous() for t in (q, k, v))
+    full = r(B, H, S, S, dt=f32)
+    errs = []
+    for name, bias in (("none", None), ("row", bias_of(kpm, f32)), ("per-head", full)):
+        row = compare_forward(torch, f"fused_attention bias={name}",
+                              lambda: A.fused_attention(qh, kh, vh, bias),
+                              lambda: A.xla_attention(qh, kh, vh, bias), rel_bf,
+                              timed=name == "per-head")
+        errs.append(row["max_abs_err"])
+    qs4, ks4, vs4 = (_heads(t, 4).contiguous() for t in (qs, ks, vs))
+    fs = r(3, 1, 37, 37, dt=f32)
+    compare_forward(torch, "fused_attention f32 shared full bias",
+                    lambda: A.fused_attention(qs4, ks4, vs4, fs),
+                    lambda: A.xla_attention(qs4, ks4, vs4, fs), rel_f32)
+    full_bf = full.to(bf)
+    rows["fused_attention"] = dict(
+        row, max_abs_err=max(errs),
+        library_ms=lib_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=full_bf)),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(4 * B * S * S * D, nbytes(qh, kh, vh, full) + out_bytes))))
+
+    # #12 at the sampling shape, bool mask; and small f32.
+    x = r(B, S, D)
+    ws = [t for _ in range(4) for t in (r(D, D, sc=D ** -0.5), r(D, sc=0.1))]
+    row = compare_forward(torch, "fused_attention_block",
+                          lambda: AB.fused_attention_block(x, *ws, H, kpm),
+                          lambda: AB.attention_block_reference(x, *ws, H, kpm), rel_bf,
+                          timed=True)
+    xs = r(3, 37, 128, dt=f32)
+    wss = [t for _ in range(4) for t in (r(128, 128, sc=128 ** -0.5, dt=f32),
+                                         r(128, sc=0.1, dt=f32))]
+    kpm_s = _ragged_mask(torch, 3, 37).to(dev)
+    compare_forward(torch, "fused_attention_block f32",
+                    lambda: AB.fused_attention_block(xs, *wss, 4, kpm_s),
+                    lambda: AB.attention_block_reference(xs, *wss, 4, kpm_s), rel_f32)
+    M = B * S
+    rows["fused_attention_block"] = dict(
+        row, library_ms=None,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(8 * M * D * D + 4 * B * S * S * D, nbytes(x, *ws, kpm, x)))))
+
+    # #7/#8 at the flagship training shape, injected bits; small f32.
+    B, S, D, H = (TRAIN_SHAPE[k] for k in ("B", "S", "D", "H"))
+    _, dout, bits, kpm = _block_operands(torch, B, S, D, H, bf, "bool")
+    q, k, v = r(B, S, D), r(B, S, D), r(B, S, D)
+    dout = dout.float()
+    chain = compare_train_chain(
+        torch, "dropout attention",
+        lambda *o: AD.fused_dropout_attention(*o, H, RATE, 0, kpm, bits),
+        lambda: AD.dropout_attention_reference(q, k, v, H, RATE, bits, kpm),
+        lambda: AD.dropout_attention_bwd_reference(q, k, v, H, dout, RATE, bits, kpm),
+        [q, k, v], dout, bf, ["dq", "dk", "dv"])
+    _, dos, bits_s, frow = _block_operands(torch, 3, 37, 128, 4, f32, "float")
+    qs, ks, vs = r(3, 37, 128, dt=f32), r(3, 37, 128, dt=f32), r(3, 37, 128, dt=f32)
+    compare_train_chain(
+        torch, "dropout attention f32",
+        lambda *o: AD.fused_dropout_attention(*o, 4, RATE, 0, frow, bits_s),
+        lambda: AD.dropout_attention_reference(qs, ks, vs, 4, RATE, bits_s, frow),
+        lambda: AD.dropout_attention_bwd_reference(qs, ks, vs, 4, dos, RATE, bits_s, frow),
+        [qs, ks, vs], dos, f32, ["dq", "dk", "dv"], timed=False)
+    grads_bytes = 3 * B * S * D * 4
+    sdpa_drop = lambda: F.scaled_dot_product_attention(
+        _heads(q, H), _heads(k, H), _heads(v, H), attn_mask=bias_of(kpm, bf), dropout_p=RATE)
+    for key, name, flops, moved, lib in (
+            ("fwd", "fused_dropout_attention.forward", 4 * B * S * S * D,
+             nbytes(q, k, v, kpm, bits) + B * S * D * 4, lib_ms(sdpa_drop)),
+            ("bwd", "fused_dropout_attention.backward", 8 * B * S * S * D,
+             nbytes(q, k, v, kpm, bits, dout) + grads_bytes, None)):
+        rows[name] = dict(max_abs_err=chain[f"max_abs_err_{key}"], ms=chain[f"{key}_ms"],
+                          plain_ms=chain[f"{key}_plain_ms"], library_ms=lib,
+                          **dict(zip(("bound_ms", "bound_by"), bound(flops, moved))))
+
+    # The in-kernel Philox stream against the dumped bits, bitwise.
+    seed = 20240601
+    dumped = DB.dropout_bits(seed, B, H, S, device=dev)
+    make = lambda b: lambda *o: AD.fused_dropout_attention(*o, H, RATE, seed, kpm, b)
+    out_p, grads_p = _fwd_bwd(torch, make(None), [q, k, v], dout)
+    out_i, grads_i = _fwd_bwd(torch, make(dumped), [q, k, v], dout)
+    _, grads_p2 = _fwd_bwd(torch, make(None), [q, k, v], dout)
+    if not (torch.equal(out_p, out_i) and all(map(torch.equal, grads_p, grads_i))):
+        raise AssertionError("dropout attention: in-kernel Philox differs from the injected dump")
+    if not all(map(torch.equal, grads_p, grads_p2)):
+        raise AssertionError("dropout attention: two backward runs differ")
+    print("dropout attention: Philox == injected bits, bitwise, forward and 3 grads; "
+          "two backward runs bitwise equal")
+    return rows
+
+
+def phase_direct_entries(torch, model, dev):
+    """Phase 9b: #12 and #10 as direct entry points (no model route calls
+    them): each called once per layer of the flagship model, on one
+    activation at the CFG batch with the ragged mask. Returns their
+    launches."""
+    import torch.nn.functional as F
+    from mdm_tpu_torch.ops import attention as A
+    from mdm_tpu_torch.ops import attention_block as AB
+
+    B, S, D, H = (ATTN_SHAPE[k] for k in ("B", "S", "D", "H"))
+    x = _randn(torch, torch.Generator().manual_seed(1), B, S, D).to(torch.bfloat16).to(dev)
+    kpm = _ragged_mask(torch, B, S).to(dev)
+    bias = torch.where(kpm, -1e9, 0.0)[:, None, None, :]
+    A.LAUNCHES = AB.LAUNCHES = 0
+    with torch.no_grad():
+        for layer in model.seqTransEncoder.layers:
+            a = layer.self_attn
+            w, b = a.in_proj_weight.to(x.dtype), a.in_proj_bias.to(x.dtype)
+            jax_layout = [t for i in range(3)
+                          for t in (w[i * D:(i + 1) * D].T, b[i * D:(i + 1) * D])]
+            out = AB.fused_attention_block(x, *jax_layout, a.out_proj.weight.T, a.out_proj.bias,
+                                           H, kpm)
+            q, k, v = (_heads(t, H) for t in F.linear(x, w, b).chunk(3, dim=-1))
+            ctx = A.fused_attention(q, k, v, bias)
+            if not (torch.isfinite(out).all() and torch.isfinite(ctx).all()):
+                raise AssertionError("a direct entry point gave non-finite values")
+    launches = {"fused_attention_block": AB.LAUNCHES, "fused_attention": A.LAUNCHES}
+    n = len(model.seqTransEncoder.layers)
+    if any(c != n for c in launches.values()):
+        raise AssertionError(f"direct entries launched {launches}, expected {n} each")
+    print(f"direct entries, one call per layer of the flagship model: {launches}")
+    return launches
+
+
+def _generate_launches(torch, gen, cond, B, T, dev):
+    """Zero every layer-kernel counter, run one generate, read them."""
+    from mdm_tpu_torch.ops import attention_train_block as TB
+    from mdm_tpu_torch.ops import attention_v2 as V2
+    from mdm_tpu_torch.ops import encoder_tail as ET
+    from mdm_tpu_torch.ops import layer_inference as li
+
+    V2.LAUNCHES = li.LAUNCHES = 0
+    TB.LAUNCHES["fwd"] = ET.LAUNCHES["fwd"] = 0
+    out = gen.generate(cond, B, T, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    joints = out["joints"]
+    if tuple(joints.shape) != (B, T, 22, 3) or not torch.isfinite(joints).all():
+        raise AssertionError(f"bad joints: shape {tuple(joints.shape)}")
+    return {"fused_attention_v2": V2.LAUNCHES,
+            "fused_block_attention_inference": TB.LAUNCHES["fwd"],
+            "fused_encoder_tail_inference": ET.LAUNCHES["fwd"],
+            "fused_layer_inference": li.LAUNCHES}
+
+
+def phase_sampling_variants(torch, dev, layer_s_per_sample):
+    """Phase 10: the sampling shootout's pallas variant (v2 attention, #11,
+    and the rate-0 fused tail) through MotionGenerator.generate at B=32 x 50
+    steps, timed; the block and tail variants at 5 steps; the pallas route
+    on the card against the CPU at a small f32 width."""
+    from mdm_tpu_torch import ops
+    from mdm_tpu_torch.diffusion import Schedule
+    from mdm_tpu_torch.models import MDM, Conditioning, MDMConfig
+    from mdm_tpu_torch.ops import attention_v2 as V2
+    from mdm_tpu_torch.sampling import HashTextEmbedder, MotionGenerator
+    from mdm_tpu_torch.scripts import bench_sample_kernels as BS
+
+    B, T, steps = 32, 196, 50
+    layers = BS.FLAGSHIP.num_layers
+    with ops.pinned(**BS.VARIANTS["pallas"]):
+        gen, cond = BS.make_generator(B, steps, device=dev)
+        launches = _generate_launches(torch, gen, cond, B, T, dev)
+        want = {"fused_attention_v2": layers * steps, "fused_block_attention_inference": 0,
+                "fused_encoder_tail_inference": layers * steps, "fused_layer_inference": 0}
+        if launches != want:
+            raise AssertionError(f"pallas generate launched {launches}, expected {want}")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        gen.generate(cond, B, T, torch.Generator(dev).manual_seed(1))
+        end.record()
+        torch.cuda.synchronize()
+        s_per_sample = start.elapsed_time(end) / 1000 / B
+    print(f"generate pallas variant B={B} T={T} steps={steps} cfg=2.5 bf16: "
+          f"{s_per_sample:.6f} s/sample beside the layer kernel's {layer_s_per_sample:.6f} "
+          f"(phase 3); launches {launches}")
+
+    few = 5
+    for variant, tail in (("block", 0), ("tail", layers * few)):
+        with ops.pinned(**BS.VARIANTS[variant]):
+            gen, cond = BS.make_generator(B, few, device=dev)
+            got = _generate_launches(torch, gen, cond, B, T, dev)
+        want = {"fused_attention_v2": 0, "fused_block_attention_inference": layers * few,
+                "fused_encoder_tail_inference": tail, "fused_layer_inference": 0}
+        if got != want:
+            raise AssertionError(f"{variant} generate launched {got}, expected {want}")
+        print(f"generate {variant} variant, {few} steps: launches {got}")
+
+    small = MDMConfig(latent_dim=128, ff_size=256, num_layers=2, num_heads=4)
+    rng = np.random.default_rng(0)
+    noise = torch.from_numpy(rng.normal(size=(2, 32, 263)).astype(np.float32))
+    step_noise = torch.from_numpy(rng.normal(size=(5, 2, 32, 263)).astype(np.float32))
+    cond = Conditioning(text_embed=torch.from_numpy(HashTextEmbedder()(
+        ["a person walks forward", "a person jumps"])["text_embed"]))
+    V2.LAUNCHES = 0
+    with ops.pinned(**BS.VARIANTS["pallas"]):
+        outs = [MotionGenerator(MDM(small).init_weights(torch.Generator().manual_seed(1)).to(d),
+                                Schedule.create("cosine", 1000, "5"))
+                .generate(cond, 2, 32, noise=noise, step_noise=step_noise)
+                for d in ("cpu", dev)]
+    if V2.LAUNCHES != small.num_layers * 5:  # the card's side only
+        raise AssertionError(f"the small pallas generate launched #11 {V2.LAUNCHES} times")
+    for key, tol in (("features", 1e-4), ("joints", 1e-3)):
+        err = (outs[0][key] - outs[1][key].cpu()).abs().max().item()
+        print(f"pallas route f32 card vs cpu: {key} max abs err {err:.3g} (tolerance {tol})")
+        if not err <= tol:
+            raise AssertionError(f"pallas route on the card disagrees with the CPU: {key} {err}")
+    return launches["fused_attention_v2"], s_per_sample
+
+
+def phase_train_drop(torch, dev, tail_step_ms):
+    """Phase 11: the training shootout's drop variant (the dropout attention
+    kernel #7/#8 between the projections, the plain tail) at the flagship:
+    30 steps, the loss falls, timed; then the encoder's training forward
+    and backward on the card against the CPU at a small f32 width."""
+    from mdm_tpu_torch import ops
+    from mdm_tpu_torch.models.layers import TransformerEncoder, init_weights_
+    from mdm_tpu_torch.ops import attention_dropout as AD
+    from mdm_tpu_torch.ops import attention_train_block as TB
+    from mdm_tpu_torch.ops import encoder_tail as ET
+    from mdm_tpu_torch.scripts import bench_train_kernels as BT
+    from mdm_tpu_torch.train import step_key
+
+    B, steps = 128, 30
+    layers = BT.FLAGSHIP.num_layers
+    with ops.pinned(**BT.VARIANTS["drop"]):
+        state, step, batch = BT.make_trainer(B, dev, lr=1e-3)
+        AD.LAUNCHES.update(fwd=0, bwd=0)
+        for counts in (TB.LAUNCHES, ET.LAUNCHES):
+            counts["fwd"] = counts["bwd"] = 0
+        losses = []
+        for i in range(steps):
+            _, m = step(state, batch, step_key(0, i))
+            losses.append(m["loss"])
+        losses = torch.stack(losses).cpu().numpy()
+        launches = {f"fused_dropout_attention.{d}": AD.LAUNCHES[d] for d in ("fwd", "bwd")}
+        others = [TB.LAUNCHES[d] + ET.LAUNCHES[d] for d in ("fwd", "bwd")]
+        if any(c != layers * steps for c in launches.values()) or any(others):
+            raise AssertionError(f"drop training launched {launches}, block+tail {others}; "
+                                 f"expected {layers * steps} each and none")
+        first, last = losses[:10].mean(), losses[-10:].mean()
+        print(f"flagship train drop variant B={B} bf16 dropout {RATE}, lr 1e-3: loss first 10 "
+              f"{first:.5f}, last 10 {last:.5f}; launches {launches}")
+        if not (np.isfinite(losses).all() and last < first):
+            raise AssertionError(f"the drop variant's loss did not descend: {losses}")
+        for i in range(5):
+            step(state, batch, step_key(1, i))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(20):
+            step(state, batch, step_key(1, 5 + i))
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / 20
+    print(f"train_step_ms_b128_bf16 drop variant: {step_ms:.3f} ms/step beside the AUTO "
+          f"route's {tail_step_ms:.3f} (phase 8; CUDA events, 20 steps after 5 warm)")
+
+    # The step's sequence dropout draws from the device's own generator, so
+    # the card and the CPU compare the layers, whose masks are Philox.
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(4, 33, 128)).astype(np.float32))
+    pad = torch.zeros(4, 33, dtype=torch.bool)
+    pad[1, 20:] = True
+    dy = torch.from_numpy(rng.normal(size=(4, 33, 128)).astype(np.float32))
+    sides = []
+    AD.LAUNCHES.update(fwd=0, bwd=0)
+    with ops.pinned(**BT.VARIANTS["drop"]):
+        for d in ("cpu", dev):
+            enc = TransformerEncoder(128, 4, 256, 2, dropout=RATE)
+            init_weights_(enc, torch.Generator().manual_seed(4))
+            enc = enc.to(d)
+            out = enc(x.to(d), pad.to(d), deterministic=False,
+                      rng=torch.Generator().manual_seed(8))
+            out.backward(dy.to(d))
+            sides.append([("out", out.detach().cpu())]
+                         + [(n, p.grad.cpu()) for n, p in enc.named_parameters()])
+    if AD.LAUNCHES != {"fwd": 2, "bwd": 2}:  # two layers, the card's side only
+        raise AssertionError(f"the small drop encoder launched #7/#8 {AD.LAUNCHES}")
+    worst = 0.0
+    for (name, want), (_, got) in zip(*sides):
+        rel = ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, rel)
+        if not rel <= 2e-5:
+            raise AssertionError(f"drop route card vs cpu: {name} {rel:.3g} of its largest value")
+    print(f"drop route f32 card vs cpu, encoder forward + backward (2 layers, rate {RATE}): "
+          f"output and {len(sides[0]) - 1} gradients within {worst:.3g} of their largest "
+          f"values (tolerance 2e-5)")
+    return launches, step_ms
+
+
+def library_layer_ms(torch, dev):
+    """One nn.TransformerEncoderLayer forward (its fast path: eval, no grad)
+    at the sampling layer shape, bf16: kernel #1's library yardstick."""
+    D, F, H = FLAGSHIP["latent_dim"], FLAGSHIP["ff_size"], FLAGSHIP["num_heads"]
+    layer = torch.nn.TransformerEncoderLayer(D, H, F, dropout=0.0, activation="gelu",
+                                             batch_first=True).to(dev, torch.bfloat16).eval()
+    x = torch.randn(64, 197, D, device=dev, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        return _time_ms(torch, lambda: layer(x))
+
+
 def main():
     import torch
 
@@ -630,10 +1028,16 @@ def main():
         raise AssertionError(f"main path launched the layer kernels {launches} times, "
                              f"expected {expected}")
 
+    M = 64 * 197  # the timed layer: CFG batch 64, bf16, no mask
+    layer_bytes = 2 * (2 * M * D + 4 * D * D + 2 * D * F + 9 * D + F)
     kernels = [dict(name="fused_layer_inference", route="cuda", source=KERNEL_SOURCE,
                     replaces=REPLACES, launches=launches,
                     max_abs_err=max(r["max_abs_err"] for r in flagship),
-                    ms=flagship[0]["ms"], plain_ms=flagship[0]["plain_ms"], path="sampling")]
+                    ms=flagship[0]["ms"], plain_ms=flagship[0]["plain_ms"],
+                    library_ms=library_layer_ms(torch, dev), path="sampling",
+                    **dict(zip(("bound_ms", "bound_by"),
+                               bound(2 * M * (4 * D * D + 2 * D * F) + 4 * 64 * 197 ** 2 * D,
+                                     layer_bytes))))]
 
     # Phase 5: the training chains against their plain versions, at the
     # flagship training layer shape (bool mask with ragged rows) and at a
@@ -654,18 +1058,65 @@ def main():
     # Phase 8: flagship training (the training path's launch counts).
     train_launches, step_ms = phase_flagship_train(torch, TB, ET, dev)
 
+    # Phases 9-11: the opt-in attention routes. Phase 9's comparisons are
+    # not counted; #10 and #12 are counted over their direct-entry calls,
+    # #11 over the pallas generate and #7/#8 over the drop training.
+    attention = phase_attention_kernels(torch, dev)
+    direct = phase_direct_entries(torch, model, dev)
+    v2_launches, pallas_s = phase_sampling_variants(torch, dev, gen_ms / 1000 / B)
+    drop_launches, drop_ms = phase_train_drop(torch, dev, step_ms)
+
+    # Phase 5's timed shapes (bf16, bool mask, injected bits), analytically.
+    Bt, St, Dt, Ht, Ft = (TRAIN_SHAPE[k] for k in ("B", "S", "D", "H", "F"))
+    Mt = Bt * St
+    bits_b, mask_b = 4 * Bt * Ht * St * St, Bt * St
+    block_w = 2 * (4 * Dt * Dt + 4 * Dt)
+    tail_w = 2 * (2 * Dt * Ft + Ft + 5 * Dt)
+    tail_bits = 4 * Mt * (2 * Dt + Ft)
+    work = {  # name.direction -> (FLOPs, bytes): a backward's products are twice the forward's
+        "fused_train_attention_block.fwd": (8 * Mt * Dt * Dt + 4 * Bt * St * St * Dt,
+                                            4 * Mt * Dt + block_w + mask_b + bits_b),
+        "fused_train_attention_block.bwd": (16 * Mt * Dt * Dt + 8 * Bt * St * St * Dt,
+                                            6 * Mt * Dt + 2 * block_w + mask_b + bits_b),
+        "fused_encoder_tail.fwd": (4 * Mt * Dt * Ft, 6 * Mt * Dt + tail_w + tail_bits),
+        "fused_encoder_tail.bwd": (8 * Mt * Dt * Ft, 10 * Mt * Dt + 2 * tail_w + tail_bits),
+    }
     for name, row in (("fused_train_attention_block", block), ("fused_encoder_tail", tail)):
         for d, key in (("forward", "fwd"), ("backward", "bwd")):
             source, replaces = TRAIN_KERNELS[f"{name}.{d}"]
             kernels.append(dict(name=f"{name}.{d}", route="cuda", source=source,
                                 replaces=replaces, launches=train_launches[f"{name}.{key}"],
                                 max_abs_err=row[f"max_abs_err_{key}"], ms=row[f"{key}_ms"],
-                                plain_ms=row[f"{key}_plain_ms"], path="training"))
+                                plain_ms=row[f"{key}_plain_ms"], library_ms=None,
+                                path="training",
+                                **dict(zip(("bound_ms", "bound_by"),
+                                           bound(*work[f"{name}.{key}"])))))
+    dump_bytes = {"dropout_bits": bits_b, "tail_dropout_bits": tail_bits}
     for name in ("dropout_bits", "tail_dropout_bits"):
         source, replaces = TRAIN_KERNELS[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=dump_launches[name], **dumps[name],
-                            path="random-stream check"))
+                            launches=dump_launches[name], **dumps[name], library_ms=None,
+                            path="random-stream check",
+                            **dict(zip(("bound_ms", "bound_by"), bound(0, dump_bytes[name])))))
+    routes = {  # name -> (TPU kernel it replaces, launches on its path, the path)
+        "fused_dropout_attention.forward": ("mdm_tpu/ops/attention_dropout.py:181",
+                                            drop_launches["fused_dropout_attention.fwd"],
+                                            "training, drop variant"),
+        "fused_dropout_attention.backward": ("mdm_tpu/ops/attention_dropout.py:214",
+                                             drop_launches["fused_dropout_attention.bwd"],
+                                             "training, drop variant"),
+        "fused_attention": ("mdm_tpu/ops/attention.py:76", direct["fused_attention"],
+                            "direct entry"),
+        "fused_attention_v2": ("mdm_tpu/ops/attention_v2.py:69", v2_launches,
+                               "sampling, pallas variant"),
+        "fused_attention_block": ("mdm_tpu/ops/attention_block.py:84",
+                                  direct["fused_attention_block"], "direct entry"),
+    }
+    for name, (replaces, n, path) in routes.items():
+        kernels.append(dict(name=name, route="cuda", source=ATTENTION_SOURCE, replaces=replaces,
+                            launches=n, path=path, **attention[name]))
+    print(f"s/sample at B=32: layer kernel {gen_ms / 1000 / B:.6f}, pallas variant "
+          f"{pallas_s:.6f}; ms/step at B=128: AUTO {step_ms:.3f}, drop variant {drop_ms:.3f}")
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel was never launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 // Small device helpers shared by every kernel source (gemm.cu,
-// layer_inference.cu, attention_train_block.cu, encoder_tail.cu,
+// layer_inference.cu, attention.cu, encoder_tail.cu,
 // dropout_bits.cu).
 #pragma once
 

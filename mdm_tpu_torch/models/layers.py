@@ -5,11 +5,20 @@ torch.nn.TransformerEncoderLayer's own parameter names
 (``self_attn.in_proj_weight`` [3D, D], ``in_proj_bias``,
 ``self_attn.out_proj``, ``linear1``, ``linear2``, ``norm1``, ``norm2``) —
 the layout mdm_tpu/models/convert.py reads — so published checkpoints load
-without conversion. Its deterministic forward is the whole-layer kernel
-chain (ops/layer_inference.py), as the JAX package's AUTO sampling path
-is; its training forward is the train attention block followed by the
-encoder tail (ops/attention_train_block.py, ops/encoder_tail.py), as the
-AUTO single-device train step is (JAX layers.py:377-386).
+without conversion.
+
+The layer and its attention choose their kernels where the JAX modules do
+(layers.py:113-247 and :337-399), from the flags of ``mdm_tpu_torch.ops``
+and the same shape gates, so one configuration takes one route on both
+sides. Under AUTO a deterministic layer is the whole-layer kernel
+(ops/layer_inference.py) and a training layer the train attention block
+followed by the encoder tail (ops/attention_train_block.py,
+ops/encoder_tail.py). The JAX package lifts its rate-0 exclusions under
+interpret mode only; the port's kernels draw no TPU bits, so it lifts them
+always. Every training route draws its dropout seeds from the step's CPU
+generator and its masks from the Philox stream of ops/dropout_bits.py, so
+the CPU and the card drop the same elements and the einsum route and the
+dropout kernel compute the same function under the same seed.
 """
 from __future__ import annotations
 
@@ -18,10 +27,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention_train_block import fused_train_attention_block
-from ..ops.encoder_tail import fused_encoder_tail
+from .. import ops
+from ..ops.attention_dropout import fused_dropout_attention
+from ..ops.attention_train_block import (fused_block_attention_inference,
+                                         fused_train_attention_block)
+from ..ops.attention_v2 import fused_attention_v2
+from ..ops.dropout_bits import dropout_bits, keep_factors, tail_dropout_bits
+from ..ops.encoder_tail import fused_encoder_tail, fused_encoder_tail_inference
 from ..ops.layer_inference import fused_layer_inference
 
 _INT32_MAX = 2 ** 31 - 1
@@ -74,7 +89,7 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
             if isinstance(m, nn.Linear):
                 _lecun_normal_(m.weight, generator)
                 m.bias.zero_()
-            elif isinstance(m, _SelfAttention):
+            elif isinstance(m, MultiHeadAttention):
                 for w in m.in_proj_weight.chunk(3):  # q, k, v: three [D, D] kernels
                     _lecun_normal_(w, generator)
                 m.in_proj_bias.zero_()
@@ -83,20 +98,108 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
 
 
-class _SelfAttention(nn.Module):
-    """torch.nn.MultiheadAttention's parameters (packed in_proj + out_proj)
-    without its math: the layer kernel consumes them directly."""
+def _row_bias(bias: Optional[torch.Tensor], keys: int) -> Optional[torch.Tensor]:
+    """A [B, 1, 1, Sk] additive bias as the f32 key-padding row [B, Sk]."""
+    return None if bias is None else bias.reshape(bias.shape[0], -1)[:, -keys:].float()
 
-    def __init__(self, d_model: int):
+
+def _training_seed(rng: Optional[torch.Generator], rate: float) -> int:
+    if rng is None and rate > 0.0:
+        raise ValueError("a training forward with dropout needs the step's generator")
+    return draw_seeds(rng, 1)[0]
+
+
+def _dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dt: torch.dtype):
+    """flax nn.Dense(dtype=dt): the product and the bias in dt."""
+    return F.linear(x.to(dt), weight.to(dt), bias.to(dt))
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head attention with torch.nn.MultiheadAttention's parameters
+    (packed ``in_proj_weight`` [3D, D], ``in_proj_bias``, ``out_proj``) and
+    the JAX module's five routes, tried in its order under its gates:
+    the sample block (#2 at rate 0), the train block (#2/#3), the dropout
+    kernel (#7/#8), the v2 kernel (#11), then the einsum route with
+    probability dropout when training. ``attn_bias`` is additive, broadcast
+    to [B, 1|H, Sq, Sk]; the kernels take only its key-padding row."""
+
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.d_model, self.num_heads = d_model, num_heads
+        self.dropout = dropout
+        self.compute_dtype = compute_dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
+    def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+                attn_bias: Optional[torch.Tensor] = None, deterministic: bool = True,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``rng``: the step's CPU generator; a training forward draws one
+        dropout seed from it whatever its route."""
+        D, H = self.d_model, self.num_heads
+        cdt = self.compute_dtype or query.dtype
+        self_attention = query is key and key is value
+        row_bias = attn_bias is None or attn_bias.shape[-2] == 1
+        same_len = query.shape[1] == key.shape[1]
+        kpm = _row_bias(attn_bias, key.shape[1])
+        seed = None if deterministic else _training_seed(rng, self.dropout)
+        weights = (self.in_proj_weight, self.in_proj_bias, self.out_proj.weight,
+                   self.out_proj.bias)
+
+        if (ops.pallas_sample_block_enabled() and deterministic and self_attention and row_bias
+                and D % 128 == 0):
+            return fused_block_attention_inference(query.to(cdt), *weights, H,
+                                                   key_padding_mask=kpm)
+        if (ops.pallas_train_block_enabled() and not deterministic and self_attention
+                and row_bias and D % 128 == 0):
+            # The casts sit inside the autograd graph: the parameter
+            # gradients come back rounded to cdt, as the JAX wrappers' do.
+            return fused_train_attention_block(query.to(cdt), *weights, H, self.dropout, seed,
+                                               key_padding_mask=kpm)
+
+        q, k, v = self._project(query, key, value, cdt)
+        if (ops.pallas_train_attention_enabled() and not deterministic and self.dropout > 0.0
+                and same_len and row_bias and D % 128 == 0):
+            out = fused_dropout_attention(q, k, v, H, self.dropout, seed, key_padding_mask=kpm)
+            return _dense(out.to(cdt), self.out_proj.weight, self.out_proj.bias, cdt)
+        if (ops.pallas_attention_enabled() and deterministic and same_len and row_bias
+                and D % 128 == 0):
+            out = fused_attention_v2(q, k, v, H, key_padding_mask=kpm).to(cdt)
+            return _dense(out, self.out_proj.weight, self.out_proj.bias, cdt)
+        return self._einsum(q, k, v, attn_bias, deterministic, seed, cdt)
+
+    def _project(self, query, key, value, cdt):
+        w, b = self.in_proj_weight, self.in_proj_bias
+        if query is key and key is value:
+            return _dense(query, w, b, cdt).chunk(3, dim=-1)
+        return tuple(_dense(t, wi, bi, cdt)
+                     for t, wi, bi in zip((query, key, value), w.chunk(3), b.chunk(3)))
+
+    def _einsum(self, q, k, v, attn_bias, deterministic, seed, cdt):
+        """The JAX module's non-kernel route, in cdt (layers.py:234-247)."""
+        B, Sq, D = q.shape
+        H = self.num_heads
+        Dh = D // H
+        split = lambda t: t.reshape(B, t.shape[1], H, Dh).transpose(1, 2)  # [B, H, S, Dh]
+        logits = split(q) @ split(k).transpose(-1, -2) / torch.sqrt(
+            torch.tensor(Dh, dtype=cdt, device=q.device))
+        if attn_bias is not None:
+            logits = logits + attn_bias.to(logits.dtype)
+        weights = torch.softmax(logits.float(), dim=-1).to(cdt)
+        if self.dropout > 0.0 and not deterministic:
+            bits = dropout_bits(seed, B, H, Sq, device=q.device)
+            weights = (weights.float() * keep_factors(bits, self.dropout)).to(cdt)
+        out = (weights @ split(v)).transpose(1, 2).reshape(B, Sq, D)
+        return _dense(out, self.out_proj.weight, self.out_proj.bias, cdt)
+
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-LN encoder layer (torch default semantics, exact-erf GELU)."""
+    """Post-LN encoder layer (torch default semantics, exact-erf GELU) with
+    the JAX layer's three routes: the whole-layer kernel, attention plus the
+    fused tail, and attention plus the plain LN/Linear/GELU/dropout tail."""
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int,
                  compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
@@ -104,7 +207,7 @@ class TransformerEncoderLayer(nn.Module):
         self.num_heads = num_heads
         self.compute_dtype = compute_dtype
         self.dropout = dropout
-        self.self_attn = _SelfAttention(d_model)
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout, compute_dtype)
         self.linear1 = nn.Linear(d_model, ff_size)
         self.linear2 = nn.Linear(ff_size, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
@@ -134,28 +237,38 @@ class TransformerEncoderLayer(nn.Module):
                 deterministic: bool = True, rng: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """``rng``: the step's CPU generator, from which a training forward
-        draws this layer's two dropout seeds (attention block, tail)."""
-        kpm = None
-        if padding_bias is not None:
-            kpm = padding_bias.reshape(padding_bias.shape[0], -1)[:, -x.shape[1]:].float()
+        draws this layer's two dropout seeds (attention, then the tail)."""
+        d_model, ff_size = self.linear1.in_features, self.linear1.out_features
         cdt = self.compute_dtype or x.dtype
-        if deterministic:
-            return fused_layer_inference(x.to(cdt), *self._kernel_weights(cdt),
-                                         self.num_heads, key_padding_mask=kpm)
-        if rng is None and self.dropout > 0.0:
-            raise ValueError("a training forward with dropout needs the step's generator")
-        seed_attn, seed_tail = draw_seeds(rng, 2)
-        # The casts sit inside the autograd graph: the parameter gradients
-        # come back rounded to cdt, as the JAX wrappers' casts make them.
-        a = self.self_attn
-        x = x.to(cdt)
-        attn = fused_train_attention_block(
-            x, a.in_proj_weight, a.in_proj_bias, a.out_proj.weight, a.out_proj.bias,
-            self.num_heads, self.dropout, seed_attn, key_padding_mask=kpm)
-        return fused_encoder_tail(
-            x, attn, self.norm1.weight, self.norm1.bias, self.linear1.weight, self.linear1.bias,
-            self.linear2.weight, self.linear2.bias, self.norm2.weight, self.norm2.bias,
-            self.dropout, seed_tail)
+        wide = d_model % 128 == 0 and ff_size % 128 == 0
+        if (ops.pallas_layer_inference_enabled() and deterministic and wide
+                and (padding_bias is None or padding_bias.shape[-2] == 1)):
+            return fused_layer_inference(x.to(cdt), *self._kernel_weights(cdt), self.num_heads,
+                                         key_padding_mask=_row_bias(padding_bias, x.shape[1]))
+        attn = self.self_attn(x, x, x, padding_bias, deterministic, rng)
+        x = x.to(attn.dtype)
+        seed = None if deterministic else _training_seed(rng, self.dropout)
+        if ops.pallas_encoder_tail_enabled(deterministic) and wide:
+            if deterministic:
+                return fused_encoder_tail_inference(x, attn, *self._kernel_weights(attn.dtype)[4:])
+            return fused_encoder_tail(x, attn, *self._params()[4:], self.dropout, seed)
+        return self._plain_tail(x, attn, seed)
+
+    def _plain_tail(self, x, attn, seed):
+        """The JAX layer's non-kernel tail (layers.py:387-399) in attn's
+        dtype, LayerNorm in f32. Its three dropouts are the fused tail's
+        sites (attn-out, ffn-hidden, ffn-out) under the same seed."""
+        cdt = attn.dtype
+        keep = (None, None, None)
+        if seed is not None and self.dropout > 0.0:
+            B, S, D = x.shape
+            keep = tuple(keep_factors(b, self.dropout) for b in tail_dropout_bits(
+                seed, B, S, D, self.linear1.out_features, device=x.device))
+        drop = lambda t, k: t if k is None else (t.float() * k).to(t.dtype)
+        y = self.norm1((x + drop(attn, keep[0])).float()).to(cdt)
+        h = gelu_exact(_dense(y, self.linear1.weight, self.linear1.bias, cdt))
+        h = _dense(drop(h, keep[1]), self.linear2.weight, self.linear2.bias, cdt)
+        return self.norm2((y + drop(h, keep[2])).float()).to(cdt)
 
 
 class TransformerEncoder(nn.Module):

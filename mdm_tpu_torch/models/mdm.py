@@ -8,7 +8,8 @@ conditioning is a :class:`Conditioning` dataclass of tensors. Parameter
 names follow the reference torch MDM, so its state_dicts load directly.
 A training forward (``deterministic=False``) draws every dropout mask from
 the step's CPU ``torch.Generator``: the sequence dropout's seed and each
-layer's two kernel seeds.
+layer's two dropout seeds (attention, then the tail), whichever route the
+kernel flags pick.
 """
 from __future__ import annotations
 

@@ -1,13 +1,34 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version. The kernel choice follows the tensor's device: a CPU tensor runs
-the plain version, a CUDA tensor launches the kernel or raises."""
+version, and the flags that choose the model's kernel routes.
+
+The kernel choice follows the tensor's device: a CPU tensor runs the plain
+version, a CUDA tensor launches the kernel or raises. The flags are the
+JAX package's (mdm_tpu/ops/__init__.py:118-248), under the same names: two
+opt-in routes, off by default, and four tri-state ones where None is AUTO.
+AUTO is the JAX package's single-device decision, the only one the port
+makes (its multi-device ``_with_auto_*`` wrappers come with data-parallel
+training): the train block, the sample block and the encoder tail on, and
+the whole-layer kernel on whenever the sample block and the tail are. The
+JAX package's interpret mode has no counterpart: the CPU runs the plain
+versions, so no route needs the card to be taken.
+"""
+import contextlib
+
 from ._mask import row_bias_contrib  # noqa: F401
+from .attention import fused_attention, xla_attention  # noqa: F401
+from .attention_block import attention_block_reference, fused_attention_block  # noqa: F401
+from .attention_dropout import (  # noqa: F401
+    dropout_attention_bwd_reference,
+    dropout_attention_reference,
+    fused_dropout_attention,
+)
 from .attention_train_block import (  # noqa: F401
     fused_block_attention_inference,
     fused_train_attention_block,
     train_attention_block_bwd_reference,
     train_attention_block_reference,
 )
+from .attention_v2 import attention_v2_reference, fused_attention_v2  # noqa: F401
 from .encoder_tail import (  # noqa: F401
     encoder_tail_bwd_reference,
     encoder_tail_reference,
@@ -18,3 +39,88 @@ from .layer_inference import (  # noqa: F401
     fused_layer_inference,
     layer_inference_reference,
 )
+
+# name -> pinned value; None is AUTO for the four tri-state flags.
+_FLAGS = {"attention": False, "train_attention": False, "train_block": None,
+          "sample_block": None, "encoder_tail": None, "layer_inference": None}
+
+
+def enable_pallas_attention(enabled: bool = True) -> None:
+    """Deterministic self-attention through ``fused_attention_v2`` (#11)."""
+    _FLAGS["attention"] = enabled
+
+
+def pallas_attention_enabled() -> bool:
+    return _FLAGS["attention"]
+
+
+def enable_pallas_train_attention(enabled: bool = True) -> None:
+    """Training self-attention through ``fused_dropout_attention`` (#7/#8),
+    the projections outside the kernel."""
+    _FLAGS["train_attention"] = enabled
+
+
+def pallas_train_attention_enabled() -> bool:
+    return _FLAGS["train_attention"]
+
+
+def enable_pallas_train_block(enabled=True) -> None:
+    """Training self-attention as the whole train block (#2/#3); it comes
+    before the dropout kernel when both are on. None restores AUTO (on)."""
+    _FLAGS["train_block"] = enabled
+
+
+def pallas_train_block_enabled() -> bool:
+    return _FLAGS["train_block"] is not False
+
+
+def enable_pallas_sample_block(enabled=True) -> None:
+    """Deterministic self-attention as the rate-0 block (#2's
+    ``fused_block_attention_inference``). None restores AUTO (on)."""
+    _FLAGS["sample_block"] = enabled
+
+
+def pallas_sample_block_enabled() -> bool:
+    return _FLAGS["sample_block"] is not False
+
+
+def enable_pallas_encoder_tail(enabled=True) -> None:
+    """The layer tail through ``fused_encoder_tail`` (#4/#5) when training,
+    ``fused_encoder_tail_inference`` when deterministic. None restores AUTO
+    (on)."""
+    _FLAGS["encoder_tail"] = enabled
+
+
+def pallas_encoder_tail_enabled(deterministic: bool) -> bool:
+    """``deterministic`` picks the JAX AUTO signal (sampling or training);
+    the port's single-device AUTO is on for both."""
+    return _FLAGS["encoder_tail"] is not False
+
+
+def enable_pallas_layer_inference(enabled=True) -> None:
+    """Deterministic encoder layers through ``fused_layer_inference`` (#1).
+    None restores AUTO: on whenever the sample block and the tail are."""
+    _FLAGS["layer_inference"] = enabled
+
+
+def pallas_layer_inference_enabled() -> bool:
+    if _FLAGS["layer_inference"] is None:
+        return pallas_sample_block_enabled() and pallas_encoder_tail_enabled(True)
+    return _FLAGS["layer_inference"]
+
+
+@contextlib.contextmanager
+def pinned(**flags):
+    """Pin flags by name (``attention``, ``train_attention``, ``train_block``,
+    ``sample_block``, ``encoder_tail``, ``layer_inference``) for the body,
+    then restore every flag as it was, also when the body raises."""
+    unknown = set(flags) - set(_FLAGS)
+    if unknown:
+        raise ValueError(f"unknown kernel flags {sorted(unknown)}; known: {sorted(_FLAGS)}")
+    saved = dict(_FLAGS)
+    _FLAGS.update(flags)
+    try:
+        yield
+    finally:
+        _FLAGS.clear()
+        _FLAGS.update(saved)

@@ -22,22 +22,24 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("layer_inference.cu", "gemm.cu", "attention_train_block.cu", "encoder_tail.cu",
-           "dropout_bits.cu")
+SOURCES = ("layer_inference.cu", "gemm.cu", "attention.cu", "encoder_tail.cu", "dropout_bits.cu")
 HEADERS = ("common.cuh", "philox.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_P, _I, _U, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_longlong
 _DROP = [_P, _I, _U, _F, _I]  # bits, seed, threshold, 1/(1-rate), mode (philox.cuh::Dropout)
+_VIEW = [_L, _L, _I]  # batch, head and row strides of an attention operand (attention.cu::View)
 # name -> argtypes of each exported C function; every one returns a cudaError_t.
 SIGNATURES = {
     "mdm_attention_rowmask": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mdm_residual_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mdm_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mdm_colsum": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "mdm_attn_train_fwd": [_P, _P, *_DROP, _P, _I, _I, _I, _I, _I, _P],
-    "mdm_attn_train_bwd": [_P, _P, *_DROP, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mdm_attention_fwd": [_P, _P, _P, *_VIEW, _P, *_VIEW, *_DROP, _P, *_VIEW, _I,
+                          _I, _I, _I, _I, _I, _P],
+    "mdm_attention_bwd": [_P, _P, _P, *_VIEW, _P, *_VIEW, *_DROP, _P, _P, *_VIEW, _P, _P, _P, _I,
+                          _P, _I, _I, _I, _I, _I, _P],
     "mdm_tail_ln1_fwd": [_P, _P, *_DROP, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mdm_tail_gelu_dropout": [_P, *_DROP, _P, _I, _I, _I, _I, _P],
     "mdm_tail_ln2_fwd": [_P, _P, *_DROP, _P, _P, _P, _I, _I, _I, _I, _P],

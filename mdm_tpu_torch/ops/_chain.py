@@ -1,7 +1,7 @@
-"""Launch helpers shared by the kernel chains (layer_inference,
-attention_train_block, encoder_tail): operand preparation, the products and
-column sums of ``csrc/gemm.cu``, and the dropout arguments of
-``csrc/philox.cuh``.
+"""Launch helpers shared by the kernel chains (layer_inference, the
+attention modules, encoder_tail): operand preparation, the products and
+column sums of ``csrc/gemm.cu``, the attention core of
+``csrc/attention.cu`` and the dropout arguments of ``csrc/philox.cuh``.
 
 Every helper launches asynchronously on the tensor's current stream,
 allocates its outputs with ``torch.empty`` and raises on a nonzero
@@ -93,6 +93,57 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, a_km: bool = False, b_kn: bool = F
                               int(a_km), int(b_kn), DTYPES[a.dtype], int(out_f32), splits,
                               int(gelu), stream(a)), "gemm")
     return out
+
+
+def bsd_view(S: int, D: int, head_dim: int, ld: Optional[int] = None):
+    """(batch, head, row) strides of [B, S, H*Dh] rows of ld elements (D
+    unless packed), head h at columns h*Dh (csrc/attention.cu::View)."""
+    ld = D if ld is None else ld
+    return S * ld, head_dim, ld
+
+
+def bhsd_view(H: int, S: int, head_dim: int):
+    """(batch, head, row) strides of a contiguous [B, H, S, Dh] tensor."""
+    return H * S * head_dim, S * head_dim, head_dim
+
+
+def row_bias_strides(S: int):
+    """(batch, head, query row) strides of a key-padding row bias [B, S]."""
+    return S, 0, 0
+
+
+def check_head_dim(D: int, num_heads: int, what: str) -> int:
+    if D % num_heads or D // num_heads not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim of {D} / {num_heads} heads not in {HEAD_DIMS}")
+    return D // num_heads
+
+
+def attention_fwd(q, k, v, view, out, out_view, B: int, S: int, H: int, head_dim: int,
+                  bias=None, bias_strides=(0, 0, 0), drop=(None, 0, 0, 1.0, 0)) -> None:
+    """out = dropout(softmax(q k^T / sqrt(Dh) + bias)) v per (batch, head)
+    (csrc/attention.cu). q, k, v share ``view``, out (f32 or q's dtype) has
+    ``out_view``; bias is additive f32 with ``bias_strides`` or None; drop is
+    ``dropout_args``'s tuple."""
+    lib = _build.load_library()
+    _build.check(lib.mdm_attention_fwd(ptr(q), ptr(k), ptr(v), *view, ptr(bias), *bias_strides,
+                                       *drop, ptr(out), *out_view, DTYPES[out.dtype], B, S, H,
+                                       head_dim, check_dtype(q, "attention"), stream(q)),
+                 "attention forward")
+
+
+def attention_bwd(q, k, v, view, dout, out_view, dq, dk, dv, B: int, S: int, H: int,
+                  head_dim: int, bias=None, bias_strides=(0, 0, 0), drop=(None, 0, 0, 1.0, 0),
+                  ctx=None) -> None:
+    """dq, dk, dv (q's view, all of one dtype) of ``attention_fwd`` given
+    dout (q's dtype, out_view): p recomputed, the bits replayed; the
+    forward's out recomputed into ctx when it is given."""
+    stats = torch.empty((3, B * H * S), dtype=torch.float32, device=q.device)
+    lib = _build.load_library()
+    _build.check(lib.mdm_attention_bwd(ptr(q), ptr(k), ptr(v), *view, ptr(bias), *bias_strides,
+                                       *drop, ptr(dout), ptr(ctx), *out_view, ptr(dq), ptr(dk),
+                                       ptr(dv), DTYPES[dq.dtype], ptr(stats), B, S, H, head_dim,
+                                       check_dtype(q, "attention"), stream(q)),
+                 "attention backward")
 
 
 def colsum(t: torch.Tensor, chunks: int = 64) -> torch.Tensor:

@@ -5,7 +5,7 @@ Replaces mdm_tpu/ops/attention_train_block.py: ``_call_fwd`` (kernel #2,
 ``pallas_call`` at :286,294) and ``_call_bwd`` (kernel #3, at :334,344),
 which run one program per batch cell with the four [D, D] weights resident
 in VMEM. On the card the block is three launches forward and seven
-backward (``csrc/gemm.cu``, ``csrc/attention_train_block.cu``):
+backward (``csrc/gemm.cu``, ``csrc/attention.cu``):
 
     forward   qkv  = x . Wqkv^T + bqkv                  gemm        (dt)
               ctx  = dropout(softmax(q k^T/sqrt(Dh) + m)) v
@@ -46,32 +46,15 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
-from . import _build
-from ._chain import (HEAD_DIMS, check_dtype, check_shapes, colsum, dev, dropout_args, gemm,
-                     ptr, splits_for, stream)
+from ._chain import (attention_bwd, attention_fwd, bsd_view, check_dtype, check_head_dim,
+                     check_shapes, colsum, dev, dropout_args, gemm, row_bias_strides, splits_for)
 from ._mask import row_bias_contrib
+from .attention import attention_probs, attention_scale, merge_heads, split_heads
 from .dropout_bits import dropout_bits, keep_factors
 
 LAUNCHES = {"fwd": 0, "bwd": 0}  # kernel-chain launches, one per block call
-
-
-def _scale(head_dim: int) -> float:
-    return float(np.float32(1.0 / np.sqrt(head_dim)))
-
-
-def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """[B, S, D] -> [B, H, S, Dh]."""
-    B, S, D = t.shape
-    return t.reshape(B, S, num_heads, D // num_heads).transpose(1, 2)
-
-
-def _merge(t: torch.Tensor) -> torch.Tensor:
-    """[B, H, S, Dh] -> [B, S, H*Dh]."""
-    B, H, S, Dh = t.shape
-    return t.transpose(1, 2).reshape(B, S, H * Dh)
 
 
 def _probs(x, wqkv, bqkv, num_heads, key_padding_mask):
@@ -79,12 +62,11 @@ def _probs(x, wqkv, bqkv, num_heads, key_padding_mask):
     dt = x.dtype
     D = x.shape[-1]
     qkv = (x.float() @ wqkv.to(dt).float().T + bqkv.to(dt).float()).to(dt)
-    q, k, v = (_heads(t, num_heads) for t in qkv.split(D, dim=-1))
-    logits = q.float() @ k.float().transpose(-1, -2) * _scale(D // num_heads)
+    q, k, v = (split_heads(t, num_heads) for t in qkv.split(D, dim=-1))
+    bias = None
     if key_padding_mask is not None:
-        logits = logits + row_bias_contrib(key_padding_mask)[:, None, None, :]
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    return q, k, v, e / e.sum(dim=-1, keepdim=True)
+        bias = row_bias_contrib(key_padding_mask)[:, None, None, :]
+    return q, k, v, attention_probs(q, k, bias)
 
 
 def _keep(bits, rate):
@@ -110,7 +92,7 @@ def train_attention_block_reference(
     _, _, v, p = _probs(x, wqkv, bqkv, num_heads, key_padding_mask)
     keep = _keep(bits, rate)
     w = (p if keep is None else p * keep).to(dt)
-    ctx = _merge((w.float() @ v.float()).to(dt))
+    ctx = merge_heads((w.float() @ v.float()).to(dt))
     return (ctx.float() @ wo.to(dt).float().T + bo.to(dt).float()).to(dt)
 
 
@@ -127,18 +109,19 @@ def train_attention_block_bwd_reference(
     keep = _keep(bits, rate)
     w16 = (p if keep is None else p * keep).to(dt)
     dob = dout.to(dt)
-    dctx = _heads((dob.float() @ wo.to(dt).float()).to(dt), num_heads)  # dctx_h in dt
-    ctx = _merge((w16.float() @ v.float()).to(dt))
+    dctx = split_heads((dob.float() @ wo.to(dt).float()).to(dt), num_heads)  # dctx_h in dt
+    ctx = merge_heads((w16.float() @ v.float()).to(dt))
     dwo = torch.einsum("bsn,bsk->nk", dob.float(), ctx.float())
     dbo = dout.float().sum(dim=(0, 1))
     dv = (w16.float().transpose(-1, -2) @ dctx.float()).to(dt)
     dp = dctx.float() @ v.float().transpose(-1, -2)
     if keep is not None:
         dp = keep * dp
-    dlog = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * _scale(D // num_heads)).to(dt)
+    scale = attention_scale(D // num_heads)
+    dlog = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale).to(dt)
     dq = (dlog.float() @ k.float()).to(dt)
     dk = (dlog.float().transpose(-1, -2) @ q.float()).to(dt)
-    dqkv = torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=-1)  # [B, S, 3D] dt
+    dqkv = torch.cat([merge_heads(dq), merge_heads(dk), merge_heads(dv)], dim=-1)  # [B, S, 3D] dt
     dwqkv = torch.einsum("bsn,bsk->nk", dqkv.float(), x.float())
     dbqkv = dqkv.float().sum(dim=(0, 1))
     dx = (dqkv.float() @ wqkv.to(dt).float()).to(dt)
@@ -150,8 +133,7 @@ def _check(x, wqkv, bqkv, wo, bo, num_heads, mask, bits):
         raise ValueError(f"x must be [B, S, D], got {tuple(x.shape)}")
     check_dtype(x, "attention block")
     B, S, D = x.shape
-    if D % num_heads or D // num_heads not in HEAD_DIMS:
-        raise ValueError(f"head dim of d_model {D} / {num_heads} heads not in {HEAD_DIMS}")
+    check_head_dim(D, num_heads, "attention block")
     check_shapes(x, [(wqkv, (3 * D, D)), (bqkv, (3 * D,)), (wo, (D, D)), (bo, (D,)),
                      (mask, (B, S)), (bits, (B, num_heads, S, S))], "attention block")
     if bits is not None and bits.dtype != torch.uint32:
@@ -162,17 +144,13 @@ def _fwd_cuda(x, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed):
     """The forward chain; returns (out [B, S, D], qkv [B*S, 3D])."""
     _check(x, wqkv, bqkv, wo, bo, num_heads, mask, bits)
     B, S, D = x.shape
-    dt = x.dtype
+    Dh = D // num_heads
     xs = dev(x).view(B * S, D)
     qkv = gemm(xs, dev(wqkv), bias=dev(bqkv))
-    ctx = torch.empty((B * S, D), dtype=dt, device=x.device)
-    lib = _build.load_library()
-    _build.check(lib.mdm_attn_train_fwd(ptr(qkv), ptr(mask), *dropout_args(bits, seed, rate),
-                                        ptr(ctx), B, S, num_heads, D // num_heads,
-                                        check_dtype(x, "attention block"), stream(x)),
-                 "attention forward")
+    ctx = torch.empty((B * S, D), dtype=x.dtype, device=x.device)
+    attention_fwd(*_split(qkv, D), bsd_view(S, D, Dh, 3 * D), ctx, bsd_view(S, D, Dh), B, S,
+                  num_heads, Dh, mask, row_bias_strides(S), dropout_args(bits, seed, rate))
     out = gemm(ctx, dev(wo), bias=dev(bo))
-    LAUNCHES["fwd"] += 1
     return out.view(B, S, D), qkv
 
 
@@ -185,19 +163,21 @@ def _bwd_cuda(x, qkv, wqkv, wo, mask, bits, num_heads, rate, seed, dout):
     dctx = gemm(do, wo, b_kn=True)
     ctx = torch.empty((M, D), dtype=dt, device=x.device)
     dqkv = torch.empty((M, 3 * D), dtype=dt, device=x.device)
-    stats = torch.empty((3, B * num_heads * S), dtype=torch.float32, device=x.device)
-    lib = _build.load_library()
-    _build.check(lib.mdm_attn_train_bwd(ptr(qkv), ptr(mask), *dropout_args(bits, seed, rate),
-                                        ptr(dctx), ptr(ctx), ptr(dqkv), ptr(stats), B, S,
-                                        num_heads, D // num_heads, check_dtype(x, "attention"),
-                                        stream(x)), "attention backward")
+    Dh = D // num_heads
+    packed = bsd_view(S, D, Dh, 3 * D)
+    attention_bwd(*_split(qkv, D), packed, dctx, bsd_view(S, D, Dh), *_split(dqkv, D), B, S,
+                  num_heads, Dh, mask, row_bias_strides(S), dropout_args(bits, seed, rate), ctx)
     dwo = gemm(do, ctx, a_km=True, b_kn=True, out_f32=True, splits=splits_for(D, D, M))
     dbo = colsum(do)
     dwqkv = gemm(dqkv, xs, a_km=True, b_kn=True, out_f32=True, splits=splits_for(3 * D, D, M))
     dbqkv = colsum(dqkv)
     dx = gemm(dqkv, wqkv, b_kn=True)
-    LAUNCHES["bwd"] += 1
     return dx.view(B, S, D), dwqkv, dbqkv, dwo, dbo
+
+
+def _split(qkv: torch.Tensor, D: int):
+    """The q, k, v column blocks of a packed [M, 3D] tensor, as views."""
+    return qkv[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:]
 
 
 class _TrainBlock(torch.autograd.Function):
@@ -209,6 +189,7 @@ class _TrainBlock(torch.autograd.Function):
         ctx.save_for_backward(x, wqkv, bqkv, wo, mask)
         if x.device.type == "cuda":
             out, ctx.qkv = _fwd_cuda(x, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed)
+            LAUNCHES["fwd"] += 1
             ctx.bits = bits
             return out
         if rate > 0.0 and bits is None:  # the kernel's own Philox stream, drawn on the CPU
@@ -223,6 +204,7 @@ class _TrainBlock(torch.autograd.Function):
         num_heads, rate, seed = ctx.meta
         if ctx.qkv is not None:
             grads = _bwd_cuda(x, ctx.qkv, wqkv, wo, mask, ctx.bits, num_heads, rate, seed, dout)
+            LAUNCHES["bwd"] += 1
         else:
             grads = train_attention_block_bwd_reference(x, wqkv, bqkv, wo, num_heads, dout,
                                                         rate, ctx.bits, mask)
@@ -279,5 +261,7 @@ def fused_block_attention_inference(
     if x.device.type != "cuda":
         raise ValueError(f"fused_block_attention_inference runs on cpu or cuda, not {x.device}")
     dt = x.dtype
-    return _fwd_cuda(x, wqkv.to(dt), bqkv.to(dt), wo.to(dt), bo.to(dt),
-                     _mask_row(x, key_padding_mask), None, num_heads, 0.0, 0)[0]
+    out = _fwd_cuda(x, wqkv.to(dt), bqkv.to(dt), wo.to(dt), bo.to(dt),
+                    _mask_row(x, key_padding_mask), None, num_heads, 0.0, 0)[0]
+    LAUNCHES["fwd"] += 1
+    return out

@@ -40,13 +40,15 @@ assert not any(m.split(".")[0] in ("jax", "flax", "mdm_tpu")
 print(" ".join(names))
 """
 
-# The counterparts of the sampling and training slices' mdm_tpu modules.
+# The counterparts of the sampling, training and attention-route slices' mdm_tpu modules.
 SLICE = {"ops._mask", "ops.layer_inference", "ops._build", "models.layers", "models.mdm",
          "models.bridge", "diffusion.schedule", "diffusion.gaussian", "diffusion.samplers",
          "core.quaternions", "core.hml_codec", "sampling.text", "sampling.pipeline", "serving",
          "ops._chain", "ops.dropout_bits", "ops.attention_train_block", "ops.encoder_tail",
          "diffusion.losses", "train.resample", "train.state", "train.train_step",
-         "train.checkpoints", "train.logger", "train.platforms", "train.loop"}
+         "train.checkpoints", "train.logger", "train.platforms", "train.loop",
+         "ops.attention", "ops.attention_v2", "ops.attention_dropout", "ops.attention_block",
+         "scripts.bench_sample_kernels", "scripts.bench_train_kernels"}
 
 
 def test_port_runs_with_jax_and_flax_blocked():
