@@ -71,7 +71,7 @@ TRAIN_KERNELS = {  # name -> (source, TPU kernel it replaces)
     "tail_dropout_bits": ("mdm_tpu_torch/csrc/dropout_bits.cu", "mdm_tpu/ops/encoder_tail.py:463"),
 }
 ATTN_SHAPE = dict(B=64, S=197, D=512, H=4)  # sampling attention: CFG batch 2 x 32, 1 + 196 tokens
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM (on-chip-measurement guide)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 
 
