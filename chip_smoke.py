@@ -21,12 +21,15 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   shootout's ``pallas`` variant (v2 attention + fused tail) through
   MotionGenerator.generate at B=32 x 50 steps, and its ``block``/``tail``
   variants; the training shootout's ``drop`` variant (dropout attention
-  kernel + the plain tail), 30 flagship steps, timed.
+  kernel + the plain tail), 30 flagship steps, timed, and one f32 step of
+  it on the card against the CPU.
 
 Each path checks that every layer call went through its kernels. Each
 kernel's line carries its bound: the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its FLOPs over 989
-TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak.
+TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak. The training
+kernels are timed drawing their dropout bits in-kernel, as every route
+runs them; their comparisons with the plain versions inject the bits.
 
 Run from the repository root, with one CUDA device:  python3 chip_smoke.py
 The last line of its output is {"ok": true, "device": {...}}; the line
@@ -213,9 +216,12 @@ def _own_scale(grads):
 
 
 def compare_train_chain(torch, name, fn, plain_fwd, plain_bwd, ops, dout, dtype, names,
-                        timed=True, split=_own_scale):
+                        timed=True, split=_own_scale, drawn=None):
     """A training chain (forward and backward) against its plain versions on
-    the same inputs; times both in turns (plain, kernel, kernel, plain)."""
+    the same inputs; times both in turns (plain, kernel, kernel, plain).
+    fn takes injected bits, as the plain versions do. drawn, when given, is
+    the chain drawing its bits in-kernel, as every model route runs it: it
+    is the kernel that is timed, the plain versions being given the bits."""
     out, grads = _fwd_bwd(torch, fn, ops, dout)
     torch.cuda.synchronize()
     rel = TRAIN_REL[str(dtype).split(".")[-1]]
@@ -235,9 +241,10 @@ def compare_train_chain(torch, name, fn, plain_fwd, plain_bwd, ops, dout, dtype,
                max_rel_err=max(e[1] for e in errs.values()), rel_tol=rel,
                rel_err={k: e[1] for k, e in errs.items()})
     if timed:
+        kernel = fn if drawn is None else drawn
         leaves = [t.clone().requires_grad_() for t in ops]
-        graph_out = fn(*leaves)
-        kf = lambda: fn(*ops)
+        graph_out = kernel(*leaves)
+        kf = lambda: kernel(*ops)
         kb = lambda: torch.autograd.grad(graph_out, leaves, dout, retain_graph=True)
         with torch.no_grad():
             p1, k1, k2, p2 = (_time_ms(torch, f) for f in (plain_fwd, kf, kf, plain_fwd))
@@ -249,7 +256,9 @@ def compare_train_chain(torch, name, fn, plain_fwd, plain_bwd, ops, dout, dtype,
 
 
 def phase_train_kernels(torch, TB, ET, shape, dtype, mask, timed=True):
-    """Phase 5: block and tail, forward and all gradients, kernel vs plain."""
+    """Phase 5: block and tail, forward and all gradients, kernel vs plain;
+    when timed, also nn.MultiheadAttention's training forward on the
+    block's inputs (#2's library yardstick)."""
     B, S, D, H, F = (shape[k] for k in ("B", "S", "D", "H", "F"))
     (x, wqkv, bqkv, wo, bo), dout, bits, kpm = _block_operands(torch, B, S, D, H, dtype, mask)
     block = compare_train_chain(
@@ -259,7 +268,12 @@ def phase_train_kernels(torch, TB, ET, shape, dtype, mask, timed=True):
         lambda: TB.train_attention_block_bwd_reference(x, wqkv, bqkv, wo, H, dout, RATE, bits,
                                                        kpm),
         [x, wqkv, bqkv, wo, bo], dout, dtype,
-        ["dx", "dWq", "dWk", "dWv", "dbq", "dbk", "dbv", "dWo", "dbo"], timed, _split_qkv)
+        ["dx", "dWq", "dWk", "dWv", "dbq", "dbk", "dbv", "dWo", "dbo"], timed, _split_qkv,
+        lambda *o: TB.fused_train_attention_block(*o, H, RATE, 0, kpm))
+    if timed:
+        mha = _torch_mha(torch, wqkv, bqkv, wo, bo, H, RATE).train()
+        block["library_fwd_ms"] = _no_grad_ms(
+            torch, lambda: mha(x, x, x, key_padding_mask=kpm, need_weights=False))
     ops, dz, tbits = _tail_operands(torch, B, S, D, F, dtype)
     tail = compare_train_chain(
         torch, "encoder tail",
@@ -267,8 +281,26 @@ def phase_train_kernels(torch, TB, ET, shape, dtype, mask, timed=True):
         lambda: ET.encoder_tail_reference(*ops, RATE, tbits),
         lambda: ET.encoder_tail_bwd_reference(*ops, dz, RATE, tbits),
         ops, dz, dtype, ["dx", "dattn", "dg1", "dbl1", "dW1", "db1", "dW2", "db2", "dg2", "dbl2"],
-        timed)
+        timed, drawn=lambda *o: ET.fused_encoder_tail(*o, RATE, 0))
     return block, tail
+
+
+def _torch_mha(torch, wqkv, bqkv, wo, bo, H, dropout):
+    """nn.MultiheadAttention holding torch-layout block weights: the one
+    PyTorch call that computes an attention block (library time only)."""
+    D = wo.shape[0]
+    mha = torch.nn.MultiheadAttention(D, H, dropout=dropout, batch_first=True,
+                                      device=wo.device, dtype=wo.dtype)
+    with torch.no_grad():
+        for p, w in ((mha.in_proj_weight, wqkv), (mha.in_proj_bias, bqkv),
+                     (mha.out_proj.weight, wo), (mha.out_proj.bias, bo)):
+            p.copy_(w)
+    return mha
+
+
+def _no_grad_ms(torch, fn):
+    with torch.no_grad():
+        return _time_ms(torch, fn)
 
 
 def phase_random_stream(torch, TB, ET, DB, shape, dev):
@@ -391,15 +423,18 @@ def _check_step_update(torch, cpu, card, before, held, tol):
     return worst
 
 
-def phase_step_card_vs_cpu(torch, dev):
-    """Phase 7: three train steps at a small f32 width, rate 0, identical
-    weights and draws, card against CPU, each step's update checked."""
+def phase_step_card_vs_cpu(torch, dev, steps=3, dropout=0.0, route="AUTO route"):
+    """Phase 7 (three steps, rate 0) and phase 11 (one step of the drop
+    route, rate 0.1): train steps at a small f32 width with identical
+    weights, draws and step keys, card against CPU, each step's update
+    checked. At rate > 0 both sides drop the same elements: every dropout
+    mask is Philox keyed on a seed drawn from the step's key."""
     from mdm_tpu_torch.diffusion import Schedule
     from mdm_tpu_torch.models import MDM, MDMConfig
     from mdm_tpu_torch.train import OptimConfig, TrainStepConfig, create_train_state, make_train_step
 
-    small = MDMConfig(latent_dim=128, ff_size=256, num_layers=2, num_heads=4, dropout=0.0)
-    steps, B, T = 3, 4, 32
+    small = MDMConfig(latent_dim=128, ff_size=256, num_layers=2, num_heads=4, dropout=dropout)
+    B, T = 4, 32
     # Weight decay, LR anneal and EMA decay each move the updates far past
     # the tolerances, so a wrong one shows.
     config = TrainStepConfig(optim=OptimConfig(lr=1e-3, weight_decay=0.5, lr_anneal_steps=4,
@@ -428,8 +463,8 @@ def phase_step_card_vs_cpu(torch, dev):
         report.append(_check_step_update(torch, sides[0][0], sides[1][0], before, held,
                                          STEP_REL if i == 0 else LATER_REL))
         report[-1]["loss"] = (metrics[0]["loss"], metrics[1]["loss"])
-    print(f"train step f32 card vs cpu, {steps} steps, each update checked "
-          f"(tolerances {STEP_REL} then {LATER_REL}; metrics 1e-4 relative): "
+    print(f"train step f32 card vs cpu, {route}, rate {dropout}, {steps} steps, each update "
+          f"checked (tolerances {STEP_REL} then {LATER_REL}; metrics 1e-4 relative): "
           f"{json.dumps(report)}")
 
 
@@ -449,7 +484,7 @@ class _StepData:
             i += 1
 
 
-def phase_flagship_train(torch, TB, ET, dev):
+def phase_flagship_train(torch, TB, ET, DB, dev):
     """Phase 8: the training path at the flagship (main path of this slice),
     timed; then a small TrainLoop resume that must be bitwise exact."""
     from mdm_tpu_torch.diffusion import Schedule
@@ -472,6 +507,7 @@ def phase_flagship_train(torch, TB, ET, dev):
     steps = 30
     for counts in (TB.LAUNCHES, ET.LAUNCHES):  # counts from here on are the main path's
         counts["fwd"] = counts["bwd"] = 0
+    DB.LAUNCHES["sequence_dropout_bits"] = 0
     losses = []
     for i in range(steps):
         state, m = fit(state, batch, step_key(0, i))
@@ -484,11 +520,15 @@ def phase_flagship_train(torch, TB, ET, dev):
     if any(v != expected for v in launches.values()):
         raise AssertionError(f"training launched {launches}, expected {expected} each "
                              f"({cfg.num_layers} layers x {steps} steps)")
+    seq_bits = DB.LAUNCHES["sequence_dropout_bits"]
+    if seq_bits != steps:
+        raise AssertionError(f"the sequence dropout's dump ran {seq_bits} times in {steps} steps")
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite training loss: {losses}")
     first, last = losses[:10].mean(), losses[-10:].mean()
     print(f"flagship train B={B} T={T} bf16 dropout {RATE}, lr 1e-3: loss first 10 "
-          f"{first:.5f}, last 10 {last:.5f}; launches {launches}")
+          f"{first:.5f}, last 10 {last:.5f}; launches {launches}, sequence dropout "
+          f"dump {seq_bits}")
     if not last < first:
         raise AssertionError("the training loss did not descend")
 
@@ -575,6 +615,8 @@ def phase_attention_kernels(torch, dev):
     from mdm_tpu_torch.ops import attention_dropout as AD
     from mdm_tpu_torch.ops import attention_v2 as V2
     from mdm_tpu_torch.ops import dropout_bits as DB
+    from mdm_tpu_torch.ops._chain import attention_fwd, bsd_view, dev as aligned, row_bias_strides
+    from mdm_tpu_torch.ops._mask import row_bias_contrib
 
     rows = {}
     bf, f32 = torch.bfloat16, torch.float32
@@ -583,9 +625,7 @@ def phase_attention_kernels(torch, dev):
     r = lambda *shape, sc=1.0, dt=bf: (_randn(torch, g, *shape, sc=sc)).to(dt).to(dev)
     bias_of = lambda kpm, dt: torch.where(kpm, -1e9, 0.0).to(dt)[:, None, None, :]
 
-    def lib_ms(fn):
-        with torch.no_grad():
-            return _time_ms(torch, fn)
+    lib_ms = lambda fn: _no_grad_ms(torch, fn)
 
     # #11 at the sampling attention shape, no mask and the ragged bool mask.
     B, S, D, H = (ATTN_SHAPE[k] for k in ("B", "S", "D", "H"))
@@ -610,6 +650,21 @@ def phase_attention_kernels(torch, dev):
             _heads(q, H), _heads(k, H), _heads(v, H), attn_mask=bias_of(kpm, bf))),
         **dict(zip(("bound_ms", "bound_by"),
                    bound(4 * B * S * S * D, nbytes(q, k, v, kpm) + out_bytes))))
+    # What the JAX signature's f32 output costs the pallas route, whose
+    # layer casts it to bf16 at once: that route against the same core
+    # storing bf16 (bitwise the same values).
+    out16 = torch.empty_like(q)
+    view, mrow = bsd_view(S, D, D // H), aligned(row_bias_contrib(kpm))
+    store16 = lambda: attention_fwd(q, k, v, view, out16, view, B, S, H, D // H, mrow,
+                                    row_bias_strides(S))
+    route = lambda: V2.fused_attention_v2(q, k, v, H, kpm).to(bf)
+    store16()
+    if not torch.equal(out16, route()):
+        raise AssertionError("the bf16 store differs from the f32 output cast to bf16")
+    r1, s1, s2, r2 = (lib_ms(f) for f in (route, store16, store16, route))
+    rows["fused_attention_v2"].update(route_ms=(r1 + r2) / 2, bf16_store_ms=(s1 + s2) / 2)
+    print(f"fused_attention_v2: f32 output + the layer's cast {(r1 + r2) / 2:.4f} ms, "
+          f"bf16 store {(s1 + s2) / 2:.4f} ms")
 
     # #10 on [B, H, S, Dh]: no bias, the ragged mask's row, a full per-head bias.
     qh, kh, vh = (_heads(t, H).contiguous() for t in (q, k, v))
@@ -648,12 +703,19 @@ def phase_attention_kernels(torch, dev):
                     lambda: AB.fused_attention_block(xs, *wss, 4, kpm_s),
                     lambda: AB.attention_block_reference(xs, *wss, 4, kpm_s), rel_f32)
     M = B * S
+    mha = _torch_mha(torch, *AB._packed(*ws[:7]), ws[7], H, 0.0).eval()
+    library = lambda: mha(x, x, x, key_padding_mask=kpm, need_weights=False)[0]
+    with torch.no_grad():
+        lib_err = (library().float() - AB.attention_block_reference(x, *ws, H, kpm).float()
+                   ).abs().max().item()
+    print(f"fused_attention_block: nn.MultiheadAttention (eval) vs plain max abs err {lib_err}")
     rows["fused_attention_block"] = dict(
-        row, library_ms=None,
+        row, library_ms=lib_ms(library),
         **dict(zip(("bound_ms", "bound_by"),
                    bound(8 * M * D * D + 4 * B * S * S * D, nbytes(x, *ws, kpm, x)))))
 
-    # #7/#8 at the flagship training shape, injected bits; small f32.
+    # #7/#8 at the flagship training shape, injected bits (timed drawing
+    # them in-kernel, as the drop route runs); small f32.
     B, S, D, H = (TRAIN_SHAPE[k] for k in ("B", "S", "D", "H"))
     _, dout, bits, kpm = _block_operands(torch, B, S, D, H, bf, "bool")
     q, k, v = r(B, S, D), r(B, S, D), r(B, S, D)
@@ -663,7 +725,8 @@ def phase_attention_kernels(torch, dev):
         lambda *o: AD.fused_dropout_attention(*o, H, RATE, 0, kpm, bits),
         lambda: AD.dropout_attention_reference(q, k, v, H, RATE, bits, kpm),
         lambda: AD.dropout_attention_bwd_reference(q, k, v, H, dout, RATE, bits, kpm),
-        [q, k, v], dout, bf, ["dq", "dk", "dv"])
+        [q, k, v], dout, bf, ["dq", "dk", "dv"],
+        drawn=lambda *o: AD.fused_dropout_attention(*o, H, RATE, 0, kpm))
     _, dos, bits_s, frow = _block_operands(torch, 3, 37, 128, 4, f32, "float")
     qs, ks, vs = r(3, 37, 128, dt=f32), r(3, 37, 128, dt=f32), r(3, 37, 128, dt=f32)
     compare_train_chain(
@@ -672,14 +735,14 @@ def phase_attention_kernels(torch, dev):
         lambda: AD.dropout_attention_reference(qs, ks, vs, 4, RATE, bits_s, frow),
         lambda: AD.dropout_attention_bwd_reference(qs, ks, vs, 4, dos, RATE, bits_s, frow),
         [qs, ks, vs], dos, f32, ["dq", "dk", "dv"], timed=False)
-    grads_bytes = 3 * B * S * D * 4
+    grads_bytes = 3 * B * S * D * 2  # in q's dtype
     sdpa_drop = lambda: F.scaled_dot_product_attention(
         _heads(q, H), _heads(k, H), _heads(v, H), attn_mask=bias_of(kpm, bf), dropout_p=RATE)
     for key, name, flops, moved, lib in (
             ("fwd", "fused_dropout_attention.forward", 4 * B * S * S * D,
-             nbytes(q, k, v, kpm, bits) + B * S * D * 4, lib_ms(sdpa_drop)),
+             nbytes(q, k, v, kpm) + B * S * D * 4, lib_ms(sdpa_drop)),
             ("bwd", "fused_dropout_attention.backward", 8 * B * S * S * D,
-             nbytes(q, k, v, kpm, bits, dout) + grads_bytes, None)):
+             nbytes(q, k, v, kpm, dout) + grads_bytes, None)):
         rows[name] = dict(max_abs_err=chain[f"max_abs_err_{key}"], ms=chain[f"{key}_ms"],
                           plain_ms=chain[f"{key}_plain_ms"], library_ms=lib,
                           **dict(zip(("bound_ms", "bound_by"), bound(flops, moved))))
@@ -821,10 +884,9 @@ def phase_sampling_variants(torch, dev, layer_s_per_sample):
 def phase_train_drop(torch, dev, tail_step_ms):
     """Phase 11: the training shootout's drop variant (the dropout attention
     kernel #7/#8 between the projections, the plain tail) at the flagship:
-    30 steps, the loss falls, timed; then the encoder's training forward
-    and backward on the card against the CPU at a small f32 width."""
+    30 steps, the loss falls, timed; then one whole train step of the
+    route on the card against the CPU at a small f32 width."""
     from mdm_tpu_torch import ops
-    from mdm_tpu_torch.models.layers import TransformerEncoder, init_weights_
     from mdm_tpu_torch.ops import attention_dropout as AD
     from mdm_tpu_torch.ops import attention_train_block as TB
     from mdm_tpu_torch.ops import encoder_tail as ET
@@ -865,36 +927,12 @@ def phase_train_drop(torch, dev, tail_step_ms):
     print(f"train_step_ms_b128_bf16 drop variant: {step_ms:.3f} ms/step beside the AUTO "
           f"route's {tail_step_ms:.3f} (phase 8; CUDA events, 20 steps after 5 warm)")
 
-    # The step's sequence dropout draws from the device's own generator, so
-    # the card and the CPU compare the layers, whose masks are Philox.
-    rng = np.random.default_rng(6)
-    x = torch.from_numpy(rng.normal(size=(4, 33, 128)).astype(np.float32))
-    pad = torch.zeros(4, 33, dtype=torch.bool)
-    pad[1, 20:] = True
-    dy = torch.from_numpy(rng.normal(size=(4, 33, 128)).astype(np.float32))
-    sides = []
+    # One whole f32 step of the drop route, card against CPU.
     AD.LAUNCHES.update(fwd=0, bwd=0)
     with ops.pinned(**BT.VARIANTS["drop"]):
-        for d in ("cpu", dev):
-            enc = TransformerEncoder(128, 4, 256, 2, dropout=RATE)
-            init_weights_(enc, torch.Generator().manual_seed(4))
-            enc = enc.to(d)
-            out = enc(x.to(d), pad.to(d), deterministic=False,
-                      rng=torch.Generator().manual_seed(8))
-            out.backward(dy.to(d))
-            sides.append([("out", out.detach().cpu())]
-                         + [(n, p.grad.cpu()) for n, p in enc.named_parameters()])
+        phase_step_card_vs_cpu(torch, dev, steps=1, dropout=RATE, route="drop route")
     if AD.LAUNCHES != {"fwd": 2, "bwd": 2}:  # two layers, the card's side only
-        raise AssertionError(f"the small drop encoder launched #7/#8 {AD.LAUNCHES}")
-    worst = 0.0
-    for (name, want), (_, got) in zip(*sides):
-        rel = ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
-        worst = max(worst, rel)
-        if not rel <= 2e-5:
-            raise AssertionError(f"drop route card vs cpu: {name} {rel:.3g} of its largest value")
-    print(f"drop route f32 card vs cpu, encoder forward + backward (2 layers, rate {RATE}): "
-          f"output and {len(sides[0]) - 1} gradients within {worst:.3g} of their largest "
-          f"values (tolerance 2e-5)")
+        raise AssertionError(f"the small drop step launched #7/#8 {AD.LAUNCHES}")
     return launches, step_ms
 
 
@@ -1056,7 +1094,7 @@ def main():
     phase_step_card_vs_cpu(torch, dev)
 
     # Phase 8: flagship training (the training path's launch counts).
-    train_launches, step_ms = phase_flagship_train(torch, TB, ET, dev)
+    train_launches, step_ms = phase_flagship_train(torch, TB, ET, DB, dev)
 
     # Phases 9-11: the opt-in attention routes. Phase 9's comparisons are
     # not counted; #10 and #12 are counted over their direct-entry calls,
@@ -1066,7 +1104,8 @@ def main():
     v2_launches, pallas_s = phase_sampling_variants(torch, dev, gen_ms / 1000 / B)
     drop_launches, drop_ms = phase_train_drop(torch, dev, step_ms)
 
-    # Phase 5's timed shapes (bf16, bool mask, injected bits), analytically.
+    # Phase 5's timed shapes (bf16, bool mask, bits drawn in-kernel: no
+    # bits are read), analytically.
     Bt, St, Dt, Ht, Ft = (TRAIN_SHAPE[k] for k in ("B", "S", "D", "H", "F"))
     Mt = Bt * St
     bits_b, mask_b = 4 * Bt * Ht * St * St, Bt * St
@@ -1075,20 +1114,21 @@ def main():
     tail_bits = 4 * Mt * (2 * Dt + Ft)
     work = {  # name.direction -> (FLOPs, bytes): a backward's products are twice the forward's
         "fused_train_attention_block.fwd": (8 * Mt * Dt * Dt + 4 * Bt * St * St * Dt,
-                                            4 * Mt * Dt + block_w + mask_b + bits_b),
+                                            4 * Mt * Dt + block_w + mask_b),
         "fused_train_attention_block.bwd": (16 * Mt * Dt * Dt + 8 * Bt * St * St * Dt,
-                                            6 * Mt * Dt + 2 * block_w + mask_b + bits_b),
-        "fused_encoder_tail.fwd": (4 * Mt * Dt * Ft, 6 * Mt * Dt + tail_w + tail_bits),
-        "fused_encoder_tail.bwd": (8 * Mt * Dt * Ft, 10 * Mt * Dt + 2 * tail_w + tail_bits),
+                                            6 * Mt * Dt + 2 * block_w + mask_b),
+        "fused_encoder_tail.fwd": (4 * Mt * Dt * Ft, 6 * Mt * Dt + tail_w),
+        "fused_encoder_tail.bwd": (8 * Mt * Dt * Ft, 10 * Mt * Dt + 2 * tail_w),
     }
+    library = {"fused_train_attention_block.fwd": block["library_fwd_ms"]}
     for name, row in (("fused_train_attention_block", block), ("fused_encoder_tail", tail)):
         for d, key in (("forward", "fwd"), ("backward", "bwd")):
             source, replaces = TRAIN_KERNELS[f"{name}.{d}"]
             kernels.append(dict(name=f"{name}.{d}", route="cuda", source=source,
                                 replaces=replaces, launches=train_launches[f"{name}.{key}"],
                                 max_abs_err=row[f"max_abs_err_{key}"], ms=row[f"{key}_ms"],
-                                plain_ms=row[f"{key}_plain_ms"], library_ms=None,
-                                path="training",
+                                plain_ms=row[f"{key}_plain_ms"],
+                                library_ms=library.get(f"{name}.{key}"), path="training",
                                 **dict(zip(("bound_ms", "bound_by"),
                                            bound(*work[f"{name}.{key}"])))))
     dump_bytes = {"dropout_bits": bits_b, "tail_dropout_bits": tail_bits}

@@ -13,7 +13,7 @@
 //   one [B*S, 3D] tensor, separate [B, S, H*Dh] tensors, or [B, H, S, Dh];
 // - a Bias gives the additive f32 logit bias: a key-padding row [B, S]
 //   (row stride 0) or a full [B, 1|H, S, S] tile, or none;
-// - the output and the gradients are stored in bf16 or f32.
+// - the output is stored in bf16 or f32, the gradients in the inputs' dtype.
 //
 // Per head, at the TPU kernels' rounding points:
 //   p   = softmax(q k^T * scale + bias)                 f32
@@ -22,7 +22,7 @@
 // Backward, from dout (dt) and the recomputed p and keep mask:
 //   dv  = w^T . dout;  dw = dout . v^T (f32);  dp = keep * dw
 //   dlog = p * (dp - rowsum(dp * p)) * scale, rounded to dt
-//   dq  = dlog . k;  dk = dlog^T . q;  the three stored in the gradient
+//   dq  = dlog . k;  dk = dlog^T . q;  the three stored in the inputs'
 //   dtype; the forward's out optionally recomputed (the train block's dWo)
 // Nothing quadratic in S is stored: the backward recomputes p and replays
 // the bits (philox.cuh), keyed on (key column, query row, head, batch).
@@ -41,8 +41,8 @@
 // The bf16 path runs WMMA 16x16x16 fragments (4 warps, 16 rows each); the
 // f32 path is scalar FMA, one block per row. Bound on an H100 at the
 // flagship shapes (S=197, Dh=128): the probabilities' exp and Philox work
-// and the products of a 64-row tile; with separate q/k/v and f32 outputs
-// (#7, #8, #10, #11) the bytes of the operands and bits come close to it.
+// and the products of a 64-row tile; with separate q/k/v and an f32 output
+// (#7, #10, #11) the bytes of the operands come close to it.
 
 #include <mma.h>
 
@@ -287,10 +287,10 @@ attn_fwd_bf16(Attn<bf16> a, OT* __restrict__ out, View ov) {
 // --------------------------------------------------- backward, dq side, bf16
 // Per query tile: dq, the row statistics m, l, delta into stats[3][B*H*S]
 // for the dkv kernel, and (when ctx is not null) the forward's out.
-template <int DH, typename GT>
+template <int DH>
 __global__ void __launch_bounds__(AT_THREADS)
 attn_bwd_dq_bf16(Attn<bf16> a, const bf16* __restrict__ dout, bf16* __restrict__ ctx, View ov,
-                 GT* __restrict__ dq, float* __restrict__ stats, int B) {
+                 bf16* __restrict__ dq, float* __restrict__ stats, int B) {
   using L = Smem<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::T0);
@@ -385,7 +385,7 @@ attn_bwd_dq_bf16(Attn<bf16> a, const bf16* __restrict__ dout, bf16* __restrict__
     rows_pv<DH>(acc, Ps, Ks);
     __syncthreads();
   }
-  store_rows<DH, GT>(acc, reinterpret_cast<float*>(smem + L::S0), dq + hb, ld, q0, S);
+  store_rows<DH, bf16>(acc, reinterpret_cast<float*>(smem + L::S0), dq + hb, ld, q0, S);
 
   if (lane == 0) {
     const size_t n = (size_t)B * a.H * S;
@@ -405,10 +405,10 @@ attn_bwd_dq_bf16(Attn<bf16> a, const bf16* __restrict__ dout, bf16* __restrict__
 // -------------------------------------------------- backward, dkv side, bf16
 // Per key tile: walks every query tile with the saved row statistics and
 // accumulates dv = w^T . dout and dk = dlog^T . q in registers.
-template <int DH, typename GT>
+template <int DH>
 __global__ void __launch_bounds__(AT_THREADS)
 attn_bwd_dkv_bf16(Attn<bf16> a, const bf16* __restrict__ dout, View ov,
-                  const float* __restrict__ stats, GT* __restrict__ dk, GT* __restrict__ dv,
+                  const float* __restrict__ stats, bf16* __restrict__ dk, bf16* __restrict__ dv,
                   int B) {
   using L = Smem<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -477,8 +477,8 @@ attn_bwd_dkv_bf16(Attn<bf16> a, const bf16* __restrict__ dout, View ov,
     __syncthreads();
   }
   float* stage = reinterpret_cast<float*>(smem + L::T2);
-  store_rows<DH, GT>(gk, stage, dk + hb, ld, k0, S);
-  store_rows<DH, GT>(gv, stage, dv + hb, ld, k0, S);
+  store_rows<DH, bf16>(gk, stage, dk + hb, ld, k0, S);
+  store_rows<DH, bf16>(gv, stage, dv + hb, ld, k0, S);
 }
 
 // ------------------------------------------------------------ float32 path
@@ -648,7 +648,7 @@ attn_bwd_dkv_f32(AttnF f, const float* __restrict__ dout, View ov,
 }
 
 // Everything one call needs. Forward: out in out_dtype. Backward: dq, dk,
-// dv through `in` in grad_dtype, stats, and out (ctx) when not null.
+// dv through `in` in dtype, stats, and out (ctx) when not null.
 struct Call {
   const void *q, *k, *v;
   View in;
@@ -659,7 +659,6 @@ struct Call {
   int out_dtype;
   const void* dout;
   void *dq, *dk, *dv;
-  int grad_dtype;
   float* stats;
   int B, S, H, Dh, dtype;
 };
@@ -683,21 +682,21 @@ cudaError_t launch_fwd(const Attn<bf16>& a, const Call& c, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <int DH, typename GT>
+template <int DH>
 cudaError_t launch_bwd(const Attn<bf16>& a, const Call& c, cudaStream_t st) {
   constexpr int bytes = Smem<DH>::BYTES;
   static bool done_dq = false, done_dkv = false;
-  cudaError_t e = opt_in(attn_bwd_dq_bf16<DH, GT>, done_dq, bytes);
-  if (e == cudaSuccess) e = opt_in(attn_bwd_dkv_bf16<DH, GT>, done_dkv, bytes);
+  cudaError_t e = opt_in(attn_bwd_dq_bf16<DH>, done_dq, bytes);
+  if (e == cudaSuccess) e = opt_in(attn_bwd_dkv_bf16<DH>, done_dkv, bytes);
   if (e != cudaSuccess) return e;
   dim3 grid((c.S + AT - 1) / AT, c.H, c.B);
   const bf16* dout = static_cast<const bf16*>(c.dout);
-  attn_bwd_dq_bf16<DH, GT><<<grid, AT_THREADS, bytes, st>>>(
-      a, dout, static_cast<bf16*>(c.out), c.ov, static_cast<GT*>(c.dq), c.stats, c.B);
+  attn_bwd_dq_bf16<DH><<<grid, AT_THREADS, bytes, st>>>(
+      a, dout, static_cast<bf16*>(c.out), c.ov, static_cast<bf16*>(c.dq), c.stats, c.B);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn_bwd_dkv_bf16<DH, GT><<<grid, AT_THREADS, bytes, st>>>(
-      a, dout, c.ov, c.stats, static_cast<GT*>(c.dk), static_cast<GT*>(c.dv), c.B);
+  attn_bwd_dkv_bf16<DH><<<grid, AT_THREADS, bytes, st>>>(
+      a, dout, c.ov, c.stats, static_cast<bf16*>(c.dk), static_cast<bf16*>(c.dv), c.B);
   return cudaGetLastError();
 }
 
@@ -705,12 +704,11 @@ template <int DH>
 cudaError_t launch_bf16(const Attn<bf16>& a, const Call& c, bool backward, cudaStream_t st) {
   if (!backward)
     return c.out_dtype == 1 ? launch_fwd<DH, bf16>(a, c, st) : launch_fwd<DH, float>(a, c, st);
-  return c.grad_dtype == 1 ? launch_bwd<DH, bf16>(a, c, st) : launch_bwd<DH, float>(a, c, st);
+  return launch_bwd<DH>(a, c, st);
 }
 
 cudaError_t dispatch(const Call& c, bool backward, cudaStream_t st) {
-  if (c.B <= 0 || c.S <= 0 || c.H <= 0 || c.out_dtype < 0 || c.out_dtype > 1 ||
-      c.grad_dtype < 0 || c.grad_dtype > 1)
+  if (c.B <= 0 || c.S <= 0 || c.H <= 0 || c.out_dtype < 0 || c.out_dtype > 1)
     return cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)c.Dh));  // np.float32(1 / sqrt(Dh))
   if (c.dtype == 1) {
@@ -723,8 +721,8 @@ cudaError_t dispatch(const Call& c, bool backward, cudaStream_t st) {
       default: return cudaErrorInvalidValue;
     }
   }
-  // float32 inputs: f32 outputs and gradients only.
-  if (c.dtype != 0 || c.out_dtype != 0 || c.grad_dtype != 0) return cudaErrorInvalidValue;
+  // float32 inputs: f32 outputs only.
+  if (c.dtype != 0 || c.out_dtype != 0) return cudaErrorInvalidValue;
   const AttnF f{{static_cast<const float*>(c.q), static_cast<const float*>(c.k),
                  static_cast<const float*>(c.v), c.in, c.bias, c.S, c.H, scale, c.drop}, c.Dh};
   dim3 grid(c.S, c.H, c.B);
@@ -753,10 +751,10 @@ Dropout make_drop(const void* bits, int seed, unsigned thr, float inv_keep, int 
 
 }  // namespace
 
-// dtype, out_dtype, grad_dtype: 0 = float32, 1 = bfloat16. q, k, v share
-// the view (sb, sh, ld); out and dout the view (osb, osh, old); bias is
-// additive f32 with strides (bb, bh, bi), or null. mode: 0 no dropout,
-// 1 injected bits ([B, H, S, S] uint32), 2 in-kernel Philox keyed on seed.
+// dtype, out_dtype: 0 = float32, 1 = bfloat16. q, k, v share the view
+// (sb, sh, ld); out and dout the view (osb, osh, old); bias is additive
+// f32 with strides (bb, bh, bi), or null. mode: 0 no dropout, 1 injected
+// bits ([B, H, S, S] uint32), 2 in-kernel Philox keyed on seed.
 extern "C" int mdm_attention_fwd(const void* q, const void* k, const void* v, long long sb,
                                  long long sh, int ld, const void* bias, long long bb,
                                  long long bh, int bi, const void* bits, int seed, unsigned thr,
@@ -765,22 +763,22 @@ extern "C" int mdm_attention_fwd(const void* q, const void* k, const void* v, lo
                                  int Dh, int dtype, void* stream) {
   const Call c{q, k, v, View{sb, sh, ld}, Bias{static_cast<const float*>(bias), bb, bh, bi},
                make_drop(bits, seed, thr, inv_keep, mode), out, View{osb, osh, old}, out_dtype,
-               nullptr, nullptr, nullptr, nullptr, 0, nullptr, B, S, H, Dh, dtype};
+               nullptr, nullptr, nullptr, nullptr, nullptr, B, S, H, Dh, dtype};
   return (int)dispatch(c, false, static_cast<cudaStream_t>(stream));
 }
 
-// Writes dq, dk, dv (through the q/k/v view, in grad_dtype), the row
-// statistics stats (f32 [3, B*H*S]) and, when ctx is not null, the
-// forward's out recomputed into ctx (dtype, through the out view).
+// Writes dq, dk, dv (through the q/k/v view, in dtype), the row statistics
+// stats (f32 [3, B*H*S]) and, when ctx is not null, the forward's out
+// recomputed into ctx (dtype, through the out view).
 extern "C" int mdm_attention_bwd(const void* q, const void* k, const void* v, long long sb,
                                  long long sh, int ld, const void* bias, long long bb,
                                  long long bh, int bi, const void* bits, int seed, unsigned thr,
                                  float inv_keep, int mode, const void* dout, void* ctx,
                                  long long osb, long long osh, int old, void* dq, void* dk,
-                                 void* dv, int grad_dtype, void* stats, int B, int S, int H,
-                                 int Dh, int dtype, void* stream) {
+                                 void* dv, void* stats, int B, int S, int H, int Dh,
+                                 int dtype, void* stream) {
   const Call c{q, k, v, View{sb, sh, ld}, Bias{static_cast<const float*>(bias), bb, bh, bi},
                make_drop(bits, seed, thr, inv_keep, mode), ctx, View{osb, osh, old}, dtype,
-               dout, dq, dk, dv, grad_dtype, static_cast<float*>(stats), B, S, H, Dh, dtype};
+               dout, dq, dk, dv, static_cast<float*>(stats), B, S, H, Dh, dtype};
   return (int)dispatch(c, true, static_cast<cudaStream_t>(stream));
 }

@@ -6,10 +6,11 @@ cfg_denoiser :388-424) for sampling and training: ``arch='trans_enc'``,
 ``emb_policy='add'``, optional ``mask_frames``. Layout ``x: [B, T, D]``;
 conditioning is a :class:`Conditioning` dataclass of tensors. Parameter
 names follow the reference torch MDM, so its state_dicts load directly.
-A training forward (``deterministic=False``) draws every dropout mask from
+A training forward (``deterministic=False``) draws every dropout seed from
 the step's CPU ``torch.Generator``: the sequence dropout's seed and each
-layer's two dropout seeds (attention, then the tail), whichever route the
-kernel flags pick.
+layer's two (attention, then the tail), whichever route the kernel flags
+pick. Every mask comes from the Philox stream of ops/dropout_bits.py keyed
+on its seed, so the card and the CPU drop the same elements in a step.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.dropout_bits import keep_threshold, sequence_dropout_bits
 from .layers import TimestepEmbedder, TransformerEncoder, draw_seeds, init_weights_
 
 _TODO = {
@@ -87,12 +89,12 @@ def _mask_cond(cond: torch.Tensor, drop: Optional[torch.Tensor]) -> torch.Tensor
 
 def sequence_dropout(x: torch.Tensor, rate: float, rng: torch.Generator) -> torch.Tensor:
     """flax nn.Dropout on the input sequence: keep with probability 1-rate,
-    scale kept values by 1/(1-rate) in x's dtype. The mask is drawn on x's
-    device from a generator seeded by one draw of the step's CPU ``rng``."""
-    keep_prob = 1.0 - rate
-    g = torch.Generator(x.device).manual_seed(draw_seeds(rng, 1)[0])
-    keep = torch.rand(x.shape, generator=g, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+    scale kept values by 1/(1-rate) in x's dtype. The mask is Philox keyed
+    on one seed drawn from the step's CPU ``rng`` (``sequence_dropout_bits``:
+    the dump kernel on the card), the keep rule the kernels'."""
+    bits = sequence_dropout_bits(draw_seeds(rng, 1)[0], *x.shape, device=x.device)
+    keep = bits.to(torch.int64) < keep_threshold(rate)  # uint32 has no CPU compare
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class InputProcess(nn.Module):

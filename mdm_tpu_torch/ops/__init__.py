@@ -92,8 +92,10 @@ def enable_pallas_encoder_tail(enabled=True) -> None:
 
 
 def pallas_encoder_tail_enabled(deterministic: bool) -> bool:
-    """``deterministic`` picks the JAX AUTO signal (sampling or training);
-    the port's single-device AUTO is on for both."""
+    """Whether the layer tail runs the fused tail. ``deterministic`` is not
+    read: it is there only to keep the JAX signature, whose multi-device
+    AUTO differs between sampling and training (ROADMAP Queue 1.11); the
+    port's single-device AUTO is on for both."""
     return _FLAGS["encoder_tail"] is not False
 
 

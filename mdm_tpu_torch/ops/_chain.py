@@ -134,14 +134,16 @@ def attention_fwd(q, k, v, view, out, out_view, B: int, S: int, H: int, head_dim
 def attention_bwd(q, k, v, view, dout, out_view, dq, dk, dv, B: int, S: int, H: int,
                   head_dim: int, bias=None, bias_strides=(0, 0, 0), drop=(None, 0, 0, 1.0, 0),
                   ctx=None) -> None:
-    """dq, dk, dv (q's view, all of one dtype) of ``attention_fwd`` given
-    dout (q's dtype, out_view): p recomputed, the bits replayed; the
-    forward's out recomputed into ctx when it is given."""
+    """dq, dk, dv (q's view and dtype) of ``attention_fwd`` given dout (q's
+    dtype, out_view): p recomputed, the bits replayed; the forward's out
+    recomputed into ctx when it is given."""
+    if not dq.dtype == dk.dtype == dv.dtype == q.dtype:
+        raise ValueError(f"attention gradients must be in q's dtype {q.dtype}")
     stats = torch.empty((3, B * H * S), dtype=torch.float32, device=q.device)
     lib = _build.load_library()
     _build.check(lib.mdm_attention_bwd(ptr(q), ptr(k), ptr(v), *view, ptr(bias), *bias_strides,
                                        *drop, ptr(dout), ptr(ctx), *out_view, ptr(dq), ptr(dk),
-                                       ptr(dv), DTYPES[dq.dtype], ptr(stats), B, S, H, head_dim,
+                                       ptr(dv), ptr(stats), B, S, H, head_dim,
                                        check_dtype(q, "attention"), stream(q)),
                  "attention backward")
 

@@ -30,18 +30,21 @@ What bounds it on an H100: at the flagship step (B=128, S=197, D=512, H=4,
 bf16) the forward's products are 10.2 GFLOP, ~10 us of tensor-core time,
 and its operands and f32 output ~129 MB (with injected bits ~208 MB), ~39
 us at 3.35 TB/s; the exp and Philox words per probability come on top. The
-backward reads q, k, v, dout and writes three f32 gradients, ~258 MB.
+backward reads q, k, v and dout (rounded to q's dtype) and writes three
+bf16 gradients, ~181 MB.
 
 Rounding points: p in f32; w = keep ? p / (1 - rate) : 0 rounded to v's
 dtype before w . v; out accumulated in f32 and returned in f32, as the JAX
 function's (its pre-scale promotes a bf16 q to f32). Backward: dout
 rounded to q's dtype; dw = dout . v^T and delta = rowsum(keep dw p) in f32;
 dv = w^T . dout; dlog = p (keep dw - delta) / sqrt(Dh) rounded to q's
-dtype; dq = dlog . k and dk = dlog^T . q, the three accumulated and
-returned in f32. The JAX backward runs all of it in f32; in bf16 the two
+dtype; dq = dlog . k and dk = dlog^T . q, the three accumulated in f32
+and stored in q's dtype (round to nearest even, as torch's cast). The JAX
+backward runs all of it in f32 and returns f32 gradients; in bf16 the two
 differ by those roundings (the CPU tests hold them at a bf16 tolerance).
-torch's autograd casts a gradient to its input's dtype, so dq, dk and dv
-enter the projections' backward rounded to bf16 where JAX carries f32.
+torch's autograd casts a gradient to its input's dtype in any case, so dq,
+dk and dv enter the projections' backward rounded to bf16 where JAX
+carries f32. The plain backward returns them unrounded, in f32.
 
 ``dropout_attention_reference`` and ``dropout_attention_bwd_reference``
 are the plain PyTorch versions; the wrapper runs them for a CPU tensor,
@@ -132,7 +135,7 @@ def _fwd_cuda(q, k, v, mask, bits, num_heads, rate, seed):
 def _bwd_cuda(q, k, v, mask, bits, num_heads, rate, seed, dout):
     B, S, D = q.shape
     Dh = D // num_heads
-    grads = [torch.empty((B, S, D), dtype=torch.float32, device=q.device) for _ in range(3)]
+    grads = [torch.empty((B, S, D), dtype=q.dtype, device=q.device) for _ in range(3)]
     view = bsd_view(S, D, Dh)
     attention_bwd(q, k, v, view, dev(dout, q.dtype), view, *grads, B, S, num_heads, Dh, mask,
                   row_bias_strides(S), dropout_args(bits, seed, rate))

@@ -12,8 +12,10 @@ attention block and 0/1/2 for the tail's attn-out/ffn-hidden/ffn-out masks.
 ``philox_bits`` is the plain PyTorch version of that generator (int64
 arithmetic, exact). The dumps replace the TPU test kernels
 ``attention_dropout.py::dropout_bits`` and ``encoder_tail.py::tail_dropout_bits``
-and keep their layouts; they exist to pin the in-kernel stream against the
-injected-bits path. The keep rule is ``_keep_threshold``'s: keep where
+and keep their layouts; they pin the in-kernel stream against the
+injected-bits path, and give the plain routes their masks. A third dump,
+``sequence_dropout_bits``, gives MDM's input-sequence dropout its mask
+from the same stream. The keep rule is ``_keep_threshold``'s: keep where
 ``bits < t`` with ``t = min(round((1 - rate) 2^32), 2^32 - 1)``.
 """
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from . import _build
 
-LAUNCHES = {"dropout_bits": 0, "tail_dropout_bits": 0}
+LAUNCHES = {"dropout_bits": 0, "tail_dropout_bits": 0, "sequence_dropout_bits": 0}
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -113,3 +115,12 @@ def tail_dropout_bits(seed: int, B: int, S: int, D: int, F: int, device="cpu"
                      for site, (_, _, n) in enumerate(shapes))
     return _dump("tail_dropout_bits", seed,
                  [(B, 1, site, S, n) for site, (_, _, n) in enumerate(shapes)], shapes, device)
+
+
+def sequence_dropout_bits(seed: int, B: int, S: int, D: int, device="cpu") -> torch.Tensor:
+    """[B, S, D] uint32: the bits of MDM's input-sequence dropout, site 0 of
+    the stream under its own seed (the layout of the tail's first mask)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return philox_bits(seed, torch.arange(B), 0, S, D).to(torch.uint32)
+    return _dump("sequence_dropout_bits", seed, [(B, 1, 0, S, D)], [(B, S, D)], device)[0]

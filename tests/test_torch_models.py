@@ -192,3 +192,18 @@ def test_init_weights_is_seeded():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["embed_text.weight"], c["embed_text.weight"])
     assert torch.equal(a["seqTransEncoder.layers.0.norm1.weight"], torch.ones(128))
+
+
+def test_sequence_dropout_draws_the_philox_stream():
+    """MDM's input-sequence dropout keeps where the Philox bits under one
+    seed from the step's CPU generator fall below the kernels' threshold,
+    and scales kept values as flax's Dropout: the same mask on any device."""
+    from mdm_tpu_torch.ops import dropout_bits as DB
+
+    rate = 0.25
+    x = torch.randn(2, 9, 16, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    out = tm.sequence_dropout(x, rate, torch.Generator().manual_seed(7))
+    seed = tl.draw_seeds(torch.Generator().manual_seed(7), 1)[0]
+    keep = DB.philox_bits(seed, torch.arange(2), 0, 9, 16) < DB.keep_threshold(rate)
+    assert torch.equal(out, torch.where(keep, x / (1 - rate), torch.zeros((), dtype=x.dtype)))
+    assert 0.6 < keep.float().mean().item() < 0.9
