@@ -17,7 +17,9 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   make_train_step, timed; and a TrainLoop resume that must be bit exact;
 - the opt-in attention routes (phases 9-11): kernels #7/#8, #10, #11 and
   #12 against their plain versions, #7/#8's in-kernel Philox against
-  dumped bits; #10 and #12 called as direct entry points; the sampling
+  dumped bits; the attention forward core at the edges of its tiling (S =
+  1, 64, 65, 256, 257; every head dim, output dtype, bias form and dropout
+  mode) with its occupancy; #10 and #12 called as direct entry points; the sampling
   shootout's ``pallas`` variant (v2 attention + fused tail) through
   MotionGenerator.generate at B=32 x 50 steps, and its ``block``/``tail``
   variants; the training shootout's ``drop`` variant (dropout attention
@@ -74,6 +76,9 @@ TRAIN_KERNELS = {  # name -> (source, TPU kernel it replaces)
     "tail_dropout_bits": ("mdm_tpu_torch/csrc/dropout_bits.cu", "mdm_tpu/ops/encoder_tail.py:463"),
 }
 ATTN_SHAPE = dict(B=64, S=197, D=512, H=4)  # sampling attention: CFG batch 2 x 32, 1 + 196 tokens
+# Both sides of the attention forward's 64-row tile and of its resident row
+# of 256 logits (csrc/attention.cu FW_RES): S = 1, 64 | 65, 256 | 257.
+EDGE_S = (1, 64, 65, 256, 257)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 
@@ -763,6 +768,72 @@ def phase_attention_kernels(torch, dev):
     return rows
 
 
+def phase_forward_edges(torch, dev):
+    """Phase 9, edges: the bf16 attention forward core (csrc/attention.cu)
+    against its plain version on [B=2, H=4, S, Dh] operands at S on both
+    sides of its tile and resident-row limits (EDGE_S), every head dim, bf16
+    and f32 output, no bias, a key-padding row and a full per-head bias,
+    dropout modes 0 (none), 1 (injected bits) and 2 (in-kernel Philox);
+    two runs bitwise equal, and in-kernel Philox bitwise equal to the same
+    stream injected; and the kernel's occupancy. These launches are
+    comparisons, counted on no path."""
+    from mdm_tpu_torch.ops import _chain as C
+    from mdm_tpu_torch.ops import dropout_bits as DB
+    from mdm_tpu_torch.ops.attention import attention_probs
+
+    bf, f32 = torch.bfloat16, torch.float32
+    name = lambda dt: str(dt).split(".")[-1]
+    occupancy = {f"Dh={dh} out={name(od)} bias={form} {kind}":
+                 C.attention_fwd_occupancy(dh, od, form, kind == "resident")
+                 for dh in C.HEAD_DIMS for od in (f32, bf) for form in (0, 1, 2)
+                 for kind in ("resident", "two-pass")}
+    print(f"attention forward occupancy, blocks per SM (bias 0 none, 1 row, 2 full; resident "
+          f"row S <= 256, two passes above): {json.dumps(occupancy)}")
+    B, H, seed = 2, 4, 1357
+    rel = TRAIN_REL["bfloat16"]
+    g = torch.Generator().manual_seed(11)
+    r = lambda *shape: _randn(torch, g, *shape).to(dev)
+    ar = lambda n: torch.arange(n, device=dev)
+    worst, cases = 0.0, 0
+    for Dh in C.HEAD_DIMS:
+        for S in EDGE_S:
+            q, k, v = (r(B, H, S, Dh).to(bf) for _ in range(3))
+            view = C.bhsd_view(H, S, Dh)
+            injected = torch.randint(0, 2 ** 32, (B, H, S, S), generator=g, dtype=torch.int64)
+            injected = injected.to(torch.uint32).to(dev)
+            dumped = DB.dropout_bits(seed, B, H, S, device=dev)
+            stream = DB.philox_bits(seed, ar(B)[:, None], ar(H)[None, :], S, S, device=dev)
+            for bname, bias, strides in (("none", None, (0, 0, 0)),
+                                         ("row", r(B, 1, 1, S), (S, 0, 0)),
+                                         ("full", r(B, H, S, S), (H * S * S, S * S, S))):
+                p = attention_probs(q, k, bias)
+                for mode, bits, keep_bits in ((0, None, None), (1, injected, injected),
+                                              (2, None, stream)):
+                    rate = RATE if mode else 0.0
+                    w = p if keep_bits is None else p * DB.keep_factors(keep_bits, RATE)
+                    ref = w.to(bf).float() @ v.float()
+                    for od in (bf, f32):
+                        def run(bits=bits):
+                            out = torch.full((B, H, S, Dh), float("nan"), dtype=od, device=dev)
+                            C.attention_fwd(q, k, v, view, out, view, B, S, H, Dh, bias, strides,
+                                            C.dropout_args(bits, seed, rate))
+                            return out
+                        out = run()
+                        what = f"forward S={S} Dh={Dh} bias={bname} mode={mode} out={name(od)}"
+                        worst = max(worst, _rel_check(torch, what, out, ref, rel)[1])
+                        if not torch.equal(out, run()):
+                            raise AssertionError(f"{what}: two runs differ")
+                        if mode == 2 and not torch.equal(out, run(dumped)):
+                            raise AssertionError(f"{what}: in-kernel Philox differs from the "
+                                                 f"injected dump")
+                        cases += 1
+    print(f"attention forward at S={list(EDGE_S)}, Dh={list(C.HEAD_DIMS)}, B={B} H={H}: "
+          f"{cases} cases (bf16/f32 out x 3 bias forms x 3 dropout modes) vs plain, worst "
+          f"{worst:.3g} of max |plain| (bound {rel}); two runs and Philox vs injected "
+          f"dump bitwise equal")
+    return occupancy
+
+
 def phase_direct_entries(torch, model, dev):
     """Phase 9b: #12 and #10 as direct entry points (no model route calls
     them): each called once per layer of the flagship model, on one
@@ -983,6 +1054,7 @@ def main():
     spills = [ln for ln in log.splitlines()
               if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
     print(f"ptxas: {len(regs)} kernels, at most {max(regs)} registers, {len(spills)} spilling")
+    print(f"ptxas, attention forward: {json.dumps(_build.ptxas_report(log, 'attn_fwd_bf16'))}")
 
     # Phase 2: kernel chain vs plain version at the main path's layer shapes
     # (CFG batch 64 = 2 x 32, S = 1 + 196 frames; serving batch 2 = 2 x 1)
@@ -1100,6 +1172,7 @@ def main():
     # not counted; #10 and #12 are counted over their direct-entry calls,
     # #11 over the pallas generate and #7/#8 over the drop training.
     attention = phase_attention_kernels(torch, dev)
+    phase_forward_edges(torch, dev)
     direct = phase_direct_entries(torch, model, dev)
     v2_launches, pallas_s = phase_sampling_variants(torch, dev, gen_ms / 1000 / B)
     drop_launches, drop_ms = phase_train_drop(torch, dev, step_ms)

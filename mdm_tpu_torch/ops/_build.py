@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 from pathlib import Path
@@ -40,6 +41,7 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _P],
     "mdm_attention_bwd": [_P, _P, _P, *_VIEW, _P, *_VIEW, *_DROP, _P, _P, *_VIEW, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _P],
+    "mdm_attention_fwd_occupancy": [_I, _I, _I, _I, _P],
     "mdm_tail_ln1_fwd": [_P, _P, *_DROP, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mdm_tail_gelu_dropout": [_P, *_DROP, _P, _I, _I, _I, _I, _P],
     "mdm_tail_ln2_fwd": [_P, _P, *_DROP, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -109,6 +111,40 @@ def load_library() -> ctypes.CDLL:
     lib.mdm_error_string.argtypes = [_I]
     lib.mdm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def instance_name(mangled: str, kernel: str) -> str:
+    """kernel<template arguments> of a mangled instance (head dim, output
+    type, and a bool where the kernel takes one); the mangled name when
+    they do not parse."""
+    t = re.search(r"ILi(\d+)E(f|13__nv_bfloat16)(?:Lb([01]))?E", mangled)
+    if not t:
+        return mangled
+    args = [t.group(1), "float" if t.group(2) == "f" else "bf16"]
+    if t.group(3) is not None:
+        args.append("true" if t.group(3) == "1" else "false")
+    return f"{kernel}<{', '.join(args)}>"
+
+
+def ptxas_report(log: str, kernel: str) -> dict:
+    """{instance: registers and spill bytes} of every instance of a kernel
+    in a build log (``-Xptxas -v``)."""
+    rows, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = instance_name(m.group(1), kernel) if kernel in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            rows.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows.setdefault(name, {})["registers"] = int(m.group(1))
+    return rows
 
 
 def check(err: int, what: str) -> None:

@@ -9,6 +9,7 @@ allocates its outputs with ``torch.empty`` and raises on a nonzero
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import numpy as np
@@ -129,6 +130,19 @@ def attention_fwd(q, k, v, view, out, out_view, B: int, S: int, H: int, head_dim
                                        *drop, ptr(out), *out_view, DTYPES[out.dtype], B, S, H,
                                        head_dim, check_dtype(q, "attention"), stream(q)),
                  "attention forward")
+
+
+def attention_fwd_occupancy(head_dim: int, out_dtype: torch.dtype, bias_form: int,
+                            resident: bool = True) -> int:
+    """Resident blocks per SM of ``attention_fwd``'s bf16 kernel storing
+    out_dtype, for bias_form 0 (none), 1 (a key-padding row) or 2 (a full
+    [S, S] tile), in its resident-row instance (S <= 256) or its two-pass
+    one: cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    blocks = ctypes.c_int(0)
+    _build.check(_build.load_library().mdm_attention_fwd_occupancy(
+        head_dim, DTYPES[out_dtype], bias_form, int(resident), ctypes.addressof(blocks)),
+        "attention occupancy")
+    return blocks.value
 
 
 def attention_bwd(q, k, v, view, dout, out_view, dq, dk, dv, B: int, S: int, H: int,

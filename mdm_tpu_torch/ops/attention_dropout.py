@@ -155,7 +155,7 @@ class _DropoutAttention(torch.autograd.Function):
             ctx.bits = bits
             return out
         if rate > 0.0 and bits is None:  # the kernel's own Philox stream, drawn on the CPU
-            bits = dropout_bits(seed, q.shape[0], num_heads, q.shape[1])
+            bits = dropout_bits(seed, q.shape[0], num_heads, q.shape[1], device=q.device)
         ctx.bits = bits
         return dropout_attention_reference(q, k, v, num_heads, rate, bits, mask)
 

@@ -193,7 +193,7 @@ class _TrainBlock(torch.autograd.Function):
             ctx.bits = bits
             return out
         if rate > 0.0 and bits is None:  # the kernel's own Philox stream, drawn on the CPU
-            bits = dropout_bits(seed, x.shape[0], num_heads, x.shape[1])
+            bits = dropout_bits(seed, x.shape[0], num_heads, x.shape[1], device=x.device)
         ctx.qkv, ctx.bits = None, bits
         return train_attention_block_reference(x, wqkv, bqkv, wo, bo, num_heads, rate, bits,
                                                mask)

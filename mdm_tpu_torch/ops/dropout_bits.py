@@ -17,6 +17,9 @@ injected-bits path, and give the plain routes their masks. A third dump,
 ``sequence_dropout_bits``, gives MDM's input-sequence dropout its mask
 from the same stream. The keep rule is ``_keep_threshold``'s: keep where
 ``bits < t`` with ``t = min(round((1 - rate) 2^32), 2^32 - 1)``.
+
+The dumps run on the card unless the caller asks for the CPU
+(``device="cpu"``), where they return ``philox_bits``.
 """
 from __future__ import annotations
 
@@ -90,7 +93,7 @@ def _dump(name: str, seed: int, shape_sites, out_shapes, device) -> Tuple[torch.
     return outs
 
 
-def dropout_bits(seed: int, B: int, num_heads: int, S: int, device="cpu") -> torch.Tensor:
+def dropout_bits(seed: int, B: int, num_heads: int, S: int, device="cuda") -> torch.Tensor:
     """[B, H, S, S] uint32: the bits the attention block draws for head h,
     query row i, key column j (attention_dropout.py::dropout_bits layout)."""
     device = torch.device(device)
@@ -103,7 +106,7 @@ def dropout_bits(seed: int, B: int, num_heads: int, S: int, device="cpu") -> tor
                  [(B, num_heads, S, S)], device)[0]
 
 
-def tail_dropout_bits(seed: int, B: int, S: int, D: int, F: int, device="cpu"
+def tail_dropout_bits(seed: int, B: int, S: int, D: int, F: int, device="cuda"
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The tail's three masks' bits: attn-out [B,S,D] (site 0), ffn-hidden
     [B,S,F] (site 1), ffn-out [B,S,D] (site 2) (encoder_tail.py layout)."""
@@ -117,7 +120,7 @@ def tail_dropout_bits(seed: int, B: int, S: int, D: int, F: int, device="cpu"
                  [(B, 1, site, S, n) for site, (_, _, n) in enumerate(shapes)], shapes, device)
 
 
-def sequence_dropout_bits(seed: int, B: int, S: int, D: int, device="cpu") -> torch.Tensor:
+def sequence_dropout_bits(seed: int, B: int, S: int, D: int, device="cuda") -> torch.Tensor:
     """[B, S, D] uint32: the bits of MDM's input-sequence dropout, site 0 of
     the stream under its own seed (the layout of the tail's first mask)."""
     device = torch.device(device)

@@ -240,7 +240,7 @@ class _Tail(torch.autograd.Function):
             return z
         if rate > 0.0 and bits is None:  # the kernels' own Philox stream, drawn on the CPU
             B, S, D = x.shape
-            bits = tail_dropout_bits(seed, B, S, D, w1.shape[0])
+            bits = tail_dropout_bits(seed, B, S, D, w1.shape[0], device=x.device)
         ctx.acts, ctx.bits = None, bits
         return encoder_tail_reference(x, attn, *params, rate, bits)
 

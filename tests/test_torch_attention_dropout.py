@@ -16,6 +16,11 @@ while the port rounds dout, w and dlog to bf16 for its tensor-core
 products (ops/attention_dropout.py): a few bf16 ulps on gradients of size
 ~1, 2^-4 absolute and 2^-5 relative (the train block's gradient bound,
 tests/test_torch_attention_train_block.py).
+
+The cases also sit on both sides of every tile and resident-row limit of
+the card's forward (csrc/attention.cu: 64-row tiles, logits resident up to
+S = 256) at head dims 32 and 128: these plain versions are the card's
+oracle at exactly those shapes.
 """
 import numpy as np
 import pytest
@@ -35,13 +40,13 @@ BF16_TOL = dict(atol=2 ** -6, rtol=2 ** -6)
 BF16_GRAD_TOL = dict(atol=2 ** -4, rtol=2 ** -5)
 
 
-def _operands(S, mask, seed=0):
+def _operands(S, mask, seed=0, width=D):
     rng = np.random.default_rng(seed)
-    q, k, v, do = (rng.normal(size=(B, S, D)).astype(np.float32) for _ in range(4))
+    q, k, v, do = (rng.normal(size=(B, S, width)).astype(np.float32) for _ in range(4))
     kpm = None
     if mask == "bool":
         kpm = np.zeros((B, S), bool)
-        kpm[1, S - 5:] = True
+        kpm[1, max(S - 5, 1):] = True
     elif mask == "float":
         kpm = rng.normal(size=(B, S)).astype(np.float32)
     S_pad = -(-S // 16) * 16
@@ -62,7 +67,7 @@ def _jax_kernels(q, k, v, do, kpm, bits, dtype, rate):
     dq, dk, dv = JAD._call_bwd(qp, kp, vp, mask_row, None, jbits, do_p, H, rate, True)
     f = lambda a: np.asarray(jnp.asarray(a[:, :S]).astype(jnp.float32))
     assert out.dtype == jnp.float32  # the pre-scale promotes q, and so the output
-    scale = np.float32(1.0 / np.sqrt(D // H))
+    scale = np.float32(1.0 / np.sqrt(q.shape[2] // H))
     return f(out), [f(dq) * scale, f(dk), f(dv)]
 
 
@@ -74,11 +79,17 @@ def _port(q, k, v, do, kpm, bits, dtype):
             torch.from_numpy(np.ascontiguousarray(bits[:, :, :S, :S])))
 
 
-@pytest.mark.parametrize("S", [32, 37])
+# (S, Dh): the first two cases keep their ids; the rest are the card's
+# tiling edges (1, 64 | 65, 256 | 257) at head dims 32 and 128.
+EDGES = [(32, D // H), (37, D // H)] + [(S, Dh) for Dh in (32, 128) for S in (1, 64, 65, 256, 257)]
+EDGE_IDS = ["32", "37"] + [f"{S}-dh{Dh}" for S, Dh in EDGES[2:]]
+
+
+@pytest.mark.parametrize("S, Dh", EDGES, ids=EDGE_IDS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mask", [None, "bool", "float"])
-def test_plain_forward_and_backward_match_jax_kernels(S, dtype, mask):
-    ops = _operands(S, mask)
+def test_plain_forward_and_backward_match_jax_kernels(S, Dh, dtype, mask):
+    ops = _operands(S, mask, width=H * Dh)
     ref_out, ref_grads = _jax_kernels(*ops, getattr(jnp, dtype), RATE)
     q, k, v, do, kpm, bits = _port(*ops, getattr(torch, dtype))
     out = AD.dropout_attention_reference(q, k, v, H, RATE, bits, kpm)
@@ -118,7 +129,7 @@ def test_cpu_path_draws_the_kernels_philox_stream():
     stream the CUDA kernels draw in-kernel."""
     q, k, v, _, kpm, _ = _port(*_operands(37, None, seed=2), torch.float32)
     out = AD.fused_dropout_attention(q, k, v, H, RATE, seed=4321)
-    bits = DB.dropout_bits(4321, B, H, 37)
+    bits = DB.dropout_bits(4321, B, H, 37, device="cpu")
     assert torch.equal(out, AD.dropout_attention_reference(q, k, v, H, RATE, bits))
     assert not torch.equal(out, AD.dropout_attention_reference(q, k, v, H, RATE,
-                                                               DB.dropout_bits(4322, B, H, 37)))
+                                                               DB.dropout_bits(4322, B, H, 37, device="cpu")))

@@ -118,7 +118,7 @@ def test_cpu_path_draws_the_kernels_philox_stream():
     x, ws, bs, kpm, bits, do = _operands(37, seed=2)
     x, wqkv, bqkv, wo, bo, kpm, _, _ = _port_operands(x, ws, bs, kpm, bits, do, torch.float32)
     out = TB.fused_train_attention_block(x, wqkv, bqkv, wo, bo, H, RATE, seed=1234)
-    bits = DB.dropout_bits(1234, B, H, 37)
+    bits = DB.dropout_bits(1234, B, H, 37, device="cpu")
     assert torch.equal(out, TB.train_attention_block_reference(x, wqkv, bqkv, wo, bo, H, RATE,
                                                                bits))
     kept = (DB.keep_factors(bits, RATE) > 0).float().mean().item()

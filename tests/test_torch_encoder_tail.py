@@ -95,7 +95,7 @@ def test_autograd_wrapper_is_the_plain_pair_with_grads_in_the_working_dtype():
 def test_cpu_path_draws_the_kernels_philox_stream():
     x, attn, params, _, _ = _port(*_operands(37, seed=2), torch.float32)
     z = ET.fused_encoder_tail(x, attn, *params, RATE, seed=-77)
-    bits = DB.tail_dropout_bits(-77, B, 37, D, F)
+    bits = DB.tail_dropout_bits(-77, B, 37, D, F, device="cpu")
     assert torch.equal(z, ET.encoder_tail_reference(x, attn, *params, RATE, bits))
     for b in bits:
         kept = (DB.keep_factors(b, RATE) > 0).float().mean().item()

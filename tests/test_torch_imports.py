@@ -48,7 +48,8 @@ SLICE = {"ops._mask", "ops.layer_inference", "ops._build", "models.layers", "mod
          "diffusion.losses", "train.resample", "train.state", "train.train_step",
          "train.checkpoints", "train.logger", "train.platforms", "train.loop",
          "ops.attention", "ops.attention_v2", "ops.attention_dropout", "ops.attention_block",
-         "scripts.bench_sample_kernels", "scripts.bench_train_kernels"}
+         "scripts.bench_sample_kernels", "scripts.bench_train_kernels",
+         "scripts.attention_forward_probe"}
 
 
 def test_port_runs_with_jax_and_flax_blocked():
