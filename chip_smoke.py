@@ -5,10 +5,12 @@ Builds the hand-written CUDA kernels from mdm_tpu_torch/csrc and drives the
 port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
 1024, bf16) with random weights drawn from a seed:
 
-- sampling (phases 2-4): the encoder-layer kernel chain against its plain
-  PyTorch version, MotionGenerator.generate at B=32 x T=196 with 50
-  respaced cosine DDPM steps and CFG 2.5, and the serving Predictor
-  answering three prompts at batch 1;
+- sampling (phases 2-4): the wgmma product kernel (csrc/gemm_sm90.cu,
+  every bf16 x . W^T product of the chains) against the plain product at
+  the edges of its tiling, and the encoder-layer kernel chain against its
+  plain PyTorch version; MotionGenerator.generate at B=32 x T=196 with 50
+  respaced cosine DDPM steps and CFG 2.5, every product of it on the wgmma
+  kernel; and the serving Predictor answering three prompts at batch 1;
 - training (phases 5-8): the train attention block and the encoder tail,
   forward and backward, against their plain versions at the flagship
   training layer shape; the in-kernel Philox dropout against the injected
@@ -26,8 +28,10 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   kernel + the plain tail), 30 flagship steps, timed, and one f32 step of
   it on the card against the CPU.
 
-Each path checks that every layer call went through its kernels. Each
-kernel's line carries its bound: the larger of its bytes (each input read
+Each path checks that every layer call went through its kernels, and the
+sampling and training paths that every forward product went through the
+wgmma kernel (the backward's through WMMA). Each kernel's line carries its
+bound: the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its FLOPs over 989
 TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak. The training
 kernels are timed drawing their dropout bits in-kernel, as every route
@@ -35,7 +39,9 @@ runs them; their comparisons with the plain versions inject the bits.
 
 Run from the repository root, with one CUDA device:  python3 chip_smoke.py
 The last line of its output is {"ok": true, "device": {...}}; the line
-before it lists each kernel with its launches, error and times. With no
+before it lists each kernel with its launches, error and times, and an
+earlier "gemm products" line each main-path product's time, bound, share
+of peak and torch.matmul's time. With no
 CUDA device it exits nonzero and prints no result.
 """
 import json
@@ -127,7 +133,11 @@ def _time_ms(torch, fn, iters=20):
 
 def compare_layer(torch, li, B, S, D, F, H, dtype, mask):
     """Kernel chain vs plain version on the card: max abs error and the
-    times of both, measured in turns (plain, kernel, kernel, plain)."""
+    times of both, measured in turns (plain, kernel, kernel, plain); and the
+    chain's time on the card alone (device_ms: CUDA graph replay), which the
+    back-to-back time exceeds where the host issues slower than it runs."""
+    from mdm_tpu_torch.scripts.gemm_probe import device_ms
+
     x, ws, kpm = _layer_inputs(torch, B, S, D, F, dtype, mask)
     out = li.fused_layer_inference(x, *ws, H, key_padding_mask=kpm)
     torch.cuda.synchronize()
@@ -143,7 +153,8 @@ def compare_layer(torch, li, B, S, D, F, H, dtype, mask):
     plain = lambda: li.layer_inference_reference(x, *ws, H, key_padding_mask=kpm)
     p1, k1, k2, p2 = (_time_ms(torch, f) for f in (plain, kernel, kernel, plain))
     row = dict(B=B, S=S, D=D, F=F, H=H, dtype=str(dtype).split(".")[-1], mask=mask,
-               max_abs_err=err, tol=tol, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+               max_abs_err=err, tol=tol, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+               device_ms=device_ms(kernel))
     print("layer", json.dumps(row))
     return row
 
@@ -246,6 +257,8 @@ def compare_train_chain(torch, name, fn, plain_fwd, plain_bwd, ops, dout, dtype,
                max_rel_err=max(e[1] for e in errs.values()), rel_tol=rel,
                rel_err={k: e[1] for k, e in errs.items()})
     if timed:
+        from mdm_tpu_torch.scripts.gemm_probe import device_ms
+
         kernel = fn if drawn is None else drawn
         leaves = [t.clone().requires_grad_() for t in ops]
         graph_out = kernel(*leaves)
@@ -253,8 +266,9 @@ def compare_train_chain(torch, name, fn, plain_fwd, plain_bwd, ops, dout, dtype,
         kb = lambda: torch.autograd.grad(graph_out, leaves, dout, retain_graph=True)
         with torch.no_grad():
             p1, k1, k2, p2 = (_time_ms(torch, f) for f in (plain_fwd, kf, kf, plain_fwd))
+            fwd_device = device_ms(kf)
         q1, j1, j2, q2 = (_time_ms(torch, f) for f in (plain_bwd, kb, kb, plain_bwd))
-        row.update(fwd_ms=(k1 + k2) / 2, fwd_plain_ms=(p1 + p2) / 2,
+        row.update(fwd_ms=(k1 + k2) / 2, fwd_device_ms=fwd_device, fwd_plain_ms=(p1 + p2) / 2,
                    bwd_ms=(j1 + j2) / 2, bwd_plain_ms=(q1 + q2) / 2)
     print("train chain", json.dumps(row))
     return row
@@ -358,6 +372,11 @@ def phase_random_stream(torch, TB, ET, DB, shape, dev):
         print(f"{name}: Philox == injected bits, bitwise, forward and {len(grads_p)} grads; "
               f"two backward runs bitwise equal")
     return rows
+
+
+def _zero(counts):
+    for k in counts:
+        counts[k] = 0
 
 
 def _train_batch(torch, rng, B, T, dev, njoints=263):
@@ -494,6 +513,7 @@ def phase_flagship_train(torch, TB, ET, DB, dev):
     timed; then a small TrainLoop resume that must be bitwise exact."""
     from mdm_tpu_torch.diffusion import Schedule
     from mdm_tpu_torch.models import MDM, MDMConfig
+    from mdm_tpu_torch.ops import _chain
     from mdm_tpu_torch.train import (LoopConfig, OptimConfig, TrainLoop, TrainStepConfig,
                                      create_train_state, make_train_step, step_key)
 
@@ -510,8 +530,8 @@ def phase_flagship_train(torch, TB, ET, DB, dev):
     state = create_train_state(model, OptimConfig(lr=1e-3))
 
     steps = 30
-    for counts in (TB.LAUNCHES, ET.LAUNCHES):  # counts from here on are the main path's
-        counts["fwd"] = counts["bwd"] = 0
+    for counts in (TB.LAUNCHES, ET.LAUNCHES, _chain.GEMM_LAUNCHES):  # the main path's from here
+        _zero(counts)
     DB.LAUNCHES["sequence_dropout_bits"] = 0
     losses = []
     for i in range(steps):
@@ -525,6 +545,13 @@ def phase_flagship_train(torch, TB, ET, DB, dev):
     if any(v != expected for v in launches.values()):
         raise AssertionError(f"training launched {launches}, expected {expected} each "
                              f"({cfg.num_layers} layers x {steps} steps)")
+    # Per layer and step: the block's q/k/v and out projection and the
+    # tail's linear1 and linear2 forward on wgmma; the backward's four dY . W
+    # and dY^T . X products each for block and tail on WMMA.
+    products = dict(_chain.GEMM_LAUNCHES)
+    want = {"wgmma": 4 * expected, "wmma": 8 * expected, "fma": 0}
+    if products != want:
+        raise AssertionError(f"training's products launched {products}, expected {want}")
     seq_bits = DB.LAUNCHES["sequence_dropout_bits"]
     if seq_bits != steps:
         raise AssertionError(f"the sequence dropout's dump ran {seq_bits} times in {steps} steps")
@@ -533,7 +560,7 @@ def phase_flagship_train(torch, TB, ET, DB, dev):
     first, last = losses[:10].mean(), losses[-10:].mean()
     print(f"flagship train B={B} T={T} bf16 dropout {RATE}, lr 1e-3: loss first 10 "
           f"{first:.5f}, last 10 {last:.5f}; launches {launches}, sequence dropout "
-          f"dump {seq_bits}")
+          f"dump {seq_bits}, products {products}")
     if not last < first:
         raise AssertionError("the training loss did not descend")
 
@@ -583,7 +610,10 @@ def phase_flagship_train(torch, TB, ET, DB, dev):
 
 def compare_forward(torch, name, kernel, plain, rel, timed=False):
     """A forward-only kernel against its plain version on the same inputs;
-    times both in turns (plain, kernel, kernel, plain) when asked."""
+    times both in turns (plain, kernel, kernel, plain) when asked, and the
+    kernel on the card alone (CUDA graph replay)."""
+    from mdm_tpu_torch.scripts.gemm_probe import device_ms
+
     with torch.no_grad():
         out = kernel()
         torch.cuda.synchronize()
@@ -591,7 +621,7 @@ def compare_forward(torch, name, kernel, plain, rel, timed=False):
         row = dict(max_abs_err=err, rel_err=rel_err, rel_tol=rel)
         if timed:
             p1, k1, k2, p2 = (_time_ms(torch, f) for f in (plain, kernel, kernel, plain))
-            row.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+            row.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, device_ms=device_ms(kernel))
     print("attention kernel", name, json.dumps(row))
     return row
 
@@ -749,6 +779,7 @@ def phase_attention_kernels(torch, dev):
             ("bwd", "fused_dropout_attention.backward", 8 * B * S * S * D,
              nbytes(q, k, v, kpm, dout) + grads_bytes, None)):
         rows[name] = dict(max_abs_err=chain[f"max_abs_err_{key}"], ms=chain[f"{key}_ms"],
+                          device_ms=chain.get(f"{key}_device_ms"),
                           plain_ms=chain[f"{key}_plain_ms"], library_ms=lib,
                           **dict(zip(("bound_ms", "bound_by"), bound(flops, moved))))
 
@@ -840,11 +871,13 @@ def phase_direct_entries(torch, model, dev):
     activation at the CFG batch with the ragged mask. Returns their
     launches."""
     import torch.nn.functional as F
+    from mdm_tpu_torch.ops import _chain
     from mdm_tpu_torch.ops import attention as A
     from mdm_tpu_torch.ops import attention_block as AB
 
     B, S, D, H = (ATTN_SHAPE[k] for k in ("B", "S", "D", "H"))
     x = _randn(torch, torch.Generator().manual_seed(1), B, S, D).to(torch.bfloat16).to(dev)
+    _zero(_chain.GEMM_LAUNCHES)
     kpm = _ragged_mask(torch, B, S).to(dev)
     bias = torch.where(kpm, -1e9, 0.0)[:, None, None, :]
     A.LAUNCHES = AB.LAUNCHES = 0
@@ -864,6 +897,9 @@ def phase_direct_entries(torch, model, dev):
     n = len(model.seqTransEncoder.layers)
     if any(c != n for c in launches.values()):
         raise AssertionError(f"direct entries launched {launches}, expected {n} each")
+    if _chain.GEMM_LAUNCHES != {"wgmma": 2 * n, "wmma": 0, "fma": 0}:  # #12's two projections
+        raise AssertionError(f"#12's products launched {_chain.GEMM_LAUNCHES}, expected "
+                             f"{2 * n} on the wgmma kernel")
     print(f"direct entries, one call per layer of the flagship model: {launches}")
     return launches
 
@@ -1007,15 +1043,33 @@ def phase_train_drop(torch, dev, tail_step_ms):
     return launches, step_ms
 
 
+def device_busy(torch, fn):
+    """(wall ms, kernel ms) of one call of fn under torch.profiler: CUDA
+    events around it, and the sum of its kernels' device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end), sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+
 def library_layer_ms(torch, dev):
     """One nn.TransformerEncoderLayer forward (its fast path: eval, no grad)
-    at the sampling layer shape, bf16: kernel #1's library yardstick."""
+    at the sampling layer shape, bf16: kernel #1's library yardstick. Its ms
+    issued back to back and on the card alone (CUDA graph replay), as #1's."""
+    from mdm_tpu_torch.scripts.gemm_probe import device_ms
+
     D, F, H = FLAGSHIP["latent_dim"], FLAGSHIP["ff_size"], FLAGSHIP["num_heads"]
     layer = torch.nn.TransformerEncoderLayer(D, H, F, dropout=0.0, activation="gelu",
                                              batch_first=True).to(dev, torch.bfloat16).eval()
     x = torch.randn(64, 197, D, device=dev, dtype=torch.bfloat16)
     with torch.inference_mode():
-        return _time_ms(torch, lambda: layer(x))
+        return _time_ms(torch, lambda: layer(x)), device_ms(lambda: layer(x))
 
 
 def main():
@@ -1026,12 +1080,13 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mdm_tpu_torch.diffusion import Schedule
     from mdm_tpu_torch.models import MDM, Conditioning, MDMConfig
-    from mdm_tpu_torch.ops import _build
+    from mdm_tpu_torch.ops import _build, _chain
     from mdm_tpu_torch.ops import attention_train_block as TB
     from mdm_tpu_torch.ops import dropout_bits as DB
     from mdm_tpu_torch.ops import encoder_tail as ET
     from mdm_tpu_torch.ops import layer_inference as li
     from mdm_tpu_torch.sampling import GenerationConfig, HashTextEmbedder, MotionGenerator
+    from mdm_tpu_torch.scripts import gemm_probe as GP
     from mdm_tpu_torch.serving import Predictor, PredictorConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1055,6 +1110,16 @@ def main():
               if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
     print(f"ptxas: {len(regs)} kernels, at most {max(regs)} registers, {len(spills)} spilling")
     print(f"ptxas, attention forward: {json.dumps(_build.ptxas_report(log, 'attn_fwd_bf16'))}")
+    print(f"ptxas, wgmma products: {json.dumps(_build.ptxas_report(log, GP.KERNEL))}")
+
+    # Phase 2a: the wgmma product kernel against the plain product at the
+    # edges of its tiling (M on both sides of 128 rows, the paths' M), the
+    # four product shapes and two ragged (N, K), bias and GELU on and off,
+    # bf16 and f32 out; two
+    # runs bitwise equal. These launches are comparisons, counted on no path.
+    edges = GP.check_edges()
+    print(f"wgmma products vs plain: {json.dumps(edges)}; two runs bitwise equal; "
+          f"blocks per SM {_chain.wgmma_occupancy(False, False)}")
 
     # Phase 2: kernel chain vs plain version at the main path's layer shapes
     # (CFG batch 64 = 2 x 32, S = 1 + 196 frames; serving batch 2 = 2 x 1)
@@ -1064,6 +1129,10 @@ def main():
     compare_layer(torch, li, 2, 197, D, F, H, torch.bfloat16, None)
     compare_layer(torch, li, 64, 197, D, F, H, torch.float32, None)
     compare_layer(torch, li, 3, 37, 128, 256, 4, torch.float32, "float")
+    # D = 1536 (12 heads of 128): the LayerNorm's f32 rows run past the
+    # 1024 values a warp holds in registers and read the rest twice.
+    for dtype, mask in ((torch.float32, None), (torch.bfloat16, "bool")):
+        compare_layer(torch, li, 2, 37, 1536, 512, 12, dtype, mask)
 
     # Phase 2b: the whole slice on the card (kernels) against the CPU (plain
     # versions) at a small f32 width, with identical weights and noise.
@@ -1099,11 +1168,17 @@ def main():
     per_forward = cfg.num_layers
 
     li.LAUNCHES = 0  # counts from here on are the main path's
+    _zero(_chain.GEMM_LAUNCHES)
     out1 = gen.generate(cond, B, T, torch.Generator(dev).manual_seed(0))
     torch.cuda.synchronize()
     if li.LAUNCHES != per_forward * steps:
         raise AssertionError(f"generate launched the layer kernels {li.LAUNCHES} times, "
                              f"expected {per_forward} layers x {steps} steps")
+    products = dict(_chain.GEMM_LAUNCHES)  # 4 per layer call: q/k/v, out, linear1, linear2
+    if products != {"wgmma": 4 * per_forward * steps, "wmma": 0, "fma": 0}:
+        raise AssertionError(f"generate's products launched {products}, expected "
+                             f"{4 * per_forward * steps} on the wgmma kernel and none elsewhere")
+    print(f"generate's products: {products}")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     out2 = gen.generate(cond, B, T, torch.Generator(dev).manual_seed(0))
@@ -1140,11 +1215,17 @@ def main():
 
     M = 64 * 197  # the timed layer: CFG batch 64, bf16, no mask
     layer_bytes = 2 * (2 * M * D + 4 * D * D + 2 * D * F + 9 * D + F)
+    lib_ms, lib_device_ms = library_layer_ms(torch, dev)
+    print(f"#1 over nn.TransformerEncoderLayer: {flagship[0]['ms'] / lib_ms:.3f}x back to back "
+          f"({flagship[0]['ms']:.4f} / {lib_ms:.4f} ms), "
+          f"{flagship[0]['device_ms'] / lib_device_ms:.3f}x on the card alone "
+          f"({flagship[0]['device_ms']:.4f} / {lib_device_ms:.4f} ms)")
     kernels = [dict(name="fused_layer_inference", route="cuda", source=KERNEL_SOURCE,
                     replaces=REPLACES, launches=launches,
                     max_abs_err=max(r["max_abs_err"] for r in flagship),
-                    ms=flagship[0]["ms"], plain_ms=flagship[0]["plain_ms"],
-                    library_ms=library_layer_ms(torch, dev), path="sampling",
+                    ms=flagship[0]["ms"], device_ms=flagship[0]["device_ms"],
+                    plain_ms=flagship[0]["plain_ms"], library_ms=lib_ms,
+                    library_device_ms=lib_device_ms, path="sampling",
                     **dict(zip(("bound_ms", "bound_by"),
                                bound(2 * M * (4 * D * D + 2 * D * F) + 4 * 64 * 197 ** 2 * D,
                                      layer_bytes))))]
@@ -1200,6 +1281,7 @@ def main():
             kernels.append(dict(name=f"{name}.{d}", route="cuda", source=source,
                                 replaces=replaces, launches=train_launches[f"{name}.{key}"],
                                 max_abs_err=row[f"max_abs_err_{key}"], ms=row[f"{key}_ms"],
+                                device_ms=row.get(f"{key}_device_ms"),
                                 plain_ms=row[f"{key}_plain_ms"],
                                 library_ms=library.get(f"{name}.{key}"), path="training",
                                 **dict(zip(("bound_ms", "bound_by"),
@@ -1232,6 +1314,18 @@ def main():
           f"{pallas_s:.6f}; ms/step at B=128: AUTO {step_ms:.3f}, drop variant {drop_ms:.3f}")
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel was never launched on its path: {kernels}")
+    products = {name: GP.measure(name) for name in GP.MAIN_PATH_PRODUCTS}
+
+    # Phase 12, last of all: phase 3's generate once more under torch.profiler
+    # for the card's busy share. Last, because the profiler's tracing hooks
+    # can slow every later launch of this process.
+    wall, busy = device_busy(torch, lambda: gen.generate(cond, B, T,
+                                                         torch.Generator(dev).manual_seed(0)))
+    print(f"generate under torch.profiler: {wall:.1f} ms ({gen_ms:.1f} without it, phase 3), "
+          f"kernels {busy:.1f} ms on the card: device busy share {busy / gen_ms:.3f} of the "
+          f"unprofiled run" if busy else
+          "generate under torch.profiler: no device time recorded (busy share not measured)")
+    print("gemm products", json.dumps(products))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

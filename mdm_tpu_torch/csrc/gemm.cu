@@ -1,7 +1,9 @@
-// The matrix products of every kernel chain, and the column sums of the
-// training chains: the sampling layer (ops/layer_inference.py), the train
-// attention block (ops/attention_train_block.py) and the encoder tail
-// (ops/encoder_tail.py). Together with the attention and row kernels they
+// The matrix products of the kernel chains that gemm_sm90.cu does not take
+// (the backward's dY . W and dY^T . X forms in bf16, and every float32
+// product), and the column sums of the training chains: the sampling layer
+// (ops/layer_inference.py), the train attention block
+// (ops/attention_train_block.py) and the encoder tail (ops/encoder_tail.py).
+// ops/_chain.py::gemm_kernel holds the rule. Together with the attention and row kernels they
 // replace the bodies of the TPU kernels
 // mdm_tpu/ops/layer_inference.py::_layer_kernel,
 // mdm_tpu/ops/attention_train_block.py::_fwd_kernel/_bwd_kernel and
@@ -284,20 +286,22 @@ void launch_bf16(const void* a, const void* b, const void* bias, const float* r,
       vec_b);
 }
 
+// The bf16 x . W^T form (a_km = b_kn = 0) is gemm_sm90.cu's: refused here.
 template <typename TO>
-int dispatch_bf16(int a_km, int b_kn, const void* a, const void* b, const void* bias,
-                  const float* r, void* c, int M, int N, int K, int kchunk, int splits,
-                  bool gelu, cudaStream_t st) {
-  if (!a_km && !b_kn) launch_bf16<TO, false, false>(a, b, bias, r, c, M, N, K, kchunk, splits, gelu, st);
-  else if (!a_km && b_kn) launch_bf16<TO, false, true>(a, b, bias, r, c, M, N, K, kchunk, splits, gelu, st);
-  else if (a_km && b_kn) launch_bf16<TO, true, true>(a, b, bias, r, c, M, N, K, kchunk, splits, gelu, st);
+cudaError_t dispatch_bf16(int a_km, int b_kn, const void* a, const void* b, const void* bias,
+                          const float* r, void* c, int M, int N, int K, int kchunk, int splits,
+                          bool gelu, cudaStream_t st) {
+  if (!a_km && !b_kn) return cudaErrorInvalidValue;
+  if (!a_km) launch_bf16<TO, false, true>(a, b, bias, r, c, M, N, K, kchunk, splits, gelu, st);
+  else if (b_kn) launch_bf16<TO, true, true>(a, b, bias, r, c, M, N, K, kchunk, splits, gelu, st);
   else launch_bf16<TO, true, false>(a, b, bias, r, c, M, N, K, kchunk, splits, gelu, st);
-  return 0;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (A, B, bias; R is always f32). out_f32:
+// dtype: 0 = float32, 1 = bfloat16 (A, B, bias; R is always f32; in bf16
+// the a_km = b_kn = 0 form is refused: mdm_gemm_wgmma runs it). out_f32:
 // C is f32, otherwise dtype. gelu: the exact GELU after the bias. splits >
 // 1: split-K over `work` (f32 [splits, M, N]); then C must be f32, bias and
 // R null and gelu 0.
@@ -311,8 +315,10 @@ extern "C" int mdm_gemm(const void* a, const void* b, const void* bias, const vo
   void* dst = splits > 1 ? work : c;
   const float* rr = static_cast<const float*>(r);
   if (dtype == 1) {
-    if (out_f32) dispatch_bf16<float>(a_km, b_kn, a, b, bias, rr, dst, M, N, K, kchunk, splits, gelu, st);
-    else dispatch_bf16<bf16>(a_km, b_kn, a, b, bias, rr, dst, M, N, K, kchunk, splits, gelu, st);
+    const cudaError_t e =
+        out_f32 ? dispatch_bf16<float>(a_km, b_kn, a, b, bias, rr, dst, M, N, K, kchunk, splits, gelu, st)
+                : dispatch_bf16<bf16>(a_km, b_kn, a, b, bias, rr, dst, M, N, K, kchunk, splits, gelu, st);
+    if (e != cudaSuccess) return (int)e;
   } else if (dtype == 0) {
     dim3 grid((N + FN - 1) / FN, (M + FM - 1) / FM, splits);
     const float *A = static_cast<const float*>(a), *B = static_cast<const float*>(b);

@@ -23,7 +23,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("layer_inference.cu", "gemm.cu", "attention.cu", "encoder_tail.cu", "dropout_bits.cu")
+SOURCES = ("layer_inference.cu", "gemm.cu", "gemm_sm90.cu", "attention.cu", "encoder_tail.cu",
+           "dropout_bits.cu")
 HEADERS = ("common.cuh", "philox.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -33,10 +34,11 @@ _DROP = [_P, _I, _U, _F, _I]  # bits, seed, threshold, 1/(1-rate), mode (philox.
 _VIEW = [_L, _L, _I]  # batch, head and row strides of an attention operand (attention.cu::View)
 # name -> argtypes of each exported C function; every one returns a cudaError_t.
 SIGNATURES = {
-    "mdm_attention_rowmask": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mdm_residual_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mdm_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mdm_colsum": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "mdm_gemm_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mdm_gemm_wgmma_occupancy": [_I, _I, _P],
     "mdm_attention_fwd": [_P, _P, _P, *_VIEW, _P, *_VIEW, *_DROP, _P, *_VIEW, _I,
                           _I, _I, _I, _I, _I, _P],
     "mdm_attention_bwd": [_P, _P, _P, *_VIEW, _P, *_VIEW, *_DROP, _P, _P, *_VIEW, _P, _P, _P, _P,
@@ -114,13 +116,14 @@ def load_library() -> ctypes.CDLL:
 
 
 def instance_name(mangled: str, kernel: str) -> str:
-    """kernel<template arguments> of a mangled instance (head dim, output
-    type, and a bool where the kernel takes one); the mangled name when
-    they do not parse."""
-    t = re.search(r"ILi(\d+)E(f|13__nv_bfloat16)(?:Lb([01]))?E", mangled)
+    """kernel<template arguments> of a mangled instance (a head dim where
+    the kernel takes one, the output type, and a bool where it takes one);
+    the mangled name when they do not parse."""
+    t = re.search(re.escape(kernel) + r"I(?:Li(\d+)E)?(f|13__nv_bfloat16)(?:Lb([01]))?E", mangled)
     if not t:
         return mangled
-    args = [t.group(1), "float" if t.group(2) == "f" else "bf16"]
+    args = [] if t.group(1) is None else [t.group(1)]
+    args.append("float" if t.group(2) == "f" else "bf16")
     if t.group(3) is not None:
         args.append("true" if t.group(3) == "1" else "false")
     return f"{kernel}<{', '.join(args)}>"

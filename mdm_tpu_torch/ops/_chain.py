@@ -1,7 +1,8 @@
 """Launch helpers shared by the kernel chains (layer_inference, the
-attention modules, encoder_tail): operand preparation, the products and
-column sums of ``csrc/gemm.cu``, the attention core of
-``csrc/attention.cu`` and the dropout arguments of ``csrc/philox.cuh``.
+attention modules, encoder_tail): operand preparation, the products of
+``csrc/gemm_sm90.cu`` and ``csrc/gemm.cu`` and the column sums of the
+latter, the attention core of ``csrc/attention.cu`` and the dropout
+arguments of ``csrc/philox.cuh``.
 
 Every helper launches asynchronously on the tensor's current stream,
 allocates its outputs with ``torch.empty`` and raises on a nonzero
@@ -10,6 +11,7 @@ allocates its outputs with ``torch.empty`` and raises on a nonzero
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
@@ -21,20 +23,29 @@ from .dropout_bits import keep_threshold
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)  # the head dims the attention kernels are instantiated for
 _SMS = 132  # H100 SXM streaming multiprocessors: the split-K target
+WGMMA_TILE = (128, 128, 64)  # csrc/gemm_sm90.cu's block tile (rows, columns, K depth)
+GEMM_LAUNCHES = {"wgmma": 0, "wmma": 0, "fma": 0}  # launches per product kernel (see gemm_kernel)
 
 
 def dev(t: torch.Tensor, dt: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Contiguous, 16-byte aligned tensor in dt (a no-op when it already is)."""
+    """Contiguous, 16-byte aligned tensor in dt (t itself when it already
+    is: the chains call this on every operand of every launch, so the
+    common case costs no torch op)."""
+    if (dt is None or t.dtype == dt) and t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
     t = (t if dt is None else t.to(dt)).contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
+def ptr(t):
+    """The address of a tensor; an int is an address already."""
+    return t if t is None or isinstance(t, int) else t.data_ptr()
 
 
 def stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of t's card (the accessor
+    PyTorch's own generated kernels use: no Stream object per launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_dtype(x: torch.Tensor, what: str) -> int:
@@ -72,11 +83,66 @@ def splits_for(m: int, n: int, k: int) -> int:
     return max(1, min(2 * _SMS // tiles, k // 1024))
 
 
+def gemm_kernel(a: torch.Tensor, b: torch.Tensor, *, a_km: bool = False, b_kn: bool = False,
+                bias: Optional[torch.Tensor] = None, r: Optional[torch.Tensor] = None,
+                splits: int = 1) -> str:
+    """The kernel that runs ``gemm``'s product, by a fixed rule: "wgmma"
+    (``csrc/gemm_sm90.cu``) for every bf16 x . W^T product (a_km and b_kn
+    off), "wmma" (``csrc/gemm.cu``) for the other bf16 forms (dY . W,
+    dY^T . X split-K), "fma" (``csrc/gemm.cu``) for float32.
+
+    Raises ValueError on an operand the chosen kernel cannot take, never
+    routing it elsewhere: for "wgmma" more than one split, a K or N that is
+    not a multiple of 8 (the TMA's 16-byte row strides), an operand that is
+    not contiguous or whose base is not 16-byte aligned, or a residual r."""
+    if a.dtype not in DTYPES or b.dtype != a.dtype or (bias is not None and bias.dtype != a.dtype):
+        raise ValueError(f"gemm: operands must share float32 or bfloat16, got {a.dtype}, "
+                         f"{b.dtype} and bias {None if bias is None else bias.dtype}")
+    if a.dtype == torch.float32:
+        return "fma"
+    if a_km or b_kn:
+        return "wmma"
+    if splits != 1:
+        raise ValueError(f"gemm: the wgmma kernel runs no split-K, got splits={splits}")
+    K, N = a.shape[1], b.shape[0]
+    if K % 8 or N % 8:
+        raise ValueError(f"gemm: the wgmma kernel needs K and N multiples of 8, got K={K} N={N}")
+    if r is not None:
+        raise ValueError("gemm: the wgmma kernel adds no residual")
+    for name, t in (("a", a), ("b", b), ("bias", bias)):
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"gemm: the wgmma kernel needs {name} contiguous and 16-byte "
+                             f"aligned (see dev())")
+    return "wgmma"
+
+
+def wgmma_plan(M: int, N: int, K: int, sms: int = _SMS) -> dict:
+    """csrc/gemm_sm90.cu's schedule of a product: 128x128 output tiles
+    walked by min(tiles, sms) persistent blocks, each tile K / 64 stages
+    deep; waves is tiles / sms (a whole number when the tiles quantise onto
+    the SMs)."""
+    bm, bn, bk = WGMMA_TILE
+    row_tiles, col_tiles = -(-M // bm), -(-N // bn)
+    tiles = row_tiles * col_tiles
+    return dict(row_tiles=row_tiles, col_tiles=col_tiles, tiles=tiles, waves=tiles / sms,
+                k_steps=-(-K // bk), grid=_wgmma_grid(M, N, sms))
+
+
+def _wgmma_grid(M: int, N: int, sms: int) -> int:
+    return min(-(-M // WGMMA_TILE[0]) * -(-N // WGMMA_TILE[1]), sms)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor, *, a_km: bool = False, b_kn: bool = False,
          bias: Optional[torch.Tensor] = None, r: Optional[torch.Tensor] = None,
          out_f32: bool = False, gelu: bool = False, splits: int = 1) -> torch.Tensor:
-    """C = act(op(A) . op(B) (+ bias)) (+ r), f32 accumulation (csrc/gemm.cu);
-    act is the exact GELU when gelu, else the identity.
+    """C = act(op(A) . op(B) (+ bias)) (+ r), f32 accumulation, on the
+    kernel ``gemm_kernel`` names (one more in its ``GEMM_LAUNCHES``); act is
+    the exact GELU when gelu, else the identity.
 
     op(A) is A [M, K], or A^T when a_km (A stored [K, M]); op(B) is B^T for
     a torch weight B [N, K], or B itself when b_kn (B stored [K, N]). C is
@@ -86,14 +152,30 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, a_km: bool = False, b_kn: bool = F
     N = b.shape[1] if b_kn else b.shape[0]
     if (b.shape[0] if b_kn else b.shape[1]) != K:
         raise ValueError(f"gemm: inner dimensions differ, {tuple(a.shape)} and {tuple(b.shape)}")
+    kernel = gemm_kernel(a, b, a_km=a_km, b_kn=b_kn, bias=bias, r=r, splits=splits)
     out = torch.empty((M, N), dtype=torch.float32 if out_f32 else a.dtype, device=a.device)
-    work = (torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
-            if splits > 1 else None)
     lib = _build.load_library()
-    _build.check(lib.mdm_gemm(ptr(a), ptr(b), ptr(bias), ptr(r), ptr(out), ptr(work), M, N, K,
-                              int(a_km), int(b_kn), DTYPES[a.dtype], int(out_f32), splits,
-                              int(gelu), stream(a)), "gemm")
+    if kernel == "wgmma":
+        grid = _wgmma_grid(M, N, _sm_count(a.get_device()))
+        _build.check(lib.mdm_gemm_wgmma(ptr(a), ptr(b), ptr(bias), ptr(out), M, N, K,
+                                        int(out_f32), int(gelu), grid, stream(a)), "gemm")
+    else:
+        work = (torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
+                if splits > 1 else None)
+        _build.check(lib.mdm_gemm(ptr(a), ptr(b), ptr(bias), ptr(r), ptr(out), ptr(work), M, N,
+                                  K, int(a_km), int(b_kn), DTYPES[a.dtype], int(out_f32), splits,
+                                  int(gelu), stream(a)), "gemm")
+    GEMM_LAUNCHES[kernel] += 1
     return out
+
+
+def wgmma_occupancy(out_f32: bool, gelu: bool) -> int:
+    """Resident blocks per SM of the wgmma product kernel's instance:
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    blocks = ctypes.c_int(0)
+    _build.check(_build.load_library().mdm_gemm_wgmma_occupancy(
+        int(out_f32), int(gelu), ctypes.addressof(blocks)), "gemm occupancy")
+    return blocks.value
 
 
 def bsd_view(S: int, D: int, head_dim: int, ld: Optional[int] = None):
@@ -124,7 +206,8 @@ def attention_fwd(q, k, v, view, out, out_view, B: int, S: int, H: int, head_dim
     """out = dropout(softmax(q k^T / sqrt(Dh) + bias)) v per (batch, head)
     (csrc/attention.cu). q, k, v share ``view``, out (f32 or q's dtype) has
     ``out_view``; bias is additive f32 with ``bias_strides`` or None; drop is
-    ``dropout_args``'s tuple."""
+    ``dropout_args``'s tuple. k and v may be given as addresses (their
+    column blocks in a packed tensor that starts with q)."""
     lib = _build.load_library()
     _build.check(lib.mdm_attention_fwd(ptr(q), ptr(k), ptr(v), *view, ptr(bias), *bias_strides,
                                        *drop, ptr(out), *out_view, DTYPES[out.dtype], B, S, H,

@@ -10,13 +10,13 @@ a bool key-padding mask only (the JAX wrapper binarises any mask through
 ``jnp.where(mask, -1e9, 0)``; a float mask raises here).
 
 On the card it is the rate-0 forward chain of ops/attention_train_block.py,
-three launches: the packed q/k/v projection on ``csrc/gemm.cu`` (f32 bias
+three launches: the packed q/k/v projection on ``csrc/gemm_sm90.cu`` (f32 bias
 added to the f32 accumulator, then rounded to x's dtype, as
 ``attention_block.py:46-50``), the attention core of ``csrc/attention.cu``
 (scale on the f32 logits, p rounded to x's dtype before p . v), and the out
-projection on ``csrc/gemm.cu``. What bounds it on an H100: at the sampling
-shape (B=64, S=197, D=512, bf16) the four projections carry 26.4 of the
-block's 31.5 GFLOP: tensor-core throughput, WMMA bf16 with f32
+projection on ``csrc/gemm_sm90.cu``. What bounds it on an H100: at the
+sampling shape (B=64, S=197, D=512, bf16) the four projections carry 26.4
+of the block's 31.5 GFLOP: tensor-core throughput, wgmma with f32
 accumulation.
 
 ``attention_block_reference`` is the plain PyTorch version at those

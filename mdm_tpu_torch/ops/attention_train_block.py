@@ -5,7 +5,7 @@ Replaces mdm_tpu/ops/attention_train_block.py: ``_call_fwd`` (kernel #2,
 ``pallas_call`` at :286,294) and ``_call_bwd`` (kernel #3, at :334,344),
 which run one program per batch cell with the four [D, D] weights resident
 in VMEM. On the card the block is three launches forward and seven
-backward (``csrc/gemm.cu``, ``csrc/attention.cu``):
+backward (``csrc/gemm_sm90.cu`` and ``csrc/gemm.cu``, ``csrc/attention.cu``):
 
     forward   qkv  = x . Wqkv^T + bqkv                  gemm        (dt)
               ctx  = dropout(softmax(q k^T/sqrt(Dh) + m)) v
@@ -21,7 +21,9 @@ backward (``csrc/gemm.cu``, ``csrc/attention.cu``):
 What bounds it on an H100, and what the design does about it: at the
 flagship step (B=128, S=197, D=512) the products carry ~85% of the ~0.3
 TFLOP of a layer's forward and backward, so it is bound by tensor-core
-throughput; every product runs WMMA bf16 fragments with f32 accumulators.
+throughput; the forward's two products run the wgmma kernel of
+``csrc/gemm_sm90.cu``, the backward's the WMMA kernel of ``csrc/gemm.cu``,
+both with f32 accumulation.
 No [B, H, S, S] tensor is stored in either direction: the backward
 recomputes the probabilities and replays the dropout bits, which are
 Philox4x32-10 keyed on the element's (batch, head, row, column), never on
@@ -144,14 +146,24 @@ def _fwd_cuda(x, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed):
     """The forward chain; returns (out [B, S, D], qkv [B*S, 3D])."""
     _check(x, wqkv, bqkv, wo, bo, num_heads, mask, bits)
     B, S, D = x.shape
-    Dh = D // num_heads
-    xs = dev(x).view(B * S, D)
-    qkv = gemm(xs, dev(wqkv), bias=dev(bqkv))
-    ctx = torch.empty((B * S, D), dtype=x.dtype, device=x.device)
-    attention_fwd(*_split(qkv, D), bsd_view(S, D, Dh, 3 * D), ctx, bsd_view(S, D, Dh), B, S,
-                  num_heads, Dh, mask, row_bias_strides(S), dropout_args(bits, seed, rate))
-    out = gemm(ctx, dev(wo), bias=dev(bo))
+    out, qkv = _fwd_chain(dev(x).view(B * S, D), S, dev(wqkv), dev(bqkv), dev(wo), dev(bo), mask,
+                          bits, num_heads, rate, seed)
     return out.view(B, S, D), qkv
+
+
+def _fwd_chain(x, S, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed):
+    """``_fwd_cuda`` on rows x [B*S, D] already checked and made ``dev``:
+    (out [B*S, D], qkv). Every torch op here costs host time on every layer
+    call, so k and v go to the attention as addresses, not views."""
+    M, D = x.shape
+    Dh = D // num_heads
+    qkv = gemm(x, wqkv, bias=bqkv)
+    ctx = torch.empty((M, D), dtype=x.dtype, device=x.device)
+    col = D * qkv.element_size()
+    attention_fwd(qkv, qkv.data_ptr() + col, qkv.data_ptr() + 2 * col, bsd_view(S, D, Dh, 3 * D),
+                  ctx, bsd_view(S, D, Dh), M // S, S, num_heads, Dh, mask, row_bias_strides(S),
+                  dropout_args(bits, seed, rate))
+    return gemm(ctx, wo, bias=bo), qkv
 
 
 def _bwd_cuda(x, qkv, wqkv, wo, mask, bits, num_heads, rate, seed, dout):

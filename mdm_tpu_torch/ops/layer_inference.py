@@ -3,14 +3,14 @@
 Replaces mdm_tpu/ops/layer_inference.py::fused_layer_inference, the Pallas
 kernel that runs a layer as one program per batch cell with every weight
 resident in VMEM. A flagship layer's ~4.2 MB of bf16 weights do not fit in
-an SM's shared memory, so the layer here is seven launches of the
-hand-written kernels in ``mdm_tpu_torch/csrc/``: the products of
-``gemm.cu`` (shared with the training chains), the attention and
-LayerNorm of ``layer_inference.cu``:
+an SM's shared memory, so the layer here is a chain of the hand-written
+kernels in ``mdm_tpu_torch/csrc/``. The TPU kernel's own note says its
+attention half is "identical math to attention_train_block's rate-0
+forward", so that is what runs it here:
 
-    qkv  = x . Wqkv^T + bqkv          gemm                 (dt)
-    ctx  = softmax(qk^T/sqrt(Dh)+m) v attention_rowmask    (dt)
-    attn = ctx . Wo^T + bo            gemm                 (dt)
+    attn = ctx . Wo^T + bo, ctx = softmax(qk^T/sqrt(Dh)+m) v,
+    q|k|v = x . Wqkv^T + bqkv         attention_train_block's forward chain
+                                      at rate 0: gemm, attention_fwd, gemm (dt)
     y    = LN1(x + attn)              residual_layernorm   (dt, and y32 in f32)
     h    = gelu(y . W1^T + b1)        gemm, GELU epilogue  (dt)
     o    = h . W2^T + b2              gemm                 (f32)
@@ -19,11 +19,12 @@ LayerNorm of ``layer_inference.cu``:
 What bounds it on an H100, and what the design does about it:
 
 - At the CFG batch of sampling (B=64 rows of S=197 at the flagship) the
-  four GEMMs carry ~90% of the layer's ~58 GFLOP, so it is bound by
-  tensor-core throughput. The bf16 GEMMs run WMMA tensor-core fragments
-  with f32 accumulators on cp.async double-buffered tiles, the attention
-  runs Q.K^T and P.V on WMMA fragments; the f32 path
-  (compute_dtype="float32") runs plain FMA kernels.
+  four products carry ~90% of the layer's ~58 GFLOP, so it is bound by
+  tensor-core throughput. The bf16 products run ``csrc/gemm_sm90.cu``
+  (wgmma fed by TMA, persistent over 128x128 tiles), the attention the
+  forward core of ``csrc/attention.cu``; the LayerNorm
+  (``csrc/layer_inference.cu``) reads each row once. The f32 path
+  (compute_dtype="float32") runs the FMA products and the f32 attention.
 - At serving batch 1 (B=2 after CFG) a layer is a few microseconds of work
   and the bound is the launch count: 7 per layer, 56 per denoiser forward.
   Every launch goes asynchronously onto the current stream; the wrapper
@@ -47,9 +48,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._chain import DTYPES, HEAD_DIMS, dev, ptr, stream
-from ._mask import row_bias_contrib
-from .attention_train_block import train_attention_block_reference
+from ._chain import DTYPES, HEAD_DIMS, dev, gemm, ptr, stream
+from .attention_train_block import _fwd_chain, _mask_row, train_attention_block_reference
 from .encoder_tail import encoder_tail_reference
 
 LAUNCHES = 0  # kernel-chain launches of fused_layer_inference (one per layer call)
@@ -102,6 +102,21 @@ def check_kernel_operands(x: torch.Tensor, weights, num_heads: int,
                              f"expected {shape} on {x.device}")
 
 
+def residual_layernorm(a: torch.Tensor, r: torch.Tensor, g: torch.Tensor, beta: torch.Tensor,
+                       dt: torch.dtype, keep_f32: bool = False):
+    """LN(a + r) * g + beta over the rows of [M, D] a and r (both dt, or
+    both f32), in f32 (csrc/layer_inference.cu). Returns the result in dt
+    and, when keep_f32, in f32 too (else None)."""
+    M, D = a.shape
+    out = torch.empty((M, D), dtype=dt, device=a.device)
+    out32 = torch.empty((M, D), dtype=torch.float32, device=a.device) if keep_f32 else None
+    inputs_f32 = int(a.dtype == torch.float32 and dt != torch.float32)
+    _build.check(_build.load_library().mdm_residual_layernorm(
+        ptr(a), ptr(r), ptr(g), ptr(beta), ptr(out), ptr(out32), M, D, DTYPES[dt], inputs_f32,
+        stream(a)), "residual layernorm")
+    return out, out32
+
+
 def fused_layer_inference(
     x, wqkv, bqkv, wo, bo, g1, bl1, w1, b1, w2, b2, g2, bl2,
     num_heads: int,
@@ -122,37 +137,17 @@ def fused_layer_inference(
     global LAUNCHES
     weights = (wqkv, bqkv, wo, bo, g1, bl1, w1, b1, w2, b2, g2, bl2)
     check_kernel_operands(x, weights, num_heads, key_padding_mask)
-    F = w1.shape[0]
     B, S, D = x.shape
-    M = B * S
     dt = x.dtype
-    code = DTYPES[dt]
     xs = dev(x, dt)
     wqkv, bqkv, wo, bo, g1, bl1, w1, b1, w2, b2, g2, bl2 = (dev(t, dt) for t in weights)
-    mask = None
-    if key_padding_mask is not None:
-        mask = dev(row_bias_contrib(key_padding_mask), torch.float32)
-
-    lib = _build.load_library()
     with torch.cuda.device(x.device):
-        empty = lambda n, t=dt: torch.empty((M, n), dtype=t, device=x.device)
-        qkv, ctx, attn, y, h, z = empty(3 * D), empty(D), empty(D), empty(D), empty(F), empty(D)
-        y32, o = empty(D, torch.float32), empty(D, torch.float32)
-        st = stream(x)
-
-        def gemm(a, w, b, c, n, k, out_f32=0, gelu=0):  # c = act(a . w^T + b), csrc/gemm.cu
-            _build.check(lib.mdm_gemm(ptr(a), ptr(w), ptr(b), None, ptr(c), None, M, n, k, 0, 0,
-                                      code, out_f32, 1, gelu, st), "gemm")
-
-        gemm(xs, wqkv, bqkv, qkv, 3 * D, D)
-        _build.check(lib.mdm_attention_rowmask(ptr(qkv), ptr(mask), ptr(ctx), B, S, num_heads,
-                                               D // num_heads, code, st), "attention")
-        gemm(ctx, wo, bo, attn, D, D)
-        _build.check(lib.mdm_residual_layernorm(ptr(xs), ptr(attn), ptr(g1), ptr(bl1), ptr(y),
-                                                ptr(y32), M, D, code, 0, st), "norm1")
-        gemm(y, w1, b1, h, F, D, gelu=1)
-        gemm(h, w2, b2, o, D, F, out_f32=1)
-        _build.check(lib.mdm_residual_layernorm(ptr(y32), ptr(o), ptr(g2), ptr(bl2), ptr(z), None,
-                                                M, D, code, 1, st), "norm2")
+        x2 = xs.view(B * S, D)
+        attn = _fwd_chain(x2, S, wqkv, bqkv, wo, bo, _mask_row(x, key_padding_mask), None,
+                          num_heads, 0.0, 0)[0]
+        y, y32 = residual_layernorm(x2, attn, g1, bl1, dt, keep_f32=True)
+        h = gemm(y, w1, bias=b1, gelu=True)
+        o = gemm(h, w2, bias=b2, out_f32=True)
+        z, _ = residual_layernorm(y32, o, g2, bl2, dt)
     LAUNCHES += 1
     return z.view(B, S, D)

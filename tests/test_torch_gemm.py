@@ -1,0 +1,151 @@
+"""mdm_tpu_torch.ops._chain's products: which kernel takes each product
+form of the layer, the attention block, the encoder tail and their
+backwards, what the wgmma kernel refuses (raising, never rerouting), its
+tile plan, and the build log's names for its instances.
+
+The kernels themselves run only on the card: chip_smoke.py holds them
+against ``a.float() @ w.float().T + b`` there. Here the operands are CPU
+tensors of the call sites' shapes (flagship widths, a few rows).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from mdm_tpu_torch.ops import _build, _chain  # noqa: E402
+
+M, D, F = 6 * 197, 512, 1024
+bf, f32 = torch.bfloat16, torch.float32
+
+
+def _t(*shape, dt=bf):
+    return torch.zeros(*shape, dtype=dt)
+
+
+def _shifted(*shape, dt=bf):
+    """A contiguous tensor whose base lies one element past a 16-byte boundary."""
+    n = 1
+    for s in shape:
+        n *= s
+    return torch.zeros(n + 1, dtype=dt)[1:].view(*shape)
+
+
+# (call site, operands and options as the wrapper passes them, kernel)
+FORMS = [
+    # forwards: x . W^T (+ bias), bf16 -> the wgmma kernel
+    ("block/layer qkv = x Wqkv^T + b", lambda: (_t(M, D), _t(3 * D, D), dict(bias=_t(3 * D))),
+     "wgmma"),
+    ("block/layer out = ctx Wo^T + b", lambda: (_t(M, D), _t(D, D), dict(bias=_t(D))), "wgmma"),
+    ("layer h = gelu(y W1^T + b1)", lambda: (_t(M, D), _t(F, D), dict(bias=_t(F))), "wgmma"),
+    ("layer/tail o = h W2^T + b2 (f32 out)", lambda: (_t(M, F), _t(D, F), dict(bias=_t(D))),
+     "wgmma"),
+    ("tail u = y W1^T + b1 (f32 out)", lambda: (_t(M, D), _t(F, D), dict(bias=_t(F))), "wgmma"),
+    ("no bias", lambda: (_t(M, D), _t(D, D), {}), "wgmma"),
+    # backwards: dY . W and dY^T . X split-K, bf16 -> WMMA
+    ("block dctx = dO Wo", lambda: (_t(M, D), _t(D, D), dict(b_kn=True)), "wmma"),
+    ("block dWo = dO^T ctx", lambda: (_t(M, D), _t(M, D), dict(a_km=True, b_kn=True, splits=2)),
+     "wmma"),
+    ("block dWqkv = dqkv^T x",
+     lambda: (_t(M, 3 * D), _t(M, D), dict(a_km=True, b_kn=True, splits=2)), "wmma"),
+    ("block dx = dqkv Wqkv", lambda: (_t(M, 3 * D), _t(3 * D, D), dict(b_kn=True)), "wmma"),
+    ("tail dW2 = do^T hd", lambda: (_t(M, D), _t(M, F), dict(a_km=True, b_kn=True, splits=2)),
+     "wmma"),
+    ("tail dhd = do W2", lambda: (_t(M, D), _t(D, F), dict(b_kn=True)), "wmma"),
+    ("tail dW1 = du^T y", lambda: (_t(M, F), _t(M, D), dict(a_km=True, b_kn=True, splits=2)),
+     "wmma"),
+    ("tail dy = ds2 + du W1", lambda: (_t(M, F), _t(F, D), dict(b_kn=True, r=_t(M, D, dt=f32))),
+     "wmma"),
+    # float32 (compute_dtype="float32") -> FMA, every form
+    ("f32 qkv", lambda: (_t(M, D, dt=f32), _t(3 * D, D, dt=f32), dict(bias=_t(3 * D, dt=f32))),
+     "fma"),
+    ("f32 dWqkv", lambda: (_t(M, 3 * D, dt=f32), _t(M, D, dt=f32),
+                           dict(a_km=True, b_kn=True, splits=2)), "fma"),
+    ("f32 dy", lambda: (_t(M, F, dt=f32), _t(F, D, dt=f32), dict(b_kn=True, r=_t(M, D, dt=f32))),
+     "fma"),
+]
+
+
+@pytest.mark.parametrize("site, operands, kernel", FORMS, ids=[f[0] for f in FORMS])
+def test_each_product_form_takes_its_kernel(site, operands, kernel):
+    a, b, opts = operands()
+    assert _chain.gemm_kernel(a, b, **opts) == kernel
+
+
+REFUSED = [
+    ("K not a multiple of 8", lambda: (_t(M, 12), _t(D, 12), {}), "multiples of 8"),
+    ("N not a multiple of 8", lambda: (_t(M, D), _t(12, D), {}), "multiples of 8"),
+    ("a misaligned", lambda: (_shifted(M, D), _t(D, D), {}), "a contiguous and 16-byte"),
+    ("b misaligned", lambda: (_t(M, D), _shifted(D, D), {}), "b contiguous and 16-byte"),
+    ("bias misaligned", lambda: (_t(M, D), _t(D, D), dict(bias=_shifted(D))),
+     "bias contiguous and 16-byte"),
+    ("a not contiguous", lambda: (_t(D, M).T, _t(D, D), {}), "a contiguous"),
+    ("a residual", lambda: (_t(M, D), _t(D, D), dict(r=_t(M, D, dt=f32))), "no residual"),
+    ("x W^T, one split of a split-K form", lambda: (_t(M, D), _t(D, D), dict(splits=2)),
+     "no split-K"),
+    ("bias in another dtype", lambda: (_t(M, D), _t(D, D), dict(bias=_t(D, dt=f32))),
+     "share float32 or bfloat16"),
+    ("a float16 operand", lambda: (_t(M, D, dt=torch.float16), _t(D, D, dt=torch.float16), {}),
+     "share float32 or bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case, operands, match", REFUSED, ids=[r[0] for r in REFUSED])
+def test_the_wrapper_raises_on_what_the_kernel_cannot_take(case, operands, match):
+    """gemm raises before it builds or launches anything, and counts nothing."""
+    a, b, opts = operands()
+    before = dict(_chain.GEMM_LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        _chain.gemm(a, b, **opts)
+    assert _chain.GEMM_LAUNCHES == before
+
+
+@pytest.mark.parametrize("M_, N, K, row_tiles, tiles, k_steps, grid", [
+    (12608, 512, 512, 99, 396, 8, 132),     # sampling out projection: 3 waves
+    (12608, 1024, 512, 99, 792, 8, 132),    # sampling linear1: 6 waves
+    (12608, 1536, 512, 99, 1188, 8, 132),   # sampling q/k/v: 9 waves
+    (12608, 512, 1024, 99, 396, 16, 132),   # sampling linear2
+    (25216, 1536, 512, 197, 2364, 8, 132),  # training q/k/v
+    (394, 512, 512, 4, 16, 8, 16),          # serving batch 1 (CFG batch 2)
+    (1, 1536, 512, 1, 12, 8, 12),
+    (129, 512, 8, 2, 8, 1, 8),
+])
+def test_wgmma_plan(M_, N, K, row_tiles, tiles, k_steps, grid):
+    plan = _chain.wgmma_plan(M_, N, K, sms=132)
+    assert (plan["row_tiles"], plan["tiles"], plan["k_steps"], plan["grid"]) == (
+        row_tiles, tiles, k_steps, grid)
+    assert plan["waves"] == tiles / 132
+    assert plan["col_tiles"] * plan["row_tiles"] == tiles
+
+
+def test_the_sampling_products_fill_whole_waves():
+    """At the CFG batch (M = 64 x 197 = 12608, 98.5 row tiles of 128) every
+    product of the layer quantises onto the H100's 132 SMs exactly."""
+    for N, K in ((3 * D, D), (D, D), (F, D), (D, F)):
+        assert _chain.wgmma_plan(64 * 197, N, K)["waves"] in (3.0, 6.0, 9.0)
+
+
+def test_ptxas_report_names_each_wgmma_instance():
+    mangled = "_ZN12_GLOBAL__N_115gemm_bf16_wgmmaI{}EEv14CUtensorMap_stS1_S1_PK13__nv_bfloat16iii"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{mangled.format('13__nv_bfloat16Lb1')}' "
+        "for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 1152 bytes cmem[0]",
+        f"ptxas info    : Compiling entry function '{mangled.format('fLb0')}' for 'sm_90a'",
+        "    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 154 registers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_114gemm_bf16_wmmaIfLb0ELb0EEEvPK13__nv_bfloat16S3_S3_PKfPT_iiiibbb' "
+        "for 'sm_90a'",
+        "ptxas info    : Used 76 registers"])
+    assert _build.ptxas_report(log, "gemm_bf16_wgmma") == {
+        "gemm_bf16_wgmma<bf16, true>": dict(spill_stores=0, spill_loads=0, registers=168),
+        "gemm_bf16_wgmma<float, false>": dict(spill_stores=8, spill_loads=12, registers=154)}
+    assert _build.instance_name(mangled.format("fLb1"), "gemm_bf16_wgmma") == \
+        "gemm_bf16_wgmma<float, true>"
+    assert _build.instance_name("_Z3foov", "gemm_bf16_wgmma") == "_Z3foov"
+
+
+def test_the_wgmma_kernel_is_built_and_bound():
+    assert "gemm_sm90.cu" in _build.SOURCES
+    assert _build.SIGNATURES["mdm_gemm_wgmma"][-1] is _build.SIGNATURES["mdm_gemm"][-1]
+    assert "mdm_attention_rowmask" not in _build.SIGNATURES
