@@ -17,11 +17,14 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   bits of the two dump kernels; three train steps on the card against the
   CPU; 30 flagship train steps (B=128, T=196, dropout 0.1) through
   make_train_step, timed; and a TrainLoop resume that must be bit exact;
+- head dims off 128 (phases 2 and 5): the layer chain, and the train
+  block and tail forward and backward, at 4 heads of 96 and of 256;
 - the opt-in attention routes (phases 9-11): kernels #7/#8, #10, #11 and
   #12 against their plain versions, #7/#8's in-kernel Philox against
-  dumped bits; the attention forward core at the edges of its tiling (S =
-  1, 64, 65, 256, 257; every head dim, output dtype, bias form and dropout
-  mode) with its occupancy; #10 and #12 called as direct entry points; the sampling
+  dumped bits; the attention forward and backward cores at the edges of
+  their tiling (S = 1, 64, 65, 256, 257; every instance's head dim and
+  padded ones, input or output dtype, bias form and dropout mode) with
+  their occupancy; #10 and #12 called as direct entry points; the sampling
   shootout's ``pallas`` variant (v2 attention + fused tail) through
   MotionGenerator.generate at B=32 x 50 steps, and its ``block``/``tail``
   variants; the training shootout's ``drop`` variant (dropout attention
@@ -85,6 +88,10 @@ ATTN_SHAPE = dict(B=64, S=197, D=512, H=4)  # sampling attention: CFG batch 2 x 
 # Both sides of the attention forward's 64-row tile and of its resident row
 # of 256 logits (csrc/attention.cu FW_RES): S = 1, 64 | 65, 256 | 257.
 EDGE_S = (1, 64, 65, 256, 257)
+# Every instance of the attention core (csrc/attention.cuh padded_head_dim:
+# 32, 64, 96, 128, 192, 256) and head dims padded into one (16, 48, 160).
+EDGE_DH = (16, 32, 48, 64, 96, 128, 160, 192, 256)
+BWD_REL = {"bfloat16": 2 ** -5, "float32": 1e-4}  # the backward edges, of max |plain|
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 
@@ -293,6 +300,11 @@ def phase_train_kernels(torch, TB, ET, shape, dtype, mask, timed=True):
         mha = _torch_mha(torch, wqkv, bqkv, wo, bo, H, RATE).train()
         block["library_fwd_ms"] = _no_grad_ms(
             torch, lambda: mha(x, x, x, key_padding_mask=kpm, need_weights=False))
+        xl = x.clone().requires_grad_()
+        leaves = [xl, *mha.parameters()]
+        out = mha(xl, xl, xl, key_padding_mask=kpm, need_weights=False)[0]
+        block["library_bwd_ms"] = _time_ms(
+            torch, lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
     ops, dz, tbits = _tail_operands(torch, B, S, D, F, dtype)
     tail = compare_train_chain(
         torch, "encoder tail",
@@ -771,13 +783,20 @@ def phase_attention_kernels(torch, dev):
         lambda: AD.dropout_attention_bwd_reference(qs, ks, vs, 4, dos, RATE, bits_s, frow),
         [qs, ks, vs], dos, f32, ["dq", "dk", "dv"], timed=False)
     grads_bytes = 3 * B * S * D * 2  # in q's dtype
-    sdpa_drop = lambda: F.scaled_dot_product_attention(
+    sdpa_drop = lambda q, k, v: F.scaled_dot_product_attention(
         _heads(q, H), _heads(k, H), _heads(v, H), attn_mask=bias_of(kpm, bf), dropout_p=RATE)
+    # The library backward: SDPA's with dropout 0.1 on the same bf16
+    # operands (another random stream), its graph kept across calls.
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    sdpa_out = sdpa_drop(*leaves)
+    dout_h = _heads(dout.to(bf), H)
+    sdpa_bwd = _time_ms(torch, lambda: torch.autograd.grad(sdpa_out, leaves, dout_h,
+                                                            retain_graph=True))
     for key, name, flops, moved, lib in (
             ("fwd", "fused_dropout_attention.forward", 4 * B * S * S * D,
-             nbytes(q, k, v, kpm) + B * S * D * 4, lib_ms(sdpa_drop)),
+             nbytes(q, k, v, kpm) + B * S * D * 4, lib_ms(lambda: sdpa_drop(q, k, v))),
             ("bwd", "fused_dropout_attention.backward", 8 * B * S * S * D,
-             nbytes(q, k, v, kpm, dout) + grads_bytes, None)):
+             nbytes(q, k, v, kpm, dout) + grads_bytes, sdpa_bwd)):
         rows[name] = dict(max_abs_err=chain[f"max_abs_err_{key}"], ms=chain[f"{key}_ms"],
                           device_ms=chain.get(f"{key}_device_ms"),
                           plain_ms=chain[f"{key}_plain_ms"], library_ms=lib,
@@ -802,7 +821,8 @@ def phase_attention_kernels(torch, dev):
 def phase_forward_edges(torch, dev):
     """Phase 9, edges: the bf16 attention forward core (csrc/attention.cu)
     against its plain version on [B=2, H=4, S, Dh] operands at S on both
-    sides of its tile and resident-row limits (EDGE_S), every head dim, bf16
+    sides of its tile and resident-row limits (EDGE_S), every instance's
+    head dim and padded ones (EDGE_DH), bf16
     and f32 output, no bias, a key-padding row and a full per-head bias,
     dropout modes 0 (none), 1 (injected bits) and 2 (in-kernel Philox);
     two runs bitwise equal, and in-kernel Philox bitwise equal to the same
@@ -819,14 +839,14 @@ def phase_forward_edges(torch, dev):
                  for dh in C.HEAD_DIMS for od in (f32, bf) for form in (0, 1, 2)
                  for kind in ("resident", "two-pass")}
     print(f"attention forward occupancy, blocks per SM (bias 0 none, 1 row, 2 full; resident "
-          f"row S <= 256, two passes above): {json.dumps(occupancy)}")
+          f"row S <= 256 up to Dh 128, two passes above): {json.dumps(occupancy)}")
     B, H, seed = 2, 4, 1357
     rel = TRAIN_REL["bfloat16"]
     g = torch.Generator().manual_seed(11)
     r = lambda *shape: _randn(torch, g, *shape).to(dev)
     ar = lambda n: torch.arange(n, device=dev)
     worst, cases = 0.0, 0
-    for Dh in C.HEAD_DIMS:
+    for Dh in EDGE_DH:
         for S in EDGE_S:
             q, k, v = (r(B, H, S, Dh).to(bf) for _ in range(3))
             view = C.bhsd_view(H, S, Dh)
@@ -858,11 +878,111 @@ def phase_forward_edges(torch, dev):
                             raise AssertionError(f"{what}: in-kernel Philox differs from the "
                                                  f"injected dump")
                         cases += 1
-    print(f"attention forward at S={list(EDGE_S)}, Dh={list(C.HEAD_DIMS)}, B={B} H={H}: "
+    print(f"attention forward at S={list(EDGE_S)}, Dh={list(EDGE_DH)}, B={B} H={H}: "
           f"{cases} cases (bf16/f32 out x 3 bias forms x 3 dropout modes) vs plain, worst "
           f"{worst:.3g} of max |plain| (bound {rel}); two runs and Philox vs injected "
           f"dump bitwise equal")
     return occupancy
+
+
+def attention_bwd_plain(torch, q, k, v, dout, bias, keep_bits):
+    """The attention core's backward on [B, H, S, Dh] operands at its
+    rounding points (ops/attention_dropout.py's plain backward, with any
+    bias): (dq, dk, dv, the forward's out recomputed), f32."""
+    from mdm_tpu_torch.ops import dropout_bits as DB
+    from mdm_tpu_torch.ops.attention import attention_probs, attention_scale
+
+    dt = q.dtype
+    p = attention_probs(q, k, bias)
+    keep = None if keep_bits is None else DB.keep_factors(keep_bits, RATE)
+    w = (p if keep is None else p * keep).to(dt).float()
+    do = dout.float()
+    dp = do @ v.float().transpose(-1, -2)
+    if keep is not None:
+        dp = keep * dp
+    dlog = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * attention_scale(q.shape[-1])
+            ).to(dt).float()
+    return dlog @ k.float(), dlog.transpose(-1, -2) @ q.float(), w.transpose(-1, -2) @ do, \
+        (w @ v.float()).to(dt)
+
+
+def phase_backward_edges(torch, dev):
+    """Phase 9, backward edges: the attention core's backward (csrc/
+    attention_bwd.cu in bf16, the f32 path in f32) against its plain version
+    on [B=2, H=4, S, Dh] operands at S on both sides of its tiles
+    (EDGE_S), every instance's head dim and padded ones (EDGE_DH), bf16 and
+    f32 inputs, no bias, a key-padding row and a full per-head bias, dropout
+    modes 0, 1 and 2: dq, dk, dv, and the recomputed out (ctx) where it is
+    asked for (no bias, full bias), within BWD_REL of max |plain|; two runs
+    bitwise equal, and in-kernel Philox bitwise equal to the same stream
+    injected. These launches are comparisons, counted on no path."""
+    from mdm_tpu_torch.ops import _chain as C
+    from mdm_tpu_torch.ops import dropout_bits as DB
+
+    bf, f32 = torch.bfloat16, torch.float32
+    B, H, seed = 2, 4, 2468
+    g = torch.Generator().manual_seed(12)
+    r = lambda *shape: _randn(torch, g, *shape).to(dev)
+    ar = lambda n: torch.arange(n, device=dev)
+    worst, cases, failed = {"bfloat16": 0.0, "float32": 0.0}, 0, []
+    for Dh in EDGE_DH:
+        for S in EDGE_S:
+            view = C.bhsd_view(H, S, Dh)
+            injected = torch.randint(0, 2 ** 32, (B, H, S, S), generator=g, dtype=torch.int64)
+            injected = injected.to(torch.uint32).to(dev)
+            dumped = DB.dropout_bits(seed, B, H, S, device=dev)
+            stream = DB.philox_bits(seed, ar(B)[:, None], ar(H)[None, :], S, S, device=dev)
+            operands = [r(B, H, S, Dh) for _ in range(4)]
+            biases = (("none", None, (0, 0, 0)), ("row", r(B, 1, 1, S), (S, 0, 0)),
+                      ("full", r(B, H, S, S), (H * S * S, S * S, S)))
+            for dt in (bf, f32):
+                q, k, v, do = (t.to(dt) for t in operands)
+                dname = str(dt).split(".")[-1]
+                for bname, bias, strides in biases:
+                    with_ctx = bname != "row"
+                    for mode, bits, keep_bits in ((0, None, None), (1, injected, injected),
+                                                  (2, None, stream)):
+                        rate = RATE if mode else 0.0
+                        ref = attention_bwd_plain(torch, q, k, v, do, bias, keep_bits)
+
+                        def run(bits=bits):
+                            out = [torch.full_like(q, float("nan")) for _ in range(4)]
+                            C.attention_bwd(q, k, v, view, do, view, *out[:3], B, S, H, Dh, bias,
+                                            strides, C.dropout_args(bits, seed, rate),
+                                            out[3] if with_ctx else None)
+                            return out if with_ctx else out[:3]
+                        got = run()
+                        what = f"backward S={S} Dh={Dh} {dname} bias={bname} mode={mode}"
+                        try:
+                            for name, a, b in zip(("dq", "dk", "dv", "ctx"), got, ref):
+                                if S == 1 and name in ("dq", "dk"):
+                                    # One key: the softmax is constant, so dq and dk are
+                                    # zero in exact arithmetic; both sides are held
+                                    # against zero on dv's scale (as dbk in phase 5).
+                                    err = max(_rel_check(torch, f"{what} {name} ({side})", t,
+                                                         torch.zeros_like(t), BWD_REL[dname],
+                                                         ref[2])[1] for side, t in
+                                              (("kernel", a), ("plain", b)))
+                                else:
+                                    err = _rel_check(torch, f"{what} {name}", a, b,
+                                                     BWD_REL[dname])[1]
+                                worst[dname] = max(worst[dname], err)
+                            if not all(map(torch.equal, got, run())):
+                                raise AssertionError(f"{what}: two runs differ")
+                            if mode == 2 and not all(map(torch.equal, got, run(dumped))):
+                                raise AssertionError(f"{what}: in-kernel Philox differs from the "
+                                                     f"injected dump")
+                        except AssertionError as e:
+                            failed.append(str(e))
+                        cases += 1
+    if failed:
+        raise AssertionError(f"{len(failed)} of {cases} backward edge cases failed:\n"
+                             + "\n".join(failed[:30]))
+    print(f"attention backward at S={list(EDGE_S)}, Dh={list(EDGE_DH)}, B={B} H={H}: {cases} "
+          f"cases (bf16/f32 x 3 bias forms x 3 dropout modes; dq, dk, dv, and ctx with no or a "
+          f"full bias) vs plain, worst {json.dumps(worst)} of max |plain| (bounds "
+          f"{json.dumps(BWD_REL)}); two runs and Philox vs injected dump bitwise equal")
+    return worst
 
 
 def phase_direct_entries(torch, model, dev):
@@ -1110,6 +1230,15 @@ def main():
               if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
     print(f"ptxas: {len(regs)} kernels, at most {max(regs)} registers, {len(spills)} spilling")
     print(f"ptxas, attention forward: {json.dumps(_build.ptxas_report(log, 'attn_fwd_bf16'))}")
+    for kernel in ("attn_bwd_dq_bf16", "attn_bwd_dkv_bf16"):
+        print(f"ptxas, attention backward {kernel}: "
+              f"{json.dumps(_build.ptxas_report(log, kernel))}")
+    bwd_blocks = {f"Dh={dh} bias={form} {kern}": _chain.attention_bwd_occupancy(dh, form, kern)
+                  for dh in _chain.HEAD_DIMS for form in (0, 1, 2) for kern in _chain.BWD_KERNELS}
+    print(f"attention backward occupancy, blocks of 4 warps per SM (bias 0 none, 1 row, "
+          f"2 full): {json.dumps(bwd_blocks)}")
+    if min(bwd_blocks[f"Dh=128 bias={f} {k}"] for f in (0, 1) for k in _chain.BWD_KERNELS) < 2:
+        raise AssertionError("the attention backward holds fewer than 8 warps per SM at Dh=128")
     print(f"ptxas, wgmma products: {json.dumps(_build.ptxas_report(log, GP.KERNEL))}")
 
     # Phase 2a: the wgmma product kernel against the plain product at the
@@ -1133,6 +1262,10 @@ def main():
     # 1024 values a warp holds in registers and read the rest twice.
     for dtype, mask in ((torch.float32, None), (torch.bfloat16, "bool")):
         compare_layer(torch, li, 2, 37, 1536, 512, 12, dtype, mask)
+    # Head dims off 128 (4 heads of 96 and of 256: padded and widest
+    # instances of the attention core) at the sampling shape.
+    for width in (384, 1024):
+        compare_layer(torch, li, 64, 197, width, F, H, torch.bfloat16, "bool")
 
     # Phase 2b: the whole slice on the card (kernels) against the CPU (plain
     # versions) at a small f32 width, with identical weights and noise.
@@ -1236,6 +1369,9 @@ def main():
     block, tail = phase_train_kernels(torch, TB, ET, TRAIN_SHAPE, torch.bfloat16, "bool")
     phase_train_kernels(torch, TB, ET, dict(B=3, S=37, D=128, H=4, F=256), torch.float32,
                         "float", timed=False)
+    for width in (384, 1024):  # 4 heads of 96 and of 256
+        phase_train_kernels(torch, TB, ET, dict(TRAIN_SHAPE, D=width), torch.bfloat16, "bool",
+                            timed=False)
 
     # Phase 6: the random stream. The dump kernels' launches are counted
     # over this phase, the path that drives them.
@@ -1254,6 +1390,7 @@ def main():
     # #11 over the pallas generate and #7/#8 over the drop training.
     attention = phase_attention_kernels(torch, dev)
     phase_forward_edges(torch, dev)
+    phase_backward_edges(torch, dev)
     direct = phase_direct_entries(torch, model, dev)
     v2_launches, pallas_s = phase_sampling_variants(torch, dev, gen_ms / 1000 / B)
     drop_launches, drop_ms = phase_train_drop(torch, dev, step_ms)
@@ -1274,7 +1411,8 @@ def main():
         "fused_encoder_tail.fwd": (4 * Mt * Dt * Ft, 6 * Mt * Dt + tail_w),
         "fused_encoder_tail.bwd": (8 * Mt * Dt * Ft, 10 * Mt * Dt + 2 * tail_w),
     }
-    library = {"fused_train_attention_block.fwd": block["library_fwd_ms"]}
+    library = {"fused_train_attention_block.fwd": block["library_fwd_ms"],
+               "fused_train_attention_block.bwd": block["library_bwd_ms"]}
     for name, row in (("fused_train_attention_block", block), ("fused_encoder_tail", tail)):
         for d, key in (("forward", "fwd"), ("backward", "bwd")):
             source, replaces = TRAIN_KERNELS[f"{name}.{d}"]

@@ -23,9 +23,9 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("layer_inference.cu", "gemm.cu", "gemm_sm90.cu", "attention.cu", "encoder_tail.cu",
-           "dropout_bits.cu")
-HEADERS = ("common.cuh", "philox.cuh")
+SOURCES = ("layer_inference.cu", "gemm.cu", "gemm_sm90.cu", "attention_fwd.cu", "attention_bwd.cu",
+           "attention.cu", "encoder_tail.cu", "dropout_bits.cu")
+HEADERS = ("common.cuh", "philox.cuh", "attention.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +44,7 @@ SIGNATURES = {
     "mdm_attention_bwd": [_P, _P, _P, *_VIEW, _P, *_VIEW, *_DROP, _P, _P, *_VIEW, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _P],
     "mdm_attention_fwd_occupancy": [_I, _I, _I, _I, _P],
+    "mdm_attention_bwd_occupancy": [_I, _I, _I, _P],
     "mdm_tail_ln1_fwd": [_P, _P, *_DROP, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mdm_tail_gelu_dropout": [_P, *_DROP, _P, _I, _I, _I, _I, _P],
     "mdm_tail_ln2_fwd": [_P, _P, *_DROP, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -115,17 +116,20 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+_TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(f)|(13__nv_bfloat16)")
+
+
 def instance_name(mangled: str, kernel: str) -> str:
-    """kernel<template arguments> of a mangled instance (a head dim where
-    the kernel takes one, the output type, and a bool where it takes one);
-    the mangled name when they do not parse."""
-    t = re.search(re.escape(kernel) + r"I(?:Li(\d+)E)?(f|13__nv_bfloat16)(?:Lb([01]))?E", mangled)
+    """kernel<template arguments> of a mangled instance (ints such as a
+    head dim, float/bf16 types and bools, in order); the mangled name when
+    they do not parse."""
+    t = re.search(re.escape(kernel) + r"I((?:Li\d+E|Lb[01]E|f|13__nv_bfloat16)+)E", mangled)
     if not t:
         return mangled
-    args = [] if t.group(1) is None else [t.group(1)]
-    args.append("float" if t.group(2) == "f" else "bf16")
-    if t.group(3) is not None:
-        args.append("true" if t.group(3) == "1" else "false")
+    args = []
+    for n, b, f, _ in _TEMPLATE_ARG.findall(t.group(1)):
+        args.append(n if n else ("true" if b == "1" else "false") if b else
+                    "float" if f else "bf16")
     return f"{kernel}<{', '.join(args)}>"
 
 

@@ -21,7 +21,7 @@ from . import _build
 from .dropout_bits import keep_threshold
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)  # the head dims the attention kernels are instantiated for
+HEAD_DIMS = (32, 64, 96, 128, 192, 256)  # the attention kernels' instances (padded head dims)
 _SMS = 132  # H100 SXM streaming multiprocessors: the split-K target
 WGMMA_TILE = (128, 128, 64)  # csrc/gemm_sm90.cu's block tile (rows, columns, K depth)
 GEMM_LAUNCHES = {"wgmma": 0, "wmma": 0, "fma": 0}  # launches per product kernel (see gemm_kernel)
@@ -196,9 +196,17 @@ def row_bias_strides(S: int):
 
 
 def check_head_dim(D: int, num_heads: int, what: str) -> int:
-    if D % num_heads or D // num_heads not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim of {D} / {num_heads} heads not in {HEAD_DIMS}")
-    return D // num_heads
+    """D // num_heads, or ValueError where the attention kernels take no
+    such head dim: not a multiple of 8 (their rows are 16-byte copies) or
+    above 256 (the accumulators would not fit the registers). The others
+    run in the least of HEAD_DIMS that holds them (csrc/attention.cuh)."""
+    if D % num_heads:
+        raise ValueError(f"{what}: d_model {D} is not divisible by {num_heads} heads")
+    dh = D // num_heads
+    if dh % 8 or not 8 <= dh <= HEAD_DIMS[-1]:
+        raise ValueError(f"{what}: head dim {dh} of {D} / {num_heads} heads is not a "
+                         f"multiple of 8 from 8 to {HEAD_DIMS[-1]}")
+    return dh
 
 
 def attention_fwd(q, k, v, view, out, out_view, B: int, S: int, H: int, head_dim: int,
@@ -220,11 +228,26 @@ def attention_fwd_occupancy(head_dim: int, out_dtype: torch.dtype, bias_form: in
     """Resident blocks per SM of ``attention_fwd``'s bf16 kernel storing
     out_dtype, for bias_form 0 (none), 1 (a key-padding row) or 2 (a full
     [S, S] tile), in its resident-row instance (S <= 256) or its two-pass
-    one: cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    one (the only one above head dim 128):
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
     blocks = ctypes.c_int(0)
     _build.check(_build.load_library().mdm_attention_fwd_occupancy(
         head_dim, DTYPES[out_dtype], bias_form, int(resident), ctypes.addressof(blocks)),
         "attention occupancy")
+    return blocks.value
+
+
+BWD_KERNELS = ("dq", "dkv")  # the bf16 backward's two kernels, in launch order
+
+
+def attention_bwd_occupancy(head_dim: int, bias_form: int, kernel: str) -> int:
+    """Resident blocks per SM (of 4 warps) of the bf16 backward's ``kernel``
+    (one of BWD_KERNELS) for bias_form 0, 1 or 2:
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    blocks = ctypes.c_int(0)
+    _build.check(_build.load_library().mdm_attention_bwd_occupancy(
+        head_dim, bias_form, BWD_KERNELS.index(kernel), ctypes.addressof(blocks)),
+        "attention backward occupancy")
     return blocks.value
 
 

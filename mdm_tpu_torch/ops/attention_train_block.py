@@ -13,7 +13,8 @@ backward (``csrc/gemm_sm90.cu`` and ``csrc/gemm.cu``, ``csrc/attention.cu``):
               out  = ctx . Wo^T + bo                    gemm        (dt)
     backward  dctx = dO . Wo                            gemm        (dt)
               ctx, dq, dk, dv (recomputed p, replayed bits)
-                                                        attn_bwd_dq, attn_bwd_dkv
+                                                        attn_fwd, attn_bwd_dq,
+                                                        attn_bwd_dkv
               dWo  = dO^T ctx, dWqkv = dqkv^T x         gemm, split-K (f32)
               dbo, dbqkv                                colsum      (f32)
               dx   = dqkv . Wqkv                        gemm        (dt)

@@ -48,7 +48,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._chain import DTYPES, HEAD_DIMS, dev, gemm, ptr, stream
+from ._chain import DTYPES, check_head_dim, dev, gemm, ptr, stream
 from .attention_train_block import _fwd_chain, _mask_row, train_attention_block_reference
 from .encoder_tail import encoder_tail_reference
 
@@ -85,10 +85,7 @@ def check_kernel_operands(x: torch.Tensor, weights, num_heads: int,
         raise ValueError(f"kernel dtype must be float32 or bfloat16, got {x.dtype}")
     B, S, D = x.shape
     F = weights[6].shape[0]
-    if D % num_heads:
-        raise ValueError(f"d_model {D} is not divisible by num_heads {num_heads}")
-    if D // num_heads not in HEAD_DIMS:
-        raise ValueError(f"head dim {D // num_heads} not in {HEAD_DIMS}")
+    check_head_dim(D, num_heads, "fused_layer_inference")
     if D % 16 or F % 16:
         raise ValueError(f"d_model {D} and ff_size {F} must be multiples of 16")
     shapes = [(3 * D, D), (3 * D,), (D, D), (D,), (D,), (D,), (F, D), (F,), (D, F), (D,),

@@ -29,7 +29,7 @@ BF16_TOL = dict(atol=2 ** -6, rtol=2 ** -6)
 BF16_GRAD_TOL = dict(atol=2 ** -4, rtol=2 ** -5)
 
 
-def _operands(S, seed=0):
+def _operands(S, seed=0, D=D):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(B, S, D)).astype(np.float32)
     ws = [(rng.normal(size=(D, D)) / np.sqrt(D)).astype(np.float32) for _ in range(4)]  # [in, out]
@@ -44,7 +44,7 @@ def _operands(S, seed=0):
 
 def _jax_call(x, ws, bs, kpm, bits, do, dtype, rate):
     """JAX kernels #2/#3 on padded operands (the wrapper's own padding)."""
-    S = x.shape[1]
+    S, D = x.shape[1:]
     S_pad = bits.shape[-1]
     pad = [(0, 0), (0, S_pad - S), (0, 0)]
     mask_row = np.zeros((B, 1, S_pad), np.float32)
@@ -77,10 +77,13 @@ def _jax_grads_torch_layout(grads):
             dwo.T, dbo[0]]
 
 
-@pytest.mark.parametrize("S", [32, 37])
+# (S, head dim): the first two keep their ids; Dh 96 runs in a padded
+# instance of the card's core.
+@pytest.mark.parametrize("S, Dh", [(32, D // H), (37, D // H), (37, 96)],
+                         ids=["32", "37", "37-dh96"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_plain_forward_and_backward_match_jax_kernel(S, dtype):
-    ops = _operands(S)
+def test_plain_forward_and_backward_match_jax_kernel(S, Dh, dtype):
+    ops = _operands(S, D=H * Dh)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     ref_out, ref_grads = _jax_call(*ops, jdt, RATE)
     x, wqkv, bqkv, wo, bo, kpm, bits, do = _port_operands(*ops, tdt)

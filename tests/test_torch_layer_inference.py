@@ -114,8 +114,14 @@ def test_kernel_operand_checks():
     flagship = torch.zeros(2, 5, 512, dtype=torch.bfloat16)
     check(flagship, _weights(512, 1024), 4, torch.zeros(2, 5, dtype=torch.bool))  # Dh = 128
     check(torch.zeros(2, 5, 128), _weights(128, 256), 4)  # the tests' width: Dh = 32
+    # Every multiple of 8 up to 256 runs in a padded instance of the core.
+    check(torch.zeros(2, 5, 64), _weights(64, 128), 4)  # Dh = 16
+    check(torch.zeros(2, 5, 384), _weights(384, 1024), 4)  # Dh = 96
+    check(torch.zeros(2, 5, 1024, dtype=torch.bfloat16), _weights(1024, 1024), 4)  # Dh = 256
     with pytest.raises(ValueError, match="head dim"):
-        check(torch.zeros(2, 5, 64), _weights(64, 128), 4)  # Dh = 16
+        check(torch.zeros(2, 5, 16), _weights(16, 32), 4)  # Dh = 4: rows of 16-byte copies
+    with pytest.raises(ValueError, match="head dim"):
+        check(torch.zeros(2, 5, 512), _weights(512, 1024), 1)  # Dh = 512: past the registers
     with pytest.raises(ValueError, match="multiples of 16"):
         check(flagship, _weights(512, 1000), 4)
     with pytest.raises(ValueError, match="dtype"):

@@ -43,6 +43,8 @@ from mdm_tpu_torch.train import OptimConfig, TrainStepConfig, create_train_state
 from mdm_tpu_torch.train import make_train_step  # noqa: E402
 
 SMALL = dict(latent_dim=128, ff_size=256, num_layers=2, num_heads=4, mask_frames=True)
+# 4 heads of 96: the card runs them in a padded instance of its attention core.
+WIDE = dict(latent_dim=384, ff_size=512, num_layers=1)
 B, T = 3, 16
 REL = 2e-5
 
@@ -171,9 +173,8 @@ def test_pinned_sets_and_restores_every_flag():
         ops.enable_pallas_layer_inference(None)
 
 
-@pytest.mark.parametrize("variant", sorted(JAX_SAMPLE_PINS))
-def test_mdm_forward_matches_jax_per_sampling_variant(variant, jax_pins, calls):
-    jmodel, params, config = _pair()
+def _check_sampling_variant(variant, jax_pins, calls, **cfg):
+    jmodel, params, config = _pair(**cfg)
     x, t, text, frames = _inputs()
     jax_pins(**JAX_SAMPLE_PINS[variant])
     ref = np.asarray(jmodel.apply(params, jnp.asarray(x), jnp.asarray(t), jm.Conditioning(
@@ -184,7 +185,17 @@ def test_mdm_forward_matches_jax_per_sampling_variant(variant, jax_pins, calls):
             frames_mask=torch.from_numpy(frames), text_embed=torch.from_numpy(text)))
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=1e-4)
     assert {n for n, c in calls.items() if c} == SAMPLE_ROUTES[variant]
-    assert all(c == SMALL["num_layers"] for c in calls.values() if c)
+    assert all(c == config.num_layers for c in calls.values() if c)
+
+
+@pytest.mark.parametrize("variant", sorted(JAX_SAMPLE_PINS))
+def test_mdm_forward_matches_jax_per_sampling_variant(variant, jax_pins, calls):
+    _check_sampling_variant(variant, jax_pins, calls)
+
+
+def test_mdm_forward_matches_jax_at_head_dim_96(jax_pins, calls):
+    """The layer route (the AUTO sampling route) at 4 heads of 96."""
+    _check_sampling_variant("layer", jax_pins, calls, **WIDE)
 
 
 def _jax_draws(key, x, sched, cond_mask_prob):
@@ -205,9 +216,8 @@ def _adam_mu(opt_state):
         if isinstance(s, optax.ScaleByAdamState)).mu
 
 
-@pytest.mark.parametrize("variant", sorted(JAX_TRAIN_PINS))
-def test_rate0_train_step_matches_jax_per_train_variant(variant, jax_pins, calls):
-    jmodel, params, config = _pair(dropout=0.0)
+def _check_train_variant(variant, jax_pins, calls, **cfg):
+    jmodel, params, config = _pair(dropout=0.0, **cfg)
     x, _, text, frames = _inputs(2)
     optim = dict(lr=1e-3)
     jcfg = JT.TrainStepConfig(loss=JLossConfig(), optim=JS.OptimConfig(**optim))
@@ -236,6 +246,17 @@ def test_rate0_train_step_matches_jax_per_train_variant(variant, jax_pins, calls
         np.testing.assert_allclose(p.grad.numpy(), want, rtol=0,
                                    atol=REL * float(np.abs(want).max()), err_msg=name)
     assert {n for n, c in calls.items() if c} == TRAIN_ROUTES_RATE0[variant]
+
+
+@pytest.mark.parametrize("variant", sorted(JAX_TRAIN_PINS))
+def test_rate0_train_step_matches_jax_per_train_variant(variant, jax_pins, calls):
+    _check_train_variant(variant, jax_pins, calls)
+
+
+def test_rate0_train_step_matches_jax_at_head_dim_96(jax_pins, calls):
+    """The tail route (the AUTO training route: train block and tail
+    kernels) at 4 heads of 96."""
+    _check_train_variant("tail", jax_pins, calls, **WIDE)
 
 
 def _training_forward(model, variant, seed):
