@@ -18,7 +18,9 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   CPU; 30 flagship train steps (B=128, T=196, dropout 0.1) through
   make_train_step, timed; and a TrainLoop resume that must be bit exact;
 - head dims off 128 (phases 2 and 5): the layer chain, and the train
-  block and tail forward and backward, at 4 heads of 96 and of 256;
+  block and tail forward and backward, at 4 heads of 96 and of 256, 32
+  heads of 4 (d_model 128: rows of 2-byte copies) and 2 heads of 512
+  (d_model 1024: the wide kernels);
 - the opt-in attention routes (phases 9-11): kernels #7/#8, #10, #11 and
   #12 against their plain versions, #7/#8's in-kernel Philox against
   dumped bits; the attention forward and backward cores at the edges of
@@ -32,8 +34,8 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   it on the card against the CPU.
 
 Each path checks that every layer call went through its kernels, and the
-sampling and training paths that every forward product went through the
-wgmma kernel (the backward's through WMMA). Each kernel's line carries its
+sampling and training paths that every product, forward and backward,
+went through the wgmma kernel. Each kernel's line carries its
 bound: the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its FLOPs over 989
 TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak. The training
@@ -89,8 +91,10 @@ ATTN_SHAPE = dict(B=64, S=197, D=512, H=4)  # sampling attention: CFG batch 2 x 
 # of 256 logits (csrc/attention.cu FW_RES): S = 1, 64 | 65, 256 | 257.
 EDGE_S = (1, 64, 65, 256, 257)
 # Every instance of the attention core (csrc/attention.cuh padded_head_dim:
-# 32, 64, 96, 128, 192, 256) and head dims padded into one (16, 48, 160).
-EDGE_DH = (16, 32, 48, 64, 96, 128, 160, 192, 256)
+# 32, 64, 96, 128, 192, 256), head dims padded into one (16, 48, 160), ones
+# that are no multiple of 8 (4, 12: 2-byte copies) and ones past 256 (264,
+# 512, 1024: the wide kernels of csrc/attention_wide.cu).
+EDGE_DH = (4, 12, 16, 32, 48, 64, 96, 128, 160, 192, 256, 264, 512, 1024)
 BWD_REL = {"bfloat16": 2 ** -5, "float32": 1e-4}  # the backward edges, of max |plain|
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
@@ -558,10 +562,10 @@ def phase_flagship_train(torch, TB, ET, DB, dev):
         raise AssertionError(f"training launched {launches}, expected {expected} each "
                              f"({cfg.num_layers} layers x {steps} steps)")
     # Per layer and step: the block's q/k/v and out projection and the
-    # tail's linear1 and linear2 forward on wgmma; the backward's four dY . W
-    # and dY^T . X products each for block and tail on WMMA.
+    # tail's linear1 and linear2 forward, and the backward's four dY . W and
+    # dY^T . X products each for block and tail, all on wgmma.
     products = dict(_chain.GEMM_LAUNCHES)
-    want = {"wgmma": 4 * expected, "wmma": 8 * expected, "fma": 0}
+    want = {"wgmma": 12 * expected, "fma": 0}
     if products != want:
         raise AssertionError(f"training's products launched {products}, expected {want}")
     seq_bits = DB.LAUNCHES["sequence_dropout_bits"]
@@ -1017,7 +1021,7 @@ def phase_direct_entries(torch, model, dev):
     n = len(model.seqTransEncoder.layers)
     if any(c != n for c in launches.values()):
         raise AssertionError(f"direct entries launched {launches}, expected {n} each")
-    if _chain.GEMM_LAUNCHES != {"wgmma": 2 * n, "wmma": 0, "fma": 0}:  # #12's two projections
+    if _chain.GEMM_LAUNCHES != {"wgmma": 2 * n, "fma": 0}:  # #12's two projections
         raise AssertionError(f"#12's products launched {_chain.GEMM_LAUNCHES}, expected "
                              f"{2 * n} on the wgmma kernel")
     print(f"direct entries, one call per layer of the flagship model: {launches}")
@@ -1226,9 +1230,15 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(so)}")
     log = so.with_suffix(".log").read_text()
     regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
-    spills = [ln for ln in log.splitlines()
-              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-    print(f"ptxas: {len(regs)} kernels, at most {max(regs)} registers, {len(spills)} spilling")
+    spills, entry = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        entry = m.group(1) if m else entry
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and m.groups() != ("0", "0"):
+            spills[entry] = [int(m.group(1)), int(m.group(2))]
+    print(f"ptxas: {len(regs)} kernels, at most {max(regs)} registers, {len(spills)} spilling "
+          f"(stores, loads bytes): {json.dumps(spills)}")
     print(f"ptxas, attention forward: {json.dumps(_build.ptxas_report(log, 'attn_fwd_bf16'))}")
     for kernel in ("attn_bwd_dq_bf16", "attn_bwd_dkv_bf16"):
         print(f"ptxas, attention backward {kernel}: "
@@ -1239,16 +1249,24 @@ def main():
           f"2 full): {json.dumps(bwd_blocks)}")
     if min(bwd_blocks[f"Dh=128 bias={f} {k}"] for f in (0, 1) for k in _chain.BWD_KERNELS) < 2:
         raise AssertionError("the attention backward holds fewer than 8 warps per SM at Dh=128")
+    for kernel in ("attn_fwd_wide", "attn_bwd_dq_wide", "attn_bwd_dkv_wide"):
+        print(f"ptxas, attention above Dh 256, {kernel}: "
+              f"{json.dumps(_build.ptxas_report(log, kernel))}")
     print(f"ptxas, wgmma products: {json.dumps(_build.ptxas_report(log, GP.KERNEL))}")
 
     # Phase 2a: the wgmma product kernel against the plain product at the
-    # edges of its tiling (M on both sides of 128 rows, the paths' M), the
-    # four product shapes and two ragged (N, K), bias and GELU on and off,
-    # bf16 and f32 out; two
-    # runs bitwise equal. These launches are comparisons, counted on no path.
+    # edges of its tiling, every form: x . W^T (M on both sides of 128 rows
+    # and the paths' M, the four product shapes and two ragged (N, K), bias
+    # and GELU on and off), dY . W (the same rows, the residual on and off)
+    # and dY^T . X (outputs on both sides of the 128 x 128 tile, K = 1, 63,
+    # 64, 65, 394, 25216, split-K at the rule's count and one more), bf16 and
+    # f32 out, and each form from a new thread; two runs bitwise equal.
+    # These launches are comparisons, counted on no path.
     edges = GP.check_edges()
     print(f"wgmma products vs plain: {json.dumps(edges)}; two runs bitwise equal; "
-          f"blocks per SM {_chain.wgmma_occupancy(False, False)}")
+          f"blocks per SM {_chain.wgmma_occupancy(False, False)} (x . W^T), "
+          f"{_chain.wgmma_occupancy(True, False, False, True)} (dY . W), "
+          f"{_chain.wgmma_occupancy(True, False, True, True)} (dY^T . X)")
 
     # Phase 2: kernel chain vs plain version at the main path's layer shapes
     # (CFG batch 64 = 2 x 32, S = 1 + 196 frames; serving batch 2 = 2 x 1)
@@ -1262,10 +1280,11 @@ def main():
     # 1024 values a warp holds in registers and read the rest twice.
     for dtype, mask in ((torch.float32, None), (torch.bfloat16, "bool")):
         compare_layer(torch, li, 2, 37, 1536, 512, 12, dtype, mask)
-    # Head dims off 128 (4 heads of 96 and of 256: padded and widest
-    # instances of the attention core) at the sampling shape.
-    for width in (384, 1024):
-        compare_layer(torch, li, 64, 197, width, F, H, torch.bfloat16, "bool")
+    # Head dims off 128 at the sampling shape: 4 heads of 96 and of 256
+    # (padded and widest tile instances of the attention core), 32 heads of
+    # 4 (2-byte row copies) and 2 heads of 512 (the wide kernels).
+    for width, heads in ((384, H), (1024, H), (128, 32), (1024, 2)):
+        compare_layer(torch, li, 64, 197, width, F, heads, torch.bfloat16, "bool")
 
     # Phase 2b: the whole slice on the card (kernels) against the CPU (plain
     # versions) at a small f32 width, with identical weights and noise.
@@ -1308,7 +1327,7 @@ def main():
         raise AssertionError(f"generate launched the layer kernels {li.LAUNCHES} times, "
                              f"expected {per_forward} layers x {steps} steps")
     products = dict(_chain.GEMM_LAUNCHES)  # 4 per layer call: q/k/v, out, linear1, linear2
-    if products != {"wgmma": 4 * per_forward * steps, "wmma": 0, "fma": 0}:
+    if products != {"wgmma": 4 * per_forward * steps, "fma": 0}:
         raise AssertionError(f"generate's products launched {products}, expected "
                              f"{4 * per_forward * steps} on the wgmma kernel and none elsewhere")
     print(f"generate's products: {products}")
@@ -1369,9 +1388,10 @@ def main():
     block, tail = phase_train_kernels(torch, TB, ET, TRAIN_SHAPE, torch.bfloat16, "bool")
     phase_train_kernels(torch, TB, ET, dict(B=3, S=37, D=128, H=4, F=256), torch.float32,
                         "float", timed=False)
-    for width in (384, 1024):  # 4 heads of 96 and of 256
-        phase_train_kernels(torch, TB, ET, dict(TRAIN_SHAPE, D=width), torch.bfloat16, "bool",
-                            timed=False)
+    # 4 heads of 96 and of 256, 32 heads of 4, 2 heads of 512 (as phase 2).
+    for width, heads in ((384, 4), (1024, 4), (128, 32), (1024, 2)):
+        phase_train_kernels(torch, TB, ET, dict(TRAIN_SHAPE, D=width, H=heads), torch.bfloat16,
+                            "bool", timed=False)
 
     # Phase 6: the random stream. The dump kernels' launches are counted
     # over this phase, the path that drives them.

@@ -1,12 +1,12 @@
 // The attention core of every attention kernel of the port, forward and
 // backward, with optional probability dropout. It replaces these TPU kernels:
 //   mdm_tpu/ops/attention_train_block.py::_fwd_kernel (pallas_call at :286,294)
-//     and ::_bwd_kernel (:334,344), with the projections of gemm.cu;
+//     and ::_bwd_kernel (:334,344), with the projections of gemm_sm90.cu;
 //   mdm_tpu/ops/attention_dropout.py::_fwd_kernel (:181,187) and ::_bwd_kernel
 //     (:214,220);
 //   mdm_tpu/ops/attention.py::_fused_attention_pallas (:76);
 //   mdm_tpu/ops/attention_v2.py::_fused_attention_v2 (:69);
-//   mdm_tpu/ops/attention_block.py::_fused_block (:84), with gemm.cu.
+//   mdm_tpu/ops/attention_block.py::_fused_block (:84), with gemm_sm90.cu.
 // The TPU kernels differ in layout, mask form and where the projections
 // sit; here one core takes them all as arguments:
 // - a View gives each operand's (batch, head, row) strides: q/k/v packed in
@@ -41,12 +41,20 @@
 // registers: fully unrolled, the code ran several times slower, bound by
 // instruction fetch at 2 warps per scheduler.
 //
-// Head dims: every multiple of 8 up to 256 runs in the least instance of
-// 32, 64, 96, 128, 192, 256 that holds it (padded_head_dim): the kernels
-// copy the true dh columns, zero the rest of each shared-memory tile (zero
-// columns change no product) and store only the true columns. The rows are
-// 16-byte copies, so dh is a multiple of 8; above 256 the accumulators of
-// even half a head's columns would not fit the registers.
+// Head dims: every one from 1 to 256 runs in the least instance of 32, 64,
+// 96, 128, 192, 256 that holds it (padded_head_dim): the kernels copy the
+// true dh columns, zero the rest of each shared-memory tile (zero columns
+// change no product) and store only the true columns. The rows are 16-byte
+// copies where every row start is 16-byte aligned and dh a multiple of 8
+// (vec_rows, decided per launch); otherwise 2-byte loads and stores, in
+// instances of their own (two-pass forwards; a head of 4 values packed in
+// a row starts 8 bytes on), so that the 16-byte ones keep no branch for
+// them.
+// Above 256 even half a head's accumulators would not fit the registers,
+// nor its Q and dO tiles shared memory beside a ring of K/V stages: the
+// wide kernels of attention_wide.cu stream q . k^T and dO . v^T through
+// shared memory in 64-column slabs and split the output columns over
+// blocks, at the same rounding points, keep draws and fixed sum orders.
 //
 // - forward (attention_fwd.cu): while S <= 256 and Dh <= 128 (the RESIDENT
 //   instance) a row's f32 logits stay in registers, so K and the bias are
@@ -245,21 +253,31 @@ attn_bwd_dkv_f32(Attn<float> a, const float* __restrict__ dout, View ov,
   }
 }
 
+// Whether every row of every bf16 operand starts 16-byte aligned and holds
+// a multiple of 8 values: the tiles' 16-byte copies and stores (load_tile).
+bool vec_rows(const Call& c) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const auto view8 = [](const View& v) { return v.sb % 8 == 0 && v.sh % 8 == 0 && v.ld % 8 == 0; };
+  return c.Dh % 8 == 0 && view8(c.in) && view8(c.ov) && aligned(c.q) && aligned(c.k) &&
+         aligned(c.v) && aligned(c.out) && aligned(c.dout) && aligned(c.dq) && aligned(c.dk) &&
+         aligned(c.dv);
+}
+
 cudaError_t dispatch(const Call& c, bool backward, cudaStream_t st) {
-  if (c.B <= 0 || c.S <= 0 || c.H <= 0 || c.out_dtype < 0 || c.out_dtype > 1 ||
-      !padded_head_dim(c.Dh))
+  if (c.B <= 0 || c.S <= 0 || c.H <= 0 || c.Dh <= 0 || c.out_dtype < 0 || c.out_dtype > 1)
     return cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)c.Dh));  // np.float32(1 / sqrt(Dh))
   if (c.dtype == 1) {
     const Attn<bf16> a{static_cast<const bf16*>(c.q), static_cast<const bf16*>(c.k),
                        static_cast<const bf16*>(c.v), c.in, c.bias, c.S, c.H, c.Dh, scale,
-                       c.drop};
+                       c.drop, vec_rows(c)};
     return backward ? launch_bwd(a, c, st) : launch_fwd(a, c, st);
   }
   // float32 inputs: f32 outputs only.
   if (c.dtype != 0 || c.out_dtype != 0) return cudaErrorInvalidValue;
   const Attn<float> a{static_cast<const float*>(c.q), static_cast<const float*>(c.k),
-                      static_cast<const float*>(c.v), c.in, c.bias, c.S, c.H, c.Dh, scale, c.drop};
+                      static_cast<const float*>(c.v), c.in, c.bias, c.S, c.H, c.Dh, scale, c.drop,
+                      false};
   dim3 grid(c.S, c.H, c.B);
   if (!backward) {
     const size_t bytes = (size_t)(c.Dh + c.S) * sizeof(float);
@@ -289,8 +307,8 @@ Dropout make_drop(const void* bits, int seed, unsigned thr, float inv_keep, int 
 // dtype, out_dtype: 0 = float32, 1 = bfloat16. q, k, v share the view
 // (sb, sh, ld); out and dout the view (osb, osh, old); bias is additive
 // f32 with strides (bb, bh, bi), or null. mode: 0 no dropout, 1 injected
-// bits ([B, H, S, S] uint32), 2 in-kernel Philox keyed on seed. Dh: a
-// multiple of 8 up to 256.
+// bits ([B, H, S, S] uint32), 2 in-kernel Philox keyed on seed. Dh: any
+// head dim from 1.
 extern "C" int mdm_attention_fwd(const void* q, const void* k, const void* v, long long sb,
                                  long long sh, int ld, const void* bias, long long bb,
                                  long long bh, int bi, const void* bits, int seed, unsigned thr,
@@ -307,7 +325,8 @@ extern "C" int mdm_attention_fwd(const void* q, const void* k, const void* v, lo
 // out_dtype (0 = float32, 1 = bfloat16), bias form 0 none, 1 row (bi = 0),
 // 2 full, and the kernel S picks: resident logits (S <= 256, resident = 1)
 // or two passes (resident = 0). Head dims above 128 have the two-pass
-// kernel only, which either value reports.
+// kernel only, which either value reports; above 256 (the wide kernels)
+// none: cudaErrorInvalidValue.
 extern "C" int mdm_attention_fwd_occupancy(int Dh, int out_dtype, int form, int resident,
                                            int* blocks) {
   if (form < 0 || form > 2 || out_dtype < 0 || out_dtype > 1) return (int)cudaErrorInvalidValue;

@@ -20,17 +20,18 @@ constexpr int LDB = AT + 4;               // f32 bias row: 64 values after up to
 constexpr float LOG2E = 1.4426950408889634f;
 
 // The instance a head dim runs in: the least of 32, 64, 96, 128, 192, 256
-// that holds it, for a multiple of 8 up to 256; else 0. The kernels read
-// the true dh columns, zero the rest of each shared-memory tile and store
-// only the true columns.
+// that holds it, for 1 to 256; else 0 (above 256 the wide kernels of
+// attention_wide.cu run it). The kernels read the true dh columns, zero the
+// rest of each shared-memory tile and store only the true columns.
+constexpr int MAX_TILE_DH = 256;
 __host__ __device__ constexpr int padded_head_dim(int dh) {
-  return dh < 8 || dh % 8 || dh > 256 ? 0
-         : dh <= 32                   ? 32
-         : dh <= 64                   ? 64
-         : dh <= 96                   ? 96
-         : dh <= 128                  ? 128
-         : dh <= 192                  ? 192
-                                      : 256;
+  return dh < 1 || dh > MAX_TILE_DH ? 0
+         : dh <= 32                 ? 32
+         : dh <= 64                 ? 64
+         : dh <= 96                 ? 96
+         : dh <= 128                ? 128
+         : dh <= 192                ? 192
+                                    : 256;
 }
 
 // Row s of head h of batch b starts at b*sb + h*sh + s*ld elements; its dh
@@ -67,6 +68,7 @@ struct Attn {
   int S, H, dh;  // dh: the true head dim
   float scale;
   Dropout drop;
+  bool vec;  // every row start 16-byte aligned and dh % 8 == 0: the 16-byte instances (load_tile)
 
   __device__ __forceinline__ float keep(int b, int h, int i, int j) const {
     return drop.keep((((size_t)b * H + h) * S + i) * S + j, b, h, i, j);
@@ -95,6 +97,9 @@ cudaError_t fwd_occupancy(int dh, int out_dtype, int form, bool resident, int* b
 // attention_bwd.cu
 cudaError_t launch_bwd(const Attn<bf16>& a, const Call& c, cudaStream_t st);
 cudaError_t bwd_occupancy(int dh, int form, int kernel, int* blocks);
+// attention_wide.cu: head dims above MAX_TILE_DH
+cudaError_t launch_fwd_wide(const Attn<bf16>& a, const Call& c, cudaStream_t st);
+cudaError_t launch_bwd_wide(const Attn<bf16>& a, const Call& c, cudaStream_t st);
 
 template <typename K>
 cudaError_t opt_in(K kernel, bool& done, int bytes) {
@@ -153,15 +158,26 @@ __device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src, 
 }
 
 // Rows [row0, row0+64) of a head (base: its row 0, row stride ld) into a
-// [64][DH+8] tile: the first dh columns (a multiple of 8) from memory, the
-// other columns and rows past S zero. Where 128 threads split the rows
-// evenly a thread copies one 16-byte column of every (128 / (DH/8))-th
-// row, its addresses fixed but for the row.
-template <int DH>
+// [64][DH+8] tile: the first dh columns from memory, the other columns and
+// rows past S zero. VEC (dh a multiple of 8, base and ld 16-byte aligned:
+// Attn::vec): where 128 threads split the rows evenly a thread copies one
+// 16-byte column of every (128 / (DH/8))-th row, its addresses fixed but
+// for the row. Otherwise 2-byte loads and stores, each thread every 128th
+// element. VEC is a template argument, not a branch: a kernel's 16-byte
+// instance is the same code as before the 2-byte path existed (a branch
+// in the loops of the tiles cost the forward 5-7%).
+template <int DH, bool VEC>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* base, int ld, int row0, int S,
                                           int dh) {
   constexpr int LD = DH + 8, VPR = DH / 8;
-  if constexpr (AT_THREADS % VPR == 0) {
+  if constexpr (!VEC) {
+#pragma unroll 8  // 8 loads in flight a thread: a rolled loop waited out each one
+    for (int e = threadIdx.x; e < AT * DH; e += AT_THREADS) {
+      const int r = e / DH, c = e % DH;
+      dst[r * LD + c] = c < dh && row0 + r < S ? base[(size_t)(row0 + r) * ld + c]
+                                               : __float2bfloat16_rn(0.0f);
+    }
+  } else if constexpr (AT_THREADS % VPR == 0) {
     constexpr int STEP = AT_THREADS / VPR;
     const int r = threadIdx.x / VPR, c = (threadIdx.x % VPR) * 8;
     const bool col = c < dh;
@@ -208,15 +224,17 @@ __device__ __forceinline__ void load_bias(float* dst, const float* p, long long 
 }
 
 // s[n] = this warp's 16 rows of a . b^T over the DH columns (a, b: [64][DH+8]
-// tiles; n-tile n: b's rows 8n..8n+7); pairs of n-tiles from `pairs` on
-// lie past S and stay 0.
-template <int DH>
+// tiles; n-tile n: b's rows 8n..8n+7), or s[n] += that when !ZERO; pairs of
+// n-tiles from `pairs` on lie past S and are left as they are.
+template <int DH, bool ZERO = true>
 __device__ __forceinline__ void qk_tile(float (&s)[8][4], const bf16* A, const bf16* Bt,
                                         int pairs) {
   constexpr int LD = DH + 8;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (ZERO) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+  }
   const bf16* arow = A + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
   const bf16* brow = Bt + ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
 #pragma unroll 2
@@ -300,12 +318,27 @@ __device__ __forceinline__ float keep_factor(const Dropout& d, uint32_t bits, in
 }
 
 // This warp's rows i0, i0 + 8 (rows past S skipped) of the first dh
-// columns (a multiple of 8) from the accumulators, 16 bytes per store.
-// f32: lane pairs trade a row's two values, so each lane holds 4
-// contiguous columns of one row.
-template <int NC>
+// columns from the accumulators, one value per store where !VEC (see
+// load_tile).
+template <int NC, typename OT>
+__device__ __forceinline__ void store_narrow(const float (&o)[NC / 8][4], OT* base, int ld,
+                                             int i0, int S, int dh) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < NC / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = i0 + 8 * (e >> 1), col = 8 * n + 2 * t + (e & 1);
+      if (row < S && col < dh) base[(size_t)row * ld + col] = mdm::from_f<OT>(o[n][e]);
+    }
+}
+
+// Where VEC, 16 bytes per store (dh a multiple of 8). f32: lane pairs trade
+// a row's two values, so each lane holds 4 contiguous columns of one row.
+template <int NC, bool VEC>
 __device__ __forceinline__ void store_out(const float (&o)[NC / 8][4], float* base, int ld, int i0,
                                           int S, int dh) {
+  if constexpr (!VEC) return store_narrow<NC>(o, base, ld, i0, S, dh);
   const int t = threadIdx.x & 3;
   const bool odd = t & 1;
   const int row = i0 + (odd ? 8 : 0);
@@ -323,9 +356,10 @@ __device__ __forceinline__ void store_out(const float (&o)[NC / 8][4], float* ba
 // bf16: per pair of n-tiles a lane holds one bf16x2 word of four items (row
 // i0 or i0 + 8, n-tile 2p or 2p + 1); a 4x4 exchange in the quad gives lane
 // t item t whole, word s from lane s.
-template <int NC>
+template <int NC, bool VEC>
 __device__ __forceinline__ void store_out(const float (&o)[NC / 8][4], bf16* base, int ld, int i0,
                                           int S, int dh) {
+  if constexpr (!VEC) return store_narrow<NC>(o, base, ld, i0, S, dh);
   const int t = threadIdx.x & 3;
   const int row = i0 + (t & 1) * 8;
   bf16* dst = base + (size_t)row * ld + 8 * (t >> 1);
@@ -348,15 +382,13 @@ __device__ __forceinline__ void store_out(const float (&o)[NC / 8][4], bf16* bas
   }
 }
 
-// x = this warp's logits against the key tile k0.. (Ks, its bias at bs):
-// q.k * scale (+ bias), -inf past S. rb: where this thread's two rows'
-// bias values start in bs.
-template <int DH>
-__device__ __forceinline__ void tile_logits(float (&x)[8][4], const Attn<bf16>& a, const bf16* Qs,
-                                            const bf16* Ks, const float* bs, int form,
-                                            const int (&rb)[2], int k0) {
+// x = x * scale (+ bias) for this warp's products x = q.k against the key
+// tile k0.. (its bias at bs), -inf past S. rb: where this thread's two
+// rows' bias values start in bs.
+__device__ __forceinline__ void finish_logits(float (&x)[8][4], const Attn<bf16>& a,
+                                              const float* bs, int form, const int (&rb)[2],
+                                              int k0) {
   const int t = threadIdx.x & 3, S = a.S;
-  qk_tile<DH>(x, Qs, Ks, min(4, (S - k0 + 15) >> 4));
   if (form) {
     bs += 2 * t;
 #pragma unroll
@@ -378,6 +410,15 @@ __device__ __forceinline__ void tile_logits(float (&x)[8][4], const Attn<bf16>& 
       for (int e = 0; e < 4; ++e)
         if (8 * n + (e & 1) >= lim) x[n][e] = -INFINITY;
   }
+}
+
+// x = this warp's logits against the key tile k0.. (Ks, its bias at bs).
+template <int DH>
+__device__ __forceinline__ void tile_logits(float (&x)[8][4], const Attn<bf16>& a, const bf16* Qs,
+                                            const bf16* Ks, const float* bs, int form,
+                                            const int (&rb)[2], int k0) {
+  qk_tile<DH>(x, Qs, Ks, min(4, (a.S - k0 + 15) >> 4));
+  finish_logits(x, a, bs, form, rb, k0);
 }
 
 // Where this thread's rows i0, i0 + 8 (block rows warp*16 + g, + 8) start
@@ -443,6 +484,29 @@ __device__ __forceinline__ void pack_tile(uint32_t (&w)[4][4], const float (&v)[
       for (int r = 0; r < 2; ++r) {
         const int n = 2 * ks + hf;
         w[ks][2 * hf + r] = pack_bf16(v[n][2 * r], v[n][2 * r + 1]);
+      }
+}
+
+// w = p kept per kbits (keep_bits) and scaled by 1/(1-rate), rounded to
+// bf16 and packed as the A operands of the tile's four 16-key steps, with
+// p = e * (1 / sum): a multiply by the row's reciprocal instead of a
+// division, within an f32 ulp.
+__device__ __forceinline__ void tile_pack(uint32_t (&w)[4][4], const float (&e)[8][4],
+                                          const float (&inv)[2], uint32_t kbits,
+                                          const Attn<bf16>& a) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int n = 2 * ks + hf, x = 4 * n + 2 * r;
+        float w0 = e[n][2 * r] * inv[r], w1 = e[n][2 * r + 1] * inv[r];
+        if (a.drop.mode) {
+          w0 = (kbits >> x) & 1 ? w0 * a.drop.inv_keep : 0.0f;
+          w1 = (kbits >> (x + 1)) & 1 ? w1 * a.drop.inv_keep : 0.0f;
+        }
+        w[ks][2 * hf + r] = pack_bf16(w0, w1);
       }
 }
 

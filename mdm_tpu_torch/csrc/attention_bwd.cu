@@ -72,7 +72,7 @@ static_assert(DqSmem<256>::max_bytes() <= MAX_SMEM && KvSmem<256>::max_bytes() <
 // A / l. The row statistics (m, 1/l, delta) go to stats[3][B*H*S] for the
 // dk/dv kernel. Walk 2: dw and the logits again, p = e / l exact, dlog = p
 // (dp - delta) * scale rounded to bf16 in registers and dq += dlog . k.
-template <int DH>
+template <int DH, bool VEC>
 __global__ void __launch_bounds__(AT_THREADS, 2)
 attn_bwd_dq_bf16(Attn<bf16> a, const bf16* __restrict__ dout, View ov, bf16* __restrict__ dq,
                  float* __restrict__ stats, int B) {
@@ -99,7 +99,7 @@ attn_bwd_dq_bf16(Attn<bf16> a, const bf16* __restrict__ dout, View ov, bf16* __r
       const int w = u % (2 * nkt), kt = w >> 1;
       const bool is_k = w & 1;
       unsigned char* st = ring + slot * stage;
-      load_tile<DH>(reinterpret_cast<bf16*>(st), is_k ? kb : vb, ld, kt * AT, S, dh);
+      load_tile<DH, VEC>(reinterpret_cast<bf16*>(st), is_k ? kb : vb, ld, kt * AT, S, dh);
       if (is_k && form)
         load_bias(reinterpret_cast<float*>(st + L::TILE), a.bias.p, bias0,
                   form == 2 ? a.bias.bi : 0, q0, kt * AT, S, form == 2);
@@ -119,8 +119,8 @@ attn_bwd_dq_bf16(Attn<bf16> a, const bf16* __restrict__ dout, View ov, bf16* __r
     ++u;
     return st;
   };
-  load_tile<DH>(Qs, a.q + hb, ld, q0, S, dh);  // Q and dO ride in group 0 with tile 0
-  load_tile<DH>(Cs, dout + ov.head(b, h), ov.ld, q0, S, dh);
+  load_tile<DH, VEC>(Qs, a.q + hb, ld, q0, S, dh);  // Q and dO ride in group 0 with tile 0
+  load_tile<DH, VEC>(Cs, dout + ov.head(b, h), ov.ld, q0, S, dh);
   issue(0, 0);
   if (nst == 3) issue(1, 1);
 
@@ -217,7 +217,7 @@ attn_bwd_dq_bf16(Attn<bf16> a, const bf16* __restrict__ dout, View ov, bf16* __r
     pack_tile(gw, x);
     tile_pv<DH, DC>(acc, gw, reinterpret_cast<const bf16*>(st) + chunk * DC, pairs);
   }
-  if (active) store_out<DC>(acc, dq + hb + chunk * DC, ld, i0, S, dh - chunk * DC);
+  if (active) store_out<DC, VEC>(acc, dq + hb + chunk * DC, ld, i0, S, dh - chunk * DC);
 }
 
 // Per key tile (and column chunk) of a head: walks the query tiles with
@@ -225,7 +225,7 @@ attn_bwd_dq_bf16(Attn<bf16> a, const bf16* __restrict__ dout, View ov, bf16* __r
 // p^T from the logits k . q^T, w^T = p^T keep rounded to bf16, dv += w^T .
 // dO; dw^T = v . dO^T; dlog^T = p^T (keep dw^T - delta) * scale rounded to
 // bf16, dk += dlog^T . q. dk and dv stay in registers: no float atomics.
-template <int DH>
+template <int DH, bool VEC>
 __global__ void __launch_bounds__(AT_THREADS, 2)
 attn_bwd_dkv_bf16(Attn<bf16> a, const bf16* __restrict__ dout, View ov,
                   const float* __restrict__ stats, bf16* __restrict__ dk, bf16* __restrict__ dv,
@@ -257,8 +257,8 @@ attn_bwd_dkv_bf16(Attn<bf16> a, const bf16* __restrict__ dout, View ov,
     if (qt < nqt) {
       unsigned char* st = ring + slot * stage;
       const int q0 = qt * AT;
-      load_tile<DH>(reinterpret_cast<bf16*>(st), qb, ld, q0, S, dh);
-      load_tile<DH>(reinterpret_cast<bf16*>(st + L::TILE), cb, ov.ld, q0, S, dh);
+      load_tile<DH, VEC>(reinterpret_cast<bf16*>(st), qb, ld, q0, S, dh);
+      load_tile<DH, VEC>(reinterpret_cast<bf16*>(st + L::TILE), cb, ov.ld, q0, S, dh);
       float* sd = reinterpret_cast<float*>(st + 2 * L::TILE);
       for (int v = threadIdx.x; v < 3 * AT; v += AT_THREADS) {
         const int i = q0 + v % AT;
@@ -270,8 +270,8 @@ attn_bwd_dkv_bf16(Attn<bf16> a, const bf16* __restrict__ dout, View ov,
     }
     mdm::cp_async_commit();
   };
-  load_tile<DH>(Ks, a.k + hb, ld, k0, S, dh);  // K, V and the row ride in group 0 with tile 0
-  load_tile<DH>(Vs, a.v + hb, ld, k0, S, dh);
+  load_tile<DH, VEC>(Ks, a.k + hb, ld, k0, S, dh);  // K, V and the row ride in group 0 with tile 0
+  load_tile<DH, VEC>(Vs, a.v + hb, ld, k0, S, dh);
   if (form == 1) load_bias(rowb, a.bias.p, bias0, 0, 0, k0, S, false);
   issue(0, 0);
 
@@ -340,43 +340,49 @@ attn_bwd_dkv_bf16(Attn<bf16> a, const bf16* __restrict__ dout, View ov,
     if (nst == 1) issue(qt + 1, 0);
   }
   if (active) {
-    store_out<DC>(gk, dk + hb + chunk * DC, ld, j0, S, dh - chunk * DC);
-    store_out<DC>(gv, dv + hb + chunk * DC, ld, j0, S, dh - chunk * DC);
+    store_out<DC, VEC>(gk, dk + hb + chunk * DC, ld, j0, S, dh - chunk * DC);
+    store_out<DC, VEC>(gv, dv + hb + chunk * DC, ld, j0, S, dh - chunk * DC);
   }
 }
 
-template <int DH>
+template <int DH, bool VEC>
 cudaError_t bwd_opt_in() {
   static bool done_dq = false, done_kv = false;
-  cudaError_t e = opt_in(attn_bwd_dq_bf16<DH>, done_dq, DqSmem<DH>::max_bytes());
-  if (e == cudaSuccess) e = opt_in(attn_bwd_dkv_bf16<DH>, done_kv, KvSmem<DH>::max_bytes());
+  cudaError_t e = opt_in(attn_bwd_dq_bf16<DH, VEC>, done_dq, DqSmem<DH>::max_bytes());
+  if (e == cudaSuccess) e = opt_in(attn_bwd_dkv_bf16<DH, VEC>, done_kv, KvSmem<DH>::max_bytes());
   return e;
 }
 
-template <int DH>
+template <int DH, bool VEC>
 cudaError_t launch_dh(const Attn<bf16>& a, const Call& c, cudaStream_t st) {
-  cudaError_t e = bwd_opt_in<DH>();
+  cudaError_t e = bwd_opt_in<DH, VEC>();
   if (e != cudaSuccess) return e;
   const int form = bias_form(a.bias);
   const dim3 grid((c.S + AT - 1) / AT * chunks<DH>(), c.H, c.B);
   const bf16* dout = static_cast<const bf16*>(c.dout);
-  attn_bwd_dq_bf16<DH><<<grid, AT_THREADS, DqSmem<DH>::bytes(form), st>>>(
+  attn_bwd_dq_bf16<DH, VEC><<<grid, AT_THREADS, DqSmem<DH>::bytes(form), st>>>(
       a, dout, c.ov, static_cast<bf16*>(c.dq), c.stats, c.B);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn_bwd_dkv_bf16<DH><<<grid, AT_THREADS, KvSmem<DH>::bytes(form), st>>>(
+  attn_bwd_dkv_bf16<DH, VEC><<<grid, AT_THREADS, KvSmem<DH>::bytes(form), st>>>(
       a, dout, c.ov, c.stats, static_cast<bf16*>(c.dk), static_cast<bf16*>(c.dv), c.B);
   return cudaGetLastError();
 }
 
+// VEC: 16-byte row copies (load_tile), else the 2-byte instances.
+template <int DH>
+cudaError_t launch_dh(const Attn<bf16>& a, const Call& c, cudaStream_t st) {
+  return a.vec ? launch_dh<DH, true>(a, c, st) : launch_dh<DH, false>(a, c, st);
+}
+
 template <int DH>
 cudaError_t occupancy_dh(int form, int kernel, int* blocks) {
-  const cudaError_t e = bwd_opt_in<DH>();
+  const cudaError_t e = bwd_opt_in<DH, true>();
   if (e != cudaSuccess) return e;
   return kernel == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           blocks, attn_bwd_dq_bf16<DH>, AT_THREADS, DqSmem<DH>::bytes(form))
+                           blocks, attn_bwd_dq_bf16<DH, true>, AT_THREADS, DqSmem<DH>::bytes(form))
                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           blocks, attn_bwd_dkv_bf16<DH>, AT_THREADS, KvSmem<DH>::bytes(form));
+                           blocks, attn_bwd_dkv_bf16<DH, true>, AT_THREADS, KvSmem<DH>::bytes(form));
 }
 
 }  // namespace
@@ -390,6 +396,7 @@ cudaError_t launch_bwd(const Attn<bf16>& a, const Call& c, cudaStream_t st) {
     const cudaError_t e = launch_fwd(a, c, st);
     if (e != cudaSuccess) return e;
   }
+  if (a.dh > MAX_TILE_DH) return launch_bwd_wide(a, c, st);
   switch (padded_head_dim(a.dh)) {
     case 32: return launch_dh<32>(a, c, st);
     case 64: return launch_dh<64>(a, c, st);

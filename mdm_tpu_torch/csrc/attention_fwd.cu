@@ -33,35 +33,13 @@ struct FwdSmem {
 };
 static_assert(FwdSmem<256>::max_bytes() <= MAX_SMEM, "the widest instance must fit");
 
-// w = p kept per kbits (keep_bits) and scaled by 1/(1-rate), rounded to
-// bf16 and packed as the A operands of the tile's four 16-key steps, with
-// p = e * (1 / sum): a multiply by the row's reciprocal instead of a
-// division, within an f32 ulp.
-__device__ __forceinline__ void tile_pack(uint32_t (&w)[4][4], const float (&e)[8][4],
-                                          const float (&inv)[2], uint32_t kbits,
-                                          const Attn<bf16>& a) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int n = 2 * ks + hf, x = 4 * n + 2 * r;
-        float w0 = e[n][2 * r] * inv[r], w1 = e[n][2 * r + 1] * inv[r];
-        if (a.drop.mode) {
-          w0 = (kbits >> x) & 1 ? w0 * a.drop.inv_keep : 0.0f;
-          w1 = (kbits >> (x + 1)) & 1 ? w1 * a.drop.inv_keep : 0.0f;
-        }
-        w[ks][2 * hf + r] = pack_bf16(w0, w1);
-      }
-}
-
 // RESIDENT (S <= RES_TILES * 64): the row's logits stay in registers, K and
 // the bias are read once; the stream is the key tiles, then the value
 // tiles. Otherwise two passes over the keys, one tile resident at a time:
 // the rows' max and exp-sum merged tile by tile, then each key tile's
-// logits again and its value tile.
-template <int DH, typename OT, bool RESIDENT>
+// logits again and its value tile. VEC: 16-byte row copies (load_tile);
+// the 2-byte instances (!VEC) are two-pass only.
+template <int DH, typename OT, bool RESIDENT, bool VEC>
 __global__ void __launch_bounds__(AT_THREADS, 2)
 attn_fwd_bf16(Attn<bf16> a, OT* __restrict__ out, View ov) {
   using L = FwdSmem<DH>;
@@ -92,7 +70,7 @@ attn_fwd_bf16(Attn<bf16> a, OT* __restrict__ out, View ov) {
         is_v = v_only || RESIDENT || ((u - nkt) & 1);
       }
       unsigned char* st = ring + slot * stage;
-      load_tile<DH>(reinterpret_cast<bf16*>(st), is_v ? vb : kb, ld, kt * AT, S, dh);
+      load_tile<DH, VEC>(reinterpret_cast<bf16*>(st), is_v ? vb : kb, ld, kt * AT, S, dh);
       if (!is_v && form)
         load_bias(reinterpret_cast<float*>(st + L::TILE), a.bias.p, bias0,
                   form == 2 ? a.bias.bi : 0, q0, kt * AT, S, form == 2);
@@ -112,7 +90,7 @@ attn_fwd_bf16(Attn<bf16> a, OT* __restrict__ out, View ov) {
     ++u;
     return st;
   };
-  load_tile<DH>(Qs, a.q + hb, ld, q0, S, dh);  // rides in group 0 with tile 0
+  load_tile<DH, VEC>(Qs, a.q + hb, ld, q0, S, dh);  // rides in group 0 with tile 0
   issue(0, 0, false);
   if (nst == 3) issue(1, 1, false);
 
@@ -212,7 +190,7 @@ attn_fwd_bf16(Attn<bf16> a, OT* __restrict__ out, View ov) {
       if (active) tile_pv<DH, DH>(o, w, Vs, min(4, (S - kt * AT + 15) >> 4));
     }
   }
-  if (active) store_out<DH>(o, out + ov.head(b, h), ov.ld, i0, S, dh);
+  if (active) store_out<DH, VEC>(o, out + ov.head(b, h), ov.ld, i0, S, dh);
 }
 
 // The head dims up to 128 have a resident instance; above, the row's
@@ -220,10 +198,10 @@ attn_fwd_bf16(Attn<bf16> a, OT* __restrict__ out, View ov) {
 template <int DH>
 __host__ __device__ constexpr bool has_resident() { return DH <= 128; }
 
-template <int DH, typename OT, bool RESIDENT>
+template <int DH, typename OT, bool RESIDENT, bool VEC = true>
 cudaError_t fwd_opt_in() {
   static bool done = false;
-  return opt_in(attn_fwd_bf16<DH, OT, RESIDENT>, done, FwdSmem<DH>::max_bytes());
+  return opt_in(attn_fwd_bf16<DH, OT, RESIDENT, VEC>, done, FwdSmem<DH>::max_bytes());
 }
 
 template <int DH, typename OT>
@@ -231,17 +209,23 @@ cudaError_t launch_dh(const Attn<bf16>& a, const Call& c, cudaStream_t st) {
   const dim3 grid((c.S + AT - 1) / AT, c.H, c.B);
   const int bytes = FwdSmem<DH>::bytes(bias_form(a.bias));
   OT* out = static_cast<OT*>(c.out);
+  if (!a.vec) {
+    const cudaError_t e = fwd_opt_in<DH, OT, false, false>();
+    if (e != cudaSuccess) return e;
+    attn_fwd_bf16<DH, OT, false, false><<<grid, AT_THREADS, bytes, st>>>(a, out, c.ov);
+    return cudaGetLastError();
+  }
   if constexpr (has_resident<DH>()) {
     if (c.S <= RES_TILES * AT) {
       const cudaError_t e = fwd_opt_in<DH, OT, true>();
       if (e != cudaSuccess) return e;
-      attn_fwd_bf16<DH, OT, true><<<grid, AT_THREADS, bytes, st>>>(a, out, c.ov);
+      attn_fwd_bf16<DH, OT, true, true><<<grid, AT_THREADS, bytes, st>>>(a, out, c.ov);
       return cudaGetLastError();
     }
   }
   const cudaError_t e = fwd_opt_in<DH, OT, false>();
   if (e != cudaSuccess) return e;
-  attn_fwd_bf16<DH, OT, false><<<grid, AT_THREADS, bytes, st>>>(a, out, c.ov);
+  attn_fwd_bf16<DH, OT, false, true><<<grid, AT_THREADS, bytes, st>>>(a, out, c.ov);
   return cudaGetLastError();
 }
 
@@ -256,13 +240,13 @@ cudaError_t occupancy_dh(int form, bool resident, int* blocks) {
     if (resident) {
       const cudaError_t e = fwd_opt_in<DH, OT, true>();
       if (e != cudaSuccess) return e;
-      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, attn_fwd_bf16<DH, OT, true>,
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, attn_fwd_bf16<DH, OT, true, true>,
                                                            AT_THREADS, FwdSmem<DH>::bytes(form));
     }
   }
   const cudaError_t e = fwd_opt_in<DH, OT, false>();
   if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, attn_fwd_bf16<DH, OT, false>,
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, attn_fwd_bf16<DH, OT, false, true>,
                                                        AT_THREADS, FwdSmem<DH>::bytes(form));
 }
 
@@ -279,6 +263,7 @@ namespace attn {
 
 cudaError_t launch_fwd(const Attn<bf16>& a, const Call& c, cudaStream_t st) {
   if (reinterpret_cast<uintptr_t>(a.bias.p) % 16) return cudaErrorInvalidValue;  // load_bias
+  if (a.dh > MAX_TILE_DH) return launch_fwd_wide(a, c, st);
   switch (padded_head_dim(a.dh)) {
     case 32: return launch_dh<32>(a, c, st);
     case 64: return launch_dh<64>(a, c, st);

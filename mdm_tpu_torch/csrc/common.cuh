@@ -1,5 +1,5 @@
 // Small device helpers shared by every kernel source (gemm.cu,
-// layer_inference.cu, attention.cu, encoder_tail.cu,
+// gemm_sm90.cu, layer_inference.cu, attention.cu, encoder_tail.cu,
 // dropout_bits.cu).
 #pragma once
 
@@ -65,6 +65,10 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+// out[i] = the sum over z = 0 .. splits - 1, in that order, of work[z * n + i]
+// (gemm.cu): the split-K partials' and the column sums' second pass.
+cudaError_t sum_splits(const float* work, float* out, size_t n, int splits, cudaStream_t st);
 
 // Opt a kernel into more than 48 KB of dynamic shared memory, once.
 template <typename K>

@@ -24,7 +24,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("layer_inference.cu", "gemm.cu", "gemm_sm90.cu", "attention_fwd.cu", "attention_bwd.cu",
-           "attention.cu", "encoder_tail.cu", "dropout_bits.cu")
+           "attention_wide.cu", "attention.cu", "encoder_tail.cu", "dropout_bits.cu")
 HEADERS = ("common.cuh", "philox.cuh", "attention.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,10 +35,10 @@ _VIEW = [_L, _L, _I]  # batch, head and row strides of an attention operand (att
 # name -> argtypes of each exported C function; every one returns a cudaError_t.
 SIGNATURES = {
     "mdm_residual_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "mdm_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mdm_gemm_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mdm_colsum": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "mdm_gemm_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mdm_gemm_wgmma_occupancy": [_I, _I, _P],
+    "mdm_gemm_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mdm_gemm_wgmma_occupancy": [_I, _I, _I, _I, _P],
     "mdm_attention_fwd": [_P, _P, _P, *_VIEW, _P, *_VIEW, *_DROP, _P, *_VIEW, _I,
                           _I, _I, _I, _I, _I, _P],
     "mdm_attention_bwd": [_P, _P, _P, *_VIEW, _P, *_VIEW, *_DROP, _P, _P, *_VIEW, _P, _P, _P, _P,
@@ -121,11 +121,11 @@ _TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(f)|(13__nv_bfloat16)")
 
 def instance_name(mangled: str, kernel: str) -> str:
     """kernel<template arguments> of a mangled instance (ints such as a
-    head dim, float/bf16 types and bools, in order); the mangled name when
-    they do not parse."""
+    head dim, float/bf16 types and bools, in order); the kernel's name for
+    a kernel that is no template; the mangled name when they do not parse."""
     t = re.search(re.escape(kernel) + r"I((?:Li\d+E|Lb[01]E|f|13__nv_bfloat16)+)E", mangled)
     if not t:
-        return mangled
+        return kernel if re.search(r"\d" + re.escape(kernel) + r"E", mangled) else mangled
     args = []
     for n, b, f, _ in _TEMPLATE_ARG.findall(t.group(1)):
         args.append(n if n else ("true" if b == "1" else "false") if b else

@@ -1,7 +1,7 @@
 """Launch helpers shared by the kernel chains (layer_inference, the
 attention modules, encoder_tail): operand preparation, the products of
-``csrc/gemm_sm90.cu`` and ``csrc/gemm.cu`` and the column sums of the
-latter, the attention core of ``csrc/attention.cu`` and the dropout
+``csrc/gemm_sm90.cu`` (bf16) and ``csrc/gemm.cu`` (f32) and the column sums
+of the latter, the attention core of ``csrc/attention.cu`` and the dropout
 arguments of ``csrc/philox.cuh``.
 
 Every helper launches asynchronously on the tensor's current stream,
@@ -21,10 +21,10 @@ from . import _build
 from .dropout_bits import keep_threshold
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 96, 128, 192, 256)  # the attention kernels' instances (padded head dims)
+HEAD_DIMS = (32, 64, 96, 128, 192, 256)  # the attention tile kernels' instances (padded head dims)
 _SMS = 132  # H100 SXM streaming multiprocessors: the split-K target
 WGMMA_TILE = (128, 128, 64)  # csrc/gemm_sm90.cu's block tile (rows, columns, K depth)
-GEMM_LAUNCHES = {"wgmma": 0, "wmma": 0, "fma": 0}  # launches per product kernel (see gemm_kernel)
+GEMM_LAUNCHES = {"wgmma": 0, "fma": 0}  # launches per product kernel (see gemm_kernel)
 
 
 def dev(t: torch.Tensor, dt: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -75,61 +75,89 @@ def dropout_args(bits: Optional[torch.Tensor], seed: int, rate: float):
     return ptr(bits), seed, keep_threshold(rate), inv_keep, mode
 
 
+def split_rows(k: int, splits: int) -> int:
+    """K rows per split of a split-K product: ceil(k / splits) in whole
+    64-deep K tiles (``gemm`` passes it to csrc/gemm_sm90.cu, which checks it
+    and walks the splits by it)."""
+    rows, bk = -(-k // splits), WGMMA_TILE[2]
+    return -(-rows // bk) * bk
+
+
 def splits_for(m: int, n: int, k: int) -> int:
     """Fixed split-K count for a weight gradient [m, n] reduced over k rows:
-    enough 128x64 tiles x splits to cover the SMs twice, each split at least
-    1024 rows deep."""
-    tiles = -(-m // 128) * -(-n // 64)
-    return max(1, min(2 * _SMS // tiles, k // 1024))
+    the fewest splits whose (128x128 tile, split) items fill the persistent
+    grid's SMs within 5% of the best count up to 32, each split at least
+    512 rows (8 K tiles) deep and none empty. A function of the shape alone,
+    so every run sums in the same order."""
+    tiles = -(-m // WGMMA_TILE[0]) * -(-n // WGMMA_TILE[1])
+    ok = [s for s in range(1, max(1, min(32, k // 512)) + 1)
+          if (s - 1) * split_rows(k, s) < k]
+    cost = {s: -(-tiles * s // _SMS) / s for s in ok}  # waves per split: K rows per SM / k
+    best = min(cost.values())
+    return next(s for s in ok if cost[s] <= 1.05 * best)
 
 
 def gemm_kernel(a: torch.Tensor, b: torch.Tensor, *, a_km: bool = False, b_kn: bool = False,
                 bias: Optional[torch.Tensor] = None, r: Optional[torch.Tensor] = None,
-                splits: int = 1) -> str:
+                out_f32: bool = False, gelu: bool = False, splits: int = 1) -> str:
     """The kernel that runs ``gemm``'s product, by a fixed rule: "wgmma"
-    (``csrc/gemm_sm90.cu``) for every bf16 x . W^T product (a_km and b_kn
-    off), "wmma" (``csrc/gemm.cu``) for the other bf16 forms (dY . W,
-    dY^T . X split-K), "fma" (``csrc/gemm.cu``) for float32.
+    (``csrc/gemm_sm90.cu``) for every bf16 product, "fma" (``csrc/gemm.cu``)
+    for every float32 one.
 
-    Raises ValueError on an operand the chosen kernel cannot take, never
-    routing it elsewhere: for "wgmma" more than one split, a K or N that is
-    not a multiple of 8 (the TMA's 16-byte row strides), an operand that is
-    not contiguous or whose base is not 16-byte aligned, or a residual r."""
-    if a.dtype not in DTYPES or b.dtype != a.dtype or (bias is not None and bias.dtype != a.dtype):
-        raise ValueError(f"gemm: operands must share float32 or bfloat16, got {a.dtype}, "
+    Raises ValueError on an operand the kernel cannot take, never routing it
+    elsewhere: for either kernel split-K into anything but f32 without bias,
+    GELU or residual; for "wgmma" a split count that leaves a split empty,
+    an N or a stored row of A or B (K, or M and N where stored [K, .]) that
+    is not a multiple of 8 (the TMA's 16-byte row strides), an operand that
+    is not contiguous or whose base is not 16-byte aligned, A stored [K, M]
+    with B a torch weight [N, K], GELU off the x . W^T form and a residual
+    off the dY . W form (no instance of those: no caller has them)."""
+    M, K = (a.shape[1], a.shape[0]) if a_km else a.shape
+    N = b.shape[1] if b_kn else b.shape[0]
+    dt = a.dtype
+    if dt not in DTYPES or b.dtype != dt or (bias is not None and bias.dtype != dt):
+        raise ValueError(f"gemm: operands must share float32 or bfloat16, got {dt}, "
                          f"{b.dtype} and bias {None if bias is None else bias.dtype}")
-    if a.dtype == torch.float32:
-        return "fma"
-    if a_km or b_kn:
-        return "wmma"
     if splits != 1:
-        raise ValueError(f"gemm: the wgmma kernel runs no split-K, got splits={splits}")
-    K, N = a.shape[1], b.shape[0]
-    if K % 8 or N % 8:
-        raise ValueError(f"gemm: the wgmma kernel needs K and N multiples of 8, got K={K} N={N}")
-    if r is not None:
-        raise ValueError("gemm: the wgmma kernel adds no residual")
-    for name, t in (("a", a), ("b", b), ("bias", bias)):
-        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
+        if (splits < 1 or not (out_f32 or dt == torch.float32) or bias is not None
+                or r is not None or gelu):
+            raise ValueError(f"gemm: split-K (splits={splits}) stores f32 partials: f32 out, "
+                             f"no bias, GELU or residual")
+        if dt != torch.float32 and (splits - 1) * split_rows(K, splits) >= K:
+            raise ValueError(f"gemm: {splits} splits of K={K} leave one empty")
+    if dt == torch.float32:
+        return "fma"
+    if a_km and not b_kn:
+        raise ValueError("gemm: the wgmma kernel has no A^T . B^T form")
+    if gelu and (a_km or b_kn):
+        raise ValueError("gemm: the wgmma kernel applies GELU on the x . W^T form only")
+    if r is not None and (a_km or not b_kn):
+        raise ValueError("gemm: the wgmma kernel adds a residual on the dY . W form only")
+    if N % 8 or (M if a_km else K) % 8 or (N if b_kn else K) % 8:
+        raise ValueError(f"gemm: the wgmma kernel needs N and the stored rows of A and B "
+                         f"multiples of 8, got M={M} N={N} K={K} a_km={a_km} b_kn={b_kn}")
+    for name, t in (("a", a), ("b", b), ("bias", bias), ("r", r)):
+        if t is not None and (t.data_ptr() % 16 or not t.is_contiguous()):
             raise ValueError(f"gemm: the wgmma kernel needs {name} contiguous and 16-byte "
                              f"aligned (see dev())")
     return "wgmma"
 
 
-def wgmma_plan(M: int, N: int, K: int, sms: int = _SMS) -> dict:
-    """csrc/gemm_sm90.cu's schedule of a product: 128x128 output tiles
-    walked by min(tiles, sms) persistent blocks, each tile K / 64 stages
-    deep; waves is tiles / sms (a whole number when the tiles quantise onto
-    the SMs)."""
+def wgmma_plan(M: int, N: int, K: int, sms: int = _SMS, splits: int = 1) -> dict:
+    """csrc/gemm_sm90.cu's schedule of a product: 128x128 output tiles times
+    the splits make the items, walked by min(items, sms) persistent blocks,
+    each item split_rows / 64 stages deep; waves is items / sms (a whole
+    number when the items quantise onto the SMs)."""
     bm, bn, bk = WGMMA_TILE
     row_tiles, col_tiles = -(-M // bm), -(-N // bn)
     tiles = row_tiles * col_tiles
-    return dict(row_tiles=row_tiles, col_tiles=col_tiles, tiles=tiles, waves=tiles / sms,
-                k_steps=-(-K // bk), grid=_wgmma_grid(M, N, sms))
+    return dict(row_tiles=row_tiles, col_tiles=col_tiles, tiles=tiles, splits=splits,
+                waves=tiles * splits / sms, k_steps=-(-split_rows(K, splits) // bk),
+                grid=_wgmma_grid(M, N, sms, splits))
 
 
-def _wgmma_grid(M: int, N: int, sms: int) -> int:
-    return min(-(-M // WGMMA_TILE[0]) * -(-N // WGMMA_TILE[1]), sms)
+def _wgmma_grid(M: int, N: int, sms: int, splits: int = 1) -> int:
+    return min(-(-M // WGMMA_TILE[0]) * -(-N // WGMMA_TILE[1]) * splits, sms)
 
 
 @functools.cache
@@ -152,29 +180,33 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, a_km: bool = False, b_kn: bool = F
     N = b.shape[1] if b_kn else b.shape[0]
     if (b.shape[0] if b_kn else b.shape[1]) != K:
         raise ValueError(f"gemm: inner dimensions differ, {tuple(a.shape)} and {tuple(b.shape)}")
-    kernel = gemm_kernel(a, b, a_km=a_km, b_kn=b_kn, bias=bias, r=r, splits=splits)
+    kernel = gemm_kernel(a, b, a_km=a_km, b_kn=b_kn, bias=bias, r=r, out_f32=out_f32, gelu=gelu,
+                         splits=splits)
     out = torch.empty((M, N), dtype=torch.float32 if out_f32 else a.dtype, device=a.device)
+    work = (torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
+            if splits > 1 else None)
     lib = _build.load_library()
     if kernel == "wgmma":
-        grid = _wgmma_grid(M, N, _sm_count(a.get_device()))
-        _build.check(lib.mdm_gemm_wgmma(ptr(a), ptr(b), ptr(bias), ptr(out), M, N, K,
-                                        int(out_f32), int(gelu), grid, stream(a)), "gemm")
+        grid = _wgmma_grid(M, N, _sm_count(a.get_device()), splits)
+        _build.check(lib.mdm_gemm_wgmma(ptr(a), ptr(b), ptr(bias), ptr(r), ptr(out), ptr(work),
+                                        M, N, K, int(a_km), int(b_kn), int(out_f32), int(gelu),
+                                        splits, split_rows(K, splits), grid, stream(a)), "gemm")
     else:
-        work = (torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
-                if splits > 1 else None)
-        _build.check(lib.mdm_gemm(ptr(a), ptr(b), ptr(bias), ptr(r), ptr(out), ptr(work), M, N,
-                                  K, int(a_km), int(b_kn), DTYPES[a.dtype], int(out_f32), splits,
-                                  int(gelu), stream(a)), "gemm")
+        _build.check(lib.mdm_gemm_f32(ptr(a), ptr(b), ptr(bias), ptr(r), ptr(out), ptr(work), M,
+                                      N, K, int(a_km), int(b_kn), splits, int(gelu), stream(a)),
+                     "gemm")
     GEMM_LAUNCHES[kernel] += 1
     return out
 
 
-def wgmma_occupancy(out_f32: bool, gelu: bool) -> int:
-    """Resident blocks per SM of the wgmma product kernel's instance:
+def wgmma_occupancy(out_f32: bool, gelu: bool, a_km: bool = False, b_kn: bool = False) -> int:
+    """Resident blocks per SM of the wgmma product kernel's instance of the
+    form (a_km, b_kn) storing f32 or bf16, with or without GELU:
     cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
     blocks = ctypes.c_int(0)
     _build.check(_build.load_library().mdm_gemm_wgmma_occupancy(
-        int(out_f32), int(gelu), ctypes.addressof(blocks)), "gemm occupancy")
+        int(a_km), int(b_kn), int(out_f32), int(gelu), ctypes.addressof(blocks)),
+        "gemm occupancy")
     return blocks.value
 
 
@@ -196,17 +228,28 @@ def row_bias_strides(S: int):
 
 
 def check_head_dim(D: int, num_heads: int, what: str) -> int:
-    """D // num_heads, or ValueError where the attention kernels take no
-    such head dim: not a multiple of 8 (their rows are 16-byte copies) or
-    above 256 (the accumulators would not fit the registers). The others
-    run in the least of HEAD_DIMS that holds them (csrc/attention.cuh)."""
-    if D % num_heads:
+    """D // num_heads, or ValueError where D does not split into num_heads
+    heads. Every head dim runs in bf16: up to 256 in the least of
+    HEAD_DIMS that holds it (16-byte row copies where the rows allow them,
+    2-byte ones otherwise), above 256 in the wide kernels
+    (csrc/attention_wide.cu); in f32 up to the row limit of
+    ``_check_f32_row`` (a head dim near 5800 at S = 197)."""
+    if num_heads < 1 or D % num_heads:
         raise ValueError(f"{what}: d_model {D} is not divisible by {num_heads} heads")
-    dh = D // num_heads
-    if dh % 8 or not 8 <= dh <= HEAD_DIMS[-1]:
-        raise ValueError(f"{what}: head dim {dh} of {D} / {num_heads} heads is not a "
-                         f"multiple of 8 from 8 to {HEAD_DIMS[-1]}")
-    return dh
+    return D // num_heads
+
+
+F32_ROW_BYTES = 48 * 1024  # csrc/attention.cu's f32 path: a row's operands in shared memory
+
+
+def _check_f32_row(q: torch.Tensor, S: int, head_dim: int, backward: bool) -> None:
+    """ValueError where the f32 path (one block per row, its q row and S
+    logits, and the backward's dO row and two more S rows, in 48 KB of
+    shared memory) cannot hold a row; bf16 has no such limit."""
+    need = 4 * (2 * head_dim + 3 * S if backward else head_dim + S)
+    if q.dtype == torch.float32 and need > F32_ROW_BYTES:
+        raise ValueError(f"attention: the f32 path holds a row in {F32_ROW_BYTES} bytes of "
+                         f"shared memory; head dim {head_dim} at S={S} needs {need}")
 
 
 def attention_fwd(q, k, v, view, out, out_view, B: int, S: int, H: int, head_dim: int,
@@ -216,6 +259,7 @@ def attention_fwd(q, k, v, view, out, out_view, B: int, S: int, H: int, head_dim
     ``out_view``; bias is additive f32 with ``bias_strides`` or None; drop is
     ``dropout_args``'s tuple. k and v may be given as addresses (their
     column blocks in a packed tensor that starts with q)."""
+    _check_f32_row(q, S, head_dim, backward=False)
     lib = _build.load_library()
     _build.check(lib.mdm_attention_fwd(ptr(q), ptr(k), ptr(v), *view, ptr(bias), *bias_strides,
                                        *drop, ptr(out), *out_view, DTYPES[out.dtype], B, S, H,
@@ -259,6 +303,7 @@ def attention_bwd(q, k, v, view, dout, out_view, dq, dk, dv, B: int, S: int, H: 
     recomputed into ctx when it is given."""
     if not dq.dtype == dk.dtype == dv.dtype == q.dtype:
         raise ValueError(f"attention gradients must be in q's dtype {q.dtype}")
+    _check_f32_row(q, S, head_dim, backward=True)
     stats = torch.empty((3, B * H * S), dtype=torch.float32, device=q.device)
     lib = _build.load_library()
     _build.check(lib.mdm_attention_bwd(ptr(q), ptr(k), ptr(v), *view, ptr(bias), *bias_strides,

@@ -6,8 +6,7 @@ Replaces mdm_tpu/ops/attention.py::fused_attention, whose Pallas kernel
 program per (batch, head) with q, k, v and the [S, S] bias tile in VMEM,
 on operands padded to 128 rows and 128 head columns. On the card it is the
 forward of ``csrc/attention.cu`` with the head-major view and a bias of
-shape [B, 1|H, 1|S, S]: no padding, any S, every head dim that is a
-multiple of 8 up to 256.
+shape [B, 1|H, 1|S, S]: no padding, any S, any head dim.
 
 What bounds it on an H100: at the sampling shape (B=64, H=4, S=197,
 Dh=128, bf16) the products are 5.1 GFLOP, ~5 us of tensor-core time, while

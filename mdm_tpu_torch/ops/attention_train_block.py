@@ -22,9 +22,8 @@ backward (``csrc/gemm_sm90.cu`` and ``csrc/gemm.cu``, ``csrc/attention.cu``):
 What bounds it on an H100, and what the design does about it: at the
 flagship step (B=128, S=197, D=512) the products carry ~85% of the ~0.3
 TFLOP of a layer's forward and backward, so it is bound by tensor-core
-throughput; the forward's two products run the wgmma kernel of
-``csrc/gemm_sm90.cu``, the backward's the WMMA kernel of ``csrc/gemm.cu``,
-both with f32 accumulation.
+throughput; the forward's two products and the backward's four run the
+wgmma kernel of ``csrc/gemm_sm90.cu``, with f32 accumulation.
 No [B, H, S, S] tensor is stored in either direction: the backward
 recomputes the probabilities and replays the dropout bits, which are
 Philox4x32-10 keyed on the element's (batch, head, row, column), never on

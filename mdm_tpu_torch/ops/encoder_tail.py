@@ -5,8 +5,7 @@ Replaces mdm_tpu/ops/encoder_tail.py: ``_call_fwd`` (kernel #4,
 ``pallas_call`` at :309,313) and ``_call_bwd`` (kernel #5, at :358,364),
 which run one program per batch cell with W1 and W2 resident in VMEM and
 three in-kernel dropout sites. On the card (``csrc/encoder_tail.cu``, the
-forward's products on ``csrc/gemm_sm90.cu``, the backward's on
-``csrc/gemm.cu``):
+products, forward and backward, on ``csrc/gemm_sm90.cu``):
 
     forward   y32 = LN1(x + drop0(attn)); y = dt(y32)   tail_ln1_fwd
               u   = y . W1^T + b1 (f32)                  gemm
@@ -21,8 +20,8 @@ forward's products on ``csrc/gemm_sm90.cu``, the backward's on
               dg1, dbl1, db1, db2, dg2, dbl2             colsum (f32)
 
 What bounds it on an H100: the two FFN products forward and the four
-backward carry ~95% of the tail's FLOPs (tensor-core bound: wgmma forward,
-WMMA backward, f32 accumulation); the row and elementwise kernels move a few
+backward carry ~95% of the tail's FLOPs (tensor-core bound: wgmma, f32
+accumulation); the row and elementwise kernels move a few
 bytes per element and draw one Philox word per dropped element. The
 dropout sites are Philox4x32-10 keyed on (batch, site, row, column), so
 the backward replays the forward's masks whatever its tiling. The forward

@@ -16,8 +16,8 @@ No row is masked in full (see ops/attention_v2.py).
 #10's cases also sit on both sides of every tile and resident-row limit of
 the card's forward (csrc/attention.cu: 64-row tiles, logits resident up to
 S = 256) at head dims 32, 96, 128 and 256 (96 and 256: padded and widest
-instances): these plain versions are the card's
-oracle at exactly those shapes.
+instances), 4 (rows of 2-byte copies) and 512 (csrc/attention_wide.cu):
+these plain versions are the card's oracle at exactly those shapes.
 """
 import ctypes
 import re
@@ -68,8 +68,9 @@ def _torch(a, dtype):
 
 
 # (S, Dh): the first two cases keep their ids; the rest are the card's
-# tiling edges (1, 64 | 65, 256 | 257) at head dims 32, 96, 128 and 256.
-EDGES = [(32, D // H), (37, D // H)] + [(S, Dh) for Dh in (32, 96, 128, 256)
+# tiling edges (1, 64 | 65, 256 | 257) at head dims 32, 96, 128 and 256, 4
+# (no multiple of 8: 2-byte row copies) and 512 (the wide kernels).
+EDGES = [(32, D // H), (37, D // H)] + [(S, Dh) for Dh in (32, 96, 128, 256, 4, 512)
                                       for S in (1, 64, 65, 256, 257)]
 EDGE_IDS = ["32", "37"] + [f"{S}-dh{Dh}" for S, Dh in EDGES[2:]]
 

@@ -40,20 +40,28 @@ FORMS = [
      "wgmma"),
     ("tail u = y W1^T + b1 (f32 out)", lambda: (_t(M, D), _t(F, D), dict(bias=_t(F))), "wgmma"),
     ("no bias", lambda: (_t(M, D), _t(D, D), {}), "wgmma"),
-    # backwards: dY . W and dY^T . X split-K, bf16 -> WMMA
-    ("block dctx = dO Wo", lambda: (_t(M, D), _t(D, D), dict(b_kn=True)), "wmma"),
-    ("block dWo = dO^T ctx", lambda: (_t(M, D), _t(M, D), dict(a_km=True, b_kn=True, splits=2)),
-     "wmma"),
+    # backwards: dY . W and dY^T . X split-K, bf16 -> the wgmma kernel too
+    ("block dctx = dO Wo", lambda: (_t(M, D), _t(D, D), dict(b_kn=True)), "wgmma"),
+    ("block dWo = dO^T ctx", lambda: (_t(M, D), _t(M, D), dict(a_km=True, b_kn=True,
+                                                               out_f32=True, splits=2)),
+     "wgmma"),
     ("block dWqkv = dqkv^T x",
-     lambda: (_t(M, 3 * D), _t(M, D), dict(a_km=True, b_kn=True, splits=2)), "wmma"),
-    ("block dx = dqkv Wqkv", lambda: (_t(M, 3 * D), _t(3 * D, D), dict(b_kn=True)), "wmma"),
-    ("tail dW2 = do^T hd", lambda: (_t(M, D), _t(M, F), dict(a_km=True, b_kn=True, splits=2)),
-     "wmma"),
-    ("tail dhd = do W2", lambda: (_t(M, D), _t(D, F), dict(b_kn=True)), "wmma"),
-    ("tail dW1 = du^T y", lambda: (_t(M, F), _t(M, D), dict(a_km=True, b_kn=True, splits=2)),
-     "wmma"),
-    ("tail dy = ds2 + du W1", lambda: (_t(M, F), _t(F, D), dict(b_kn=True, r=_t(M, D, dt=f32))),
-     "wmma"),
+     lambda: (_t(M, 3 * D), _t(M, D), dict(a_km=True, b_kn=True, out_f32=True, splits=2)),
+     "wgmma"),
+    ("block dx = dqkv Wqkv", lambda: (_t(M, 3 * D), _t(3 * D, D), dict(b_kn=True)), "wgmma"),
+    ("tail dW2 = do^T hd", lambda: (_t(M, D), _t(M, F), dict(a_km=True, b_kn=True,
+                                                             out_f32=True, splits=2)),
+     "wgmma"),
+    ("tail dhd = do W2", lambda: (_t(M, D), _t(D, F), dict(b_kn=True, out_f32=True)), "wgmma"),
+    ("tail dW1 = du^T y", lambda: (_t(M, F), _t(M, D), dict(a_km=True, b_kn=True,
+                                                            out_f32=True, splits=2)),
+     "wgmma"),
+    ("tail dy = ds2 + du W1", lambda: (_t(M, F), _t(F, D), dict(b_kn=True, out_f32=True,
+                                                                 r=_t(M, D, dt=f32))),
+     "wgmma"),
+    # split-K is the kernel's on every form
+    ("x W^T split-K", lambda: (_t(M, D), _t(D, D), dict(out_f32=True, splits=2)), "wgmma"),
+    ("dY^T X with K = 1", lambda: (_t(1, D), _t(1, D), dict(a_km=True, b_kn=True)), "wgmma"),
     # float32 (compute_dtype="float32") -> FMA, every form
     ("f32 qkv", lambda: (_t(M, D, dt=f32), _t(3 * D, D, dt=f32), dict(bias=_t(3 * D, dt=f32))),
      "fma"),
@@ -78,13 +86,49 @@ REFUSED = [
     ("bias misaligned", lambda: (_t(M, D), _t(D, D), dict(bias=_shifted(D))),
      "bias contiguous and 16-byte"),
     ("a not contiguous", lambda: (_t(D, M).T, _t(D, D), {}), "a contiguous"),
-    ("a residual", lambda: (_t(M, D), _t(D, D), dict(r=_t(M, D, dt=f32))), "no residual"),
+    ("a residual", lambda: (_t(M, D), _t(D, D), dict(r=_t(M, D, dt=f32))),
+     "residual on the dY . W form only"),
+    ("dY W + r, r misaligned", lambda: (_t(M, F), _t(F, D), dict(b_kn=True, out_f32=True,
+                                                                  r=_shifted(M, D, dt=f32))),
+     "r contiguous and 16-byte"),
+    ("dY^T X + r", lambda: (_t(M, D), _t(M, D), dict(a_km=True, b_kn=True, out_f32=True,
+                                                     r=_t(D, D, dt=f32))),
+     "residual on the dY . W form only"),
     ("x W^T, one split of a split-K form", lambda: (_t(M, D), _t(D, D), dict(splits=2)),
-     "no split-K"),
+     "f32 out"),
     ("bias in another dtype", lambda: (_t(M, D), _t(D, D), dict(bias=_t(D, dt=f32))),
      "share float32 or bfloat16"),
     ("a float16 operand", lambda: (_t(M, D, dt=torch.float16), _t(D, D, dt=torch.float16), {}),
      "share float32 or bfloat16"),
+    # the backward forms
+    ("dY W, N not a multiple of 8", lambda: (_t(M, D), _t(D, 12), dict(b_kn=True)),
+     "multiples of 8"),
+    ("dY W, K not a multiple of 8", lambda: (_t(M, 12), _t(12, D), dict(b_kn=True)),
+     "multiples of 8"),
+    ("dY^T X, M not a multiple of 8", lambda: (_t(M, 12), _t(M, D), dict(a_km=True, b_kn=True)),
+     "multiples of 8"),
+    ("dY^T X, N not a multiple of 8", lambda: (_t(M, D), _t(M, 12), dict(a_km=True, b_kn=True)),
+     "multiples of 8"),
+    ("dY W, b misaligned", lambda: (_t(M, D), _shifted(D, D), dict(b_kn=True)),
+     "b contiguous and 16-byte"),
+    ("dY^T X, a misaligned", lambda: (_shifted(M, D), _t(M, D), dict(a_km=True, b_kn=True)),
+     "a contiguous and 16-byte"),
+    ("dY W + r, r not contiguous", lambda: (_t(M, F), _t(F, D), dict(b_kn=True, out_f32=True,
+                                                                      r=_t(D, M, dt=f32).T)),
+     "r contiguous"),
+    ("split-K into bf16", lambda: (_t(M, D), _t(M, D), dict(a_km=True, b_kn=True, splits=2)),
+     "f32 out"),
+    ("split-K with a residual",
+     lambda: (_t(M, D), _t(M, D), dict(a_km=True, b_kn=True, out_f32=True, splits=2,
+                                       r=_t(D, D, dt=f32))), "no bias, GELU or residual"),
+    ("a split left empty", lambda: (_t(100, D), _t(100, D), dict(a_km=True, b_kn=True,
+                                                                 out_f32=True, splits=3)),
+     "leave one empty"),
+    ("A^T . B^T", lambda: (_t(M, D), _t(D, M), dict(a_km=True)), "no A\\^T"),
+    ("GELU on dY W", lambda: (_t(M, D), _t(D, D), dict(b_kn=True, gelu=True)),
+     "GELU on the x . W\\^T form only"),
+    ("GELU with a residual", lambda: (_t(M, D), _t(D, D), dict(gelu=True, r=_t(M, D, dt=f32))),
+     "residual on the dY . W form only"),
 ]
 
 
@@ -116,6 +160,44 @@ def test_wgmma_plan(M_, N, K, row_tiles, tiles, k_steps, grid):
     assert plan["col_tiles"] * plan["row_tiles"] == tiles
 
 
+# The four weight gradients of the flagship training layer (K = B x S =
+# 128 x 197 rows): (m, n, splits, items, K tiles per item, grid).
+DW_PLANS = [
+    ("dWo [D, D]", D, D, 8, 128, 50, 128),
+    ("dWqkv [3D, D]", 3 * D, D, 8, 384, 50, 132),
+    ("dW2 [D, F]", D, F, 4, 128, 99, 128),
+    ("dW1 [F, D]", F, D, 4, 128, 99, 128),
+]
+
+
+@pytest.mark.parametrize("site, m, n, splits, items, k_steps, grid", DW_PLANS,
+                         ids=[p[0] for p in DW_PLANS])
+def test_split_k_plan_of_the_weight_gradients(site, m, n, splits, items, k_steps, grid):
+    """splits_for gives each dW product (tile, split) items that fill the
+    132 SMs (one or three whole waves, or within 5% of the best count), no
+    split empty; wgmma_plan's schedule of them."""
+    K = 128 * 197
+    assert _chain.splits_for(m, n, K) == splits
+    plan = _chain.wgmma_plan(m, n, K, sms=132, splits=splits)
+    assert (plan["tiles"] * plan["splits"], plan["k_steps"], plan["grid"]) == (items, k_steps,
+                                                                                grid)
+    assert plan["waves"] == items / 132
+    assert (splits - 1) * _chain.split_rows(K, splits) < K <= splits * _chain.split_rows(K, splits)
+    assert _chain.split_rows(K, splits) % 64 == 0
+
+
+@pytest.mark.parametrize("m, n, k, splits", [
+    (D, D, 394, 1),     # the serving batch: too shallow to split
+    (D, D, 1024, 2),    # 512 rows a split at least
+    (128, 128, 25216, 31),
+    (3 * D, D, 64 * 197, 8),
+])
+def test_splits_for_keeps_splits_deep_and_none_empty(m, n, k, splits):
+    assert _chain.splits_for(m, n, k) == splits
+    assert splits == 1 or k // splits >= 512
+    assert (splits - 1) * _chain.split_rows(k, splits) < k
+
+
 def test_the_sampling_products_fill_whole_waves():
     """At the CFG batch (M = 64 x 197 = 12608, 98.5 row tiles of 128) every
     product of the layer quantises onto the H100's 132 SMs exactly."""
@@ -124,28 +206,38 @@ def test_the_sampling_products_fill_whole_waves():
 
 
 def test_ptxas_report_names_each_wgmma_instance():
-    mangled = "_ZN12_GLOBAL__N_115gemm_bf16_wgmmaI{}EEv14CUtensorMap_stS1_S1_PK13__nv_bfloat16iii"
+    """Instances by (output type, epilogue: 0 plain, 1 GELU, 2 residual,
+    A stored [K, M], B stored [K, N])."""
+    mangled = ("_ZN12_GLOBAL__N_115gemm_bf16_wgmmaI{}EEv14CUtensorMap_stS1_S1_PK13__nv_bfloat16"
+               "PKfiiiii")
     log = "\n".join([
-        f"ptxas info    : Compiling entry function '{mangled.format('13__nv_bfloat16Lb1')}' "
-        "for 'sm_90a'",
+        f"ptxas info    : Compiling entry function "
+        f"'{mangled.format('13__nv_bfloat16Li1ELb0ELb0E')}' for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 168 registers, used 1 barriers, 1152 bytes cmem[0]",
-        f"ptxas info    : Compiling entry function '{mangled.format('fLb0')}' for 'sm_90a'",
+        f"ptxas info    : Compiling entry function '{mangled.format('fLi0ELb1ELb1E')}' "
+        "for 'sm_90a'",
         "    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
         "ptxas info    : Used 154 registers",
         "ptxas info    : Compiling entry function "
-        "'_ZN12_GLOBAL__N_114gemm_bf16_wmmaIfLb0ELb0EEEvPK13__nv_bfloat16S3_S3_PKfPT_iiiibbb' "
-        "for 'sm_90a'",
+        "'_ZN12_GLOBAL__N_117gemm_f32_fmaILb0ELb0EEEvPKfS2_S2_S2_Pfiiiib' for 'sm_90a'",
         "ptxas info    : Used 76 registers"])
     assert _build.ptxas_report(log, "gemm_bf16_wgmma") == {
-        "gemm_bf16_wgmma<bf16, true>": dict(spill_stores=0, spill_loads=0, registers=168),
-        "gemm_bf16_wgmma<float, false>": dict(spill_stores=8, spill_loads=12, registers=154)}
-    assert _build.instance_name(mangled.format("fLb1"), "gemm_bf16_wgmma") == \
-        "gemm_bf16_wgmma<float, true>"
+        "gemm_bf16_wgmma<bf16, 1, false, false>": dict(spill_stores=0, spill_loads=0,
+                                                       registers=168),
+        "gemm_bf16_wgmma<float, 0, true, true>": dict(spill_stores=8, spill_loads=12,
+                                                      registers=154)}
+    assert _build.instance_name(mangled.format("fLi2ELb0ELb1E"), "gemm_bf16_wgmma") == \
+        "gemm_bf16_wgmma<float, 2, false, true>"
     assert _build.instance_name("_Z3foov", "gemm_bf16_wgmma") == "_Z3foov"
+    # a kernel that is no template reads as its name
+    assert _build.instance_name("_ZN50_GLOBAL__N__346dd856_17_attention_wide_cu_9e269c3a16"
+                                "attn_bwd_dq_wideEN3mdm4attn4AttnI13__nv_bfloat16EEPKS3_NS1_"
+                                "4ViewEPS3_Pfi", "attn_bwd_dq_wide") == "attn_bwd_dq_wide"
 
 
 def test_the_wgmma_kernel_is_built_and_bound():
     assert "gemm_sm90.cu" in _build.SOURCES
-    assert _build.SIGNATURES["mdm_gemm_wgmma"][-1] is _build.SIGNATURES["mdm_gemm"][-1]
+    assert _build.SIGNATURES["mdm_gemm_wgmma"][-1] is _build.SIGNATURES["mdm_gemm_f32"][-1]
+    assert "mdm_gemm" not in _build.SIGNATURES  # bf16 products are the wgmma kernel's alone
     assert "mdm_attention_rowmask" not in _build.SIGNATURES

@@ -114,14 +114,14 @@ def test_kernel_operand_checks():
     flagship = torch.zeros(2, 5, 512, dtype=torch.bfloat16)
     check(flagship, _weights(512, 1024), 4, torch.zeros(2, 5, dtype=torch.bool))  # Dh = 128
     check(torch.zeros(2, 5, 128), _weights(128, 256), 4)  # the tests' width: Dh = 32
-    # Every multiple of 8 up to 256 runs in a padded instance of the core.
+    # Every head dim runs: up to 256 in a padded instance of the core (rows
+    # of 2-byte copies where they are no multiple of 8), above in the wide
+    # kernels.
     check(torch.zeros(2, 5, 64), _weights(64, 128), 4)  # Dh = 16
     check(torch.zeros(2, 5, 384), _weights(384, 1024), 4)  # Dh = 96
     check(torch.zeros(2, 5, 1024, dtype=torch.bfloat16), _weights(1024, 1024), 4)  # Dh = 256
-    with pytest.raises(ValueError, match="head dim"):
-        check(torch.zeros(2, 5, 16), _weights(16, 32), 4)  # Dh = 4: rows of 16-byte copies
-    with pytest.raises(ValueError, match="head dim"):
-        check(torch.zeros(2, 5, 512), _weights(512, 1024), 1)  # Dh = 512: past the registers
+    check(torch.zeros(2, 5, 16), _weights(16, 32), 4)  # Dh = 4
+    check(torch.zeros(2, 5, 512), _weights(512, 1024), 1)  # Dh = 512
     with pytest.raises(ValueError, match="multiples of 16"):
         check(flagship, _weights(512, 1000), 4)
     with pytest.raises(ValueError, match="dtype"):
@@ -134,6 +134,38 @@ def test_kernel_operand_checks():
         check(flagship, bad, 4)
     with pytest.raises(ValueError, match="operand 13"):
         check(flagship, _weights(512, 1024), 4, torch.zeros(2, 6, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("D, heads, dh", [
+    (128, 128, 1), (128, 32, 4), (384, 32, 12), (384, 4, 96), (1056, 4, 264), (1024, 2, 512),
+    (1024, 1, 1024)])
+def test_check_head_dim_takes_every_head_dim(D, heads, dh):
+    """From 1 up (above 1024 too): the card runs each, forward and backward
+    (chip_smoke.py's edge phases hold Dh 4, 12, 264, 512 and 1024)."""
+    assert li.check_head_dim(D, heads, "layer") == dh
+
+
+@pytest.mark.parametrize("D, heads", [(512, 3), (128, 0), (128, -4)])
+def test_check_head_dim_raises_on_heads_that_do_not_split_d_model(D, heads):
+    with pytest.raises(ValueError, match="not divisible"):
+        li.check_head_dim(D, heads, "layer")
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_the_f32_attention_path_names_its_row_limit(backward):
+    """The one limit left on a head dim: the f32 path's row in 48 KB of
+    shared memory (4 (Dh + S) bytes forward, 4 (2 Dh + 3 S) backward). It
+    raises before anything is built or launched."""
+    from mdm_tpu_torch.ops import _chain
+
+    S, dh = 197, 12092 if not backward else 5849  # the first head dims past the limit
+    q = torch.zeros(1, S, dh)
+    view = _chain.bsd_view(S, dh, dh)
+    with pytest.raises(ValueError, match="49152 bytes of shared memory"):
+        if backward:
+            _chain.attention_bwd(q, q, q, view, q, view, q, q, q, 1, S, 1, dh)
+        else:
+            _chain.attention_fwd(q, q, q, view, q, view, 1, S, 1, dh)
 
 
 def test_other_devices_raise():

@@ -7,7 +7,9 @@ and scripts/bench_train_kernels.py, the port's come from its own scripts'
 with the single-device AUTO signals on, as ``MotionGenerator`` and
 ``make_train_step`` set them; the port runs its kernels' plain versions.
 A spy on each kernel wrapper the layers call shows which route was taken
-(the widths are 128, which the kernels' ``D % 128`` gates need).
+(the widths are multiples of 128, which the kernels' ``D % 128`` gates
+need; ``-k head_dim`` runs the layer and tail routes at head dims 96, 4
+and 512).
 
 Tolerances, all f32: an MDM forward to 1e-4 (tests/test_torch_models.py's
 bar for the denoiser); a rate-0 train step's loss and metrics to 2e-5
@@ -45,6 +47,11 @@ from mdm_tpu_torch.train import make_train_step  # noqa: E402
 SMALL = dict(latent_dim=128, ff_size=256, num_layers=2, num_heads=4, mask_frames=True)
 # 4 heads of 96: the card runs them in a padded instance of its attention core.
 WIDE = dict(latent_dim=384, ff_size=512, num_layers=1)
+# Head dims past the tile kernels' multiples of 8 up to 256, as the
+# parser's --latent_dim/--num_heads give them: 32 heads of 4 (2-byte row
+# copies on the card) and 2 heads of 512 (its wide kernels).
+HEAD_DIMS = {"32 heads of 4": dict(latent_dim=128, num_heads=32, ff_size=256, num_layers=1),
+             "2 heads of 512": dict(latent_dim=1024, num_heads=2, ff_size=256, num_layers=1)}
 B, T = 3, 16
 REL = 2e-5
 
@@ -198,6 +205,12 @@ def test_mdm_forward_matches_jax_at_head_dim_96(jax_pins, calls):
     _check_sampling_variant("layer", jax_pins, calls, **WIDE)
 
 
+@pytest.mark.parametrize("heads", sorted(HEAD_DIMS))
+def test_mdm_forward_matches_jax_at_head_dims_past_the_tiles(heads, jax_pins, calls):
+    """The layer route at head dims 4 and 512."""
+    _check_sampling_variant("layer", jax_pins, calls, **HEAD_DIMS[heads])
+
+
 def _jax_draws(key, x, sched, cond_mask_prob):
     """The draws of JAX train_step.py:193-203, for the port's draws= seam."""
     key_t, key_noise, key_drop, _, _ = jax.random.split(key, 5)
@@ -257,6 +270,12 @@ def test_rate0_train_step_matches_jax_at_head_dim_96(jax_pins, calls):
     """The tail route (the AUTO training route: train block and tail
     kernels) at 4 heads of 96."""
     _check_train_variant("tail", jax_pins, calls, **WIDE)
+
+
+@pytest.mark.parametrize("heads", sorted(HEAD_DIMS))
+def test_rate0_train_step_matches_jax_at_head_dims_past_the_tiles(heads, jax_pins, calls):
+    """The tail route at head dims 4 and 512."""
+    _check_train_variant("tail", jax_pins, calls, **HEAD_DIMS[heads])
 
 
 def _training_forward(model, variant, seed):
