@@ -21,6 +21,11 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   block and tail forward and backward, at 4 heads of 96 and of 256, 32
   heads of 4 (d_model 128: rows of 2-byte copies) and 2 heads of 512
   (d_model 1024: the wide kernels);
+- the tail's edges (phase 5): d_model on both sides of the 1024 a warp
+  holds in registers and off the 32-bit mask words, ff sizes 136 to 4096,
+  bf16 and f32, every dropout mode at rates 0.1 and 0.5; its packed keep
+  masks against keep_mask_bits of the bits (phases 5 and 6); and the f32
+  attention path at head dims 6144 and 8192 and S = 13000 (phase 9);
 - the opt-in attention routes (phases 9-11): kernels #7/#8, #10, #11 and
   #12 against their plain versions, #7/#8's in-kernel Philox against
   dumped bits; the attention forward and backward cores at the edges of
@@ -96,6 +101,19 @@ EDGE_S = (1, 64, 65, 256, 257)
 # 512, 1024: the wide kernels of csrc/attention_wide.cu).
 EDGE_DH = (4, 12, 16, 32, 48, 64, 96, 128, 160, 192, 256, 264, 512, 1024)
 BWD_REL = {"bfloat16": 2 ** -5, "float32": 1e-4}  # the backward edges, of max |plain|
+# The tail's edges (csrc/encoder_tail.cu): d_model below, at and past the
+# 1024 a warp holds in registers (8, 520, 1024 | 1032, 1536: the block-wide
+# rows) and widths that are no multiple of the 32-bit mask words (8, 520,
+# 1032, 136, 1000); ff sizes 136, 1000 and 4096; (mode, rate): no dropout,
+# injected bits and in-kernel Philox at 0.1 and 0.5.
+TAIL_EDGE_D = (8, 520, 1024, 1032, 1536)
+TAIL_EDGE_F = (136, 1000, 4096)
+TAIL_EDGE_MODES = ((0, 0.0), (1, 0.1), (1, 0.5), (2, 0.1), (2, 0.5))
+TAIL_GRADS = ["dx", "dattn", "dg1", "dbl1", "dW1", "db1", "dW2", "db2", "dg2", "dbl2"]
+# The f32 attention path past the 48 KB of shared memory it once held a row
+# in: (S, Dh) at B = H = 1.
+F32_LONG_ROWS = ((197, 6144), (197, 8192), (13000, 8))
+TAIL_KERNELS = ("tail_ln_fwd", "tail_gelu_dropout", "tail_ln_bwd", "tail_gelu_bwd")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 
@@ -315,9 +333,80 @@ def phase_train_kernels(torch, TB, ET, shape, dtype, mask, timed=True):
         lambda *o: ET.fused_encoder_tail(*o, RATE, 0, tbits),
         lambda: ET.encoder_tail_reference(*ops, RATE, tbits),
         lambda: ET.encoder_tail_bwd_reference(*ops, dz, RATE, tbits),
-        ops, dz, dtype, ["dx", "dattn", "dg1", "dbl1", "dW1", "db1", "dW2", "db2", "dg2", "dbl2"],
-        timed, drawn=lambda *o: ET.fused_encoder_tail(*o, RATE, 0))
+        ops, dz, dtype, TAIL_GRADS, timed, drawn=lambda *o: ET.fused_encoder_tail(*o, RATE, 0))
     return block, tail
+
+
+def tail_masks(torch, ET, ops, rate, seed, bits=None):
+    """The three packed keep masks the tail's forward chain stores."""
+    with torch.no_grad():
+        return ET._fwd_cuda(ops[0], ops[1], tuple(ops[2:]), rate, seed, bits)[1][-1]
+
+
+def mask_sites_differing(torch, DB, masks, bits, rate):
+    """The sites whose packed mask is not bitwise keep_mask_bits of bits."""
+    want = lambda b: DB.keep_mask_bits(b.reshape(-1, b.shape[-1]), rate).view(torch.int32)
+    return [site for site, (m, b) in enumerate(zip(masks, bits))
+            if not torch.equal(m.view(torch.int32), want(b))]
+
+
+def phase_tail_edges(torch, ET, DB, dev):
+    """Phase 5, tail edges: the encoder tail forward and its ten gradients
+    against the plain versions at B=3, S=37 (ragged rows) for every d_model
+    of TAIL_EDGE_D and ff size of TAIL_EDGE_F, bf16 and f32, in each (mode,
+    rate) of TAIL_EDGE_MODES, within TRAIN_REL of max |plain|; two runs
+    bitwise equal; the packed masks bitwise equal to keep_mask_bits of the
+    bits; in-kernel Philox bitwise equal to the same stream injected. These
+    launches are comparisons, counted on no path."""
+    B, S, seed = 3, 37, 97531
+    worst, cases, failed = {}, 0, []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        rel = TRAIN_REL[dname]
+        for D in TAIL_EDGE_D:
+            for F in TAIL_EDGE_F:
+                ops, dz, injected = _tail_operands(torch, B, S, D, F, dtype, seed=D + F)
+                dumped = DB.tail_dropout_bits(seed, B, S, D, F, device=dev)
+                for mode, rate in TAIL_EDGE_MODES:
+                    bits = injected if mode == 1 else None
+                    plain_bits = (None, injected, dumped)[mode]
+                    run = lambda b=bits, r=rate: _fwd_bwd(
+                        torch, lambda *o: ET.fused_encoder_tail(*o, r, seed, b), ops, dz)
+                    what = f"tail D={D} F={F} {dname} mode={mode} rate={rate}"
+                    try:
+                        out, grads = run()
+                        e = _rel_check(torch, f"{what} out", out,
+                                       ET.encoder_tail_reference(*ops, rate, plain_bits), rel)[1]
+                        for n, g, p in zip(TAIL_GRADS, grads, ET.encoder_tail_bwd_reference(
+                                *ops, dz, rate, plain_bits)):
+                            e = max(e, _rel_check(torch, f"{what} {n}", g, p.to(g.dtype), rel,
+                                                  p)[1])
+                        worst[dname] = max(worst.get(dname, 0.0), e)
+                        out2, grads2 = run()
+                        if not (torch.equal(out, out2) and all(map(torch.equal, grads, grads2))):
+                            raise AssertionError(f"{what}: two runs differ")
+                        bad = mode and mask_sites_differing(
+                            torch, DB, tail_masks(torch, ET, ops, rate, seed, bits), plain_bits,
+                            rate)
+                        if bad:
+                            raise AssertionError(f"{what}: masks of sites {bad} differ from "
+                                                 f"keep_mask_bits of the bits")
+                        if mode == 2:
+                            out3, grads3 = run(dumped)
+                            if not (torch.equal(out, out3) and all(map(torch.equal, grads, grads3))):
+                                raise AssertionError(f"{what}: in-kernel Philox differs from the "
+                                                     f"injected dump")
+                    except AssertionError as err:
+                        failed.append(str(err))
+                    cases += 1
+    if failed:
+        raise AssertionError(f"{len(failed)} of {cases} tail edge cases failed:\n"
+                             + "\n".join(failed[:30]))
+    print(f"encoder tail at B={B} S={S}, D={list(TAIL_EDGE_D)}, F={list(TAIL_EDGE_F)}, "
+          f"(mode, rate)={list(TAIL_EDGE_MODES)}: {cases} cases (bf16/f32; out and 10 grads) vs "
+          f"plain, worst {json.dumps(worst)} of max |plain| (bounds {json.dumps(TRAIN_REL)}); "
+          f"two runs, packed masks vs keep_mask_bits and Philox vs injected dump bitwise equal")
+    return worst
 
 
 def _torch_mha(torch, wqkv, bqkv, wo, bo, H, dropout):
@@ -377,6 +466,14 @@ def phase_random_stream(torch, TB, ET, DB, shape, dev):
     ops, dz, _ = _tail_operands(torch, B, S, D, F, dtype)
     cases.append(("encoder tail", ops, dz,
                   lambda b: lambda *o: ET.fused_encoder_tail(*o, RATE, seed, b), tbits))
+    for mode, given in ((2, None), (1, tbits)):
+        bad = mask_sites_differing(torch, DB, tail_masks(torch, ET, ops, RATE, seed, given), tbits,
+                                   RATE)
+        if bad:
+            raise AssertionError(f"encoder tail: mode {mode} masks of sites {bad} differ from "
+                                 f"keep_mask_bits of the dumped bits")
+    print("encoder tail: packed keep masks == keep_mask_bits(tail_dropout_bits), bitwise, "
+          "drawn in-kernel and injected")
     for name, ops_, d, make, injected in cases:
         out_p, grads_p = _fwd_bwd(torch, make(None), ops_, d)
         out_i, grads_i = _fwd_bwd(torch, make(injected), ops_, d)
@@ -989,6 +1086,68 @@ def phase_backward_edges(torch, dev):
     return worst
 
 
+def phase_f32_long_rows(torch, dev):
+    """Phase 9, the f32 attention path past the row it once held in 48 KB
+    of shared memory (F32_LONG_ROWS: head dims 6144 and 8192 at S = 197, S
+    = 13000 at head dim 8; B = H = 1): forward and backward (dq, dk, dv and
+    the recomputed out) against the plain versions within BWD_REL's f32
+    bound of max |plain|, with no bias and no dropout, and with a key-padding
+    row and in-kernel Philox; two runs bitwise equal. Comparisons, counted on
+    no path."""
+    from mdm_tpu_torch.ops import _chain as C
+    from mdm_tpu_torch.ops import dropout_bits as DB
+    from mdm_tpu_torch.ops.attention import attention_probs
+
+    B = H = 1
+    seed, rel = 8642, BWD_REL["float32"]
+    g = torch.Generator().manual_seed(13)
+    r = lambda *shape: _randn(torch, g, *shape).to(dev)
+    rows = []
+    for S, Dh in F32_LONG_ROWS:
+        q, k, v, do = (r(B, H, S, Dh) for _ in range(4))
+        view = C.bhsd_view(H, S, Dh)
+        for bname, bias, strides, mode in (("none", None, (0, 0, 0), 0),
+                                           ("row", r(B, 1, 1, S), (S, 0, 0), 2)):
+            rate = RATE if mode else 0.0
+            drop = C.dropout_args(None, seed, rate)
+            keep_bits = DB.philox_bits(seed, 0, 0, S, S, device=dev) if mode else None
+            what = f"f32 attention S={S} Dh={Dh} bias={bname} mode={mode}"
+
+            def fwd():
+                out = torch.full_like(q, float("nan"))
+                C.attention_fwd(q, k, v, view, out, view, B, S, H, Dh, bias, strides, drop)
+                return out
+
+            def bwd():
+                got = [torch.full_like(q, float("nan")) for _ in range(4)]
+                C.attention_bwd(q, k, v, view, do, view, *got[:3], B, S, H, Dh, bias, strides,
+                                drop, got[3])
+                return got
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fwd()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = bwd()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            p = attention_probs(q, k, bias)
+            w = p if keep_bits is None else p * DB.keep_factors(keep_bits, RATE)
+            errs = [_rel_check(torch, f"{what} forward", out, w @ v, rel)[1]]
+            del p, w
+            ref = attention_bwd_plain(torch, q, k, v, do, bias, keep_bits)
+            errs += [_rel_check(torch, f"{what} {n}", a, b, rel)[1]
+                     for n, a, b in zip(("dq", "dk", "dv", "ctx"), got, ref)]
+            del ref
+            if not (torch.equal(out, fwd()) and all(map(torch.equal, got, bwd()))):
+                raise AssertionError(f"{what}: two runs differ")
+            rows.append(dict(S=S, Dh=Dh, bias=bname, mode=mode, worst=max(errs),
+                             fwd_ms=(t1 - t0) * 1e3, bwd_ms=(t2 - t1) * 1e3))
+    print(f"f32 attention past the old row limit: {json.dumps(rows)} (worst of max |plain|, "
+          f"bound {rel}; host clock around one synchronised call); two runs bitwise equal")
+    return rows
+
+
 def phase_direct_entries(torch, model, dev):
     """Phase 9b: #12 and #10 as direct entry points (no model route calls
     them): each called once per layer of the flagship model, on one
@@ -1253,6 +1412,12 @@ def main():
         print(f"ptxas, attention above Dh 256, {kernel}: "
               f"{json.dumps(_build.ptxas_report(log, kernel))}")
     print(f"ptxas, wgmma products: {json.dumps(_build.ptxas_report(log, GP.KERNEL))}")
+    tail_ptxas = {k: _build.ptxas_report(log, k) for k in TAIL_KERNELS}
+    print(f"ptxas, encoder tail: {json.dumps(tail_ptxas)}")
+    tail_spills = [n for rep in tail_ptxas.values() for n, row in rep.items()
+                   if row.get("spill_stores") or row.get("spill_loads")]
+    if tail_spills or not all(tail_ptxas.values()):
+        raise AssertionError(f"encoder tail kernels spill or are missing: {tail_spills}")
 
     # Phase 2a: the wgmma product kernel against the plain product at the
     # edges of its tiling, every form: x . W^T (M on both sides of 128 rows
@@ -1392,6 +1557,7 @@ def main():
     for width, heads in ((384, 4), (1024, 4), (128, 32), (1024, 2)):
         phase_train_kernels(torch, TB, ET, dict(TRAIN_SHAPE, D=width, H=heads), torch.bfloat16,
                             "bool", timed=False)
+    phase_tail_edges(torch, ET, DB, dev)
 
     # Phase 6: the random stream. The dump kernels' launches are counted
     # over this phase, the path that drives them.
@@ -1411,6 +1577,7 @@ def main():
     attention = phase_attention_kernels(torch, dev)
     phase_forward_edges(torch, dev)
     phase_backward_edges(torch, dev)
+    phase_f32_long_rows(torch, dev)
     direct = phase_direct_entries(torch, model, dev)
     v2_launches, pallas_s = phase_sampling_variants(torch, dev, gen_ms / 1000 / B)
     drop_launches, drop_ms = phase_train_drop(torch, dev, step_ms)

@@ -78,8 +78,8 @@
 //   split their output columns over blocks of 128 (256) or 64 (192), each
 //   recomputing the scores. Dh=128: 214 registers (dq) and 255 (dk/dv), no
 //   spills; two blocks of 4 warps per SM (mdm_attention_bwd_occupancy).
-// The f32 path is scalar FMA, one block per row. Bound on an H100 at the
-// flagship shapes (S=197, Dh=128): the forward by the bytes of its operands
+// The f32 path is scalar FMA, one block per row, any head dim and any S
+// (below). Bound on an H100 at the flagship shapes (S=197, Dh=128): the forward by the bytes of its operands
 // (#7, #10, #11), its products a quarter of that time; the backward (#8)
 // by the bytes too (0.062 ms), but it runs nine score-sized products where
 // the bound counts four, and an exp and two Philox words per element.
@@ -97,8 +97,13 @@ using namespace mdm::attn;
 namespace {
 
 // ------------------------------------------------------------ float32 path
-// One block per row; the row's S logits live in shared memory.
-constexpr int AF_THREADS = 128;
+// One block per row. Nothing Dh- or S-long is staged whole: the q and dO
+// rows are read through L1 by every thread, the row's statistics come from
+// an online max and exp-sum (merged over the block), and the S-long rows of
+// p (and dlog) pass through shared memory AF_CHUNK keys at a time, each
+// chunk's products added to the output row in global memory by the thread
+// that owns its column. So every head dim and every S runs.
+constexpr int AF_THREADS = 128, AF_CHUNK = 1024;
 
 __device__ float block_reduce(float v, float* red, bool is_max) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -122,90 +127,103 @@ __device__ __forceinline__ float dotf(const float* a, const float* b, int n) {
   return acc;
 }
 
-// Row (b, h, i): p_j into ps; its max and sum through the pointers.
-__device__ void row_softmax_f32(const Attn<float>& a, const float* kb, const float* qs, int b,
-                                int h, int i, float* ps, float* red, float* m_out, float* l_out) {
-  float mx = -INFINITY;
+// Logit of query row qrow against key j of the head at kb.
+__device__ __forceinline__ float logit_f32(const Attn<float>& a, const float* qrow,
+                                           const float* kb, int b, int h, int i, int j) {
+  return dotf(qrow, kb + (size_t)j * a.in.ld, a.dh) * a.scale + a.bias.at(b, h, i, j);
+}
+
+// Max m and exp-sum l of row (b, h, i)'s logits: online per thread (a -inf
+// logit adds nothing), then merged over the block.
+__device__ void row_stats_f32(const Attn<float>& a, const float* qrow, const float* kb, int b,
+                              int h, int i, float* red, float& m, float& l) {
+  float mx = -INFINITY, sum = 0.0f;
   for (int j = threadIdx.x; j < a.S; j += AF_THREADS) {
-    const float v = dotf(qs, kb + (size_t)j * a.in.ld, a.dh) * a.scale + a.bias.at(b, h, i, j);
-    ps[j] = v;
-    mx = fmaxf(mx, v);
+    const float x = logit_f32(a, qrow, kb, b, h, i, j);
+    if (x > mx) {
+      sum = sum * expf(mx - x) + 1.0f;
+      mx = x;
+    } else if (x != -INFINITY) {
+      sum += expf(x - mx);
+    }
   }
-  mx = block_reduce(mx, red, true);
-  float sum = 0.0f;
-  for (int j = threadIdx.x; j < a.S; j += AF_THREADS) {
-    const float e = expf(ps[j] - mx);
-    ps[j] = e;
-    sum += e;
-  }
-  sum = block_reduce(sum, red, false);
-  for (int j = threadIdx.x; j < a.S; j += AF_THREADS) ps[j] = ps[j] / sum;
-  __syncthreads();
-  *m_out = mx;
-  *l_out = sum;
+  m = block_reduce(mx, red, true);
+  l = block_reduce(sum == 0.0f ? 0.0f : sum * expf(mx - m), red, false);
 }
 
 __global__ void __launch_bounds__(AF_THREADS)
 attn_fwd_f32(Attn<float> a, float* __restrict__ out, View ov) {
-  extern __shared__ float sm[];
-  float* qs = sm;         // [dh]
-  float* ps = sm + a.dh;  // [S]
+  __shared__ float ps[AF_CHUNK];  // p * keep of one chunk of keys
   __shared__ float red[33];
   const int i = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int ld = a.in.ld;
   const size_t hb = a.in.head(b, h);
-  for (int d = threadIdx.x; d < a.dh; d += AF_THREADS) qs[d] = a.q[hb + (size_t)i * ld + d];
-  __syncthreads();
+  const float* qrow = a.q + hb + (size_t)i * ld;
+  float* orow = out + ov.head(b, h) + (size_t)i * ov.ld;
   float m, l;
-  row_softmax_f32(a, a.k + hb, qs, b, h, i, ps, red, &m, &l);
-  for (int j = threadIdx.x; j < a.S; j += AF_THREADS) ps[j] *= a.keep(b, h, i, j);
-  __syncthreads();
-  for (int d = threadIdx.x; d < a.dh; d += AF_THREADS) {
-    float acc = 0.0f;
-    for (int j = 0; j < a.S; ++j) acc = fmaf(ps[j], a.v[hb + (size_t)j * ld + d], acc);
-    out[ov.head(b, h) + (size_t)i * ov.ld + d] = acc;
+  row_stats_f32(a, qrow, a.k + hb, b, h, i, red, m, l);
+  for (int j0 = 0; j0 < a.S; j0 += AF_CHUNK) {
+    const int n = min(AF_CHUNK, a.S - j0);
+    for (int jj = threadIdx.x; jj < n; jj += AF_THREADS) {
+      const int j = j0 + jj;
+      ps[jj] = expf(logit_f32(a, qrow, a.k + hb, b, h, i, j) - m) / l * a.keep(b, h, i, j);
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < a.dh; d += AF_THREADS) {
+      float acc = j0 ? orow[d] : 0.0f;
+      for (int jj = 0; jj < n; ++jj) acc = fmaf(ps[jj], a.v[hb + (size_t)(j0 + jj) * ld + d], acc);
+      orow[d] = acc;
+    }
+    __syncthreads();
   }
 }
 
 __global__ void __launch_bounds__(AF_THREADS)
 attn_bwd_dq_f32(Attn<float> a, const float* __restrict__ dout, float* __restrict__ ctx, View ov,
                 float* __restrict__ dq, float* __restrict__ stats, int B) {
-  extern __shared__ float sm[];
-  float* qs = sm;         // [dh]
-  float* cs = qs + a.dh;  // [dh] dout row
-  float* ps = cs + a.dh;  // [S] p
-  float* ws = ps + a.S;   // [S] w = p * keep
-  float* gs = ws + a.S;   // [S] dp, then dlog
+  __shared__ float ws[AF_CHUNK];  // w = p * keep of one chunk of keys
+  __shared__ float gs[AF_CHUNK];  // dlog of the chunk
   __shared__ float red[33];
   const int i = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int ld = a.in.ld, S = a.S;
   const size_t hb = a.in.head(b, h), ob = ov.head(b, h) + (size_t)i * ov.ld;
-  for (int d = threadIdx.x; d < a.dh; d += AF_THREADS) {
-    qs[d] = a.q[hb + (size_t)i * ld + d];
-    cs[d] = dout[ob + d];
-  }
-  __syncthreads();
+  const float *qrow = a.q + hb + (size_t)i * ld, *crow = dout + ob;
+  float* dqrow = dq + hb + (size_t)i * ld;
   float m, l;
-  row_softmax_f32(a, a.k + hb, qs, b, h, i, ps, red, &m, &l);
+  row_stats_f32(a, qrow, a.k + hb, b, h, i, red, m, l);
+  // p_j and dp_j = keep_j (dO . v_j), recomputed in each walk of the keys.
+  auto p_dp = [&](int j, float& p, float& kf, float& dp) {
+    p = expf(logit_f32(a, qrow, a.k + hb, b, h, i, j) - m) / l;
+    kf = a.keep(b, h, i, j);
+    dp = kf * dotf(crow, a.v + hb + (size_t)j * ld, a.dh);
+  };
   float part = 0.0f;
   for (int j = threadIdx.x; j < S; j += AF_THREADS) {
-    const float kf = a.keep(b, h, i, j);
-    const float dp = kf * dotf(cs, a.v + hb + (size_t)j * ld, a.dh);
-    ws[j] = ps[j] * kf;
-    gs[j] = dp;
-    part += dp * ps[j];
+    float p, kf, dp;
+    p_dp(j, p, kf, dp);
+    part += dp * p;
   }
   const float delta = block_reduce(part, red, false);
-  for (int j = threadIdx.x; j < S; j += AF_THREADS) gs[j] = ps[j] * (gs[j] - delta) * a.scale;
-  __syncthreads();
-  for (int d = threadIdx.x; d < a.dh; d += AF_THREADS) {
-    float c = 0.0f, q = 0.0f;
-    for (int j = 0; j < S; ++j) {
-      if (ctx) c = fmaf(ws[j], a.v[hb + (size_t)j * ld + d], c);
-      q = fmaf(gs[j], a.k[hb + (size_t)j * ld + d], q);
+  for (int j0 = 0; j0 < S; j0 += AF_CHUNK) {
+    const int n = min(AF_CHUNK, S - j0);
+    for (int jj = threadIdx.x; jj < n; jj += AF_THREADS) {
+      float p, kf, dp;
+      p_dp(j0 + jj, p, kf, dp);
+      ws[jj] = p * kf;
+      gs[jj] = p * (dp - delta) * a.scale;
     }
-    if (ctx) ctx[ob + d] = c;
-    dq[hb + (size_t)i * ld + d] = q;
+    __syncthreads();
+    for (int d = threadIdx.x; d < a.dh; d += AF_THREADS) {
+      float c = ctx && j0 ? ctx[ob + d] : 0.0f, q = j0 ? dqrow[d] : 0.0f;
+      for (int jj = 0; jj < n; ++jj) {
+        const size_t r = hb + (size_t)(j0 + jj) * ld + d;
+        if (ctx) c = fmaf(ws[jj], a.v[r], c);
+        q = fmaf(gs[jj], a.k[r], q);
+      }
+      if (ctx) ctx[ob + d] = c;
+      dqrow[d] = q;
+    }
+    __syncthreads();
   }
   if (threadIdx.x == 0) {
     const size_t n = (size_t)B * a.H * S, o = ((size_t)b * a.H + h) * S + i;
@@ -215,41 +233,41 @@ attn_bwd_dq_f32(Attn<float> a, const float* __restrict__ dout, float* __restrict
   }
 }
 
-__global__ void __launch_bounds__(AF_THREADS)
+__global__ void __launch_bounds__(AF_THREADS, 4)  // (AF_THREADS) alone spills 16 bytes
 attn_bwd_dkv_f32(Attn<float> a, const float* __restrict__ dout, View ov,
                  const float* __restrict__ stats, float* __restrict__ dk,
                  float* __restrict__ dv, int B) {
-  extern __shared__ float sm[];
-  float* ks = sm;         // [dh]
-  float* vs = ks + a.dh;  // [dh]
-  float* ws = vs + a.dh;  // [S] w over queries
-  float* gs = ws + a.S;   // [S] dlog over queries
+  __shared__ float ws[AF_CHUNK];  // w over one chunk of queries
+  __shared__ float gs[AF_CHUNK];  // dlog over the chunk
   const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int ld = a.in.ld, S = a.S;
   const size_t hb = a.in.head(b, h), cb = ov.head(b, h);
   const size_t n = (size_t)B * a.H * S, so = ((size_t)b * a.H + h) * S;
-  for (int d = threadIdx.x; d < a.dh; d += AF_THREADS) {
-    ks[d] = a.k[hb + (size_t)j * ld + d];
-    vs[d] = a.v[hb + (size_t)j * ld + d];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < S; i += AF_THREADS) {
-    const float x = dotf(a.q + hb + (size_t)i * ld, ks, a.dh) * a.scale + a.bias.at(b, h, i, j);
-    const float p = expf(x - stats[so + i]) / stats[n + so + i];
-    const float kf = a.keep(b, h, i, j);
-    const float dp = kf * dotf(dout + cb + (size_t)i * ov.ld, vs, a.dh);
-    ws[i] = p * kf;
-    gs[i] = p * (dp - stats[2 * n + so + i]) * a.scale;
-  }
-  __syncthreads();
-  for (int d = threadIdx.x; d < a.dh; d += AF_THREADS) {
-    float gk = 0.0f, gv = 0.0f;
-    for (int i = 0; i < S; ++i) {
-      gv = fmaf(ws[i], dout[cb + (size_t)i * ov.ld + d], gv);
-      gk = fmaf(gs[i], a.q[hb + (size_t)i * ld + d], gk);
+  const float *krow = a.k + hb + (size_t)j * ld, *vrow = a.v + hb + (size_t)j * ld;
+  float *dkrow = dk + hb + (size_t)j * ld, *dvrow = dv + hb + (size_t)j * ld;
+  for (int i0 = 0; i0 < S; i0 += AF_CHUNK) {
+    const int cnt = min(AF_CHUNK, S - i0);
+    for (int ii = threadIdx.x; ii < cnt; ii += AF_THREADS) {
+      const int i = i0 + ii;
+      const float x = dotf(a.q + hb + (size_t)i * ld, krow, a.dh) * a.scale + a.bias.at(b, h, i, j);
+      const float p = expf(x - stats[so + i]) / stats[n + so + i];
+      const float kf = a.keep(b, h, i, j);
+      const float dp = kf * dotf(dout + cb + (size_t)i * ov.ld, vrow, a.dh);
+      ws[ii] = p * kf;
+      gs[ii] = p * (dp - stats[2 * n + so + i]) * a.scale;
     }
-    dk[hb + (size_t)j * ld + d] = gk;
-    dv[hb + (size_t)j * ld + d] = gv;
+    __syncthreads();
+    for (int d = threadIdx.x; d < a.dh; d += AF_THREADS) {
+      float gk = i0 ? dkrow[d] : 0.0f, gv = i0 ? dvrow[d] : 0.0f;
+      for (int ii = 0; ii < cnt; ++ii) {
+        const int i = i0 + ii;
+        gv = fmaf(ws[ii], dout[cb + (size_t)i * ov.ld + d], gv);
+        gk = fmaf(gs[ii], a.q[hb + (size_t)i * ld + d], gk);
+      }
+      dkrow[d] = gk;
+      dvrow[d] = gv;
+    }
+    __syncthreads();
   }
 }
 
@@ -280,21 +298,17 @@ cudaError_t dispatch(const Call& c, bool backward, cudaStream_t st) {
                       false};
   dim3 grid(c.S, c.H, c.B);
   if (!backward) {
-    const size_t bytes = (size_t)(c.Dh + c.S) * sizeof(float);
-    if (bytes > 48 * 1024) return cudaErrorInvalidValue;
-    attn_fwd_f32<<<grid, AF_THREADS, bytes, st>>>(a, static_cast<float*>(c.out), c.ov);
+    attn_fwd_f32<<<grid, AF_THREADS, 0, st>>>(a, static_cast<float*>(c.out), c.ov);
     return cudaGetLastError();
   }
-  const size_t bytes = (size_t)(2 * c.Dh + 3 * c.S) * sizeof(float);
-  if (bytes > 48 * 1024) return cudaErrorInvalidValue;
   const float* dout = static_cast<const float*>(c.dout);
-  attn_bwd_dq_f32<<<grid, AF_THREADS, bytes, st>>>(a, dout, static_cast<float*>(c.out), c.ov,
-                                                    static_cast<float*>(c.dq), c.stats, c.B);
+  attn_bwd_dq_f32<<<grid, AF_THREADS, 0, st>>>(a, dout, static_cast<float*>(c.out), c.ov,
+                                               static_cast<float*>(c.dq), c.stats, c.B);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn_bwd_dkv_f32<<<grid, AF_THREADS, bytes, st>>>(a, dout, c.ov, c.stats,
-                                                     static_cast<float*>(c.dk),
-                                                     static_cast<float*>(c.dv), c.B);
+  attn_bwd_dkv_f32<<<grid, AF_THREADS, 0, st>>>(a, dout, c.ov, c.stats,
+                                                static_cast<float*>(c.dk),
+                                                static_cast<float*>(c.dv), c.B);
   return cudaGetLastError();
 }
 

@@ -67,7 +67,9 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // out[i] = the sum over z = 0 .. splits - 1, in that order, of work[z * n + i]
-// (gemm.cu): the split-K partials' and the column sums' second pass.
+// (gemm.cu): the split-K partials' and the column sums' second pass. Above
+// 64 splits, in 32 runs of consecutive splits, each summed in order, then
+// the runs in order.
 cudaError_t sum_splits(const float* work, float* out, size_t n, int splits, cudaStream_t st);
 
 // Opt a kernel into more than 48 KB of dynamic shared memory, once.

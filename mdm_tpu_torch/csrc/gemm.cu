@@ -1,8 +1,9 @@
 // The float32 matrix products of the kernel chains (every bf16 product is
-// gemm_sm90.cu's wgmma kernel), the split-K partials' sum of both, and the
-// column sums of the training chains: the sampling layer
-// (ops/layer_inference.py), the train attention block
-// (ops/attention_train_block.py) and the encoder tail (ops/encoder_tail.py).
+// gemm_sm90.cu's wgmma kernel), the split-K partials' sum of both (also the
+// encoder tail's column partials), and the train attention block's column
+// sums: the products of the sampling layer (ops/layer_inference.py), the
+// train attention block (ops/attention_train_block.py) and the encoder tail
+// (ops/encoder_tail.py).
 // ops/_chain.py::gemm_kernel holds the rule. Together with the attention and
 // row kernels they replace the bodies of the TPU kernels
 // mdm_tpu/ops/layer_inference.py::_layer_kernel,
@@ -97,6 +98,31 @@ gemm_f32_fma(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
+// Above GROUPED_SPLITS splits (the encoder tail's column partials: one per
+// 32 rows) one thread per column would walk hundreds of splits alone on a
+// few SMs, so a block of 32 x 32 threads takes 32 columns: thread row y sums
+// its run of consecutive splits in order, then row 0 adds the 32 runs in
+// order. Fixed by the split count alone: every run sums in the same order.
+constexpr int GROUPED_SPLITS = 64;
+
+__global__ void __launch_bounds__(1024)
+sum_splits_grouped(const float* __restrict__ work, float* __restrict__ out, size_t n, int splits) {
+  __shared__ float runs[32][33];
+  const size_t i = blockIdx.x * (size_t)32 + threadIdx.x;
+  const int per = (splits + 31) / 32, z0 = threadIdx.y * per, z1 = min(splits, z0 + per);
+  float s = 0.0f;
+  if (i < n)
+    for (int z = z0; z < z1; ++z) s += work[z * n + i];
+  runs[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && i < n) {
+    float t = 0.0f;
+#pragma unroll
+    for (int y = 0; y < 32; ++y) t += runs[y][threadIdx.x];
+    out[i] = t;
+  }
+}
+
 // out[i] = sum over splits z, in order, of work[z][i].
 __global__ void sum_splits_kernel(const float* __restrict__ work, float* __restrict__ out,
                                   size_t n, int splits) {
@@ -129,6 +155,10 @@ __global__ void colsum_chunks(const T* __restrict__ in, float* __restrict__ work
 namespace mdm {
 
 cudaError_t sum_splits(const float* work, float* out, size_t n, int splits, cudaStream_t st) {
+  if (splits > GROUPED_SPLITS) {
+    sum_splits_grouped<<<(unsigned)((n + 31) / 32), dim3(32, 32), 0, st>>>(work, out, n, splits);
+    return cudaGetLastError();
+  }
   sum_splits_kernel<<<(unsigned)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096), 256, 0, st>>>(
       work, out, n, splits);
   return cudaGetLastError();

@@ -45,12 +45,12 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _P],
     "mdm_attention_fwd_occupancy": [_I, _I, _I, _I, _P],
     "mdm_attention_bwd_occupancy": [_I, _I, _I, _P],
-    "mdm_tail_ln1_fwd": [_P, _P, *_DROP, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "mdm_tail_gelu_dropout": [_P, *_DROP, _P, _I, _I, _I, _I, _P],
-    "mdm_tail_ln2_fwd": [_P, _P, *_DROP, _P, _P, _P, _I, _I, _I, _I, _P],
-    "mdm_tail_ln2_bwd": [_P, _P, *_DROP, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "mdm_tail_gelu_bwd": [_P, _P, *_DROP, _P, _P, _I, _I, _I, _I, _P],
-    "mdm_tail_ln1_bwd": [_P, _P, *_DROP, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mdm_tail_ln1_fwd": [_P, _P, *_DROP, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mdm_tail_gelu_dropout": [_P, *_DROP, _P, _P, _I, _I, _I, _I, _P],
+    "mdm_tail_ln2_fwd": [_P, _P, *_DROP, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mdm_tail_ln2_bwd": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "mdm_tail_gelu_bwd": [_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
+    "mdm_tail_ln1_bwd": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mdm_philox_dump": [_P, _I, _I, _I, _I, _I, _I, _P],
 }
 

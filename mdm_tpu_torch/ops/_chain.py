@@ -232,24 +232,11 @@ def check_head_dim(D: int, num_heads: int, what: str) -> int:
     heads. Every head dim runs in bf16: up to 256 in the least of
     HEAD_DIMS that holds it (16-byte row copies where the rows allow them,
     2-byte ones otherwise), above 256 in the wide kernels
-    (csrc/attention_wide.cu); in f32 up to the row limit of
-    ``_check_f32_row`` (a head dim near 5800 at S = 197)."""
+    (csrc/attention_wide.cu); in f32 every one, at every S (the f32
+    path streams its rows)."""
     if num_heads < 1 or D % num_heads:
         raise ValueError(f"{what}: d_model {D} is not divisible by {num_heads} heads")
     return D // num_heads
-
-
-F32_ROW_BYTES = 48 * 1024  # csrc/attention.cu's f32 path: a row's operands in shared memory
-
-
-def _check_f32_row(q: torch.Tensor, S: int, head_dim: int, backward: bool) -> None:
-    """ValueError where the f32 path (one block per row, its q row and S
-    logits, and the backward's dO row and two more S rows, in 48 KB of
-    shared memory) cannot hold a row; bf16 has no such limit."""
-    need = 4 * (2 * head_dim + 3 * S if backward else head_dim + S)
-    if q.dtype == torch.float32 and need > F32_ROW_BYTES:
-        raise ValueError(f"attention: the f32 path holds a row in {F32_ROW_BYTES} bytes of "
-                         f"shared memory; head dim {head_dim} at S={S} needs {need}")
 
 
 def attention_fwd(q, k, v, view, out, out_view, B: int, S: int, H: int, head_dim: int,
@@ -259,7 +246,6 @@ def attention_fwd(q, k, v, view, out, out_view, B: int, S: int, H: int, head_dim
     ``out_view``; bias is additive f32 with ``bias_strides`` or None; drop is
     ``dropout_args``'s tuple. k and v may be given as addresses (their
     column blocks in a packed tensor that starts with q)."""
-    _check_f32_row(q, S, head_dim, backward=False)
     lib = _build.load_library()
     _build.check(lib.mdm_attention_fwd(ptr(q), ptr(k), ptr(v), *view, ptr(bias), *bias_strides,
                                        *drop, ptr(out), *out_view, DTYPES[out.dtype], B, S, H,
@@ -303,7 +289,6 @@ def attention_bwd(q, k, v, view, dout, out_view, dq, dk, dv, B: int, S: int, H: 
     recomputed into ctx when it is given."""
     if not dq.dtype == dk.dtype == dv.dtype == q.dtype:
         raise ValueError(f"attention gradients must be in q's dtype {q.dtype}")
-    _check_f32_row(q, S, head_dim, backward=True)
     stats = torch.empty((3, B * H * S), dtype=torch.float32, device=q.device)
     lib = _build.load_library()
     _build.check(lib.mdm_attention_bwd(ptr(q), ptr(k), ptr(v), *view, ptr(bias), *bias_strides,

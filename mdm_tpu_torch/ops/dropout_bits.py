@@ -49,6 +49,19 @@ def keep_factors(bits: torch.Tensor, rate: float) -> torch.Tensor:
     return torch.where(kept, inv_keep, 0.0).to(torch.float32)
 
 
+def keep_mask_bits(bits: torch.Tensor, rate: float) -> torch.Tensor:
+    """The packed keep mask of bits [..., n]: uint32 [..., ceil(n / 32)]
+    with bit c % 32 of word c // 32 set where element c is kept (bits < t),
+    the bits past n clear. The encoder tail's forward stores each dropout
+    site's keep decisions so (csrc/encoder_tail.cu), and its backward reads
+    them instead of drawing again."""
+    kept = (bits.to(torch.int64) < keep_threshold(rate)).to(torch.int64)
+    n = kept.shape[-1]
+    kept = torch.nn.functional.pad(kept, (0, -n % 32))
+    words = (kept.unflatten(-1, (-1, 32)) << torch.arange(32, device=bits.device)).sum(-1)
+    return words.to(torch.uint32)
+
+
 def _mulhilo(m: int, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo) 32-bit halves of m * c for uint32 values held in int64."""
     p_lo = m * (c & 0xFFFF)

@@ -7,28 +7,32 @@ which run one program per batch cell with W1 and W2 resident in VMEM and
 three in-kernel dropout sites. On the card (``csrc/encoder_tail.cu``, the
 products, forward and backward, on ``csrc/gemm_sm90.cu``):
 
-    forward   y32 = LN1(x + drop0(attn)); y = dt(y32)   tail_ln1_fwd
+    forward   y32 = LN1(x + drop0(attn)); y = dt(y32)   tail_ln_fwd, mask0
               u   = y . W1^T + b1 (f32)                  gemm
-              hd  = dt(drop1(gelu(u)))                   tail_gelu_dropout
+              hd  = dt(drop1(gelu(u)))                   tail_gelu_dropout, mask1
               o   = hd . W2^T + b2 (f32)                 gemm
-              z   = dt(LN2(y32 + drop2(o)))              tail_ln2_fwd
-    backward  ds2, do = drop2(ds2)                       tail_ln2_bwd
+              z   = dt(LN2(y32 + drop2(o)))              tail_ln_fwd, mask2
+    backward  ds2, do = drop2(ds2); dg2, dbl2, db2       tail_ln_bwd
               dW2 = do16^T hd, dhd = do16 . W2           gemm (split-K f32 / f32)
-              du  = drop1(dhd) gelu'(u)                  tail_gelu_bwd
+              du  = drop1(dhd) gelu'(u); db1             tail_gelu_bwd
               dW1 = du16^T y, dy = ds2 + du16 . W1       gemm
-              dx = ds1, da = drop0(ds1)                  tail_ln1_bwd
-              dg1, dbl1, db1, db2, dg2, dbl2             colsum (f32)
+              dx = ds1, da = drop0(ds1); dg1, dbl1       tail_ln_bwd
 
 What bounds it on an H100: the two FFN products forward and the four
 backward carry ~95% of the tail's FLOPs (tensor-core bound: wgmma, f32
-accumulation); the row and elementwise kernels move a few
-bytes per element and draw one Philox word per dropped element. The
-dropout sites are Philox4x32-10 keyed on (batch, site, row, column), so
-the backward replays the forward's masks whatever its tiling. The forward
-keeps y, y32, u, hd and o for the backward instead of recomputing them as
-the TPU kernel does (two GEMMs less, ~10*M*F bytes more per layer). The
-weight gradients reduce in fixed split-K chunks and the column sums in
-fixed row chunks, summed in order: no float atomics.
+accumulation); the row and elementwise kernels move a few bytes per
+element, and the forward draws one Philox4x32-10 word per element of the
+three dropout sites, keyed on (batch, site, row, column). Each word is
+drawn once: with dropout on, the forward keeps each site's keep decisions
+as a packed mask (bit c % 32 of word c // 32 of a row, ``keep_mask_bits``
+is its plain version, (2D + F) / 8 bytes a row) and the backward reads the
+masks and draws nothing. The LayerNorm kernels hold a row in registers up
+to D = 1024 (above it a block streams the row); the backward's six column
+sums are fused into its row kernels as partials over fixed chunks of
+CHUNK_ROWS rows, summed in chunk order, as the weight gradients reduce in
+fixed split-K chunks: no float atomics. The forward keeps y, y32, u, hd
+and o for the backward instead of recomputing them as the TPU kernel does
+(two GEMMs less, ~10*M*F bytes more per layer).
 
 Rounding points (the TPU kernel's): y32 and the linear2 output stay f32,
 y and hd go to dt; backward do and du go to dt for the products while db2
@@ -50,8 +54,8 @@ import numpy as np
 import torch
 
 from . import _build
-from ._chain import (check_dtype, check_shapes, colsum, dev, dropout_args, gemm, ptr,
-                     splits_for, stream)
+from ._chain import (check_dtype, check_shapes, dev, dropout_args, gemm, ptr, splits_for,
+                     stream)
 from .dropout_bits import keep_factors, tail_dropout_bits
 
 LAUNCHES = {"fwd": 0, "bwd": 0}  # kernel-chain launches, one per tail call
@@ -165,8 +169,18 @@ def _check(x, attn, params, bits):
     check_shapes(x, shapes, "encoder tail")
 
 
+CHUNK_ROWS = 32  # csrc/encoder_tail.cu: rows per backward block, one column partial each
+
+
+def mask_words(n: int) -> int:
+    """uint32 words of one row's packed keep mask over n columns."""
+    return -(-n // 32)
+
+
 def _fwd_cuda(x, attn, params, rate, seed, bits):
-    """The forward chain; returns (z, the activations the backward reads)."""
+    """The forward chain; returns (z, the activations the backward reads:
+    x, attn, y, y32, u, hd, o, and the three sites' packed keep masks, or
+    None at rate 0)."""
     _check(x, attn, params, bits)
     g1, bl1, w1, b1, w2, b2, g2, bl2 = (dev(p) for p in params)
     B, S, D = x.shape
@@ -174,69 +188,77 @@ def _fwd_cuda(x, attn, params, rate, seed, bits):
     code = check_dtype(x, "encoder tail")
     bits0, bits1, bits2 = bits if bits is not None else (None, None, None)
     xs, a = dev(x).view(M, D), dev(attn, dt).view(M, D)
+    masks = None
+    if rate > 0.0:
+        masks = tuple(torch.empty((M, mask_words(n)), dtype=torch.uint32, device=x.device)
+                      for n in (D, F, D))
+    m0, m1, m2 = masks if masks is not None else (None, None, None)
     lib = _build.load_library()
     st = stream(x)
     y = torch.empty((M, D), dtype=dt, device=x.device)
     y32 = torch.empty((M, D), dtype=torch.float32, device=x.device)
-    _build.check(lib.mdm_tail_ln1_fwd(ptr(xs), ptr(a), *dropout_args(bits0, seed, rate), ptr(g1),
-                                      ptr(bl1), ptr(y), ptr(y32), M, S, D, code, st), "tail ln1")
+    _build.check(lib.mdm_tail_ln1_fwd(ptr(xs), ptr(a), *dropout_args(bits0, seed, rate), ptr(m0),
+                                      ptr(g1), ptr(bl1), ptr(y), ptr(y32), M, S, D, code, st),
+                 "tail ln1")
     u = gemm(y, w1, bias=b1, out_f32=True)
     hd = torch.empty((M, F), dtype=dt, device=x.device)
-    _build.check(lib.mdm_tail_gelu_dropout(ptr(u), *dropout_args(bits1, seed, rate), ptr(hd), M,
-                                           S, F, code, st), "tail gelu")
+    _build.check(lib.mdm_tail_gelu_dropout(ptr(u), *dropout_args(bits1, seed, rate), ptr(m1),
+                                           ptr(hd), M, S, F, code, st), "tail gelu")
     o = gemm(hd, w2, bias=b2, out_f32=True)
     z = torch.empty((M, D), dtype=dt, device=x.device)
-    _build.check(lib.mdm_tail_ln2_fwd(ptr(y32), ptr(o), *dropout_args(bits2, seed, rate), ptr(g2),
-                                      ptr(bl2), ptr(z), M, S, D, code, st), "tail ln2")
+    _build.check(lib.mdm_tail_ln2_fwd(ptr(y32), ptr(o), *dropout_args(bits2, seed, rate), ptr(m2),
+                                      ptr(g2), ptr(bl2), ptr(z), M, S, D, code, st), "tail ln2")
     LAUNCHES["fwd"] += 1
-    return z.view(B, S, D), (xs, a, y, y32, u, hd, o)
+    return z.view(B, S, D), (xs, a, y, y32, u, hd, o, masks)
 
 
-def _bwd_cuda(x, params, acts, rate, seed, bits, dz):
+def _bwd_cuda(x, params, acts, rate, dz):
     g1, _, w1, _, w2, _, g2, _ = (dev(p) for p in params)
-    xs, a, y, y32, u, hd, o = acts
+    xs, a, y, y32, u, hd, o, masks = acts
     B, S, D = x.shape
     M, F, dt = B * S, w1.shape[0], x.dtype
     code = check_dtype(x, "encoder tail")
-    bits0, bits1, bits2 = bits if bits is not None else (None, None, None)
-    f32 = lambda n: torch.empty((M, n), dtype=torch.float32, device=x.device)
+    m0, m1, m2 = masks if masks is not None else (None, None, None)
+    inv_keep = dropout_args(None, 0, rate)[3]
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x.device)
     low = lambda n: torch.empty((M, n), dtype=dt, device=x.device)
+    chunks = -(-M // CHUNK_ROWS)
     lib = _build.load_library()
     st = stream(x)
     dz = dev(dz, dt).view(M, D)
-    ds2, do16, do32, gz = f32(D), low(D), f32(D), f32(D)
-    _build.check(lib.mdm_tail_ln2_bwd(ptr(y32), ptr(o), *dropout_args(bits2, seed, rate), ptr(g2),
-                                      ptr(dz), ptr(ds2), ptr(do16), ptr(do32), ptr(gz), M, S, D,
-                                      code, st), "tail ln2 backward")
+    ds2, do16, sums2 = f32(M, D), low(D), f32(3, D)  # sums2: dg2, dbl2, db2
+    _build.check(lib.mdm_tail_ln2_bwd(ptr(y32), ptr(o), ptr(m2), inv_keep, ptr(g2), ptr(dz),
+                                      ptr(ds2), ptr(do16), ptr(f32(chunks, 3, D)), ptr(sums2),
+                                      M, D, code, st), "tail ln2 backward")
     dw2 = gemm(do16, hd, a_km=True, b_kn=True, out_f32=True, splits=splits_for(D, F, M))
     dhd = gemm(do16, w2, b_kn=True, out_f32=True)
-    du16, du32 = low(F), f32(F)
-    _build.check(lib.mdm_tail_gelu_bwd(ptr(u), ptr(dhd), *dropout_args(bits1, seed, rate),
-                                       ptr(du16), ptr(du32), M, S, F, code, st),
+    du16, db1 = low(F), f32(F)
+    _build.check(lib.mdm_tail_gelu_bwd(ptr(u), ptr(dhd), ptr(m1), inv_keep, ptr(du16),
+                                       ptr(f32(chunks, F)), ptr(db1), M, F, code, st),
                  "tail gelu backward")
     dw1 = gemm(du16, y, a_km=True, b_kn=True, out_f32=True, splits=splits_for(F, D, M))
     dy = gemm(du16, w1, b_kn=True, r=ds2, out_f32=True)
-    dx, da, gy = low(D), low(D), f32(D)
-    _build.check(lib.mdm_tail_ln1_bwd(ptr(xs), ptr(a), *dropout_args(bits0, seed, rate), ptr(g1),
-                                      ptr(dy), ptr(dx), ptr(da), ptr(gy), M, S, D, code, st),
-                 "tail ln1 backward")
-    grads = (dx.view(B, S, D), da.view(B, S, D), colsum(gy), colsum(dy), dw1, colsum(du32),
-             dw2, colsum(do32), colsum(gz), colsum(dz))
+    dx, da, sums1 = low(D), low(D), f32(2, D)  # sums1: dg1, dbl1
+    _build.check(lib.mdm_tail_ln1_bwd(ptr(xs), ptr(a), ptr(m0), inv_keep, ptr(g1), ptr(dy),
+                                      ptr(dx), ptr(da), ptr(f32(chunks, 2, D)), ptr(sums1), M, D,
+                                      code, st), "tail ln1 backward")
+    grads = (dx.view(B, S, D), da.view(B, S, D), sums1[0], sums1[1], dw1, db1, dw2, sums2[2],
+             sums2[0], sums2[1])
     LAUNCHES["bwd"] += 1
     return grads
 
 
 class _Tail(torch.autograd.Function):
-    """Seed-replay VJP: the backward replays the three dropout masks."""
+    """The backward reads the three keep masks the forward stored (on the
+    card) or the bits it drew (on the CPU)."""
 
     @staticmethod
     def forward(ctx, x, attn, g1, bl1, w1, b1, w2, b2, g2, bl2, bits, rate, seed):
         params = (g1, bl1, w1, b1, w2, b2, g2, bl2)
-        ctx.meta = (rate, seed)
+        ctx.rate = rate
         ctx.save_for_backward(x, attn, *params)
         if x.device.type == "cuda":
             z, ctx.acts = _fwd_cuda(x, attn, params, rate, seed, bits)
-            ctx.bits = bits
             return z
         if rate > 0.0 and bits is None:  # the kernels' own Philox stream, drawn on the CPU
             B, S, D = x.shape
@@ -247,11 +269,10 @@ class _Tail(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dz):
         x, attn, *params = ctx.saved_tensors
-        rate, seed = ctx.meta
         if ctx.acts is not None:
-            grads = _bwd_cuda(x, params, ctx.acts, rate, seed, ctx.bits, dz)
+            grads = _bwd_cuda(x, params, ctx.acts, ctx.rate, dz)
         else:
-            grads = encoder_tail_bwd_reference(x, attn, *params, dz, rate, ctx.bits)
+            grads = encoder_tail_bwd_reference(x, attn, *params, dz, ctx.rate, ctx.bits)
         dt = x.dtype
         return (*grads[:2], *(g.to(dt) for g in grads[2:]), None, None, None)
 

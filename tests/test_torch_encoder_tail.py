@@ -109,3 +109,18 @@ def test_rate0_inference_entry_matches_jax():
     xt, at, tp, _, _ = _port(x, attn, params, bits, dz, torch.float32)
     out = ET.fused_encoder_tail_inference(xt, at, *tp)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32_TOL)
+
+
+def test_chunk_rows_and_mask_words_match_the_kernels():
+    """The chain sizes the backward's column partials by csrc/encoder_tail.cu's
+    fixed chunk of rows, and each site's packed mask row by keep_mask_bits's
+    words."""
+    import re
+
+    from mdm_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "encoder_tail.cu").read_text()
+    assert int(re.search(r"constexpr int CHUNK_ROWS = (\d+);", src).group(1)) == ET.CHUNK_ROWS
+    for n in (8, 32, 40, 520, 1000, 1024):
+        bits = torch.zeros(2, n, dtype=torch.uint32)
+        assert DB.keep_mask_bits(bits, RATE).shape == (2, ET.mask_words(n))
