@@ -14,7 +14,10 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
 - training (phases 5-8): the train attention block and the encoder tail,
   forward and backward, against their plain versions at the flagship
   training layer shape; the in-kernel Philox dropout against the injected
-  bits of the two dump kernels; three train steps on the card against the
+  bits of the dump kernel, and the dump itself against the Philox stream
+  at the edges of its plan (row widths, rows, heads, batch, sites, seeds,
+  the tail's ragged widths, one output past 2^31 words), each case written
+  over all zero and all one bits; three train steps on the card against the
   CPU; 30 flagship train steps (B=128, T=196, dropout 0.1) through
   make_train_step, timed; and a TrainLoop resume that must be bit exact;
 - head dims off 128 (phases 2 and 5): the layer chain, and the train
@@ -35,15 +38,19 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   shootout's ``pallas`` variant (v2 attention + fused tail) through
   MotionGenerator.generate at B=32 x 50 steps, and its ``block``/``tail``
   variants; the training shootout's ``drop`` variant (dropout attention
-  kernel + the plain tail), 30 flagship steps, timed, and one f32 step of
-  it on the card against the CPU.
+  kernel + the plain tail, its masks from the tail dump), 30 flagship
+  steps, timed, and one f32 step of it on the card against the CPU; and 3
+  steps of its ``xla`` variant, whose attention masks come from the
+  attention dump.
 
 Each path checks that every layer call went through its kernels, and the
 sampling and training paths that every product, forward and backward,
 went through the wgmma kernel. Each kernel's line carries its
 bound: the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its FLOPs over 989
-TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak. The training
+TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak; for the dumps, the
+larger of the bytes and the draws (the Philox instructions a word needs at
+the card's issue and integer rates and its highest SM clock). The training
 kernels are timed drawing their dropout bits in-kernel, as every route
 runs them; their comparisons with the plain versions inject the bits.
 
@@ -54,6 +61,7 @@ earlier "gemm products" line each main-path product's time, bound, share
 of peak and torch.matmul's time. With no
 CUDA device it exits nonzero and prints no result.
 """
+import itertools
 import json
 import os
 import re
@@ -114,8 +122,39 @@ TAIL_GRADS = ["dx", "dattn", "dg1", "dbl1", "dW1", "db1", "dW2", "db2", "dg2", "
 # in: (S, Dh) at B = H = 1.
 F32_LONG_ROWS = ((197, 6144), (197, 8192), (13000, 8))
 TAIL_KERNELS = ("tail_ln_fwd", "tail_gelu_dropout", "tail_ln_bwd", "tail_gelu_bwd")
+# The dumps' edges (csrc/dropout_bits.cu: four 16-byte groups of a row a
+# thread): row widths of one word, below, at and past one group, the
+# sampling shape's 197 and ragged ones (1, 3, 4, 197, 1000, 1025); odd and
+# even row counts; 1, 3 and 32 heads; batch 1 and 5; the head as the site
+# (-1) and a fixed one; seeds 0, -1 and 2^31 - 1. The tail's three sites
+# at ragged d_model and ff. One output past 2^31 words (8.9 GB), checked
+# on its first and last (b, h) slices.
+DUMP_EDGE_C = (1, 3, 4, 197, 1000, 1025)
+DUMP_EDGE_R = (1, 8, 37)
+DUMP_EDGE_H = (1, 3, 32)
+DUMP_EDGE_B = (1, 5)
+DUMP_EDGE_SITES = (-1, 2)
+DUMP_EDGE_SEEDS = (0, -1, 2 ** 31 - 1)
+TAIL_DUMP_D = (8, 136)
+TAIL_DUMP_F = (12, 4096)
+BIG_DUMP = dict(B=64, H=32, S=1040)  # 2,214,707,200 words
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
+# The dumps' draws, counted from Philox4x32-10 itself: a word is word 0 at
+# counter (column, row, site, b), ten rounds of two 32x32->64 products and
+# two three-way xors. Along a row only the column varies, so round 1's
+# product of the site and its c0 xor, and round 2's product of round 1's
+# c0, are the row's, made once; word 0 needs neither round 10's product of
+# c0 and its c2 xor nor round 9's c0 xor. A word needs 17 products (one
+# IMAD.WIDE.U32 each), 17 xors (one LOP3.LUT each) and a quarter of a
+# 16-byte store.
+PHILOX_PRODUCTS, PHILOX_XORS, STORES = 17, 17, 0.25  # a word
+SMS = 132  # H100 SXM
+# Per SM and clock: four schedulers issue one warp instruction each (128
+# lanes); 64 lanes of 32-bit integer multiply-add and 64 of 32-bit bitwise
+# operations (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0).
+ISSUE_LANES, IMAD_LANES, LOGIC_LANES = 128, 64, 64
 
 
 def bound(flops, nbytes):
@@ -123,6 +162,16 @@ def bound(flops, nbytes):
     bf16 peak, whichever is larger."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def draw_bound_ms(words, sm_clock_hz):
+    """The least ms the Philox draws of `words` dump words take at the
+    card's highest SM clock: the largest of their instructions over the
+    issue lanes, the products over the multiply lanes and the xors over
+    the bitwise lanes."""
+    clocks = max((PHILOX_PRODUCTS + PHILOX_XORS + STORES) / ISSUE_LANES,
+                 PHILOX_PRODUCTS / IMAD_LANES, PHILOX_XORS / LOGIC_LANES)
+    return words * clocks / (SMS * sm_clock_hz) * 1e3
 
 
 def nbytes(*tensors):
@@ -427,10 +476,72 @@ def _no_grad_ms(torch, fn):
         return _time_ms(torch, fn)
 
 
+def _dump_matches(torch, DB, outs, want, seed, B, H, site, R):
+    """Run the dump kernel into outs twice, over all zero and over all one
+    bits, so that a word it leaves unwritten shows; True when every output
+    equals its want (int64 [..., C]) both times."""
+    for fill in (0, -1):
+        for o in outs:
+            o.view(torch.int32).fill_(fill)
+        DB._dump_into(outs, seed, B, H, site, R)
+        if not all(torch.equal(o.to(torch.int64), w) for o, w in zip(outs, want)):
+            return False
+    return True
+
+
+def phase_dump_edges(torch, DB, dev):
+    """Phase 6a: the dump kernel at the edges of its plan, every case
+    bitwise equal to philox_bits."""
+    ar = lambda n: torch.arange(n, device=dev)
+    empty = lambda *shape: torch.empty(shape, dtype=torch.uint32, device=dev)
+    cases = 0
+    for B, H, R, C, site, seed in itertools.product(DUMP_EDGE_B, DUMP_EDGE_H, DUMP_EDGE_R,
+                                                   DUMP_EDGE_C, DUMP_EDGE_SITES,
+                                                   DUMP_EDGE_SEEDS):
+        if site < 0:
+            want = DB.philox_bits(seed, ar(B)[:, None], ar(H)[None, :], R, C, device=dev)
+        else:
+            want = DB.philox_bits(seed, ar(B), site, R, C, device=dev)[:, None].expand(B, H, R, C)
+        if not _dump_matches(torch, DB, [empty(B, H, R, C)], [want], seed, B, H, site, R):
+            raise AssertionError(f"dump differs from philox_bits at B={B} H={H} R={R} C={C} "
+                                 f"site={site} seed={seed}")
+        cases += 1
+    for B, R, D, F, seed in itertools.product(DUMP_EDGE_B, DUMP_EDGE_R, TAIL_DUMP_D, TAIL_DUMP_F,
+                                              DUMP_EDGE_SEEDS):
+        widths = (D, F, D)
+        want = [DB.philox_bits(seed, ar(B), site, R, n, device=dev)
+                for site, n in enumerate(widths)]
+        if not _dump_matches(torch, DB, [empty(B, R, n) for n in widths], want, seed, B, 1, 0, R):
+            raise AssertionError(f"tail dump differs from philox_bits at B={B} R={R} D={D} "
+                                 f"F={F} seed={seed}")
+        cases += 1
+    B, H, S = (BIG_DUMP[k] for k in ("B", "H", "S"))
+    seed = 2 ** 31 - 1
+    big = empty(B, H, S, S)
+    for fill in (0, -1):
+        big.view(torch.int32).fill_(fill)
+        DB._dump_into([big], seed, B, H, -1, S)
+        for b, h in ((0, 0), (B - 1, H - 1)):
+            if not torch.equal(big[b, h].to(torch.int64),
+                               DB.philox_bits(seed, b, h, S, S, device=dev)):
+                raise AssertionError(f"the dump of {big.numel()} words differs from philox_bits "
+                                     f"at (b, h) = ({b}, {h})")
+    cases += 1
+    del big
+    torch.cuda.empty_cache()
+    print(f"dump edges: {cases} cases bitwise equal to philox_bits, each written over all zero "
+          f"and all one bits (C {DUMP_EDGE_C} x R {DUMP_EDGE_R} x H {DUMP_EDGE_H} x B "
+          f"{DUMP_EDGE_B} x site {DUMP_EDGE_SITES} x seeds {DUMP_EDGE_SEEDS}; the tail's three "
+          f"sites at D {TAIL_DUMP_D} x F {TAIL_DUMP_F}; [{B}, {H}, {S}, {S}] = {B * H * S * S} "
+          f"words, its first and last (b, h) slices)")
+
+
 def phase_random_stream(torch, TB, ET, DB, shape, dev):
-    """Phase 6: dump kernels == the Philox stream computed with torch ops;
-    in-kernel Philox == injected dumped bits, bitwise, forward and every
-    gradient; keep fraction; two backward runs bitwise equal."""
+    """Phase 6: dump kernels == the Philox stream computed with torch ops,
+    at the flagship and (phase_dump_edges) at the edges of the kernel's
+    plan; in-kernel Philox == injected dumped bits, bitwise, forward and
+    every gradient; keep fraction; two backward runs bitwise equal."""
+    phase_dump_edges(torch, DB, dev)
     B, S, D, H, F = (shape[k] for k in ("B", "S", "D", "H", "F"))
     seed = 20240601
     rows = {}
@@ -450,13 +561,21 @@ def phase_random_stream(torch, TB, ET, DB, shape, dev):
         print(f"keep fraction {name}: {kept:.6f} (rate {RATE})")
         if abs(kept - (1 - RATE)) > 0.005:
             raise AssertionError(f"keep fraction {kept} of {name} is not within 0.5% of 0.9")
+    seq = DB.sequence_dropout_bits(seed, B, S, D, device=dev)
+    plain_seq = lambda: DB.philox_bits(seed, ar(B), 0, S, D, device=dev)
+    if not torch.equal(seq.to(torch.int64), plain_seq()):
+        raise AssertionError("sequence_dropout_bits dump differs from the Philox stream")
     with torch.no_grad():
         for name, fn, plain in (
                 ("dropout_bits", lambda: DB.dropout_bits(seed, B, H, S, device=dev), plain_bits),
                 ("tail_dropout_bits", lambda: DB.tail_dropout_bits(seed, B, S, D, F, device=dev),
-                 plain_tail)):
+                 plain_tail),
+                ("sequence_dropout_bits",
+                 lambda: DB.sequence_dropout_bits(seed, B, S, D, device=dev), plain_seq)):
             p1, k1, k2, p2 = (_time_ms(torch, f) for f in (plain, fn, fn, plain))
             rows[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, max_abs_err=0.0)
+    print(f"dumps at B={B} S={S} H={H} D={D} F={F}, kernel / plain ms: "
+          + ", ".join(f"{k} {r['ms']:.4f} / {r['plain_ms']:.4f}" for k, r in rows.items()))
 
     dtype = torch.bfloat16
     (x, wqkv, bqkv, wo, bo), dout, _, kpm = _block_operands(torch, B, S, D, H, dtype, "bool")
@@ -718,7 +837,7 @@ def phase_flagship_train(torch, TB, ET, DB, dev):
         raise AssertionError("TrainLoop resume is not bit exact")
     print("TrainLoop: 6 steps == 3 steps + checkpoint + resume + 3 steps, bitwise "
           "(params, EMA, AdamW moments)")
-    return launches, step_ms
+    return dict(launches, sequence_dropout_bits=seq_bits), step_ms
 
 
 def compare_forward(torch, name, kernel, plain, rel, timed=False):
@@ -1273,12 +1392,15 @@ def phase_sampling_variants(torch, dev, layer_s_per_sample):
 
 def phase_train_drop(torch, dev, tail_step_ms):
     """Phase 11: the training shootout's drop variant (the dropout attention
-    kernel #7/#8 between the projections, the plain tail) at the flagship:
-    30 steps, the loss falls, timed; then one whole train step of the
-    route on the card against the CPU at a small f32 width."""
+    kernel #7/#8 between the projections, the plain tail with its masks from
+    the tail dump #6) at the flagship: 30 steps, the loss falls, timed;
+    then one whole train step of the route on the card against the CPU at a
+    small f32 width; then 3 steps of the xla variant, whose attention takes
+    its masks from the attention dump #9."""
     from mdm_tpu_torch import ops
     from mdm_tpu_torch.ops import attention_dropout as AD
     from mdm_tpu_torch.ops import attention_train_block as TB
+    from mdm_tpu_torch.ops import dropout_bits as DB
     from mdm_tpu_torch.ops import encoder_tail as ET
     from mdm_tpu_torch.scripts import bench_train_kernels as BT
     from mdm_tpu_torch.train import step_key
@@ -1288,6 +1410,7 @@ def phase_train_drop(torch, dev, tail_step_ms):
     with ops.pinned(**BT.VARIANTS["drop"]):
         state, step, batch = BT.make_trainer(B, dev, lr=1e-3)
         AD.LAUNCHES.update(fwd=0, bwd=0)
+        DB.LAUNCHES.update(dropout_bits=0, tail_dropout_bits=0)
         for counts in (TB.LAUNCHES, ET.LAUNCHES):
             counts["fwd"] = counts["bwd"] = 0
         losses = []
@@ -1295,11 +1418,15 @@ def phase_train_drop(torch, dev, tail_step_ms):
             _, m = step(state, batch, step_key(0, i))
             losses.append(m["loss"])
         losses = torch.stack(losses).cpu().numpy()
+        # The plain tail takes its three masks from one tail_dropout_bits
+        # launch a layer (#6); the dropout attention kernel draws its own.
         launches = {f"fused_dropout_attention.{d}": AD.LAUNCHES[d] for d in ("fwd", "bwd")}
+        launches["tail_dropout_bits"] = DB.LAUNCHES["tail_dropout_bits"]
         others = [TB.LAUNCHES[d] + ET.LAUNCHES[d] for d in ("fwd", "bwd")]
+        others.append(DB.LAUNCHES["dropout_bits"])
         if any(c != layers * steps for c in launches.values()) or any(others):
-            raise AssertionError(f"drop training launched {launches}, block+tail {others}; "
-                                 f"expected {layers * steps} each and none")
+            raise AssertionError(f"drop training launched {launches}, block+tail and "
+                                 f"dropout_bits {others}; expected {layers * steps} each and none")
         first, last = losses[:10].mean(), losses[-10:].mean()
         print(f"flagship train drop variant B={B} bf16 dropout {RATE}, lr 1e-3: loss first 10 "
               f"{first:.5f}, last 10 {last:.5f}; launches {launches}")
@@ -1323,6 +1450,22 @@ def phase_train_drop(torch, dev, tail_step_ms):
         phase_step_card_vs_cpu(torch, dev, steps=1, dropout=RATE, route="drop route")
     if AD.LAUNCHES != {"fwd": 2, "bwd": 2}:  # two layers, the card's side only
         raise AssertionError(f"the small drop step launched #7/#8 {AD.LAUNCHES}")
+
+    # The xla variant (einsum attention, the plain tail) for a few steps:
+    # its attention takes its mask from one dropout_bits launch a layer (#9).
+    few = 3
+    with ops.pinned(**BT.VARIANTS["xla"]):
+        state, step, batch = BT.make_trainer(B, dev, lr=1e-3)
+        DB.LAUNCHES.update(dropout_bits=0, tail_dropout_bits=0)
+        for i in range(few):
+            _, m = step(state, batch, step_key(0, i))
+        loss = m["loss"].item()
+    xla = {k: DB.LAUNCHES[k] for k in ("dropout_bits", "tail_dropout_bits")}
+    if any(c != layers * few for c in xla.values()) or not np.isfinite(loss):
+        raise AssertionError(f"xla training launched the dumps {xla} (expected {layers * few} "
+                             f"each), loss {loss}")
+    print(f"flagship train xla variant B={B}, {few} steps: dump launches {xla}, loss {loss:.5f}")
+    launches["dropout_bits"] = xla["dropout_bits"]
     return launches, step_ms
 
 
@@ -1381,6 +1524,10 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True).stdout.strip()
+    sm_clock_hz = float(clock.splitlines()[0].split()[0]) * 1e6  # "1980 MHz"
+    print(f"SM clock max: {clock.splitlines()[0]}")
 
     # Phase 1: build the kernels from the sources in this checkout.
     t0 = time.perf_counter()
@@ -1412,6 +1559,7 @@ def main():
         print(f"ptxas, attention above Dh 256, {kernel}: "
               f"{json.dumps(_build.ptxas_report(log, kernel))}")
     print(f"ptxas, wgmma products: {json.dumps(_build.ptxas_report(log, GP.KERNEL))}")
+    print(f"ptxas, dump: {json.dumps(_build.ptxas_report(log, 'philox_dump'))}")
     tail_ptxas = {k: _build.ptxas_report(log, k) for k in TAIL_KERNELS}
     print(f"ptxas, encoder tail: {json.dumps(tail_ptxas)}")
     tail_spills = [n for rep in tail_ptxas.values() for n, row in rep.items()
@@ -1559,11 +1707,9 @@ def main():
                             "bool", timed=False)
     phase_tail_edges(torch, ET, DB, dev)
 
-    # Phase 6: the random stream. The dump kernels' launches are counted
-    # over this phase, the path that drives them.
-    DB.LAUNCHES.update(dropout_bits=0, tail_dropout_bits=0)
+    # Phase 6: the random stream. The dumps' launches are counted on the
+    # training paths that run them (phases 8 and 11), not over these checks.
     dumps = phase_random_stream(torch, TB, ET, DB, TRAIN_SHAPE, dev)
-    dump_launches = dict(DB.LAUNCHES)
 
     # Phase 7: the step, card against CPU.
     phase_step_card_vs_cpu(torch, dev)
@@ -1611,13 +1757,30 @@ def main():
                                 library_ms=library.get(f"{name}.{key}"), path="training",
                                 **dict(zip(("bound_ms", "bound_by"),
                                            bound(*work[f"{name}.{key}"])))))
-    dump_bytes = {"dropout_bits": bits_b, "tail_dropout_bits": tail_bits}
-    for name in ("dropout_bits", "tail_dropout_bits"):
+    # The dumps: 4 bytes a word stored, and the words' draws (draw_bound_ms).
+    # #6's launches: the AUTO step's sequence dropout (phase 8, the same
+    # kernel) and the drop variant's tail (phase 11); #9's: the xla variant.
+    dump_words = {"dropout_bits": bits_b // 4, "tail_dropout_bits": tail_bits // 4}
+    dump_paths = {
+        "dropout_bits": {"training, xla variant": drop_launches["dropout_bits"]},
+        "tail_dropout_bits": {"training, AUTO (sequence dropout)":
+                              train_launches["sequence_dropout_bits"],
+                              "training, drop variant (tail)": drop_launches["tail_dropout_bits"]},
+    }
+    for name, words in dump_words.items():
         source, replaces = TRAIN_KERNELS[name]
+        byte_ms, _ = bound(0, 4 * words)
+        draw_ms = draw_bound_ms(words, sm_clock_hz)
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=dump_launches[name], **dumps[name], library_ms=None,
-                            path="random-stream check",
-                            **dict(zip(("bound_ms", "bound_by"), bound(0, dump_bytes[name])))))
+                            launches=sum(dump_paths[name].values()),
+                            path="; ".join(dump_paths[name]),
+                            launches_by_path=dump_paths[name], **dumps[name], library_ms=None,
+                            bound_ms=max(byte_ms, draw_ms),
+                            bound_by="bytes" if byte_ms >= draw_ms else "operations",
+                            byte_bound_ms=byte_ms, draw_bound_ms=draw_ms))
+    print(f"sequence_dropout_bits [{Bt}, {St}, {Dt}]: {dumps['sequence_dropout_bits']['ms']:.4f} "
+          f"ms, draw bound {draw_bound_ms(Bt * St * Dt, sm_clock_hz):.4f}, byte bound "
+          f"{bound(0, 4 * Bt * St * Dt)[0]:.4f}")
     routes = {  # name -> (TPU kernel it replaces, launches on its path, the path)
         "fused_dropout_attention.forward": ("mdm_tpu/ops/attention_dropout.py:181",
                                             drop_launches["fused_dropout_attention.fwd"],

@@ -19,7 +19,9 @@ from the same stream. The keep rule is ``_keep_threshold``'s: keep where
 ``bits < t`` with ``t = min(round((1 - rate) 2^32), 2^32 - 1)``.
 
 The dumps run on the card unless the caller asks for the CPU
-(``device="cpu"``), where they return ``philox_bits``.
+(``device="cpu"``), where they return ``philox_bits``. On the card each
+entry point is one launch of ``csrc/dropout_bits.cu::philox_dump``, the
+tail's three outputs included, and counts one in ``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -96,12 +98,29 @@ def philox_bits(seed: int, b: torch.Tensor, site, rows: int, cols: int,
     return philox4x32((c, r, site, b), (int(seed), 0))[0]
 
 
-def _dump(name: str, seed: int, shape_sites, out_shapes, device) -> Tuple[torch.Tensor, ...]:
+def _dump_into(outs, seed: int, B: int, H: int, site: int, R: int) -> None:
+    """Fill uint32 card tensors with the stream, in one launch: one output
+    [B, H, R, C] at ``site`` (-1: the heads are the sites,
+    ``mdm_philox_dump``), or the tail's three [B, R, C_s] at sites 0, 1
+    and 2 (``mdm_philox_dump3``). Raises on what the kernel cannot take."""
+    for o in outs:
+        if o.dtype != torch.uint32 or not o.is_contiguous():
+            raise ValueError(f"a dump writes contiguous uint32 tensors, not {o.dtype}")
     lib = _build.load_library()
+    st = torch.cuda.current_stream(outs[0].device).cuda_stream
+    if len(outs) == 1:
+        err = lib.mdm_philox_dump(outs[0].data_ptr(), int(seed), B, H, site, R,
+                                  outs[0].shape[-1], st)
+    else:
+        err = lib.mdm_philox_dump3(*(o.data_ptr() for o in outs), int(seed), B, R,
+                                   *(o.shape[-1] for o in outs), st)
+    _build.check(err, "philox dump")
+
+
+def _dump(name: str, seed: int, B: int, H: int, site: int, R: int, out_shapes, device
+          ) -> Tuple[torch.Tensor, ...]:
     outs = tuple(torch.empty(s, dtype=torch.uint32, device=device) for s in out_shapes)
-    st = torch.cuda.current_stream(device).cuda_stream
-    for out, (B, H, site, R, C) in zip(outs, shape_sites):
-        _build.check(lib.mdm_philox_dump(out.data_ptr(), int(seed), B, H, site, R, C, st), name)
+    _dump_into(outs, seed, B, H, site, R)
     LAUNCHES[name] += 1
     return outs
 
@@ -115,22 +134,21 @@ def dropout_bits(seed: int, B: int, num_heads: int, S: int, device="cuda") -> to
         h = torch.arange(num_heads)[None, :]
         return philox_bits(seed, b, h, S, S).to(torch.uint32)
     # site -1: the heads are the sites, out[b, h] holds site h.
-    return _dump("dropout_bits", seed, [(B, num_heads, -1, S, S)],
-                 [(B, num_heads, S, S)], device)[0]
+    return _dump("dropout_bits", seed, B, num_heads, -1, S, [(B, num_heads, S, S)], device)[0]
 
 
 def tail_dropout_bits(seed: int, B: int, S: int, D: int, F: int, device="cuda"
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The tail's three masks' bits: attn-out [B,S,D] (site 0), ffn-hidden
-    [B,S,F] (site 1), ffn-out [B,S,D] (site 2) (encoder_tail.py layout)."""
+    [B,S,F] (site 1), ffn-out [B,S,D] (site 2) (encoder_tail.py layout);
+    one launch on the card."""
     device = torch.device(device)
     shapes = [(B, S, D), (B, S, F), (B, S, D)]
     if device.type == "cpu":
         b = torch.arange(B)
         return tuple(philox_bits(seed, b, site, S, n).to(torch.uint32)
                      for site, (_, _, n) in enumerate(shapes))
-    return _dump("tail_dropout_bits", seed,
-                 [(B, 1, site, S, n) for site, (_, _, n) in enumerate(shapes)], shapes, device)
+    return _dump("tail_dropout_bits", seed, B, 1, 0, S, shapes, device)
 
 
 def sequence_dropout_bits(seed: int, B: int, S: int, D: int, device="cuda") -> torch.Tensor:
@@ -139,4 +157,4 @@ def sequence_dropout_bits(seed: int, B: int, S: int, D: int, device="cuda") -> t
     device = torch.device(device)
     if device.type == "cpu":
         return philox_bits(seed, torch.arange(B), 0, S, D).to(torch.uint32)
-    return _dump("sequence_dropout_bits", seed, [(B, 1, 0, S, D)], [(B, S, D)], device)[0]
+    return _dump("sequence_dropout_bits", seed, B, 1, 0, S, [(B, S, D)], device)[0]

@@ -2,37 +2,90 @@
 card unless the caller asks for the CPU, and on the CPU they return the
 plain Philox stream (``philox_bits``) that the kernels draw in-kernel."""
 import inspect
+import re
+import types
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from mdm_tpu_torch.ops import _build  # noqa: E402
 from mdm_tpu_torch.ops import dropout_bits as DB  # noqa: E402
 
 SEED, B, H, S, D, F = -1234, 2, 3, 5, 8, 12
 
 
-def _stream(b, site, rows, cols):
-    return DB.philox_bits(SEED, b, site, rows, cols).to(torch.uint32)
+_M32 = 0xFFFFFFFF
+# Each entry point at the small shape and at the edges of the card's plan:
+# one word a row, odd and even rows, 1, 3 and 32 heads, batch 1 and 5,
+# ragged tail widths (d_model 8 and 136, ff 12 and 4096), row widths of
+# one word, 197 and 1025; each at these seeds and the edge seeds.
+DUMP_CASES = [
+    ("dropout_bits", (B, H, S)), ("dropout_bits", (1, 1, 1)), ("dropout_bits", (5, 3, 3)),
+    ("dropout_bits", (1, 32, 4)), ("dropout_bits", (5, 1, 37)),
+    ("tail_dropout_bits", (B, S, D, F)), ("tail_dropout_bits", (1, 1, 8, 12)),
+    ("tail_dropout_bits", (5, 3, 136, 12)), ("tail_dropout_bits", (1, 4, 8, 4096)),
+    ("sequence_dropout_bits", (B, S, D)), ("sequence_dropout_bits", (1, 1, 1)),
+    ("sequence_dropout_bits", (5, 3, 1025)), ("sequence_dropout_bits", (1, 8, 197)),
+]
+DUMP_SEEDS = (SEED, 0, -1, 2 ** 31 - 1)
 
 
-@pytest.mark.parametrize("name, args, expected", [
-    ("dropout_bits", (B, H, S),
-     lambda: (_stream(torch.arange(B)[:, None], torch.arange(H)[None, :], S, S),)),
-    ("tail_dropout_bits", (B, S, D, F),
-     lambda: tuple(_stream(torch.arange(B), site, S, n) for site, n in enumerate((D, F, D)))),
-    ("sequence_dropout_bits", (B, S, D), lambda: (_stream(torch.arange(B), 0, S, D),)),
-])
-def test_dump_defaults_to_the_card_and_cpu_returns_philox_bits(name, args, expected):
+def _philox_word(seed, c0, c1, c2, c3):
+    """Word 0 of Philox4x32-10 at counter (c0..c3), key (seed, 0), on Python
+    ints straight from Salmon et al. (SC'11): independent of philox4x32."""
+    k0, k1 = seed & _M32, 0
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + 0x9E3779B9) & _M32, (k1 + 0xBB67AE85) & _M32
+        p0, p1 = 0xD2511F53 * c0, 0xCD9E8D57 * c2
+        c0, c1, c2, c3 = ((p1 >> 32) ^ c1 ^ k0) & _M32, p1 & _M32, ((p0 >> 32) ^ c3 ^ k1) & _M32, \
+            p0 & _M32
+    return c0
+
+
+def _streams(name, args):
+    """Each output's (batch, site, rows, columns) in the stream; site None:
+    the attention dump's, whose site is the head."""
+    if name == "dropout_bits":
+        b, _, s = args
+        return [(b, None, s, s)]
+    if name == "tail_dropout_bits":
+        b, s, d, f = args
+        return [(b, site, s, n) for site, n in enumerate((d, f, d))]
+    b, s, d = args
+    return [(b, 0, s, d)]
+
+
+def _corners(shape):
+    """The first, last and a middle index of an array of this shape."""
+    return [tuple(0 for _ in shape), tuple(n - 1 for n in shape), tuple(n // 2 for n in shape)]
+
+
+@pytest.mark.parametrize("seed", DUMP_SEEDS)
+@pytest.mark.parametrize("name, args", DUMP_CASES)
+def test_dump_defaults_to_the_card_and_cpu_returns_philox_bits(name, args, seed):
+    """On the CPU each output is philox_bits at its sites (the attention
+    dump's head h at site h, the tail's three at 0, 1, 2); its corners are
+    held against the scalar Philox at (column, row, site, batch)."""
     fn = getattr(DB, name)
     assert inspect.signature(fn).parameters["device"].default == "cuda"
-    got = fn(SEED, *args, device="cpu")
+    got = fn(seed, *args, device="cpu")
     got = got if isinstance(got, tuple) else (got,)
-    want = expected()
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
+    streams = _streams(name, args)
+    assert len(got) == len(streams)
+    for g, (nb, site, rows, cols) in zip(got, streams):
         assert g.dtype == torch.uint32 and g.device.type == "cpu"
-        assert torch.equal(g.to(torch.int64), w.to(torch.int64))
+        b = torch.arange(nb)
+        if site is None:
+            want = DB.philox_bits(seed, b[:, None], torch.arange(g.shape[1])[None, :], rows, cols)
+        else:
+            want = DB.philox_bits(seed, b, site, rows, cols)
+        g = g.to(torch.int64)
+        assert g.shape == want.shape and torch.equal(g, want)
+        for idx in _corners(g.shape):
+            at = idx[1] if site is None else site
+            assert g[idx].item() == _philox_word(seed, idx[-1], idx[-2], at, idx[0]), idx
 
 
 @pytest.mark.parametrize("shape", [(5,), (3, 32), (2, 3, 37), (1, 4, 520), (2, 1, 1000)])
@@ -55,3 +108,45 @@ def test_keep_mask_bits_packs_the_keep_decisions(shape, rate):
         want = kept[..., c] if c < n else torch.zeros_like(bit, dtype=torch.bool)
         assert torch.equal(bit.bool(), want), c
     assert torch.equal(DB.keep_factors(bits, rate) > 0, kept)
+
+
+def test_card_entry_points_launch_once_with_the_c_arguments(monkeypatch):
+    """On the card each entry point is one call of its C function, whose
+    arguments (named as in csrc/dropout_bits.cu) get the entry point's
+    shape: the tail's three outputs through mdm_philox_dump3, the other two
+    through mdm_philox_dump (site -1: the heads are the sites). A stand-in
+    library records the calls; meta tensors stand in for the card's."""
+    src = (_build.CSRC / "dropout_bits.cu").read_text()
+    params = {m.group(1): [a.split()[-1].lstrip("*") for a in m.group(2).split(",")]
+              for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src)}
+    assert params == {"mdm_philox_dump": ["out", "seed", "B", "H", "site", "R", "C", "stream"],
+                      "mdm_philox_dump3": ["out0", "out1", "out2", "seed", "B", "R", "C0", "C1",
+                                           "C2", "stream"]}
+    for name, names in params.items():
+        assert len(_build.SIGNATURES[name]) == len(names)
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, dict(zip(params[name], args)))) or 0
+
+    monkeypatch.setattr(DB._build, "load_library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(DB, "LAUNCHES", dict.fromkeys(DB.LAUNCHES, 0))
+    outs = DB.tail_dropout_bits(SEED, B, S, D, F, device="meta")
+    assert [tuple(o.shape) for o in outs] == [(B, S, D), (B, S, F), (B, S, D)]
+    bits = DB.dropout_bits(SEED, B, H, S, device="meta")
+    seq = DB.sequence_dropout_bits(SEED, B, S, D, device="meta")
+    assert bits.shape == (B, H, S, S) and seq.shape == (B, S, D)
+    common = dict(seed=SEED, B=B, R=S, stream=7)
+    assert calls == [
+        ("mdm_philox_dump3", dict(out0=0, out1=0, out2=0, C0=D, C1=F, C2=D, **common)),
+        ("mdm_philox_dump", dict(out=0, H=H, site=-1, C=S, **common)),
+        ("mdm_philox_dump", dict(out=0, H=1, site=0, C=D, **common)),
+    ]
+    assert DB.LAUNCHES == {"dropout_bits": 1, "tail_dropout_bits": 1, "sequence_dropout_bits": 1}
+    with pytest.raises(ValueError, match="uint32"):
+        DB._dump_into([torch.empty(4, dtype=torch.int32, device="meta")], SEED, 1, 1, 0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        DB._dump_into([torch.empty(4, 4, dtype=torch.uint32, device="meta").T], SEED, 1, 1, 0, 4)
