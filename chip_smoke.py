@@ -41,7 +41,17 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   kernel + the plain tail, its masks from the tail dump), 30 flagship
   steps, timed, and one f32 step of it on the card against the CPU; and 3
   steps of its ``xla`` variant, whose attention masks come from the
-  attention dump.
+  attention dump;
+- DiP (phase 13): the trans_dec decoder layer's kernel route (the rate-0
+  attention block #2 and the rate-0 fused tail #4) against its plain
+  route at S = 60 and 61, CFG batch 64 and 2, bf16 and f32, and the two
+  rate-0 entries alone against their plain versions, timed;
+  MotionGenerator.generate on the DiP config (DistilBERT-shaped token
+  memory, 20-frame prefix, 40-frame chunks, 10 steps, CFG 7.5, 196
+  frames) at B=1 and 32, every decoder layer call on both rate-0 entries;
+  and one generate each with the ddim, plms and dpmpp_2m samplers and with
+  cached CFG on the flagship trans_enc at B=32, every layer call on the
+  whole-layer kernel. Phase 12 profiles the DiP runs for their busy share.
 
 Each path checks that every layer call went through its kernels, and the
 sampling and training paths that every product, forward and backward,
@@ -138,6 +148,14 @@ DUMP_EDGE_SEEDS = (0, -1, 2 ** 31 - 1)
 TAIL_DUMP_D = (8, 136)
 TAIL_DUMP_F = (12, 4096)
 BIG_DUMP = dict(B=64, H=32, S=1040)  # 2,214,707,200 words
+# DiP (phase 13): mdm_tpu_torch/scripts/dip_probe.py's configuration, the
+# trans_dec denoiser at the flagship width on DistilBERT-shaped token memory.
+DIP_SOURCES = {  # the rate-0 entries on the decoder's path -> (source, TPU kernel it replaces)
+    "fused_block_attention_inference": (ATTENTION_SOURCE,
+                                        "mdm_tpu/ops/attention_train_block.py:286"),
+    "fused_encoder_tail_inference": ("mdm_tpu_torch/csrc/encoder_tail.cu",
+                                     "mdm_tpu/ops/encoder_tail.py:309"),
+}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 # The dumps' draws, counted from Philox4x32-10 itself: a word is word 0 at
@@ -1469,6 +1487,223 @@ def phase_train_drop(torch, dev, tail_step_ms):
     return launches, step_ms
 
 
+def _decoder_operands(torch, B, S, dtype, dev, seed=0):
+    """A DiP decoder layer's inputs: frames [B, S, D], a 64-token memory, a
+    ragged frame padding and a ragged token padding (True = ignore)."""
+    from mdm_tpu_torch.scripts import dip_probe as DP
+
+    D = FLAGSHIP["latent_dim"]
+    g = torch.Generator().manual_seed(seed)
+    tgt, memory = (_randn(torch, g, B, n, D).to(dev, dtype) for n in (S, DP.TOKENS))
+    tokens = 1 + (13 * torch.arange(B)) % DP.TOKENS
+    token_pad = torch.arange(DP.TOKENS)[None] >= tokens[:, None]
+    return tgt, memory, _ragged_mask(torch, B, S).to(dev), token_pad.to(dev)
+
+
+def phase_decoder_layer(torch, dev):
+    """Phase 13a: one DiP decoder layer, its kernel route (AUTO: the rate-0
+    block #2 for the self-attention, the rate-0 tail #4 for the
+    cross-attention -> FFN half) against its plain route (the einsum
+    attention and the plain tail, all products cuBLAS), at CFG batch 64 and
+    2 and S = 60 (prefix + chunk) and 61 (with emb_trans_dec's token),
+    bf16, and one f32 case; then the two rate-0 entries alone at the main
+    shape against their plain versions, timed, for the kernels line."""
+    from mdm_tpu_torch import ops
+    from mdm_tpu_torch.models import layers as tl
+    from mdm_tpu_torch.ops import attention_train_block as TB
+    from mdm_tpu_torch.ops import encoder_tail as ET
+    from mdm_tpu_torch.scripts import dip_probe as DP
+
+    D, F, H = FLAGSHIP["latent_dim"], FLAGSHIP["ff_size"], FLAGSHIP["num_heads"]
+    S = DP.DIP.context_len + DP.DIP.pred_len
+    layers = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        layer = tl.TransformerDecoderLayer(D, H, F, dtype)
+        tl.init_weights_(layer, torch.Generator().manual_seed(0))
+        layers[dtype] = layer.to(dev).eval()
+    rows = []
+    for B, s, dtype in ((64, S, torch.bfloat16), (64, S + 1, torch.bfloat16),
+                        (2, S, torch.bfloat16), (2, S + 1, torch.bfloat16),
+                        (2, S + 1, torch.float32)):
+        layer = layers[dtype]
+        tgt, memory, pad, token_pad = _decoder_operands(torch, B, s, dtype, dev)
+        args = (tgt, memory, tl.key_padding_bias(pad), tl.key_padding_bias(token_pad))
+        kernel = lambda: layer(*args)
+
+        def plain():
+            with ops.pinned(sample_block=False, encoder_tail=False):
+                return layer(*args)
+
+        with torch.no_grad():
+            before = (TB.LAUNCHES["fwd"], ET.LAUNCHES["fwd"])
+            out = kernel()
+            if (TB.LAUNCHES["fwd"] - before[0], ET.LAUNCHES["fwd"] - before[1]) != (1, 1):
+                raise AssertionError("the decoder layer's kernel route missed the rate-0 block "
+                                     "or tail")
+            torch.cuda.synchronize()
+            ref = plain()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+            if not torch.isfinite(out).all() or not torch.allclose(out.float(), ref.float(), **tol):
+                raise AssertionError(f"decoder layer kernel route disagrees with its plain route: "
+                                     f"max abs err {err} (tolerance {tol}) at B={B} S={s} {dtype}")
+            row = dict(B=B, S=s, dtype=str(dtype).split(".")[-1], max_abs_err=err, tol=tol)
+            if B == 64 and s == S:
+                p1, k1, k2, p2 = (_time_ms(torch, f) for f in (plain, kernel, kernel, plain))
+                row.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+        rows.append(row)
+        print("decoder layer", json.dumps(row))
+
+    # The rate-0 entries alone at the main shape: CFG batch 64, S = 60, bf16,
+    # the key-padding row as the decoder's self-attention passes it.
+    layer, B = layers[torch.bfloat16], 64
+    tgt, memory, pad, token_pad = _decoder_operands(torch, B, S, torch.bfloat16, dev, seed=1)
+    a = layer.self_attn
+    block_w = [w.detach().to(torch.bfloat16) for w in (a.in_proj_weight, a.in_proj_bias,
+                                                       a.out_proj.weight, a.out_proj.bias)]
+    kpm = tl._row_bias(tl.key_padding_bias(pad), S)
+    entries = {}
+    row = compare_forward(
+        torch, "fused_block_attention_inference",
+        lambda: TB.fused_block_attention_inference(tgt, *block_w, H, key_padding_mask=kpm),
+        lambda: TB.train_attention_block_reference(tgt, *block_w, H, key_padding_mask=kpm),
+        TRAIN_REL["bfloat16"], timed=True)
+    mha = _torch_mha(torch, *block_w, H, 0.0).eval()
+    M = B * S
+    entries["fused_block_attention_inference"] = dict(
+        row, library_ms=_no_grad_ms(torch, lambda: mha(tgt, tgt, tgt, key_padding_mask=pad,
+                                                       need_weights=False)[0]),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(8 * M * D * D + 4 * B * S * S * D, nbytes(tgt, *block_w, kpm, tgt)))))
+    tail_w = [p.detach().to(torch.bfloat16) for p in (
+        layer.norm2.weight, layer.norm2.bias, layer.linear1.weight, layer.linear1.bias,
+        layer.linear2.weight, layer.linear2.bias, layer.norm3.weight, layer.norm3.bias)]
+    cross = _decoder_operands(torch, B, S, torch.bfloat16, dev, seed=2)[0]  # the cross-attention
+    row = compare_forward(
+        torch, "fused_encoder_tail_inference",
+        lambda: ET.fused_encoder_tail_inference(tgt, cross, *tail_w),
+        lambda: ET.encoder_tail_reference(tgt, cross, *tail_w), TRAIN_REL["bfloat16"],
+        timed=True)
+    entries["fused_encoder_tail_inference"] = dict(
+        row, library_ms=None,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(4 * M * D * F, nbytes(tgt, cross, *tail_w, tgt)))))
+    return rows, entries
+
+
+def phase_dip_generate(torch, dev):
+    """Phase 13b: MotionGenerator.generate on the DiP config
+    (scripts/dip_probe.py: flagship width, bf16, random weights from a seed,
+    ddpm), autoregressive over 5 chunks, at B = 1 and 32. Each decoder layer
+    call must launch the rate-0 block and the rate-0 tail once (5 chunks x
+    10 steps x 8 layers = 400 each a generate), every product of theirs on
+    the wgmma kernel. Then each batch once more, timed with CUDA events.
+    Returns the generator, the conditionings, the launches of the counted
+    runs and the times."""
+    from mdm_tpu_torch.ops import _chain
+    from mdm_tpu_torch.ops import attention_train_block as TB
+    from mdm_tpu_torch.ops import encoder_tail as ET
+    from mdm_tpu_torch.ops import layer_inference as li
+    from mdm_tpu_torch.scripts import dip_probe as DP
+
+    gen = DP.make_generator(dev)
+    model, frames = gen.model, DP.FRAMES
+    chunks = -(-frames // DP.DIP.pred_len)
+    per_run = chunks * DP.STEPS * DP.DIP.num_layers
+    calls = [0]
+    hooks = [layer.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
+             for layer in model.seqTransDecoder.layers]
+    conds = {B: DP.make_cond(B, dev, seed=B) for B in (1, 32)}
+    TB.LAUNCHES["fwd"] = ET.LAUNCHES["fwd"] = li.LAUNCHES = 0  # the DiP path's counts from here
+    _zero(_chain.GEMM_LAUNCHES)
+    for n, (B, cond) in enumerate(conds.items(), 1):
+        out = gen.generate(cond, B, frames, torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        got = (TB.LAUNCHES["fwd"], ET.LAUNCHES["fwd"], calls[0])
+        if got != (n * per_run,) * 3 or li.LAUNCHES:
+            raise AssertionError(f"DiP generate B={B}: (rate-0 block, rate-0 tail, decoder layer "
+                                 f"calls) = {got}, whole-layer kernel {li.LAUNCHES}; expected "
+                                 f"{n * per_run} each and none of the whole-layer kernel")
+        if _chain.GEMM_LAUNCHES != {"wgmma": 4 * n * per_run, "fma": 0}:
+            raise AssertionError(f"DiP generate's block and tail products launched "
+                                 f"{_chain.GEMM_LAUNCHES}, expected {4 * n * per_run} on wgmma")
+        joints = out["joints"]
+        if (tuple(out["features"].shape) != (B, frames, 263)
+                or tuple(joints.shape) != (B, frames, 22, 3)
+                or not torch.isfinite(joints).all()):
+            raise AssertionError(f"DiP generate B={B}: features {tuple(out['features'].shape)}, "
+                                 f"joints {tuple(joints.shape)}, finite "
+                                 f"{bool(torch.isfinite(joints).all())}")
+    for hook in hooks:
+        hook.remove()
+    launches = {"fused_block_attention_inference": TB.LAUNCHES["fwd"],
+                "fused_encoder_tail_inference": ET.LAUNCHES["fwd"]}
+    times = {}
+    for B, cond in conds.items():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        gen.generate(cond, B, frames, torch.Generator(dev).manual_seed(1))
+        end.record()
+        torch.cuda.synchronize()
+        times[B] = start.elapsed_time(end)
+        print(f"DiP generate B={B} {frames} frames ({chunks} chunks x {DP.STEPS} ddpm steps, "
+              f"CFG {DP.GUIDANCE}, bf16): {times[B]:.1f} ms/batch, "
+              f"{times[B] / 1000 / B:.6f} s/sample (CUDA events, after one counted call)")
+    print(f"DiP generate launches over B=1 and B=32: {launches}, decoder layer calls {calls[0]}, "
+          f"products on wgmma {_chain.GEMM_LAUNCHES['wgmma']}")
+    return gen, conds, launches, times
+
+
+def phase_samplers(torch, gen50, cond, dev):
+    """Phase 13c: one generate each with sampler ddim, plms and dpmpp_2m at
+    10 steps, and one with cached CFG at interval 2 (ddpm, 10 steps), on
+    the flagship trans_enc at B = 32: finite joints, and every layer call on
+    the whole-layer kernel (8 launches per model forward, counted by a
+    hook on the model; exact CFG is one double-batched forward)."""
+    from mdm_tpu_torch.diffusion import Schedule
+    from mdm_tpu_torch.ops import layer_inference as li
+    from mdm_tpu_torch.sampling import GenerationConfig, MotionGenerator
+
+    model, steps = gen50.model, 10
+    B, T = cond.text_embed.shape[0], cond.frames_mask.shape[1]
+    forwards = [0]
+    hook = model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    cases = {  # name -> (GenerationConfig fields, model forwards a generate)
+        "ddim": (dict(sampler="ddim"), steps),
+        "plms": (dict(sampler="plms"), steps + 1),  # the first step evaluates twice
+        "dpmpp_2m": (dict(sampler="dpmpp_2m"), steps),
+        "cached CFG k=2 (ddpm)": (dict(cfg_cache_interval=2), steps + steps // 2),
+    }
+    rows = {}
+    for name, (fields, want) in cases.items():
+        gen = MotionGenerator(model, Schedule.create("cosine", 1000, str(steps)),
+                              GenerationConfig(guidance_scale=2.5, **fields))
+        forwards[0] = li.LAUNCHES = 0
+        out = gen.generate(cond, B, T, torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        if forwards[0] != want or li.LAUNCHES != model.config.num_layers * want:
+            hook.remove()
+            raise AssertionError(f"{name}: {forwards[0]} model forwards, {li.LAUNCHES} layer "
+                                 f"kernel launches; expected {want} and "
+                                 f"{model.config.num_layers * want}")
+        if not torch.isfinite(out["joints"]).all():
+            hook.remove()
+            raise AssertionError(f"{name}: joints not finite")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        gen.generate(cond, B, T, torch.Generator(dev).manual_seed(1))
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        rows[name] = dict(forwards=want, layer_launches=model.config.num_layers * want,
+                          ms_per_batch=ms, s_per_sample=ms / 1000 / B)
+        print(f"generate {name}, B={B} T={T}, {steps} steps, CFG 2.5, bf16: {ms:.1f} ms/batch, "
+              f"{ms / 1000 / B:.6f} s/sample (CUDA events, after one counted call); {want} "
+              f"forwards, {model.config.num_layers * want} layer kernel launches")
+    hook.remove()
+    return rows
+
+
 def device_busy(torch, fn):
     """(wall ms, kernel ms) of one call of fn under torch.profiler: CUDA
     events around it, and the sum of its kernels' device time."""
@@ -1512,6 +1747,7 @@ def main():
     from mdm_tpu_torch.ops import encoder_tail as ET
     from mdm_tpu_torch.ops import layer_inference as li
     from mdm_tpu_torch.sampling import GenerationConfig, HashTextEmbedder, MotionGenerator
+    from mdm_tpu_torch.scripts import dip_probe as DP
     from mdm_tpu_torch.scripts import gemm_probe as GP
     from mdm_tpu_torch.serving import Predictor, PredictorConfig
 
@@ -1728,6 +1964,14 @@ def main():
     v2_launches, pallas_s = phase_sampling_variants(torch, dev, gen_ms / 1000 / B)
     drop_launches, drop_ms = phase_train_drop(torch, dev, step_ms)
 
+    # Phase 13: DiP. The decoder layer's kernel route against its plain
+    # route and the two rate-0 entries alone (comparisons, not counted);
+    # then DiP's generate, whose launches of the rate-0 entries are counted;
+    # then the other samplers and cached CFG on phase 3's trans_enc.
+    decoder_rows, dip_entries = phase_decoder_layer(torch, dev)
+    dip_gen, dip_conds, dip_launches, dip_ms = phase_dip_generate(torch, dev)
+    sampler_rows = phase_samplers(torch, gen, cond, dev)
+
     # Phase 5's timed shapes (bf16, bool mask, bits drawn in-kernel: no
     # bits are read), analytically.
     Bt, St, Dt, Ht, Ft = (TRAIN_SHAPE[k] for k in ("B", "S", "D", "H", "F"))
@@ -1798,21 +2042,37 @@ def main():
     for name, (replaces, n, path) in routes.items():
         kernels.append(dict(name=name, route="cuda", source=ATTENTION_SOURCE, replaces=replaces,
                             launches=n, path=path, **attention[name]))
+    for name, (source, replaces) in DIP_SOURCES.items():
+        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                            launches=dip_launches[name],
+                            path="DiP sampling (trans_dec decoder layers), B=1 and B=32",
+                            **dip_entries[name]))
     print(f"s/sample at B=32: layer kernel {gen_ms / 1000 / B:.6f}, pallas variant "
-          f"{pallas_s:.6f}; ms/step at B=128: AUTO {step_ms:.3f}, drop variant {drop_ms:.3f}")
+          f"{pallas_s:.6f}, DiP {dip_ms[32] / 1000 / 32:.6f} (B=1: {dip_ms[1] / 1000:.6f}); "
+          f"10-step samplers {json.dumps({k: r['s_per_sample'] for k, r in sampler_rows.items()})}"
+          f"; ms/step at B=128: AUTO {step_ms:.3f}, drop variant {drop_ms:.3f}")
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel was never launched on its path: {kernels}")
     products = {name: GP.measure(name) for name in GP.MAIN_PATH_PRODUCTS}
 
-    # Phase 12, last of all: phase 3's generate once more under torch.profiler
-    # for the card's busy share. Last, because the profiler's tracing hooks
-    # can slow every later launch of this process.
+    # Phase 12, last of all: phase 3's generate, then phase 13's DiP
+    # generates, once more under torch.profiler for the card's busy share.
+    # Last, because the profiler's tracing hooks can slow every later launch
+    # of this process.
     wall, busy = device_busy(torch, lambda: gen.generate(cond, B, T,
                                                          torch.Generator(dev).manual_seed(0)))
     print(f"generate under torch.profiler: {wall:.1f} ms ({gen_ms:.1f} without it, phase 3), "
           f"kernels {busy:.1f} ms on the card: device busy share {busy / gen_ms:.3f} of the "
           f"unprofiled run" if busy else
           "generate under torch.profiler: no device time recorded (busy share not measured)")
+    for b, c in dip_conds.items():
+        wall, busy = device_busy(torch, lambda: dip_gen.generate(
+            c, b, DP.FRAMES, torch.Generator(dev).manual_seed(1)))
+        print(f"DiP generate B={b} under torch.profiler: {wall:.1f} ms ({dip_ms[b]:.1f} without "
+              f"it, phase 13), kernels {busy:.1f} ms on the card: device busy share "
+              f"{busy / dip_ms[b]:.3f} of the unprofiled run" if busy else
+              f"DiP generate B={b} under torch.profiler: no device time recorded (busy share not "
+              f"measured)")
     print("gemm products", json.dumps(products))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,6 +14,13 @@ import torch
 
 from . import quaternions as Q
 
+HML_JOINT_NAMES = [
+    "pelvis", "left_hip", "right_hip", "spine1", "left_knee", "right_knee",
+    "spine2", "left_ankle", "right_ankle", "spine3", "left_foot", "right_foot",
+    "neck", "left_collar", "right_collar", "head", "left_shoulder",
+    "right_shoulder", "left_elbow", "right_elbow", "left_wrist", "right_wrist",
+]
+
 
 def feature_dim(joints_num: int) -> int:
     return 4 + (joints_num - 1) * 3 + (joints_num - 1) * 6 + joints_num * 3 + 4

@@ -1,9 +1,11 @@
 """Gaussian diffusion q/p algebra as plain functions on tensors.
 
-Counterpart of mdm_tpu/diffusion/gaussian.py (:26-153, :209-214):
-q_sample, the posterior, p_mean_variance with the inpainting hook for
-START_X / EPSILON prediction under FIXED_SMALL / FIXED_LARGE variance, and
-the per-sample reductions of the training losses.
+Counterpart of mdm_tpu/diffusion/gaussian.py (:26-175, :209-214):
+q_sample and q's moments, the posterior, the x0/eps/x_{t-1} conversions,
+p_mean_variance with the inpainting hook for START_X / EPSILON prediction
+under FIXED_SMALL / FIXED_LARGE variance, cond_fn guidance on the mean or
+the score, and the per-sample reductions of the training losses. The
+likelihood terms (:177-281) come with the training ``vb`` term.
 """
 from __future__ import annotations
 
@@ -29,6 +31,15 @@ def sum_flat(x: torch.Tensor) -> torch.Tensor:
     return x.sum(dim=tuple(range(1, x.dim())))
 
 
+def q_mean_variance(sched: Schedule, x_start, t):
+    """Mean, variance and log variance of q(x_t | x_0)."""
+    nd = x_start.dim()
+    mean = extract(sched.sqrt_alphas_cumprod, t, nd) * x_start
+    variance = extract(1.0 - sched.alphas_cumprod, t, nd)
+    log_variance = extract(sched.log_one_minus_alphas_cumprod, t, nd)
+    return mean, variance, log_variance
+
+
 def q_sample(sched: Schedule, x_start, t, noise):
     """Sample x_t ~ q(x_t | x_0)."""
     nd = x_start.dim()
@@ -49,6 +60,18 @@ def predict_xstart_from_eps(sched: Schedule, x_t, t, eps):
     nd = x_t.dim()
     return (extract(sched.sqrt_recip_alphas_cumprod, t, nd) * x_t
             - extract(sched.sqrt_recipm1_alphas_cumprod, t, nd) * eps)
+
+
+def predict_xstart_from_xprev(sched: Schedule, x_t, t, xprev):
+    nd = x_t.dim()
+    return (extract(1.0 / sched.posterior_mean_coef1, t, nd) * xprev
+            - extract(sched.posterior_mean_coef2 / sched.posterior_mean_coef1, t, nd) * x_t)
+
+
+def predict_eps_from_xstart(sched: Schedule, x_t, t, pred_xstart):
+    nd = x_t.dim()
+    return ((extract(sched.sqrt_recip_alphas_cumprod, t, nd) * x_t - pred_xstart)
+            / extract(sched.sqrt_recipm1_alphas_cumprod, t, nd))
 
 
 class PMeanVariance(NamedTuple):
@@ -98,3 +121,19 @@ def p_mean_variance(
         pred_xstart = pred_xstart.clamp(-1.0, 1.0)
     model_mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)
     return PMeanVariance(model_mean, model_variance, model_log_variance, pred_xstart)
+
+
+def condition_mean(cond_grad, out: PMeanVariance) -> torch.Tensor:
+    """Sohl-Dickstein style mean shift: mean + var * grad(log p(y|x))."""
+    return out.mean + out.variance * cond_grad
+
+
+def condition_score(sched: Schedule, cond_grad, out: PMeanVariance, x, t) -> PMeanVariance:
+    """Song et al. score conditioning: shift eps, re-derive x0 and the mean."""
+    nd = x.dim()
+    alpha_bar = extract(sched.alphas_cumprod, t, nd)
+    eps = predict_eps_from_xstart(sched, x, t, out.pred_xstart)
+    eps = eps - torch.sqrt(1.0 - alpha_bar) * cond_grad
+    pred_xstart = predict_xstart_from_eps(sched, x, t, eps)
+    mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)
+    return PMeanVariance(mean, out.variance, out.log_variance, pred_xstart)

@@ -2,8 +2,9 @@
 
 The inverse of mdm_tpu/models/convert.py (:28-60, :96-127): flax Dense
 kernels [in, out] become torch Linear weights [out, in]; the q/k/v Dense
-layers of each attention block are packed into ``in_proj_weight`` [3D, D]
-and ``in_proj_bias`` [3D]; LayerNorm ``scale`` becomes ``weight``. The tree
+layers of each attention block (the decoder's ``self_attn`` and
+``multihead_attn`` alike) are packed into ``in_proj_weight`` [3D, D] and
+``in_proj_bias`` [3D]; LayerNorm ``scale`` becomes ``weight``. The tree
 arrives as nested dicts of numpy arrays (callers convert with
 ``jax.tree_util.tree_map(np.asarray, params)``), so this module needs no jax.
 ``train_state_from_flax`` carries a whole JAX ``TrainState`` (params, the
@@ -30,21 +31,35 @@ def _layernorm(p: Mapping, prefix: str) -> Dict[str, np.ndarray]:
             f"{prefix}.bias": np.asarray(p["bias"])}
 
 
-def _encoder_layer(p: Mapping, prefix: str) -> Dict[str, np.ndarray]:
-    a = p["self_attn"]
+def _attention(a: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    """q/k/v Dense layers packed into ``in_proj_weight``/``in_proj_bias``,
+    and ``out_proj``."""
     names = ("q_proj", "k_proj", "v_proj")
-    out = {
-        f"{prefix}.self_attn.in_proj_weight": np.concatenate(
+    return {
+        f"{prefix}.in_proj_weight": np.concatenate(
             [np.asarray(a[n]["kernel"]).T for n in names], axis=0),
-        f"{prefix}.self_attn.in_proj_bias": np.concatenate(
+        f"{prefix}.in_proj_bias": np.concatenate(
             [np.asarray(a[n]["bias"]) for n in names], axis=0),
-        **_linear(a["out_proj"], f"{prefix}.self_attn.out_proj"),
-        **_linear(p["linear1"], f"{prefix}.linear1"),
-        **_linear(p["linear2"], f"{prefix}.linear2"),
-        **_layernorm(p["norm1"], f"{prefix}.norm1"),
-        **_layernorm(p["norm2"], f"{prefix}.norm2"),
+        **_linear(a["out_proj"], f"{prefix}.out_proj"),
     }
+
+
+def _layer(p: Mapping, prefix: str, attentions, norms) -> Dict[str, np.ndarray]:
+    out = {**_linear(p["linear1"], f"{prefix}.linear1"),
+           **_linear(p["linear2"], f"{prefix}.linear2")}
+    for name in attentions:
+        out.update(_attention(p[name], f"{prefix}.{name}"))
+    for name in norms:
+        out.update(_layernorm(p[name], f"{prefix}.{name}"))
     return out
+
+
+def _encoder_layer(p: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    return _layer(p, prefix, ("self_attn",), ("norm1", "norm2"))
+
+
+def _decoder_layer(p: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    return _layer(p, prefix, ("self_attn", "multihead_attn"), ("norm1", "norm2", "norm3"))
 
 
 def state_dict_from_flax(params: Mapping, config: MDMConfig) -> Dict[str, torch.Tensor]:
@@ -60,9 +75,10 @@ def state_dict_from_flax(params: Mapping, config: MDMConfig) -> Dict[str, torch.
     }
     if config.cond_mode == "text":
         sd.update(_linear(p["embed_text"], "embed_text"))
+    stack, layer = (("seqTransEncoder", _encoder_layer) if config.arch == "trans_enc"
+                    else ("seqTransDecoder", _decoder_layer))
     for i in range(config.num_layers):
-        sd.update(_encoder_layer(p["seqTransEncoder"][f"layers_{i}"],
-                                 f"seqTransEncoder.layers.{i}"))
+        sd.update(layer(p[stack][f"layers_{i}"], f"{stack}.layers.{i}"))
     return {k: torch.tensor(v, dtype=torch.float32) for k, v in sd.items()}
 
 

@@ -3,9 +3,11 @@
 Counterpart of mdm_tpu/models/layers.py. The encoder layer holds
 torch.nn.TransformerEncoderLayer's own parameter names
 (``self_attn.in_proj_weight`` [3D, D], ``in_proj_bias``,
-``self_attn.out_proj``, ``linear1``, ``linear2``, ``norm1``, ``norm2``) —
-the layout mdm_tpu/models/convert.py reads — so published checkpoints load
-without conversion.
+``self_attn.out_proj``, ``linear1``, ``linear2``, ``norm1``, ``norm2``) and
+the decoder layer torch.nn.TransformerDecoderLayer's (``self_attn``,
+``multihead_attn`` packed the same way, ``linear1``, ``linear2``,
+``norm1``-``norm3``) — the layout mdm_tpu/models/convert.py reads — so
+published checkpoints load without conversion.
 
 The layer and its attention choose their kernels where the JAX modules do
 (layers.py:113-247 and :337-399), from the flags of ``mdm_tpu_torch.ops``
@@ -133,6 +135,7 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
         nn.init.xavier_uniform_(self.in_proj_weight)
+        self._cast = None  # (key, the four weights in the compute dtype)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                 attn_bias: Optional[torch.Tensor] = None, deterministic: bool = True,
@@ -148,6 +151,8 @@ class MultiHeadAttention(nn.Module):
         seed = None if deterministic else _training_seed(rng, self.dropout)
         weights = (self.in_proj_weight, self.in_proj_bias, self.out_proj.weight,
                    self.out_proj.bias)
+        if deterministic and not torch.is_grad_enabled():
+            weights = _cached_cast(self, weights, cdt)
 
         if (ops.pallas_sample_block_enabled() and deterministic and self_attention and row_bias
                 and D % 128 == 0):
@@ -160,25 +165,24 @@ class MultiHeadAttention(nn.Module):
             return fused_train_attention_block(query.to(cdt), *weights, H, self.dropout, seed,
                                                key_padding_mask=kpm)
 
-        q, k, v = self._project(query, key, value, cdt)
+        q, k, v = self._project(query, key, value, *weights[:2], cdt)
         if (ops.pallas_train_attention_enabled() and not deterministic and self.dropout > 0.0
                 and same_len and row_bias and D % 128 == 0):
             out = fused_dropout_attention(q, k, v, H, self.dropout, seed, key_padding_mask=kpm)
-            return _dense(out.to(cdt), self.out_proj.weight, self.out_proj.bias, cdt)
+            return _dense(out.to(cdt), *weights[2:], cdt)
         if (ops.pallas_attention_enabled() and deterministic and same_len and row_bias
                 and D % 128 == 0):
             out = fused_attention_v2(q, k, v, H, key_padding_mask=kpm).to(cdt)
-            return _dense(out, self.out_proj.weight, self.out_proj.bias, cdt)
-        return self._einsum(q, k, v, attn_bias, deterministic, seed, cdt)
+            return _dense(out, *weights[2:], cdt)
+        return self._einsum(q, k, v, attn_bias, deterministic, seed, weights[2:], cdt)
 
-    def _project(self, query, key, value, cdt):
-        w, b = self.in_proj_weight, self.in_proj_bias
+    def _project(self, query, key, value, w, b, cdt):
         if query is key and key is value:
             return _dense(query, w, b, cdt).chunk(3, dim=-1)
         return tuple(_dense(t, wi, bi, cdt)
                      for t, wi, bi in zip((query, key, value), w.chunk(3), b.chunk(3)))
 
-    def _einsum(self, q, k, v, attn_bias, deterministic, seed, cdt):
+    def _einsum(self, q, k, v, attn_bias, deterministic, seed, out_proj, cdt):
         """The JAX module's non-kernel route, in cdt (layers.py:234-247)."""
         B, Sq, D = q.shape
         H = self.num_heads
@@ -193,7 +197,34 @@ class MultiHeadAttention(nn.Module):
             bits = dropout_bits(seed, B, H, Sq, device=q.device)
             weights = (weights.float() * keep_factors(bits, self.dropout)).to(cdt)
         out = (weights @ split(v)).transpose(1, 2).reshape(B, Sq, D)
-        return _dense(out, self.out_proj.weight, self.out_proj.bias, cdt)
+        return _dense(out, *out_proj, cdt)
+
+
+def _cached_cast(layer: nn.Module, params, dt: torch.dtype):
+    """``params`` in dtype dt, detached, cast once and kept on ``layer``
+    until a parameter is replaced or updated in place (load_state_dict,
+    .to): for sampling only, since no gradient flows through the cache."""
+    if all(p.dtype == dt for p in params):
+        return params
+    key = (dt,) + tuple((p.data_ptr(), p._version) for p in params)
+    if layer._cast is None or layer._cast[0] != key:
+        with torch.no_grad():
+            layer._cast = (key, tuple(p.detach().to(dt) for p in params))
+    return layer._cast[1]
+
+
+def _plain_tail(x, attn, norm_a, linear1, linear2, norm_b, keep=(None, None, None)):
+    """The JAX layers' non-kernel tail (layers.py:387-399, :433-441) in
+    attn's dtype, LayerNorm in f32: dropout + residual + ``norm_a``, the
+    GELU FFN, dropout + residual + ``norm_b``. ``keep``: the keep factors
+    of the three dropout sites (attn-out, ffn-hidden, ffn-out), the fused
+    tail's, or None where nothing is dropped."""
+    cdt = attn.dtype
+    drop = lambda t, k: t if k is None else (t.float() * k).to(t.dtype)
+    y = norm_a((x + drop(attn, keep[0])).float()).to(cdt)
+    h = gelu_exact(_dense(y, linear1.weight, linear1.bias, cdt))
+    h = _dense(drop(h, keep[1]), linear2.weight, linear2.bias, cdt)
+    return norm_b((y + drop(h, keep[2])).float()).to(cdt)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -221,17 +252,7 @@ class TransformerEncoderLayer(nn.Module):
                 self.linear2.weight, self.linear2.bias, self.norm2.weight, self.norm2.bias)
 
     def _kernel_weights(self, dt: torch.dtype):
-        """The parameters in dtype dt, detached, cast once and reused until a
-        parameter is replaced or updated in place (load_state_dict, .to):
-        for sampling only, since no gradient flows through the cache."""
-        params = self._params()
-        if all(p.dtype == dt for p in params):
-            return params
-        key = (dt,) + tuple((p.data_ptr(), p._version) for p in params)
-        if self._cast is None or self._cast[0] != key:
-            with torch.no_grad():
-                self._cast = (key, tuple(p.detach().to(dt) for p in params))
-        return self._cast[1]
+        return _cached_cast(self, self._params(), dt)
 
     def forward(self, x: torch.Tensor, padding_bias: Optional[torch.Tensor] = None,
                 deterministic: bool = True, rng: Optional[torch.Generator] = None
@@ -252,23 +273,58 @@ class TransformerEncoderLayer(nn.Module):
             if deterministic:
                 return fused_encoder_tail_inference(x, attn, *self._kernel_weights(attn.dtype)[4:])
             return fused_encoder_tail(x, attn, *self._params()[4:], self.dropout, seed)
-        return self._plain_tail(x, attn, seed)
-
-    def _plain_tail(self, x, attn, seed):
-        """The JAX layer's non-kernel tail (layers.py:387-399) in attn's
-        dtype, LayerNorm in f32. Its three dropouts are the fused tail's
-        sites (attn-out, ffn-hidden, ffn-out) under the same seed."""
-        cdt = attn.dtype
         keep = (None, None, None)
         if seed is not None and self.dropout > 0.0:
             B, S, D = x.shape
             keep = tuple(keep_factors(b, self.dropout) for b in tail_dropout_bits(
                 seed, B, S, D, self.linear1.out_features, device=x.device))
-        drop = lambda t, k: t if k is None else (t.float() * k).to(t.dtype)
-        y = self.norm1((x + drop(attn, keep[0])).float()).to(cdt)
-        h = gelu_exact(_dense(y, self.linear1.weight, self.linear1.bias, cdt))
-        h = _dense(drop(h, keep[1]), self.linear2.weight, self.linear2.bias, cdt)
-        return self.norm2((y + drop(h, keep[2])).float()).to(cdt)
+        return _plain_tail(x, attn, self.norm1, self.linear1, self.linear2, self.norm2, keep)
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Post-LN decoder layer (torch.nn.TransformerDecoderLayer's semantics
+    and parameter names, exact-erf GELU), deterministic only: self-attention
+    through ``MultiHeadAttention``'s routes (the rate-0 block, #2, under
+    AUTO), a plain first LayerNorm, cross-attention on the einsum route (no
+    kernel takes Sq != Sk), then the cross-attention -> FFN half through the
+    rate-0 fused tail (#4) or the plain tail (mdm_tpu/models/layers.py:402-442).
+    The whole-layer kernel (#1) is the encoder's: its flag is not read here."""
+
+    def __init__(self, d_model: int, num_heads: int, ff_size: int,
+                 compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout, compute_dtype)
+        self.multihead_attn = MultiHeadAttention(d_model, num_heads, dropout, compute_dtype)
+        self.linear1 = nn.Linear(d_model, ff_size)
+        self.linear2 = nn.Linear(ff_size, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self._cast = None  # (key, the tail's weights in the compute dtype)
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
+                tgt_bias: Optional[torch.Tensor] = None,
+                memory_bias: Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
+        if not deterministic:
+            raise NotImplementedError(
+                "a training forward of the trans_dec decoder is not ported yet: ROADMAP Queue 1 "
+                "item 5 (Training: trans_dec; the einsum route's dropout dump is square and "
+                "cannot serve a cross-attention with Sk != Sq)")
+        attn = self.self_attn(tgt, tgt, tgt, tgt_bias)
+        cdt = self.compute_dtype or attn.dtype
+        tgt = self.norm1((tgt + attn).float()).to(cdt)
+        cross = self.multihead_attn(tgt, memory, memory, memory_bias)
+        tgt = tgt.to(cross.dtype)
+        d_model, ff_size = self.linear1.in_features, self.linear1.out_features
+        if ops.pallas_encoder_tail_enabled(True) and d_model % 128 == 0 and ff_size % 128 == 0:
+            params = (self.norm2.weight, self.norm2.bias, self.linear1.weight,
+                      self.linear1.bias, self.linear2.weight, self.linear2.bias,
+                      self.norm3.weight, self.norm3.bias)
+            return fused_encoder_tail_inference(tgt, cross, *_cached_cast(self, params,
+                                                                          cross.dtype))
+        return _plain_tail(tgt, cross, self.norm2, self.linear1, self.linear2, self.norm3)
 
 
 class TransformerEncoder(nn.Module):
@@ -286,6 +342,26 @@ class TransformerEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x, bias, deterministic, rng)
         return x
+
+
+class TransformerDecoder(nn.Module):
+    def __init__(self, d_model: int, num_heads: int, ff_size: int, num_layers: int,
+                 compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerDecoderLayer(d_model, num_heads, ff_size, compute_dtype, dropout)
+            for _ in range(num_layers))
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
+                tgt_padding_mask: Optional[torch.Tensor] = None,
+                memory_padding_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
+        """Padding masks [B, S] and [B, L] bool, True = ignore."""
+        tgt_bias = key_padding_bias(tgt_padding_mask)
+        memory_bias = key_padding_bias(memory_padding_mask)
+        for layer in self.layers:
+            tgt = layer(tgt, memory, tgt_bias, memory_bias, deterministic)
+        return tgt
 
 
 class TimestepEmbedder(nn.Module):

@@ -1,2 +1,8 @@
-from .pipeline import GenerationConfig, MotionGenerator, load_norm_stats  # noqa: F401
+from .pipeline import (  # noqa: F401
+    GenerationConfig,
+    MotionGenerator,
+    in_between_mask,
+    load_norm_stats,
+    upper_body_mask,
+)
 from .text import HashTextEmbedder, make_text_embedder  # noqa: F401

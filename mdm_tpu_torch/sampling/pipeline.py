@@ -1,24 +1,28 @@
 """End-to-end generation: conditioning -> features -> joints, on one device.
 
 Counterpart of mdm_tpu/sampling/pipeline.py (GenerationConfig,
-load_norm_stats, MotionGenerator :81-515) for single-device DDPM sampling
-with exact classifier-free guidance. The denoise loop runs eagerly; on a
-CUDA device every encoder layer of every step goes through the hand-written
-layer kernel chain.
+load_norm_stats, MotionGenerator :81-515, the edit masks :522-546) for
+single-device sampling: the four samplers of diffusion/samplers.py with
+exact classifier-free guidance (one double-batched forward) or its cached
+form, and DiP's autoregressive prefix completion as a host loop over
+chunks with the prefix kept on the card. The denoise loop runs eagerly;
+on a CUDA device every encoder layer of every step goes through the
+hand-written layer kernel chain, and every decoder layer through the
+rate-0 attention block and the rate-0 fused tail.
 """
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..core import hml_codec
-from ..diffusion.samplers import SamplerConfig, p_sample_loop
+from ..diffusion.samplers import SAMPLERS, SamplerConfig
 from ..diffusion.schedule import Schedule
-from ..models.mdm import MDM, Conditioning, cfg_denoiser
+from ..models.mdm import MDM, Conditioning, cfg_denoiser, cfg_denoiser_cached
 
 STATS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "assets", "stats")
 
@@ -34,8 +38,15 @@ def load_norm_stats(dataset: str = "humanml"):
 @dataclass(frozen=True)
 class GenerationConfig:
     guidance_scale: float = 2.5
-    sampler: str = "ddpm"  # only ddpm is ported (ROADMAP Queue 1 item 6 has the rest)
+    sampler: str = "ddpm"  # ddpm | ddim | plms | dpmpp_2m
     clip_denoised: bool = False
+    # DiP autoregressive generation; the prefix and chunk lengths are the
+    # model's own (MDMConfig.context_len, MDMConfig.pred_len)
+    autoregressive: bool = False
+    autoregressive_include_prefix: bool = False
+    # >1 enables cached CFG: recompute the uncond branch every k steps and
+    # reuse it otherwise (1 + 1/k forwards per step instead of 2). 0/1 = exact.
+    cfg_cache_interval: int = 0
 
 
 class MotionGenerator:
@@ -45,9 +56,20 @@ class MotionGenerator:
                  config: GenerationConfig = GenerationConfig(), dataset: str = "humanml"):
         """Decodes hml_vec features with the bundled t2m/kit stats (the
         training set's own stats come with checkpoint loading, later)."""
-        if config.sampler != "ddpm":
-            raise NotImplementedError(
-                f"sampler {config.sampler!r} is not ported yet: ROADMAP Queue 1 item 6")
+        if config.sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {config.sampler!r}; known: {sorted(SAMPLERS)}")
+        if config.cfg_cache_interval > 1 and config.sampler not in ("ddpm", "ddim"):
+            raise ValueError(
+                f"cfg_cache_interval={config.cfg_cache_interval} is only supported for the "
+                f"ddpm/ddim samplers (the plms/dpmpp_2m multistep solvers thread their own "
+                f"per-step model state); got sampler={config.sampler!r}. Drop "
+                f"--cfg_cache_interval or switch samplers.")
+        if config.autoregressive and not (model.config.context_len > 0
+                                          and model.config.pred_len > 0):
+            raise ValueError(
+                "autoregressive generation needs a prefix-completion model: "
+                f"MDMConfig.context_len={model.config.context_len} and "
+                f"pred_len={model.config.pred_len} must both be > 0")
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.sched = sched.to(self.device)
@@ -58,11 +80,22 @@ class MotionGenerator:
             self.mean, self.std = (torch.from_numpy(s).to(self.device)
                                    for s in load_norm_stats(dataset))
 
-    def _model_fn(self, cond: Conditioning):
-        if self.config.guidance_scale != 1.0:
-            guided = cfg_denoiser(self.model, self.config.guidance_scale)
-            return lambda x, t: guided(x, t, cond)
-        return lambda x, t: self.model(x, t, cond)
+    def _sample(self, cond: Conditioning, noise: torch.Tensor,
+                generator: Optional[torch.Generator], **kwargs) -> torch.Tensor:
+        """One run of the configured sampler from ``noise`` under ``cond``
+        (on the model's device), exact or cached CFG around the model."""
+        ccfg = self.config
+        if ccfg.guidance_scale == 1.0:
+            model_fn = lambda x, t: self.model(x, t, cond)
+        elif ccfg.cfg_cache_interval > 1:
+            cached, kwargs["model_state"] = cfg_denoiser_cached(
+                self.model, ccfg.guidance_scale, ccfg.cfg_cache_interval)
+            model_fn = lambda x, t, state: cached(x, t, cond, state)
+        else:
+            guided = cfg_denoiser(self.model, ccfg.guidance_scale)
+            model_fn = lambda x, t: guided(x, t, cond)
+        return SAMPLERS[ccfg.sampler](model_fn, self.sched, noise, generator,
+                                      SamplerConfig(clip_denoised=ccfg.clip_denoised), **kwargs)
 
     @torch.inference_mode()
     def sample_features(
@@ -79,18 +112,67 @@ class MotionGenerator:
         """One diffusion sample: normalized features [B, T, D].
 
         ``generator`` (on the model's device) draws the initial and per-step
-        noise; ``noise`` [B, T, D] and ``step_noise`` [steps, B, T, D]
-        replace those draws (parity tests feed both packages the same)."""
+        noise; ``noise`` [B, T, D] and, for ``ddpm``, ``step_noise``
+        [steps, B, T, D] replace those draws (parity tests feed both
+        packages the same)."""
         D = self.model.config.input_feats
         if noise is None:
             noise = torch.randn((batch_size, num_frames, D), generator=generator,
                                 device=self.device)
-        return p_sample_loop(
-            self._model_fn(cond.to(self.device)), self.sched, noise.to(self.device),
-            generator, SamplerConfig(clip_denoised=self.config.clip_denoised),
-            inpainting_mask=inpainting_mask, inpainted_motion=inpainted_motion,
-            step_noise=None if step_noise is None else step_noise.to(self.device),
-        )
+        kwargs = {}
+        if step_noise is not None:  # only the ancestral sampler takes it
+            kwargs["step_noise"] = step_noise.to(self.device)
+        return self._sample(cond.to(self.device), noise.to(self.device), generator,
+                            inpainting_mask=inpainting_mask, inpainted_motion=inpainted_motion,
+                            **kwargs)
+
+    @torch.inference_mode()
+    def sample_autoregressive(
+        self,
+        cond: Conditioning,
+        batch_size: int,
+        generator: Optional[torch.Generator] = None,
+        required_frames: int = 196,
+        per_chunk_cond: Optional[Callable[[int, Conditioning], Conditioning]] = None,
+        chunk_noise: Optional[torch.Tensor] = None,
+        chunk_step_noise: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """DiP: chunked prefix-completion generation of any length
+        (mdm_tpu/sampling/pipeline.py:413-485; reference
+        utils/sampler_util.py:41-81). Keeps the last ``context_len``
+        generated frames as the next chunk's prefix, on the card, and
+        denoises ``pred_len`` new frames per chunk (both the model's
+        ``MDMConfig``'s); ``per_chunk_cond(i,
+        cond)`` may give each chunk its own conditioning (dynamic text).
+
+        ``chunk_noise`` [n_chunks, B, pred_len, D] and, for ``ddpm``,
+        ``chunk_step_noise`` [n_chunks, steps, B, pred_len, D] replace the
+        draws from ``generator`` (parity tests feed both packages the same).
+        Returns [B, required_frames, D], after the initial prefix when
+        ``autoregressive_include_prefix``."""
+        if cond.prefix is None:
+            raise ValueError("autoregressive sampling requires an initial Conditioning.prefix")
+        mcfg = self.model.config
+        n_chunks = -(-required_frames // mcfg.pred_len)
+        cond = cond.to(self.device)
+        prefix = init_prefix = cond.prefix
+        base = cond.replace(prefix=None)
+        shape = (batch_size, mcfg.pred_len, mcfg.input_feats)
+        chunks = []
+        for i in range(n_chunks):
+            chunk_cond = per_chunk_cond(i, base).to(self.device) if per_chunk_cond else base
+            noise = (torch.randn(shape, generator=generator, device=self.device)
+                     if chunk_noise is None else chunk_noise[i].to(self.device))
+            kwargs = {}
+            if chunk_step_noise is not None:
+                kwargs["step_noise"] = chunk_step_noise[i].to(self.device)
+            sample = self._sample(chunk_cond.replace(prefix=prefix), noise, generator, **kwargs)
+            chunks.append(sample)
+            prefix = torch.cat([prefix, sample], dim=1)[:, -mcfg.context_len:]
+        gen = torch.cat(chunks, dim=1)
+        if self.config.autoregressive_include_prefix:
+            gen = torch.cat([init_prefix, gen], dim=1)
+        return gen[:, :required_frames]
 
     @torch.inference_mode()
     def features_to_joints(self, feats: torch.Tensor) -> torch.Tensor:
@@ -101,9 +183,41 @@ class MotionGenerator:
 
     def generate(self, cond: Conditioning, batch_size: int, num_frames: int,
                  generator: Optional[torch.Generator] = None, **kwargs):
-        """Full pipeline -> dict(features, joints)."""
-        feats = self.sample_features(cond, batch_size, num_frames, generator, **kwargs)
+        """Full pipeline -> dict(features, joints). With ``autoregressive``
+        the features come from ``sample_autoregressive`` (``num_frames``
+        required frames; ``kwargs`` its own), else from ``sample_features``."""
+        if self.config.autoregressive:
+            feats = self.sample_autoregressive(cond, batch_size, generator,
+                                               required_frames=num_frames, **kwargs)
+        else:
+            feats = self.sample_features(cond, batch_size, num_frames, generator, **kwargs)
         out = {"features": feats}
         if self.mean is not None:
             out["joints"] = self.features_to_joints(feats)
         return out
+
+
+# ---------------------------------------------------------------------------
+# Editing masks (sample/edit.py equivalents)
+# ---------------------------------------------------------------------------
+
+def in_between_mask(lengths: np.ndarray, num_frames: int, feat_dim: int,
+                    prefix_end: float = 0.25, suffix_start: float = 0.75) -> np.ndarray:
+    """Temporal inpainting mask [B, T, D]: True = keep ground truth.
+
+    Reference edit.py:79-85 starts from an all-True mask and clears only
+    [prefix_end*len, suffix_start*len): the prefix, the suffix and the
+    padding frames past each sample's length keep ground truth."""
+    mask = np.ones((len(lengths), num_frames, feat_dim), dtype=bool)
+    for i, length in enumerate(lengths):
+        mask[i, int(length * prefix_end): int(length * suffix_start)] = False
+    return mask
+
+
+def upper_body_mask(num_frames: int, batch_size: int) -> np.ndarray:
+    """Feature-space mask [B, T, 263]: True = keep ground truth (lower body
+    and root)."""
+    from ..core.hml_masks import HML_LOWER_BODY_MASK
+
+    return np.broadcast_to(HML_LOWER_BODY_MASK[None, None, :],
+                           (batch_size, num_frames, len(HML_LOWER_BODY_MASK))).copy()

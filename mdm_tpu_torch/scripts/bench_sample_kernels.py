@@ -13,8 +13,8 @@ random weights from seed 0), T=196, CFG 2.5, with the kernel flags of
 
 Seconds per sample are the slope between two timed runs of n1 and n2
 generations (host clock, each run ending in a synchronise), after two warm
-ones. Only the DDPM sampler is ported (ddim/plms/dpmpp_2m: ROADMAP Queue 1
-item 6). One variant per process:
+ones. ``--sampler`` picks ddpm, ddim, plms or dpmpp_2m. One variant per
+process:
 
     python -m mdm_tpu_torch.scripts.bench_sample_kernels --variant pallas --batch 32
 """
@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import ops
-from ..diffusion import Schedule
+from ..diffusion import SAMPLERS, Schedule
 from ..models import MDM, Conditioning, MDMConfig
 from ..sampling import GenerationConfig, MotionGenerator
 from ._card import card_line
@@ -49,11 +49,9 @@ FRAMES = 196
 def make_generator(batch: int, steps: int = 50, sampler: str = "ddpm", device="cuda"):
     """(MotionGenerator, Conditioning) of the shootout: seeded weights and
     text embeddings, all frames valid."""
-    if sampler != "ddpm":
-        raise NotImplementedError(f"sampler {sampler!r} is not ported yet: ROADMAP Queue 1 item 6")
     model = MDM(FLAGSHIP).init_weights(torch.Generator().manual_seed(0)).to(device)
     gen = MotionGenerator(model, Schedule.create("cosine", 1000, str(steps)),
-                          GenerationConfig(guidance_scale=2.5))
+                          GenerationConfig(guidance_scale=2.5, sampler=sampler))
     text = np.random.default_rng(0).normal(size=(batch, 512)).astype(np.float32)
     cond = Conditioning(frames_mask=torch.ones(batch, FRAMES, dtype=torch.bool, device=device),
                         text_embed=torch.from_numpy(text).to(device))
@@ -89,7 +87,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variant", choices=sorted(VARIANTS), required=True)
     ap.add_argument("--batch", type=int, default=128)
-    ap.add_argument("--sampler", default="ddpm", help="ddpm (the only one ported)")
+    ap.add_argument("--sampler", default="ddpm", choices=sorted(SAMPLERS))
     ap.add_argument("--steps", type=int, default=50, help="respaced step count")
     args = ap.parse_args()
     if not torch.cuda.is_available():

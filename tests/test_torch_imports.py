@@ -23,11 +23,19 @@ for name in names:
     importlib.import_module(name)
 from mdm_tpu_torch.diffusion import Schedule
 from mdm_tpu_torch.models import MDM, Conditioning, MDMConfig
-from mdm_tpu_torch.sampling import MotionGenerator
+from mdm_tpu_torch.sampling import GenerationConfig, MotionGenerator
 model = MDM(MDMConfig(latent_dim=64, ff_size=128, num_layers=1, num_heads=2))
 model.init_weights(torch.Generator().manual_seed(0))
 gen = MotionGenerator(model, Schedule.create("cosine", 100, "2"))
 out = gen.generate(Conditioning(text_embed=torch.zeros(1, 512)), 1, 6, torch.Generator())
+assert out["joints"].shape == (1, 6, 22, 3) and torch.isfinite(out["joints"]).all()
+dip = MDM(MDMConfig(latent_dim=64, ff_size=128, num_layers=1, num_heads=2, arch="trans_dec",
+                    text_dim=768, text_tokens=True, context_len=2, pred_len=4))
+dip.init_weights(torch.Generator().manual_seed(0))
+gen = MotionGenerator(dip, Schedule.create("cosine", 100, "2"),
+                      GenerationConfig(sampler="ddim", autoregressive=True))
+out = gen.generate(Conditioning(text_embed=torch.zeros(1, 3, 768),
+                                prefix=torch.zeros(1, 2, 263)), 1, 6, torch.Generator())
 assert out["joints"].shape == (1, 6, 22, 3) and torch.isfinite(out["joints"]).all()
 from mdm_tpu_torch.train import OptimConfig, TrainStepConfig, create_train_state, make_train_step
 state = create_train_state(model, OptimConfig())
@@ -49,7 +57,7 @@ SLICE = {"ops._mask", "ops.layer_inference", "ops._build", "models.layers", "mod
          "train.checkpoints", "train.logger", "train.platforms", "train.loop",
          "ops.attention", "ops.attention_v2", "ops.attention_dropout", "ops.attention_block",
          "scripts.bench_sample_kernels", "scripts.bench_train_kernels",
-         "scripts.attention_forward_probe"}
+         "scripts.attention_forward_probe", "core.hml_masks", "scripts.dip_probe"}
 
 
 def test_port_runs_with_jax_and_flax_blocked():

@@ -177,7 +177,7 @@ def test_bridge_gives_the_torch_checkpoint_layout():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.MDM(tm.MDMConfig(**SMALL, arch="trans_dec"))
+        tm.MDM(tm.MDMConfig(**SMALL, arch="gru"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.MDM(tm.MDMConfig(**SMALL, cond_mode="action"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
