@@ -51,7 +51,18 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   frames) at B=1 and 32, every decoder layer call on both rate-0 entries;
   and one generate each with the ddim, plms and dpmpp_2m samplers and with
   cached CFG on the flagship trans_enc at B=32, every layer call on the
-  whole-layer kernel. Phase 12 profiles the DiP runs for their busy share.
+  whole-layer kernel. Phase 12 profiles the DiP runs for their busy share;
+- training every denoiser (phase 14): DiP training at B=64 (bf16, dropout
+  0.1, 30 steps, the loss falls; per step and decoder layer the train
+  block #2/#3 and the tail #4/#5 once each, the cross-attention's
+  rectangular [64, 4, 60, 64] dump #9 once, the attn-out sequence dump
+  once), timed, and one f32 DiP step card against CPU under AUTO and
+  under the xla pin; the flagship trans_enc with and without remat
+  (bitwise equal after a step at B=128; ms/step and peak memory at B=128
+  and 512); HumanAct12's action-to-motion shape on trans_enc (25 steps,
+  timed) and on the GRU (f32, 3 timed steps), an f32 step of each card
+  against CPU and a 50-step CFG sample at B=32; one f32 goal-conditioned
+  DiP step card against CPU.
 
 Each path checks that every layer call went through its kernels, and the
 sampling and training paths that every product, forward and backward,
@@ -278,7 +289,9 @@ def _block_operands(torch, B, S, D, H, dtype, mask, seed=0):
     dout = r(B, S, D)
     bits = torch.randint(0, 2 ** 32, (B, H, S, S), generator=g, dtype=torch.int64)
     kpm = None
-    if mask == "bool":  # ragged lengths on some rows
+    if isinstance(mask, torch.Tensor):  # a path's own key-padding row [B, S]
+        kpm = mask.cpu()
+    elif mask == "bool":  # ragged lengths on some rows
         kpm = torch.zeros(B, S, dtype=torch.bool)
         for b in range(0, B, 3):
             kpm[b, S - 1 - (7 * b) % (S // 2):] = True
@@ -373,7 +386,8 @@ def compare_train_chain(torch, name, fn, plain_fwd, plain_bwd, ops, dout, dtype,
 def phase_train_kernels(torch, TB, ET, shape, dtype, mask, timed=True):
     """Phase 5: block and tail, forward and all gradients, kernel vs plain;
     when timed, also nn.MultiheadAttention's training forward on the
-    block's inputs (#2's library yardstick)."""
+    block's inputs (#2's library yardstick). mask: None, "bool" (ragged
+    rows), "float" (an additive row) or a path's own [B, S] key-padding row."""
     B, S, D, H, F = (shape[k] for k in ("B", "S", "D", "H", "F"))
     (x, wqkv, bqkv, wo, bo), dout, bits, kpm = _block_operands(torch, B, S, D, H, dtype, mask)
     block = compare_train_chain(
@@ -687,7 +701,8 @@ def _check_step_update(torch, cpu, card, before, held, tol):
                  card.ema_params[name].cpu() - f0[name])):
             scale = want.abs().max().item()
             err = ((got - want).abs() * keep).max().item()
-            worst["updates"] = max(worst["updates"], max(0.0, err - ulps) / scale)
+            if scale:  # a parameter no gradient reaches (an unrequested goal row) stays put
+                worst["updates"] = max(worst["updates"], max(0.0, err - ulps) / scale)
             if not err <= tol["updates"] * scale + ulps:
                 raise AssertionError(f"{what} of {name}: card vs cpu max abs err {err:.3g}, "
                                      f"largest update {scale:.3g}")
@@ -697,34 +712,48 @@ def _check_step_update(torch, cpu, card, before, held, tol):
     return worst
 
 
-def phase_step_card_vs_cpu(torch, dev, steps=3, dropout=0.0, route="AUTO route"):
-    """Phase 7 (three steps, rate 0) and phase 11 (one step of the drop
-    route, rate 0.1): train steps at a small f32 width with identical
-    weights, draws and step keys, card against CPU, each step's update
-    checked. At rate > 0 both sides drop the same elements: every dropout
-    mask is Philox keyed on a seed drawn from the step's key."""
-    from mdm_tpu_torch.diffusion import Schedule
+def _text_case(torch, rng, B, T):
+    """Phase 7's batch (normal features, a pooled text) and its draws."""
+    batch = _train_batch(torch, rng, B, T, "cpu")
+    draws = {"t": torch.from_numpy(rng.integers(0, 1000, B)),
+             "noise": torch.from_numpy(rng.normal(size=(B, T, 263)).astype(np.float32)),
+             "cond_drop": torch.from_numpy(rng.random(B) < 0.1)}
+    return batch, draws
+
+
+def phase_step_card_vs_cpu(torch, dev, steps=3, dropout=0.0, route="AUTO route", model_kw=None,
+                           case=_text_case, loss=None, step_kw=None):
+    """Phase 7 (three steps, rate 0), phase 11 (one step of the drop route,
+    rate 0.1) and phase 14 (one step each of DiP, a2m, the GRU and goal
+    conditioning at rate 0.1): train steps at a small f32 width with
+    identical weights, draws and step keys, card against CPU, each step's
+    update checked. At rate > 0 both sides drop the same elements: every
+    dropout mask is Philox keyed on a seed drawn from the step's key.
+    ``model_kw``: MDMConfig fields over the small trans_enc; ``case(torch,
+    rng, B, T)``: a CPU batch and its draws; ``loss``: LossConfig fields;
+    ``step_kw``: make_train_step keywords."""
+    from mdm_tpu_torch.diffusion import LossConfig, Schedule
     from mdm_tpu_torch.models import MDM, MDMConfig
     from mdm_tpu_torch.train import OptimConfig, TrainStepConfig, create_train_state, make_train_step
 
-    small = MDMConfig(latent_dim=128, ff_size=256, num_layers=2, num_heads=4, dropout=dropout)
+    small = MDMConfig(**{**dict(latent_dim=128, ff_size=256, num_layers=2, num_heads=4,
+                                dropout=dropout), **(model_kw or {})})
     B, T = 4, 32
     # Weight decay, LR anneal and EMA decay each move the updates far past
     # the tolerances, so a wrong one shows.
-    config = TrainStepConfig(optim=OptimConfig(lr=1e-3, weight_decay=0.5, lr_anneal_steps=4,
+    config = TrainStepConfig(loss=LossConfig(**(loss or {})),
+                             optim=OptimConfig(lr=1e-3, weight_decay=0.5, lr_anneal_steps=4,
                                                ema_decay=0.9))
     sides = []
     for device in ("cpu", dev):
         model = MDM(small).init_weights(torch.Generator().manual_seed(3)).to(device)
         sides.append((create_train_state(model, config.optim), device,
-                      make_train_step(Schedule.create("cosine", 1000).to(device), config)))
+                      make_train_step(Schedule.create("cosine", 1000).to(device), config,
+                                      **(step_kw or {}))))
     rng = np.random.default_rng(5)
     held, report = {}, []
     for i in range(steps):
-        batch = _train_batch(torch, rng, B, T, "cpu")
-        draws = {"t": torch.from_numpy(rng.integers(0, 1000, B)),
-                 "noise": torch.from_numpy(rng.normal(size=(B, T, 263)).astype(np.float32)),
-                 "cond_drop": torch.from_numpy(rng.random(B) < 0.1)}
+        batch, draws = case(torch, rng, B, T)
         before = [_snapshot(torch, state) for state, _, _ in sides]
         metrics = []
         for state, device, step in sides:
@@ -1704,6 +1733,378 @@ def phase_samplers(torch, gen50, cond, dev):
     return rows
 
 
+# Phase 14: training every denoiser the JAX package trains. DiP at
+# scripts/dip_probe.py's config, dropout 0.1, B = 64 (the parser's default
+# batch); the flagship trans_enc with and without remat; HumanAct12's
+# action-to-motion shape (25 joints x 6 rot6d features, 12 actions, 60
+# frames) on trans_enc and on the GRU. The small f32 cases (card against
+# CPU) take phase 7's width: DiP with a 10-frame prefix and 16 text tokens
+# (Sq = 42 against Sk = 16), a2m at 25 x 6 features.
+DIP_TRAIN_B = 64
+A2M = dict(njoints=25, nfeats=6, data_rep="rot6d", cond_mode="action", num_actions=12)
+A2M_B, A2M_T = 64, 60
+SMALL_DIP = dict(arch="trans_dec", text_dim=768, text_tokens=True, mask_frames=True,
+                 context_len=10, pred_len=32)
+SMALL_TOKENS = 16
+
+
+def _step_draws(torch, rng, B, T, feats):
+    return {"t": torch.from_numpy(rng.integers(0, 1000, B)),
+            "noise": torch.from_numpy(rng.normal(size=(B, T, feats)).astype(np.float32)),
+            "cond_drop": torch.from_numpy(np.arange(B) % 4 == 1)}
+
+
+def _dip_case(torch, rng, B, T):
+    """A small DiP batch: ragged frame and token masks, the prefix in the
+    conditioning (as the CLI puts it), and its draws."""
+    from mdm_tpu_torch.models import Conditioning
+
+    L, ctx = SMALL_TOKENS, SMALL_DIP["context_len"]
+    mask = np.ones((B, T), bool)
+    mask[::2, T - 7:] = False
+    cond = Conditioning(
+        text_embed=torch.from_numpy(rng.normal(size=(B, L, 768)).astype(np.float32)),
+        text_tokens_mask=torch.from_numpy(np.arange(L)[None] < (1 + 5 * np.arange(B))[:, None]),
+        prefix=torch.from_numpy(rng.normal(size=(B, ctx, 263)).astype(np.float32)))
+    batch = {"x": torch.from_numpy(rng.normal(size=(B, T, 263)).astype(np.float32)),
+             "mask": torch.from_numpy(mask), "cond": cond}
+    return batch, _step_draws(torch, rng, B, T, 263)
+
+
+def _goal_case(torch, rng, B, T):
+    """The DiP batch with sampled goals (validity only: the step extracts
+    the targets) and an injected target condition dropout."""
+    from mdm_tpu_torch.core.goals import sample_goal
+
+    batch, draws = _dip_case(torch, rng, B, T)
+    validity, _ = sample_goal(B, rng)
+    batch["cond"] = batch["cond"].replace(target_validity=torch.from_numpy(validity))
+    draws["target_uncond"] = torch.from_numpy(np.arange(B) % 4 == 2)
+    return batch, draws
+
+
+def _a2m_case(torch, rng, B, T):
+    from mdm_tpu_torch.models import Conditioning
+
+    feats = A2M["njoints"] * A2M["nfeats"]
+    batch = {"x": torch.from_numpy(rng.normal(size=(B, T, feats)).astype(np.float32)),
+             "mask": torch.ones(B, T, dtype=torch.bool),
+             "cond": Conditioning(action=torch.from_numpy(rng.integers(0, 12, B)))}
+    return batch, _step_draws(torch, rng, B, T, feats)
+
+
+def _run_steps(torch, step, state, batch, keys):
+    """The steps under ``keys``, timed with CUDA events: (ms per step,
+    the losses on the host)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    losses = []
+    start.record()
+    for key in keys:
+        losses.append(step(state, batch, key)[1]["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / len(keys), torch.stack(losses).float().cpu().numpy()
+
+
+def _falls(name, losses):
+    first, last = losses[:10].mean(), losses[-10:].mean()
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"{name}: the training loss did not descend: {losses}")
+    return float(first), float(last)
+
+
+def _train_counts(TB, ET, DB, chain):
+    return {**{f"{n}.{d}": c[d] for n, c in (("fused_train_attention_block", TB.LAUNCHES),
+                                              ("fused_encoder_tail", ET.LAUNCHES))
+               for d in ("fwd", "bwd")},
+            **DB.LAUNCHES, **{f"products.{k}": v for k, v in chain.GEMM_LAUNCHES.items()}}
+
+
+def _dip_train_setup(torch, dev, lr):
+    """The main path's model, train state, fixed batch and step: the DiP
+    config at B = 64, weights from seed 0."""
+    from mdm_tpu_torch.diffusion import Schedule
+    from mdm_tpu_torch.models import MDM
+    from mdm_tpu_torch.scripts import dip_probe as DP
+    from mdm_tpu_torch.train import (OptimConfig, TrainStepConfig, create_train_state,
+                                     make_train_step)
+
+    B, cfg = DIP_TRAIN_B, DP.DIP
+    model = MDM(cfg).init_weights(torch.Generator().manual_seed(0)).to(dev)
+    cond = DP.make_cond(B, dev, seed=5)
+    x = np.random.default_rng(1).normal(size=(B, cfg.pred_len, cfg.input_feats))
+    batch = {"x": torch.from_numpy(x.astype(np.float32)).to(dev), "mask": cond.frames_mask,
+             "cond": cond}
+    step = make_train_step(Schedule.create("cosine", 1000).to(dev),
+                           TrainStepConfig(optim=OptimConfig(lr=lr)))
+    return create_train_state(model, OptimConfig(lr=lr)), batch, step
+
+
+def _flagship_train_setup(torch, dev, B, remat):
+    """The flagship trans_enc (T = 196, bf16, rate 0.1) at batch B, with or
+    without remat: train state, batch and step, weights from seed 0."""
+    from mdm_tpu_torch.diffusion import Schedule
+    from mdm_tpu_torch.models import MDM, Conditioning, MDMConfig
+    from mdm_tpu_torch.train import (OptimConfig, TrainStepConfig, create_train_state,
+                                     make_train_step)
+
+    T = 196
+    x = np.random.default_rng(B).normal(size=(B, T, 263)).astype(np.float32)
+    batch = {"x": torch.from_numpy(x).to(dev),
+             "mask": torch.ones(B, T, dtype=torch.bool, device=dev),
+             "cond": Conditioning(text_embed=torch.zeros(B, 512, device=dev))}
+    cfg = MDMConfig(njoints=263, compute_dtype="bfloat16", dropout=RATE, remat=remat, **FLAGSHIP)
+    state = create_train_state(MDM(cfg).init_weights(torch.Generator().manual_seed(0)).to(dev),
+                               OptimConfig(lr=1e-4))
+    step = make_train_step(Schedule.create("cosine", 1000).to(dev),
+                           TrainStepConfig(optim=OptimConfig(lr=1e-4)))
+    return state, batch, step
+
+
+def phase_dip_train(torch, dev):
+    """Phase 14a, this slice's main path: make_train_step on the DiP config
+    at B = 64, bf16, dropout 0.1, AUTO, 30 steps on a fixed batch: the loss
+    falls; per step and decoder layer the train block (#2/#3) and the tail
+    (#4/#5) once each, the cross-attention's [64, 4, 60, 64] dump (#9) once,
+    the attn-out sequence dump once (with MDM's own, 1 + 8 dumps of #6's
+    kernel a step), the 12 block and tail products on wgmma. Then the path's
+    kernels at its own shapes against their plain versions (not counted):
+    the bf16 train block and tail, forward and every gradient, at [64, 60,
+    512] with DiP's ragged key-padding row; the attn-out [64, 60, 512] and
+    cross-attention [64, 4, 60, 64] dumps bitwise against the Philox
+    stream. Then ms/step (CUDA events, 20 steps after 5 warm), and one
+    whole f32 step at rate 0.1 card against CPU under AUTO and under the
+    xla pin (the einsum attention and the plain tail on the card, the
+    rectangular dump too)."""
+    from mdm_tpu_torch import ops
+    from mdm_tpu_torch.models.layers import key_padding_bias
+    from mdm_tpu_torch.ops import _chain
+    from mdm_tpu_torch.ops import attention_train_block as TB
+    from mdm_tpu_torch.ops import dropout_bits as DB
+    from mdm_tpu_torch.ops import encoder_tail as ET
+    from mdm_tpu_torch.scripts import bench_train_kernels as BT
+    from mdm_tpu_torch.scripts import dip_probe as DP
+    from mdm_tpu_torch.train import step_key
+
+    B, steps, cfg = DIP_TRAIN_B, 30, DP.DIP
+    if cfg.dropout != RATE:
+        raise AssertionError(f"DiP's dropout is {cfg.dropout}, not {RATE}")
+    state, batch, fit = _dip_train_setup(torch, dev, 1e-3)
+    for counts in (TB.LAUNCHES, ET.LAUNCHES, DB.LAUNCHES, _chain.GEMM_LAUNCHES):  # the path's
+        _zero(counts)
+    _, losses = _run_steps(torch, fit, state, batch, [step_key(2, i) for i in range(steps)])
+    launches = _train_counts(TB, ET, DB, _chain)
+    n = cfg.num_layers * steps
+    want = {"fused_train_attention_block.fwd": n, "fused_train_attention_block.bwd": n,
+            "fused_encoder_tail.fwd": n, "fused_encoder_tail.bwd": n, "dropout_bits": n,
+            "tail_dropout_bits": 0, "sequence_dropout_bits": n + steps,
+            "products.wgmma": 12 * n, "products.fma": 0}
+    if launches != want:
+        raise AssertionError(f"DiP training launched {launches}, expected {want}")
+    first, last = _falls("DiP training", losses)
+    print(f"DiP train B={B} ({cfg.context_len}-frame prefix + {cfg.pred_len} frames, "
+          f"{DP.TOKENS} tokens) bf16 dropout {RATE}, lr 1e-3, {steps} steps: loss first 10 "
+          f"{first:.5f}, last 10 {last:.5f}; launches {launches} (per step: 8 of each block and "
+          f"tail direction, 8 cross-attention dumps [{B}, {cfg.num_heads}, "
+          f"{cfg.context_len + cfg.pred_len}, {DP.TOKENS}], 9 sequence dumps, 96 wgmma products)")
+
+    # The path's kernels at its own shapes against their plain versions
+    # (not counted): the train block and tail at [64, 60, 512] (S below the
+    # 64-row tile), the block under DiP's own ragged key-padding row (the
+    # 20 prefix frames always kept, the frame mask's padding dropped), as
+    # the decoder's self-attention gets it.
+    H, S, L = cfg.num_heads, cfg.context_len + cfg.pred_len, DP.TOKENS
+    frames = batch["cond"].frames_mask
+    valid = torch.cat([torch.ones(B, cfg.context_len, dtype=torch.bool, device=dev), frames], 1)
+    phase_train_kernels(torch, TB, ET, dict(B=B, S=S, D=cfg.latent_dim, H=H, F=cfg.ff_size),
+                        torch.bfloat16, key_padding_bias(~valid).reshape(B, S), timed=False)
+    # The attn-out and the cross-attention's rectangular dumps at the main
+    # path's shapes, bitwise against the Philox stream; the latter timed.
+    b = torch.arange(B, device=dev)
+    seq = DB.sequence_dropout_bits(76, B, S, cfg.latent_dim, device=dev)
+    if not torch.equal(seq.to(torch.int64), DB.philox_bits(76, b, 0, S, cfg.latent_dim,
+                                                           device=dev)):
+        raise AssertionError(f"the [{B}, {S}, {cfg.latent_dim}] sequence dump differs from the "
+                             f"Philox stream")
+    dump = lambda: DB.dropout_bits(77, B, H, S, device=dev, key_len=L)
+    want = DB.philox_bits(77, b[:, None], torch.arange(H, device=dev)[None, :], S, L, device=dev)
+    if not torch.equal(dump().to(torch.int64), want):
+        raise AssertionError(f"the [{B}, {H}, {S}, {L}] dump differs from the Philox stream")
+    dump_ms = _time_ms(torch, dump)
+    print(f"sequence_dropout_bits [{B}, {S}, {cfg.latent_dim}] (DiP's attn-out): == philox_bits, "
+          f"bitwise; dropout_bits [{B}, {H}, {S}, {L}] (DiP's cross-attention): == philox_bits, "
+          f"bitwise; {dump_ms:.4f} ms, byte bound {bound(0, 4 * B * H * S * L)[0]:.4f}")
+
+    _run_steps(torch, fit, state, batch, [step_key(3, i) for i in range(5)])
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, _ = _run_steps(torch, fit, state, batch, [step_key(3, 5 + i) for i in range(20)])
+    print(f"dip_train_step_ms_b{B}_bf16: {step_ms:.3f} ms/step (CUDA events, 20 steps after 5 "
+          f"warm; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)")
+    del state
+
+    # One whole f32 step, card against CPU: the card's side (2 layers) draws
+    # the cross-attention's dump once a layer, and under xla the
+    # self-attention's too, and the plain tail's.
+    for route, pins, dumps in (("AUTO route", {}, dict(dropout_bits=2, tail_dropout_bits=0)),
+                               ("xla route", BT.VARIANTS["xla"],
+                                dict(dropout_bits=4, tail_dropout_bits=2))):
+        _zero(DB.LAUNCHES)
+        with ops.pinned(**pins):
+            phase_step_card_vs_cpu(torch, dev, steps=1, dropout=RATE, route=f"DiP {route}",
+                                   model_kw=SMALL_DIP, case=_dip_case)
+        dumps["sequence_dropout_bits"] = 3  # MDM's and each layer's attn-out
+        if DB.LAUNCHES != dumps:
+            raise AssertionError(f"the small DiP step ({route}) dumped {DB.LAUNCHES}, "
+                                 f"expected {dumps}")
+    return launches, step_ms
+
+
+def phase_remat(torch, dev):
+    """Phase 14b: the flagship trans_enc (T = 196, bf16, rate 0.1, AUTO)
+    with and without remat. At B = 128 one step of each from the same
+    weights, batch and key: the parameters and EMA after it bitwise equal.
+    At B = 128 and 512: the train block's forward launched once a layer
+    in a step without remat and twice with it (the recompute); ms/step
+    (CUDA events, 5 steps after 2 warm) and the peak memory over those
+    steps."""
+    from mdm_tpu_torch.ops import attention_train_block as TB
+    from mdm_tpu_torch.train import step_key
+
+    rows, after = [], {}
+    for B in (128, 512):
+        for remat in (False, True):
+            state, batch, step = _flagship_train_setup(torch, dev, B, remat)
+            fwd0 = TB.LAUNCHES["fwd"]
+            step(state, batch, step_key(4, 0))
+            fwd = TB.LAUNCHES["fwd"] - fwd0
+            if fwd != (2 if remat else 1) * FLAGSHIP["num_layers"]:
+                raise AssertionError(f"remat={remat} B={B}: the train block's forward ran {fwd} "
+                                     f"times in a step of {FLAGSHIP['num_layers']} layers")
+            if B == 128:
+                after[remat] = ({k: v.detach().clone() for k, v in state.params().items()},
+                                {k: v.clone() for k, v in state.ema_params.items()})
+            _run_steps(torch, step, state, batch, [step_key(4, 1 + i) for i in range(2)])
+            torch.cuda.reset_peak_memory_stats()
+            ms, losses = _run_steps(torch, step, state, batch,
+                                    [step_key(4, 3 + i) for i in range(5)])
+            if not np.isfinite(losses).all():
+                raise AssertionError(f"remat={remat} B={B}: non-finite loss {losses}")
+            rows.append(dict(B=B, remat=remat, ms_per_step=ms, block_fwd_launches_per_step=fwd,
+                             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+            print("remat", json.dumps(rows[-1]))
+            del state
+            torch.cuda.empty_cache()
+        if B == 128:
+            same = all(torch.equal(after[False][i][k], after[True][i][k])
+                       for i in (0, 1) for k in after[False][0])
+            if not same:
+                raise AssertionError("a remat step differs from the step without it")
+            print("remat step == step without remat at B=128, bitwise (parameters and EMA)")
+    return rows
+
+
+def phase_a2m(torch, dev):
+    """Phase 14c: HumanAct12's action-to-motion shape at the flagship width
+    (trans_enc, action, rot6d, 60 frames, B = 64, bf16, rate 0.1, AUTO):
+    25 steps, the loss falls, the last 20 timed; the train block and tail
+    launched per layer and step, MDM's sequence dump once a step. Then the
+    GRU (f32, as mdm_tpu runs it) for 3 steps after a warm one, timed; one
+    f32 step of each, card against CPU; and a 50-step CFG sample_features
+    at B = 32, timed, every layer call on the whole-layer kernel (#1)."""
+    from mdm_tpu_torch.diffusion import Schedule
+    from mdm_tpu_torch.models import MDM, Conditioning, MDMConfig
+    from mdm_tpu_torch.ops import _chain
+    from mdm_tpu_torch.ops import attention_train_block as TB
+    from mdm_tpu_torch.ops import dropout_bits as DB
+    from mdm_tpu_torch.ops import encoder_tail as ET
+    from mdm_tpu_torch.ops import layer_inference as li
+    from mdm_tpu_torch.sampling import GenerationConfig, MotionGenerator
+    from mdm_tpu_torch.train import (OptimConfig, TrainStepConfig, create_train_state,
+                                     make_train_step, step_key)
+
+    B, T = A2M_B, A2M_T
+    feats = A2M["njoints"] * A2M["nfeats"]
+    x = np.random.default_rng(2).normal(size=(B, T, feats)).astype(np.float32)
+    batch = {"x": torch.from_numpy(x).to(dev), "mask": torch.ones(B, T, dtype=torch.bool,
+                                                                  device=dev),
+             "cond": Conditioning(action=(torch.arange(B) % A2M["num_actions"]).to(dev))}
+    sched = Schedule.create("cosine", 1000).to(dev)
+    rows = {}
+    for arch, dtype, steps in (("trans_enc", "bfloat16", 25), ("gru", "float32", 4)):
+        cfg = MDMConfig(arch=arch, compute_dtype=dtype, dropout=RATE, **A2M, **FLAGSHIP)
+        model = MDM(cfg).init_weights(torch.Generator().manual_seed(0)).to(dev)
+        state = create_train_state(model, OptimConfig(lr=1e-3))
+        fit = make_train_step(sched, TrainStepConfig(optim=OptimConfig(lr=1e-3)))
+        for counts in (TB.LAUNCHES, ET.LAUNCHES, DB.LAUNCHES, _chain.GEMM_LAUNCHES):
+            _zero(counts)
+        keys = [step_key(5, i) for i in range(steps)]
+        if arch == "gru":  # one warm step, three timed
+            _run_steps(torch, fit, state, batch, keys[:1])
+            ms, losses = _run_steps(torch, fit, state, batch, keys[1:])
+            if not np.isfinite(losses).all():
+                raise AssertionError(f"a2m GRU training: non-finite loss {losses}")
+            rows[arch] = dict(ms_per_step=ms, losses=losses.tolist(),
+                              launches=_train_counts(TB, ET, DB, _chain))
+        else:
+            _run_steps(torch, fit, state, batch, keys[:5])
+            ms, losses = _run_steps(torch, fit, state, batch, keys[5:])
+            launches = _train_counts(TB, ET, DB, _chain)
+            n = cfg.num_layers * steps
+            want = {"fused_train_attention_block.fwd": n, "fused_train_attention_block.bwd": n,
+                    "fused_encoder_tail.fwd": n, "fused_encoder_tail.bwd": n,
+                    "dropout_bits": 0, "tail_dropout_bits": 0, "sequence_dropout_bits": steps,
+                    "products.wgmma": 12 * n, "products.fma": 0}
+            if launches != want:
+                raise AssertionError(f"a2m training launched {launches}, expected {want}")
+            first, last = _falls("a2m training", losses)
+            rows[arch] = dict(ms_per_step=ms, loss_first_10=first, loss_last_10=last,
+                              launches=launches)
+            trained = state.model
+        print(f"a2m {arch} B={B} T={T} {dtype} dropout {RATE}: {json.dumps(rows[arch])} "
+              f"(ms/step: CUDA events over the last {min(steps - 1, 20)} steps)")
+        del state
+
+    phase_step_card_vs_cpu(torch, dev, steps=1, dropout=RATE, route="a2m trans_enc",
+                           model_kw=A2M, case=_a2m_case,
+                           loss=dict(lambda_vel=1.0, vel_drop_last_feats=6))
+    phase_step_card_vs_cpu(torch, dev, steps=1, dropout=RATE, route="a2m gru",
+                           model_kw=dict(A2M, arch="gru"), case=_a2m_case)
+
+    gen = MotionGenerator(trained.eval(), Schedule.create("cosine", 1000, "50").to(dev),
+                          GenerationConfig(guidance_scale=2.5))
+    cond = Conditioning(action=torch.arange(32) % A2M["num_actions"])
+    gen.sample_features(cond, 32, T, torch.Generator(dev).manual_seed(0))
+    li.LAUNCHES = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = gen.sample_features(cond, 32, T, torch.Generator(dev).manual_seed(1))
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    if tuple(out.shape) != (32, T, feats) or not torch.isfinite(out).all() or li.LAUNCHES != 400:
+        raise AssertionError(f"a2m sample_features: shape {tuple(out.shape)}, finite "
+                             f"{bool(torch.isfinite(out).all())}, layer kernel {li.LAUNCHES}")
+    rows["sample_ms_b32_50step"] = ms
+    print(f"a2m sample_features B=32 T={T}, 50 ddpm steps, CFG 2.5, bf16: {ms:.1f} ms "
+          f"(CUDA events, after one warm call); whole-layer kernel launches {li.LAUNCHES}")
+    return rows
+
+
+def phase_goal(torch, dev):
+    """Phase 14d: one f32 DiP step with goal conditioning (``multi``),
+    the targets extracted in the step, the goal loss on, card against CPU."""
+    from mdm_tpu_torch.sampling.pipeline import load_norm_stats
+    from mdm_tpu_torch.train import make_target_cond_fn, make_target_loss_builder
+
+    mean, std = load_norm_stats("humanml")
+    phase_step_card_vs_cpu(
+        torch, dev, steps=1, dropout=RATE, route="DiP goal conditioning",
+        model_kw=dict(SMALL_DIP, multi_target_cond=True, multi_encoder_type="multi"),
+        case=_goal_case, loss=dict(lambda_target_loc=1.0),
+        step_kw=dict(target_cond_fn=make_target_cond_fn(mean, std),
+                     target_loss_builder=make_target_loss_builder(mean, std)))
+
+
 def device_busy(torch, fn):
     """(wall ms, kernel ms) of one call of fn under torch.profiler: CUDA
     events around it, and the sum of its kernels' device time."""
@@ -1717,6 +2118,34 @@ def device_busy(torch, fn):
         end.record()
         torch.cuda.synchronize()
     return start.elapsed_time(end), sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+
+def phase_train_busy(torch, dev, dip_step_ms, remat_rows, steps=3):
+    """Phase 12 for training: ``steps`` DiP train steps (phase 14a's) and
+    flagship steps with and without remat at B = 128 and 512 (phase 14b's),
+    each after one warm step, under torch.profiler: the kernels' device ms
+    a step, and the busy share against the unprofiled ms/step."""
+    from mdm_tpu_torch.train import step_key
+
+    runs = [("DiP train B=64", lambda: _dip_train_setup(torch, dev, 1e-3), dip_step_ms)]
+    runs += [(f"flagship train B={r['B']} remat={r['remat']}",
+              lambda r=r: _flagship_train_setup(torch, dev, r["B"], r["remat"]), r["ms_per_step"])
+             for r in remat_rows]
+    rows = []
+    for name, setup, ms in runs:
+        state, batch, step = setup()
+        _run_steps(torch, step, state, batch, [step_key(6, 0)])
+        wall, busy = device_busy(torch, lambda: _run_steps(
+            torch, step, state, batch, [step_key(6, 1 + i) for i in range(steps)]))
+        if not busy:
+            raise AssertionError(f"{name}: torch.profiler recorded no device time")
+        rows.append(dict(run=name, kernel_ms_per_step=busy / steps,
+                         profiled_ms_per_step=wall / steps, ms_per_step=ms,
+                         busy_share=busy / steps / ms))
+        print("train under torch.profiler", json.dumps(rows[-1]))
+        del state
+        torch.cuda.empty_cache()
+    return rows
 
 
 def library_layer_ms(torch, dev):
@@ -1972,6 +2401,15 @@ def main():
     dip_gen, dip_conds, dip_launches, dip_ms = phase_dip_generate(torch, dev)
     sampler_rows = phase_samplers(torch, gen, cond, dev)
 
+    # Phase 14: training every denoiser. DiP training is this slice's main
+    # path: its launches are counted from zero over its 30 steps. Then remat
+    # at the flagship, action-to-motion (trans_enc and GRU) and goal
+    # conditioning; their comparisons and timings are not counted.
+    dip_train_launches, dip_step_ms = phase_dip_train(torch, dev)
+    remat_rows = phase_remat(torch, dev)
+    a2m_rows = phase_a2m(torch, dev)
+    phase_goal(torch, dev)
+
     # Phase 5's timed shapes (bf16, bool mask, bits drawn in-kernel: no
     # bits are read), analytically.
     Bt, St, Dt, Ht, Ft = (TRAIN_SHAPE[k] for k in ("B", "S", "D", "H", "F"))
@@ -1993,12 +2431,15 @@ def main():
     for name, row in (("fused_train_attention_block", block), ("fused_encoder_tail", tail)):
         for d, key in (("forward", "fwd"), ("backward", "bwd")):
             source, replaces = TRAIN_KERNELS[f"{name}.{d}"]
+            paths = {"training, AUTO (phase 8)": train_launches[f"{name}.{key}"],
+                     "DiP training, AUTO (phase 14)": dip_train_launches[f"{name}.{key}"]}
             kernels.append(dict(name=f"{name}.{d}", route="cuda", source=source,
-                                replaces=replaces, launches=train_launches[f"{name}.{key}"],
+                                replaces=replaces, launches=sum(paths.values()),
+                                launches_by_path=paths,
                                 max_abs_err=row[f"max_abs_err_{key}"], ms=row[f"{key}_ms"],
                                 device_ms=row.get(f"{key}_device_ms"),
                                 plain_ms=row[f"{key}_plain_ms"],
-                                library_ms=library.get(f"{name}.{key}"), path="training",
+                                library_ms=library.get(f"{name}.{key}"), path="; ".join(paths),
                                 **dict(zip(("bound_ms", "bound_by"),
                                            bound(*work[f"{name}.{key}"])))))
     # The dumps: 4 bytes a word stored, and the words' draws (draw_bound_ms).
@@ -2006,10 +2447,14 @@ def main():
     # kernel) and the drop variant's tail (phase 11); #9's: the xla variant.
     dump_words = {"dropout_bits": bits_b // 4, "tail_dropout_bits": tail_bits // 4}
     dump_paths = {
-        "dropout_bits": {"training, xla variant": drop_launches["dropout_bits"]},
+        "dropout_bits": {"training, xla variant": drop_launches["dropout_bits"],
+                         "DiP training, AUTO (cross-attention, phase 14)":
+                         dip_train_launches["dropout_bits"]},
         "tail_dropout_bits": {"training, AUTO (sequence dropout)":
                               train_launches["sequence_dropout_bits"],
-                              "training, drop variant (tail)": drop_launches["tail_dropout_bits"]},
+                              "training, drop variant (tail)": drop_launches["tail_dropout_bits"],
+                              "DiP training, AUTO (sequence and attn-out dropout, phase 14)":
+                              dip_train_launches["sequence_dropout_bits"]},
     }
     for name, words in dump_words.items():
         source, replaces = TRAIN_KERNELS[name]
@@ -2050,13 +2495,17 @@ def main():
     print(f"s/sample at B=32: layer kernel {gen_ms / 1000 / B:.6f}, pallas variant "
           f"{pallas_s:.6f}, DiP {dip_ms[32] / 1000 / 32:.6f} (B=1: {dip_ms[1] / 1000:.6f}); "
           f"10-step samplers {json.dumps({k: r['s_per_sample'] for k, r in sampler_rows.items()})}"
-          f"; ms/step at B=128: AUTO {step_ms:.3f}, drop variant {drop_ms:.3f}")
+          f"; ms/step at B=128: AUTO {step_ms:.3f}, drop variant {drop_ms:.3f}; DiP train "
+          f"B={DIP_TRAIN_B} {dip_step_ms:.3f}; a2m B={A2M_B} trans_enc "
+          f"{a2m_rows['trans_enc']['ms_per_step']:.3f}, gru {a2m_rows['gru']['ms_per_step']:.3f}; "
+          f"remat {json.dumps(remat_rows)}")
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel was never launched on its path: {kernels}")
     products = {name: GP.measure(name) for name in GP.MAIN_PATH_PRODUCTS}
 
     # Phase 12, last of all: phase 3's generate, then phase 13's DiP
-    # generates, once more under torch.profiler for the card's busy share.
+    # generates, then phase 14's DiP and remat train steps, once more under
+    # torch.profiler for the card's busy share.
     # Last, because the profiler's tracing hooks can slow every later launch
     # of this process.
     wall, busy = device_busy(torch, lambda: gen.generate(cond, B, T,
@@ -2073,6 +2522,9 @@ def main():
               f"{busy / dip_ms[b]:.3f} of the unprofiled run" if busy else
               f"DiP generate B={b} under torch.profiler: no device time recorded (busy share not "
               f"measured)")
+    # Then phase 14's training steps the same way: DiP's, and the flagship's
+    # with and without remat.
+    phase_train_busy(torch, dev, dip_step_ms, remat_rows)
     print("gemm products", json.dumps(products))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

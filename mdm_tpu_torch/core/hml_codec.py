@@ -1,6 +1,7 @@
 """HumanML3D / KIT-ML feature decode ("hml_vec" -> joint positions).
 
-Counterpart of mdm_tpu/core/hml_codec.py (:59-106). The per-frame vector is
+Counterpart of mdm_tpu/core/hml_codec.py (:59-106, and the heading angle
+of :138). The per-frame vector is
 ``[root_rot_vel(1) | root_lin_vel_xz(2) | root_y(1) | ric (J-1)*3 | rot
 (J-1)*6 | local_vel J*3 | foot_contact(4)]``; decode integrates the root
 yaw and planar velocity and rotates the root-relative joints into the world
@@ -20,6 +21,7 @@ HML_JOINT_NAMES = [
     "neck", "left_collar", "right_collar", "head", "left_shoulder",
     "right_shoulder", "left_elbow", "right_elbow", "left_wrist", "right_wrist",
 ]
+HML_EE_JOINT_NAMES = ["left_foot", "right_foot", "left_wrist", "right_wrist", "head"]
 
 
 def feature_dim(joints_num: int) -> int:
@@ -55,3 +57,15 @@ def recover_from_ric(data: torch.Tensor, joints_num: int) -> torch.Tensor:
     positions[..., 0] += r_pos[..., None, 0]
     positions[..., 2] += r_pos[..., None, 2]
     return torch.cat([r_pos[..., None, :], positions], dim=-2)
+
+
+def recover_root_rot_heading_ang(joints: torch.Tensor) -> torch.Tensor:
+    """Heading angle (rad) from joint positions [B, J, 3] -> [B, 1]: the
+    forward direction, up x (hips + shoulders across), as atan2(x, z)."""
+    r_hip, l_hip, sdr_r, sdr_l = 2, 1, 17, 16
+    across = (joints[:, r_hip] - joints[:, l_hip]) + (joints[:, sdr_r] - joints[:, sdr_l])
+    across = across / torch.linalg.vector_norm(across, dim=-1, keepdim=True).clamp_min(1e-12)
+    up = torch.tensor([0.0, 1.0, 0.0], dtype=joints.dtype, device=joints.device)
+    forward = torch.linalg.cross(up.expand_as(across), across, dim=-1)
+    forward = forward / torch.linalg.vector_norm(forward, dim=-1, keepdim=True).clamp_min(1e-12)
+    return torch.atan2(forward[:, 0], forward[:, 2])[:, None]

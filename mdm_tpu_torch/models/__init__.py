@@ -9,4 +9,12 @@ from .layers import (  # noqa: F401
     key_padding_bias,
     sinusoidal_table,
 )
-from .mdm import MDM, Conditioning, MDMConfig, cfg_denoiser, cfg_denoiser_cached  # noqa: F401
+from .mdm import (  # noqa: F401
+    MDM,
+    Conditioning,
+    EmbedAction,
+    EmbedTargetLoc,
+    MDMConfig,
+    cfg_denoiser,
+    cfg_denoiser_cached,
+)

@@ -1,12 +1,15 @@
 """Carry mdm_tpu (flax) parameters into the port's torch state_dict.
 
-The inverse of mdm_tpu/models/convert.py (:28-60, :96-127): flax Dense
-kernels [in, out] become torch Linear weights [out, in]; the q/k/v Dense
-layers of each attention block (the decoder's ``self_attn`` and
-``multihead_attn`` alike) are packed into ``in_proj_weight`` [3D, D] and
-``in_proj_bias`` [3D]; LayerNorm ``scale`` becomes ``weight``. The tree
-arrives as nested dicts of numpy arrays (callers convert with
-``jax.tree_util.tree_map(np.asarray, params)``), so this module needs no jax.
+The inverse of mdm_tpu/models/convert.py (:28-162): flax Dense kernels
+[in, out] become torch Linear weights [out, in]; the q/k/v Dense layers of
+each attention block (the decoder's ``self_attn`` and ``multihead_attn``
+alike) are packed into ``in_proj_weight`` [3D, D] and ``in_proj_bias``
+[3D]; LayerNorm ``scale`` becomes ``weight``; the GRU's fused kernels
+[in, 3D] become nn.GRU's ``weight_ih_l{k}`` [3D, in]; the goal encoder's
+stacked per-row kernels become one Linear per row, named as the reference
+names them. The tree arrives as nested dicts of numpy arrays (callers
+convert with ``jax.tree_util.tree_map(np.asarray, params)``), so this
+module needs no jax.
 ``train_state_from_flax`` carries a whole JAX ``TrainState`` (params, the
 optax AdamW moments and count, EMA, step) into the port's train state: the
 moments and the EMA have the params' tree, so they map the same way.
@@ -62,6 +65,48 @@ def _decoder_layer(p: Mapping, prefix: str) -> Dict[str, np.ndarray]:
     return _layer(p, prefix, ("self_attn", "multihead_attn"), ("norm1", "norm2", "norm3"))
 
 
+def _gru(p: Mapping, num_layers: int) -> Dict[str, np.ndarray]:
+    """JAX's fused-gate GRU kernels [in, 3D] -> nn.GRU's [3D, in], gate
+    order (r, z, n) on both sides (inverse of convert.py:75-83)."""
+    out = {}
+    for k in range(num_layers):
+        out[f"gru.weight_ih_l{k}"] = np.asarray(p[f"w_ih_l{k}"]).T
+        out[f"gru.weight_hh_l{k}"] = np.asarray(p[f"w_hh_l{k}"]).T
+        out[f"gru.bias_ih_l{k}"] = np.asarray(p[f"b_ih_l{k}"])
+        out[f"gru.bias_hh_l{k}"] = np.asarray(p[f"b_hh_l{k}"])
+    return out
+
+
+def _stacked(w, b, name) -> Dict[str, np.ndarray]:
+    """EmbedTargetLoc's stacked kernels [G, in, out] and biases [G, out]
+    as G torch Linears, row g named ``name(g)``."""
+    out = {}
+    for g in range(np.asarray(w).shape[0]):
+        out[f"{name(g)}.weight"] = np.asarray(w[g]).T
+        out[f"{name(g)}.bias"] = np.asarray(b[g])
+    return out
+
+
+def _target_loc(p: Mapping, config: MDMConfig) -> Dict[str, np.ndarray]:
+    """EmbedTargetLoc's stacked tree -> the reference torch layout
+    (inverse of convert.py:133-162)."""
+    pre, names = "embed_target_cond", config.goal_names
+    if config.multi_encoder_type == "multi":
+        return {**_stacked(p["w1"], p["b1"], lambda g: f"{pre}.target_loc_emb.{names[g]}.0"),
+                **_stacked(p["w2"], p["b2"], lambda g: f"{pre}.target_loc_emb.{names[g]}.2"),
+                f"{pre}.target_all_loc_emb.weights": np.asarray(p["mix_weights"])}
+    if config.multi_encoder_type == "single":
+        out = _linear(p["in"], f"{pre}.mlp.0")
+        for i in range(config.target_enc_layers):
+            out.update(_linear(p[f"hidden_{i}"], f"{pre}.mlp.{2 * (i + 1)}"))
+        return out
+    out = _stacked(p["w1"], p["b1"], lambda g: f"{pre}.mini_mlps.{g}.0")
+    for i in range(config.target_enc_layers):
+        out.update(_stacked(p[f"w{i + 2}"], p[f"b{i + 2}"],
+                            lambda g: f"{pre}.mini_mlps.{g}.{2 * (i + 1)}"))
+    return out
+
+
 def state_dict_from_flax(params: Mapping, config: MDMConfig) -> Dict[str, torch.Tensor]:
     """flax MDM params (``model.init``'s ``{"params": ...}`` or its inner
     tree) -> a state_dict that ``MDM(config).load_state_dict(.., strict=True)``
@@ -70,15 +115,25 @@ def state_dict_from_flax(params: Mapping, config: MDMConfig) -> Dict[str, torch.
     sd = {
         **_linear(p["embed_timestep"]["time_embed_0"], "embed_timestep.time_embed.0"),
         **_linear(p["embed_timestep"]["time_embed_2"], "embed_timestep.time_embed.2"),
-        **_linear(p["input_process"]["poseEmbedding"], "input_process.poseEmbedding"),
-        **_linear(p["output_process"]["poseFinal"], "output_process.poseFinal"),
     }
+    for process, names in (("input_process", ("poseEmbedding", "velEmbedding")),
+                           ("output_process", ("poseFinal", "velFinal"))):
+        for name in names:
+            if name in p[process]:
+                sd.update(_linear(p[process][name], f"{process}.{name}"))
     if config.cond_mode == "text":
         sd.update(_linear(p["embed_text"], "embed_text"))
-    stack, layer = (("seqTransEncoder", _encoder_layer) if config.arch == "trans_enc"
-                    else ("seqTransDecoder", _decoder_layer))
-    for i in range(config.num_layers):
-        sd.update(layer(p[stack][f"layers_{i}"], f"{stack}.layers.{i}"))
+    elif config.cond_mode == "action":
+        sd["embed_action.action_embedding"] = np.asarray(p["embed_action"]["action_embedding"])
+    if config.multi_target_cond:
+        sd.update(_target_loc(p["embed_target_cond"], config))
+    if config.arch == "gru":
+        sd.update(_gru(p["gru"], config.num_layers))
+    else:
+        stack, layer = (("seqTransEncoder", _encoder_layer) if config.arch == "trans_enc"
+                        else ("seqTransDecoder", _decoder_layer))
+        for i in range(config.num_layers):
+            sd.update(layer(p[stack][f"layers_{i}"], f"{stack}.layers.{i}"))
     return {k: torch.tensor(v, dtype=torch.float32) for k, v in sd.items()}
 
 

@@ -25,19 +25,21 @@ dropout kernel compute the same function under the same seed.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import ops
 from ..ops.attention_dropout import fused_dropout_attention
 from ..ops.attention_train_block import (fused_block_attention_inference,
                                          fused_train_attention_block)
 from ..ops.attention_v2 import fused_attention_v2
-from ..ops.dropout_bits import dropout_bits, keep_factors, tail_dropout_bits
+from ..ops.dropout_bits import (dropout_bits, keep_factors, sequence_dropout_bits,
+                                tail_dropout_bits)
 from ..ops.encoder_tail import fused_encoder_tail, fused_encoder_tail_inference
 from ..ops.layer_inference import fused_layer_inference
 
@@ -83,9 +85,10 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 
 
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded init of every Linear/LayerNorm/attention parameter below
-    ``module``, drawn on the CPU from ``generator`` (flax's defaults:
-    lecun-normal kernels, zero biases, unit LayerNorm scales)."""
+    """Seeded init of every parameter below ``module``, drawn on the CPU
+    from ``generator`` (flax's defaults: lecun-normal kernels, zero biases,
+    unit LayerNorm scales; the GRU's kernels lecun-normal over their input
+    width)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, nn.Linear):
@@ -98,6 +101,12 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+            elif isinstance(m, nn.GRU):
+                for name, p in m.named_parameters():
+                    if name.startswith("weight"):
+                        _lecun_normal_(p, generator)
+                    else:
+                        p.zero_()
 
 
 def _row_bias(bias: Optional[torch.Tensor], keys: int) -> Optional[torch.Tensor]:
@@ -105,10 +114,13 @@ def _row_bias(bias: Optional[torch.Tensor], keys: int) -> Optional[torch.Tensor]
     return None if bias is None else bias.reshape(bias.shape[0], -1)[:, -keys:].float()
 
 
-def _training_seed(rng: Optional[torch.Generator], rate: float) -> int:
+def layer_seeds(rng: Optional[torch.Generator], n: int, rate: float) -> list:
+    """A training layer's n dropout seeds, drawn from the step's CPU
+    generator before the layer runs, so a rematerialised layer replays
+    them instead of drawing again."""
     if rng is None and rate > 0.0:
         raise ValueError("a training forward with dropout needs the step's generator")
-    return draw_seeds(rng, 1)[0]
+    return draw_seeds(rng, n)
 
 
 def _dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dt: torch.dtype):
@@ -139,16 +151,15 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                 attn_bias: Optional[torch.Tensor] = None, deterministic: bool = True,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``rng``: the step's CPU generator; a training forward draws one
-        dropout seed from it whatever its route."""
+                seed: int = 0) -> torch.Tensor:
+        """``seed``: a training forward's dropout seed, drawn by the layer
+        from the step's CPU generator; every route drops under it."""
         D, H = self.d_model, self.num_heads
         cdt = self.compute_dtype or query.dtype
         self_attention = query is key and key is value
         row_bias = attn_bias is None or attn_bias.shape[-2] == 1
         same_len = query.shape[1] == key.shape[1]
         kpm = _row_bias(attn_bias, key.shape[1])
-        seed = None if deterministic else _training_seed(rng, self.dropout)
         weights = (self.in_proj_weight, self.in_proj_bias, self.out_proj.weight,
                    self.out_proj.bias)
         if deterministic and not torch.is_grad_enabled():
@@ -185,7 +196,7 @@ class MultiHeadAttention(nn.Module):
     def _einsum(self, q, k, v, attn_bias, deterministic, seed, out_proj, cdt):
         """The JAX module's non-kernel route, in cdt (layers.py:234-247)."""
         B, Sq, D = q.shape
-        H = self.num_heads
+        Sk, H = k.shape[1], self.num_heads
         Dh = D // H
         split = lambda t: t.reshape(B, t.shape[1], H, Dh).transpose(1, 2)  # [B, H, S, Dh]
         logits = split(q) @ split(k).transpose(-1, -2) / torch.sqrt(
@@ -194,7 +205,7 @@ class MultiHeadAttention(nn.Module):
             logits = logits + attn_bias.to(logits.dtype)
         weights = torch.softmax(logits.float(), dim=-1).to(cdt)
         if self.dropout > 0.0 and not deterministic:
-            bits = dropout_bits(seed, B, H, Sq, device=q.device)
+            bits = dropout_bits(seed, B, H, Sq, device=q.device, key_len=Sk)
             weights = (weights.float() * keep_factors(bits, self.dropout)).to(cdt)
         out = (weights @ split(v)).transpose(1, 2).reshape(B, Sq, D)
         return _dense(out, *out_proj, cdt)
@@ -220,17 +231,44 @@ def _plain_tail(x, attn, norm_a, linear1, linear2, norm_b, keep=(None, None, Non
     of the three dropout sites (attn-out, ffn-hidden, ffn-out), the fused
     tail's, or None where nothing is dropped."""
     cdt = attn.dtype
-    drop = lambda t, k: t if k is None else (t.float() * k).to(t.dtype)
-    y = norm_a((x + drop(attn, keep[0])).float()).to(cdt)
+    y = norm_a((x + _drop(attn, keep[0])).float()).to(cdt)
     h = gelu_exact(_dense(y, linear1.weight, linear1.bias, cdt))
-    h = _dense(drop(h, keep[1]), linear2.weight, linear2.bias, cdt)
-    return norm_b((y + drop(h, keep[2])).float()).to(cdt)
+    h = _dense(_drop(h, keep[1]), linear2.weight, linear2.bias, cdt)
+    return norm_b((y + _drop(h, keep[2])).float()).to(cdt)
+
+
+def _drop(t: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
+    return t if keep is None else (t.float() * keep).to(t.dtype)
+
+
+def _tail(layer: nn.Module, x, attn, norms, deterministic: bool, seed: int):
+    """A layer's attention -> FFN half (the encoder's, or the decoder's
+    cross-attention -> FFN) with its LayerNorms ``norms``: the fused tail
+    (#4/#5, or #4's rate-0 entry when deterministic) under the tail flag
+    and the width gates, else the plain tail with the fused tail's three
+    keep sites drawn under the same seed."""
+    norm_a, norm_b = norms
+    d_model, ff_size = layer.linear1.in_features, layer.linear1.out_features
+    params = (norm_a.weight, norm_a.bias, layer.linear1.weight, layer.linear1.bias,
+              layer.linear2.weight, layer.linear2.bias, norm_b.weight, norm_b.bias)
+    if ops.pallas_encoder_tail_enabled(deterministic) and d_model % 128 == 0 and ff_size % 128 == 0:
+        if deterministic:
+            return fused_encoder_tail_inference(x, attn, *_cached_cast(layer, params, attn.dtype))
+        return fused_encoder_tail(x, attn, *params, layer.dropout, seed)
+    keep = (None, None, None)
+    if not deterministic and layer.dropout > 0.0:
+        B, S, D = x.shape
+        keep = tuple(keep_factors(b, layer.dropout)
+                     for b in tail_dropout_bits(seed, B, S, D, ff_size, device=x.device))
+    return _plain_tail(x, attn, norm_a, layer.linear1, layer.linear2, norm_b, keep)
 
 
 class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder layer (torch default semantics, exact-erf GELU) with
     the JAX layer's three routes: the whole-layer kernel, attention plus the
     fused tail, and attention plus the plain LN/Linear/GELU/dropout tail."""
+
+    N_SEEDS = 2  # a training forward's dropout seeds: attention, tail
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int,
                  compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
@@ -251,49 +289,46 @@ class TransformerEncoderLayer(nn.Module):
                 self.norm1.weight, self.norm1.bias, self.linear1.weight, self.linear1.bias,
                 self.linear2.weight, self.linear2.bias, self.norm2.weight, self.norm2.bias)
 
-    def _kernel_weights(self, dt: torch.dtype):
-        return _cached_cast(self, self._params(), dt)
-
     def forward(self, x: torch.Tensor, padding_bias: Optional[torch.Tensor] = None,
-                deterministic: bool = True, rng: Optional[torch.Generator] = None
+                deterministic: bool = True, seeds: Optional[Sequence[int]] = None
                 ) -> torch.Tensor:
-        """``rng``: the step's CPU generator, from which a training forward
-        draws this layer's two dropout seeds (attention, then the tail)."""
+        """``seeds``: a training forward's two dropout seeds (attention,
+        then the tail), drawn by the stack from the step's CPU generator;
+        without them only a rate-0 training forward runs."""
+        if seeds is None:
+            seeds = layer_seeds(None, self.N_SEEDS, 0.0 if deterministic else self.dropout)
         d_model, ff_size = self.linear1.in_features, self.linear1.out_features
         cdt = self.compute_dtype or x.dtype
-        wide = d_model % 128 == 0 and ff_size % 128 == 0
-        if (ops.pallas_layer_inference_enabled() and deterministic and wide
+        if (ops.pallas_layer_inference_enabled() and deterministic
+                and d_model % 128 == 0 and ff_size % 128 == 0
                 and (padding_bias is None or padding_bias.shape[-2] == 1)):
-            return fused_layer_inference(x.to(cdt), *self._kernel_weights(cdt), self.num_heads,
+            return fused_layer_inference(x.to(cdt), *_cached_cast(self, self._params(), cdt),
+                                         self.num_heads,
                                          key_padding_mask=_row_bias(padding_bias, x.shape[1]))
-        attn = self.self_attn(x, x, x, padding_bias, deterministic, rng)
-        x = x.to(attn.dtype)
-        seed = None if deterministic else _training_seed(rng, self.dropout)
-        if ops.pallas_encoder_tail_enabled(deterministic) and wide:
-            if deterministic:
-                return fused_encoder_tail_inference(x, attn, *self._kernel_weights(attn.dtype)[4:])
-            return fused_encoder_tail(x, attn, *self._params()[4:], self.dropout, seed)
-        keep = (None, None, None)
-        if seed is not None and self.dropout > 0.0:
-            B, S, D = x.shape
-            keep = tuple(keep_factors(b, self.dropout) for b in tail_dropout_bits(
-                seed, B, S, D, self.linear1.out_features, device=x.device))
-        return _plain_tail(x, attn, self.norm1, self.linear1, self.linear2, self.norm2, keep)
+        attn = self.self_attn(x, x, x, padding_bias, deterministic, seeds[0])
+        return _tail(self, x.to(attn.dtype), attn, (self.norm1, self.norm2), deterministic,
+                     seeds[1])
 
 
 class TransformerDecoderLayer(nn.Module):
     """Post-LN decoder layer (torch.nn.TransformerDecoderLayer's semantics
-    and parameter names, exact-erf GELU), deterministic only: self-attention
-    through ``MultiHeadAttention``'s routes (the rate-0 block, #2, under
-    AUTO), a plain first LayerNorm, cross-attention on the einsum route (no
-    kernel takes Sq != Sk), then the cross-attention -> FFN half through the
-    rate-0 fused tail (#4) or the plain tail (mdm_tpu/models/layers.py:402-442).
-    The whole-layer kernel (#1) is the encoder's: its flag is not read here."""
+    and parameter names, exact-erf GELU; mdm_tpu/models/layers.py:402-442):
+    self-attention through ``MultiHeadAttention``'s routes (#2 under AUTO:
+    the rate-0 entry when deterministic, the train block #2/#3 in
+    training), dropout on its output, a plain first LayerNorm,
+    cross-attention on the einsum route (no kernel takes Sq != Sk) with
+    its [B, H, Sq, Sk] probability dropout, then the cross-attention ->
+    FFN half through the fused tail (#4/#5, or #4's rate-0 entry) or the
+    plain tail. The whole-layer kernel (#1) is the encoder's: its flag is
+    not read here."""
+
+    N_SEEDS = 4  # self-attention, its output's dropout, cross-attention, tail
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int,
                  compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.dropout = dropout
         self.self_attn = MultiHeadAttention(d_model, num_heads, dropout, compute_dtype)
         self.multihead_attn = MultiHeadAttention(d_model, num_heads, dropout, compute_dtype)
         self.linear1 = nn.Linear(d_model, ff_size)
@@ -306,31 +341,52 @@ class TransformerDecoderLayer(nn.Module):
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
                 tgt_bias: Optional[torch.Tensor] = None,
                 memory_bias: Optional[torch.Tensor] = None,
-                deterministic: bool = True) -> torch.Tensor:
-        if not deterministic:
-            raise NotImplementedError(
-                "a training forward of the trans_dec decoder is not ported yet: ROADMAP Queue 1 "
-                "item 5 (Training: trans_dec; the einsum route's dropout dump is square and "
-                "cannot serve a cross-attention with Sk != Sq)")
-        attn = self.self_attn(tgt, tgt, tgt, tgt_bias)
+                deterministic: bool = True, seeds: Optional[Sequence[int]] = None
+                ) -> torch.Tensor:
+        """``seeds``: a training forward's four dropout seeds (``N_SEEDS``),
+        drawn by the stack from the step's CPU generator; without them only
+        a rate-0 training forward runs. The output of the self-attention
+        drops with the mask of ``sequence_dropout_bits`` under its own seed
+        (site 0, [B, S, D]: one dump)."""
+        if seeds is None:
+            seeds = layer_seeds(None, self.N_SEEDS, 0.0 if deterministic else self.dropout)
+        s_self, s_out, s_cross, s_tail = seeds
+        attn = self.self_attn(tgt, tgt, tgt, tgt_bias, deterministic, s_self)
+        if not deterministic and self.dropout > 0.0:
+            bits = sequence_dropout_bits(s_out, *attn.shape, device=attn.device)
+            attn = _drop(attn, keep_factors(bits, self.dropout))
         cdt = self.compute_dtype or attn.dtype
         tgt = self.norm1((tgt + attn).float()).to(cdt)
-        cross = self.multihead_attn(tgt, memory, memory, memory_bias)
-        tgt = tgt.to(cross.dtype)
-        d_model, ff_size = self.linear1.in_features, self.linear1.out_features
-        if ops.pallas_encoder_tail_enabled(True) and d_model % 128 == 0 and ff_size % 128 == 0:
-            params = (self.norm2.weight, self.norm2.bias, self.linear1.weight,
-                      self.linear1.bias, self.linear2.weight, self.linear2.bias,
-                      self.norm3.weight, self.norm3.bias)
-            return fused_encoder_tail_inference(tgt, cross, *_cached_cast(self, params,
-                                                                          cross.dtype))
-        return _plain_tail(tgt, cross, self.norm2, self.linear1, self.linear2, self.norm3)
+        cross = self.multihead_attn(tgt, memory, memory, memory_bias, deterministic, s_cross)
+        return _tail(self, tgt.to(cross.dtype), cross, (self.norm2, self.norm3), deterministic,
+                     s_tail)
+
+
+def _run_layers(layers: nn.ModuleList, x: torch.Tensor, args: tuple, deterministic: bool,
+                rng: Optional[torch.Generator], remat: bool) -> torch.Tensor:
+    """Each layer in turn, with its dropout seeds drawn from ``rng`` before
+    the call (in layer order: the stream the layers drew themselves). With
+    ``remat`` and autograd on, each layer is rematerialised
+    (``torch.utils.checkpoint``, JAX's ``nn.remat``): its backward reruns
+    its forward under the same seeds, so the same masks, and the generator
+    moves as it does without remat (checkpoint restores only the global
+    and device RNGs, not an explicit generator)."""
+    for layer in layers:
+        seeds = None if deterministic else layer_seeds(rng, layer.N_SEEDS, layer.dropout)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(layer, x, *args, deterministic, seeds, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = layer(x, *args, deterministic, seeds)
+    return x
 
 
 class TransformerEncoder(nn.Module):
     def __init__(self, d_model: int, num_heads: int, ff_size: int, num_layers: int,
-                 compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
+                 compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.1,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, num_heads, ff_size, compute_dtype, dropout)
             for _ in range(num_layers))
@@ -338,16 +394,18 @@ class TransformerEncoder(nn.Module):
     def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
                 deterministic: bool = True, rng: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        bias = key_padding_bias(padding_mask)
-        for layer in self.layers:
-            x = layer(x, bias, deterministic, rng)
-        return x
+        """``rng``: the step's CPU generator, which a training forward
+        draws every layer's dropout seeds from."""
+        return _run_layers(self.layers, x, (key_padding_bias(padding_mask),), deterministic,
+                           rng, self.remat)
 
 
 class TransformerDecoder(nn.Module):
     def __init__(self, d_model: int, num_heads: int, ff_size: int, num_layers: int,
-                 compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
+                 compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.1,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             TransformerDecoderLayer(d_model, num_heads, ff_size, compute_dtype, dropout)
             for _ in range(num_layers))
@@ -355,13 +413,12 @@ class TransformerDecoder(nn.Module):
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
                 tgt_padding_mask: Optional[torch.Tensor] = None,
                 memory_padding_mask: Optional[torch.Tensor] = None,
-                deterministic: bool = True) -> torch.Tensor:
-        """Padding masks [B, S] and [B, L] bool, True = ignore."""
-        tgt_bias = key_padding_bias(tgt_padding_mask)
-        memory_bias = key_padding_bias(memory_padding_mask)
-        for layer in self.layers:
-            tgt = layer(tgt, memory, tgt_bias, memory_bias, deterministic)
-        return tgt
+                deterministic: bool = True, rng: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """Padding masks [B, S] and [B, L] bool, True = ignore. ``rng``: as
+        the encoder's."""
+        args = (memory, key_padding_bias(tgt_padding_mask), key_padding_bias(memory_padding_mask))
+        return _run_layers(self.layers, tgt, args, deterministic, rng, self.remat)
 
 
 class TimestepEmbedder(nn.Module):

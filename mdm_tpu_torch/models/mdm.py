@@ -1,44 +1,41 @@
-"""MDM denoiser, trans_enc and trans_dec architectures, in PyTorch.
+"""MDM denoiser, trans_enc, trans_dec and gru architectures, in PyTorch.
 
 Counterpart of mdm_tpu/models/mdm.py (MDM.__call__ :213-348,
-cfg_denoiser_cached :351-385 and cfg_denoiser :388-424) for sampling and,
-for ``trans_enc``, training: ``cond_mode`` ``text`` (a pooled embedding,
-or DistilBERT-shaped token states with ``text_tokens``) or ``no_cond``,
-``emb_policy`` ``add`` or ``cat``, optional ``mask_frames``, the DiP
-prefix completion (``context_len``/``pred_len``) and the ``trans_dec``
-decoder with its optional ``emb_trans_dec`` time token. Layout
-``x: [B, T, D]``; conditioning is a :class:`Conditioning` dataclass of
-tensors. Parameter names follow the reference torch MDM, so its
-state_dicts load directly. A training forward (``deterministic=False``)
-draws every dropout seed from the step's CPU ``torch.Generator``: the
-sequence dropout's seed and each layer's two (attention, then the tail),
-whichever route the kernel flags pick. Every mask comes from the Philox
-stream of ops/dropout_bits.py keyed on its seed, so the card and the CPU
-drop the same elements in a step.
+cfg_denoiser_cached :351-385 and cfg_denoiser :388-424) for sampling and
+training: ``cond_mode`` ``text`` (a pooled embedding, or DistilBERT-shaped
+token states with ``text_tokens``), ``action`` (a learned table) or
+``no_cond``, ``emb_policy`` ``add`` or ``cat``, optional ``mask_frames``,
+the DiP prefix completion (``context_len``/``pred_len``) and goal
+conditioning (``multi_target_cond``), the ``trans_dec`` decoder with its
+optional ``emb_trans_dec`` time token, the ``gru`` recurrence and the
+``rot_vel`` input/output processes. Layout ``x: [B, T, D]``; conditioning
+is a :class:`Conditioning` dataclass of tensors. Parameter names follow
+the reference torch MDM, so its state_dicts load directly. A training
+forward (``deterministic=False``) draws every dropout seed from the step's
+CPU ``torch.Generator``: the sequence dropout's seed, then each layer's
+(``N_SEEDS`` of models/layers.py), whichever route the kernel flags pick.
+Every mask comes from the Philox stream of ops/dropout_bits.py keyed on its
+seed, so the card and the CPU drop the same elements in a step.
+``remat`` rematerialises each transformer layer in the backward.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch import nn
 
+from ..core.goals import ALL_GOAL_JOINT_NAMES, extended_goal_names
 from ..ops.dropout_bits import keep_threshold, sequence_dropout_bits
 from .layers import (TimestepEmbedder, TransformerDecoder, TransformerEncoder, draw_seeds,
                      init_weights_)
 
-_ACTION_TO_MOTION = "ROADMAP Queue 1 item 2 (the action-to-motion family)"
-_TODO = {
-    "arch": f"{_ACTION_TO_MOTION}: gru, with its batch-axis recurrence",
-    "cond_mode": f"{_ACTION_TO_MOTION}: action conditioning",
-    "data_rep": f"{_ACTION_TO_MOTION}: the rot_vel input/output process",
-}
 _SUPPORTED = {
-    "arch": ("trans_enc", "trans_dec"),
-    "cond_mode": ("text", "no_cond"),
-    "data_rep": ("hml_vec", "rot6d", "xyz"),
+    "arch": ("trans_enc", "trans_dec", "gru"),
+    "cond_mode": ("text", "action", "no_cond"),
+    "data_rep": ("hml_vec", "rot6d", "xyz", "rot_vel"),
 }
 
 
@@ -50,11 +47,12 @@ class MDMConfig:
     ff_size: int = 1024
     num_layers: int = 8
     num_heads: int = 4
-    data_rep: str = "hml_vec"
-    arch: str = "trans_enc"
-    cond_mode: str = "text"  # text | no_cond
+    data_rep: str = "hml_vec"  # hml_vec | rot6d | xyz | rot_vel
+    arch: str = "trans_enc"  # trans_enc | trans_dec | gru
+    cond_mode: str = "text"  # text | action | no_cond
     text_dim: int = 512  # CLIP pooled width (768 for DistilBERT tokens)
     text_tokens: bool = False  # True: [B, L, text_dim] token memory (BERT)
+    num_actions: int = 1
     emb_trans_dec: bool = False  # trans_dec: the time embedding as a leading token
     emb_policy: str = "add"  # add | cat
     pos_embed_max_len: int = 5000
@@ -62,9 +60,14 @@ class MDMConfig:
     # DiP prefix completion
     context_len: int = 0
     pred_len: int = 0
+    # multi-target goal conditioning
+    multi_target_cond: bool = False
+    multi_encoder_type: str = "multi"  # multi | single | split
+    target_enc_layers: int = 1
+    num_goal_joints: int = 6  # pelvis + 5 end effectors (humanml)
     dropout: float = 0.1
     compute_dtype: str = "float32"  # float32 | bfloat16
-    remat: bool = False  # rematerialised layers: not ported
+    remat: bool = False  # rematerialise the transformer layers (train memory saver)
 
     @property
     def input_feats(self) -> int:
@@ -73,6 +76,16 @@ class MDMConfig:
     @property
     def is_prefix_comp(self) -> bool:
         return self.context_len + self.pred_len > 0
+
+    @property
+    def goal_names(self) -> List[str]:
+        """The goal rows' names, which key EmbedTargetLoc's per-joint
+        parameters in the reference checkpoints (mdm_tpu/models/convert.py
+        :133-162): humanml's goal joints, the one named set."""
+        if self.num_goal_joints != len(ALL_GOAL_JOINT_NAMES):
+            raise ValueError(f"num_goal_joints={self.num_goal_joints}: the goal rows are named "
+                             f"only for humanml's {len(ALL_GOAL_JOINT_NAMES)} goal joints")
+        return extended_goal_names()
 
 
 @dataclass(frozen=True)
@@ -83,8 +96,14 @@ class Conditioning:
     # [B, text_dim] pooled embedding, or [B, L, text_dim] token states (text_tokens)
     text_embed: Optional[torch.Tensor] = None
     text_tokens_mask: Optional[torch.Tensor] = None  # [B, L] bool, True = real token
+    action: Optional[torch.Tensor] = None  # [B] int action index
     prefix: Optional[torch.Tensor] = None  # [B, context_len, D] DiP prefix window
     cond_drop: Optional[torch.Tensor] = None  # [B] bool: drop the condition (CFG)
+    # goal conditioning: [B, G+2, 3] target locations, [B, G+2] validity
+    # (the heading row included), [B] bool: drop the target (CFG)
+    target_cond: Optional[torch.Tensor] = None
+    target_validity: Optional[torch.Tensor] = None
+    target_uncond: Optional[torch.Tensor] = None
 
     def replace(self, **changes) -> "Conditioning":
         return dataclasses.replace(self, **changes)
@@ -113,22 +132,101 @@ def sequence_dropout(x: torch.Tensor, rate: float, rng: torch.Generator) -> torc
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+class EmbedAction(nn.Module):
+    """The action table [num_actions, d] (mdm_tpu/models/mdm.py:113-123)."""
+
+    def __init__(self, num_actions: int, latent_dim: int):
+        super().__init__()
+        self.action_embedding = nn.Parameter(torch.zeros(num_actions, latent_dim))
+
+    def forward(self, action: torch.Tensor) -> torch.Tensor:
+        return self.action_embedding[action]
+
+
+class _MixWeights(nn.Module):
+    """The goal rows' mixing weights, under the reference's name."""
+
+    def __init__(self, n: int):
+        super().__init__()
+        self.weights = nn.Parameter(torch.ones(n))
+
+
+def _mlp(n_in: int, width: int, hidden: int) -> nn.Sequential:
+    """Linear(n_in, width), then ``hidden`` x (SiLU, Linear(width, width)):
+    the reference's ``Sequential`` indices 0, 2, 4, ..."""
+    layers = [nn.Linear(n_in, width)]
+    for _ in range(hidden):
+        layers += [nn.SiLU(), nn.Linear(width, width)]
+    return nn.Sequential(*layers)
+
+
+class EmbedTargetLoc(nn.Module):
+    """Goal-location encoder, target [B, G, 3] and validity [B, G] -> [B, d]
+    (mdm_tpu/models/mdm.py:126-175), in the reference torch layout: ``multi``
+    a 3 -> d -> d MLP per goal row (``target_loc_emb.{name}``), masked by
+    validity and mixed by normalised weights (``target_all_loc_emb``);
+    ``single`` one MLP over the flattened (location, validity) rows
+    (``mlp``); ``split`` a mini-MLP per row giving d / G columns each
+    (``mini_mlps.{g}``)."""
+
+    def __init__(self, latent_dim: int, names: List[str], encoder_type: str = "multi",
+                 num_layers: int = 1):
+        super().__init__()
+        self.encoder_type = encoder_type
+        G = len(names)
+        if encoder_type == "multi":
+            self.target_loc_emb = nn.ModuleDict({n: _mlp(3, latent_dim, 1) for n in names})
+            self.target_all_loc_emb = _MixWeights(G)
+        elif encoder_type == "single":
+            self.mlp = _mlp(4 * G, latent_dim, num_layers)
+        elif encoder_type == "split":
+            if latent_dim % G:
+                raise ValueError(f"multi_encoder_type 'split' needs latent_dim % {G} == 0")
+            self.mini_mlps = nn.ModuleList(_mlp(4, latent_dim // G, num_layers) for _ in names)
+        else:
+            raise ValueError(f"multi_encoder_type {encoder_type!r}: multi, single or split")
+
+    def forward(self, target: torch.Tensor, validity: torch.Tensor) -> torch.Tensor:
+        v = validity.to(target.dtype)
+        if self.encoder_type == "multi":
+            h = torch.stack([mlp(target[:, g]) for g, mlp in
+                             enumerate(self.target_loc_emb.values())], dim=1) * v[..., None]
+            mix = self.target_all_loc_emb.weights
+            return torch.einsum("g,bgd->bd", mix / mix.sum(), h)
+        x = torch.cat([target, v[..., None]], dim=-1)  # [B, G, 4]
+        if self.encoder_type == "single":
+            return self.mlp(x.reshape(x.shape[0], -1))
+        return torch.cat([mlp(x[:, g]) for g, mlp in enumerate(self.mini_mlps)], dim=-1)
+
+
 class InputProcess(nn.Module):
-    def __init__(self, input_feats: int, latent_dim: int):
+    """``poseEmbedding``; with ``rot_vel``, ``velEmbedding`` on frames 1.. ."""
+
+    def __init__(self, data_rep: str, input_feats: int, latent_dim: int):
         super().__init__()
         self.poseEmbedding = nn.Linear(input_feats, latent_dim)
+        if data_rep == "rot_vel":
+            self.velEmbedding = nn.Linear(input_feats, latent_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, S, F] -> [B, S, d]
-        return self.poseEmbedding(x)
+        if not hasattr(self, "velEmbedding"):
+            return self.poseEmbedding(x)
+        return torch.cat([self.poseEmbedding(x[:, :1]), self.velEmbedding(x[:, 1:])], dim=1)
 
 
 class OutputProcess(nn.Module):
-    def __init__(self, input_feats: int, latent_dim: int):
+    """``poseFinal``; with ``rot_vel``, ``velFinal`` on frames 1.. ."""
+
+    def __init__(self, data_rep: str, input_feats: int, latent_dim: int):
         super().__init__()
         self.poseFinal = nn.Linear(latent_dim, input_feats)
+        if data_rep == "rot_vel":
+            self.velFinal = nn.Linear(latent_dim, input_feats)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:  # [B, S, d] -> [B, S, F]
-        return self.poseFinal(h)
+        if not hasattr(self, "velFinal"):
+            return self.poseFinal(h)
+        return torch.cat([self.poseFinal(h[:, :1]), self.velFinal(h[:, 1:])], dim=1)
 
 
 class MDM(nn.Module):
@@ -138,29 +236,46 @@ class MDM(nn.Module):
         super().__init__()
         for name, allowed in _SUPPORTED.items():
             if getattr(config, name) not in allowed:
-                raise NotImplementedError(
-                    f"MDMConfig.{name}={getattr(config, name)!r} is not ported yet: {_TODO[name]}")
-        if config.remat:
-            raise NotImplementedError("MDMConfig.remat=True is not ported yet: ROADMAP Queue 1 "
-                                      "item 5 (Training: remat)")
+                raise ValueError(f"MDMConfig.{name}={getattr(config, name)!r}: one of {allowed}")
+        if config.arch == "gru" and config.compute_dtype != "float32":
+            # mdm_tpu's GRU scan refuses it: its carry starts in the compute
+            # dtype and leaves in f32, the dtype of its weights.
+            raise ValueError("arch='gru' runs in float32 only, as in mdm_tpu")
         self.config = config
         self.compute_dtype = getattr(torch, config.compute_dtype)
         d = config.latent_dim
         self.embed_timestep = TimestepEmbedder(d, config.pos_embed_max_len)
+        if config.multi_target_cond:
+            self.embed_target_cond = EmbedTargetLoc(d, config.goal_names,
+                                                    config.multi_encoder_type,
+                                                    config.target_enc_layers)
         if config.cond_mode == "text":
             self.embed_text = nn.Linear(config.text_dim, d)
-        self.input_process = InputProcess(config.input_feats, d)
+        elif config.cond_mode == "action":
+            self.embed_action = EmbedAction(config.num_actions, d)
+        # gru reads [x, the first conditioning token] per frame
+        in_feats = config.input_feats + (d if config.arch == "gru" else 0)
+        self.input_process = InputProcess(config.data_rep, in_feats, d)
         stack = (d, config.num_heads, config.ff_size, config.num_layers, self.compute_dtype,
-                 config.dropout)
+                 config.dropout, config.remat)
         if config.arch == "trans_enc":
             self.seqTransEncoder = TransformerEncoder(*stack)
-        else:
+        elif config.arch == "trans_dec":
             self.seqTransDecoder = TransformerDecoder(*stack)
-        self.output_process = OutputProcess(config.input_feats, d)
+        else:
+            self.gru = nn.GRU(d, d, num_layers=config.num_layers, batch_first=True)
+        self.output_process = OutputProcess(config.data_rep, config.input_feats, d)
 
     def init_weights(self, generator: torch.Generator) -> "MDM":
-        """Seeded random weights drawn from a CPU ``generator``."""
+        """Seeded random weights drawn from a CPU ``generator``: flax's
+        defaults (``init_weights_``), then its normal(1.0) for the action
+        table and the goal rows' mixing weights."""
         init_weights_(self, generator)
+        tables = [m.action_embedding for m in self.modules() if isinstance(m, EmbedAction)]
+        tables += [m.weights for m in self.modules() if isinstance(m, _MixWeights)]
+        with torch.no_grad():
+            for p in tables:
+                p.copy_(torch.randn(p.shape, generator=generator))
         return self
 
     def _condition(self, cond: Conditioning, time_emb: torch.Tensor):
@@ -168,8 +283,13 @@ class MDM(nn.Module):
         (True = ignore; None = none), which the decoder reads as memory
         padding (mdm_tpu/models/mdm.py:249-281)."""
         cfg = self.config
-        if cfg.cond_mode != "text":
+        if cfg.cond_mode == "no_cond":
             return time_emb[:, None, :], None
+        if cfg.cond_mode == "action":
+            if cond.action is None:
+                raise ValueError("cond_mode='action' requires Conditioning.action ([B] int)")
+            action_emb = _mask_cond(self.embed_action(cond.action), cond.cond_drop)
+            return (time_emb + action_emb)[:, None, :], None
         if cond.text_embed is None:
             raise ValueError("cond_mode='text' requires Conditioning.text_embed")
         te = cond.text_embed
@@ -194,6 +314,9 @@ class MDM(nn.Module):
         B = x.shape[0]
         cdt = self.compute_dtype
         time_emb = self.embed_timestep(timesteps)  # [B, d]
+        if cfg.multi_target_cond and cond.target_cond is not None:
+            target_emb = self.embed_target_cond(cond.target_cond, cond.target_validity)
+            time_emb = time_emb + _mask_cond(target_emb, cond.target_uncond)
 
         frames_mask = cond.frames_mask
         if cfg.is_prefix_comp:
@@ -207,6 +330,8 @@ class MDM(nn.Module):
         emb_tokens, memory_mask = self._condition(cond, time_emb)
 
         S = x.shape[1]
+        if cfg.arch == "gru":
+            x = torch.cat([x, emb_tokens[:, :1].expand(B, S, -1).to(x.dtype)], dim=-1)
         h = self.input_process(x).to(cdt)
         pad_mask = None
         if cfg.mask_frames and frames_mask is not None:
@@ -216,7 +341,7 @@ class MDM(nn.Module):
             n_emb = emb_tokens.shape[1]
             seq = torch.cat([emb_tokens.to(cdt), h], dim=1)
         else:
-            n_emb = 1 if cfg.emb_trans_dec else 0
+            n_emb = 1 if cfg.arch == "trans_dec" and cfg.emb_trans_dec else 0
             seq = torch.cat([time_emb[:, None, :].to(cdt), h], dim=1) if n_emb else h
         pe = self.embed_timestep.pe  # the one sinusoidal table, shared as in the reference
         seq = seq + pe[: seq.shape[1]][None].to(cdt)
@@ -229,9 +354,15 @@ class MDM(nn.Module):
                 [torch.zeros((B, n_emb), dtype=torch.bool, device=x.device), pad_mask], dim=1)
         if cfg.arch == "trans_enc":
             out = self.seqTransEncoder(seq, pad_mask, deterministic, rng)
-        else:
+        elif cfg.arch == "trans_dec":
             out = self.seqTransDecoder(seq, emb_tokens.to(cdt), pad_mask, memory_mask,
-                                       deterministic)
+                                       deterministic, rng)
+        else:
+            # The reference quirk (mdm_tpu/models/mdm.py:331-341): its
+            # batch-first GRU is fed [S, B, d], so the recurrence runs
+            # across the batch, each sample's output depending on those
+            # before it.
+            out = self.gru(seq.transpose(0, 1))[0].transpose(0, 1)
         out = out[:, n_emb + (cfg.context_len if cfg.is_prefix_comp else 0):]
         return self.output_process(out.float())
 

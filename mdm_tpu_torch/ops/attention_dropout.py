@@ -143,32 +143,32 @@ def _bwd_cuda(q, k, v, mask, bits, num_heads, rate, seed, dout):
 
 
 class _DropoutAttention(torch.autograd.Function):
-    """Seed-replay VJP: the backward recomputes p and replays the bits."""
+    """Seed-replay VJP: the backward recomputes p and replays the bits.
+    Every tensor it reads is saved through ``save_for_backward``, so a
+    checkpointed layer (``MDMConfig.remat``) drops and recomputes them."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, bits, num_heads, rate, seed):
         ctx.meta = (num_heads, rate, seed)
-        ctx.save_for_backward(q, k, v, mask)
         if q.device.type == "cuda":
             out = _fwd_cuda(q, k, v, mask, bits, num_heads, rate, seed)
             LAUNCHES["fwd"] += 1
-            ctx.bits = bits
-            return out
-        if rate > 0.0 and bits is None:  # the kernel's own Philox stream, drawn on the CPU
-            bits = dropout_bits(seed, q.shape[0], num_heads, q.shape[1], device=q.device)
-        ctx.bits = bits
-        return dropout_attention_reference(q, k, v, num_heads, rate, bits, mask)
+        else:
+            if rate > 0.0 and bits is None:  # the kernel's own Philox stream, drawn on the CPU
+                bits = dropout_bits(seed, q.shape[0], num_heads, q.shape[1], device=q.device)
+            out = dropout_attention_reference(q, k, v, num_heads, rate, bits, mask)
+        ctx.save_for_backward(q, k, v, mask, bits)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, mask = ctx.saved_tensors
+        q, k, v, mask, bits = ctx.saved_tensors
         num_heads, rate, seed = ctx.meta
         if q.device.type == "cuda":
-            grads = _bwd_cuda(q, k, v, mask, ctx.bits, num_heads, rate, seed, dout)
+            grads = _bwd_cuda(q, k, v, mask, bits, num_heads, rate, seed, dout)
             LAUNCHES["bwd"] += 1
         else:
-            grads = dropout_attention_bwd_reference(q, k, v, num_heads, dout, rate, ctx.bits,
-                                                    mask)
+            grads = dropout_attention_bwd_reference(q, k, v, num_heads, dout, rate, bits, mask)
         return (*grads, None, None, None, None, None)
 
 

@@ -193,33 +193,36 @@ def _split(qkv: torch.Tensor, D: int):
 
 
 class _TrainBlock(torch.autograd.Function):
-    """Seed-replay VJP: the backward recomputes p and replays the bits."""
+    """Seed-replay VJP: the backward recomputes p and replays the bits.
+    Every tensor it reads (on the card also the forward's q/k/v) is saved
+    through ``save_for_backward``, so a checkpointed layer
+    (``MDMConfig.remat``) drops and recomputes them."""
 
     @staticmethod
     def forward(ctx, x, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed):
         ctx.meta = (num_heads, rate, seed)
-        ctx.save_for_backward(x, wqkv, bqkv, wo, mask)
+        qkv = None
         if x.device.type == "cuda":
-            out, ctx.qkv = _fwd_cuda(x, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed)
+            out, qkv = _fwd_cuda(x, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed)
             LAUNCHES["fwd"] += 1
-            ctx.bits = bits
-            return out
-        if rate > 0.0 and bits is None:  # the kernel's own Philox stream, drawn on the CPU
-            bits = dropout_bits(seed, x.shape[0], num_heads, x.shape[1], device=x.device)
-        ctx.qkv, ctx.bits = None, bits
-        return train_attention_block_reference(x, wqkv, bqkv, wo, bo, num_heads, rate, bits,
-                                               mask)
+        else:
+            if rate > 0.0 and bits is None:  # the kernel's own Philox stream, drawn on the CPU
+                bits = dropout_bits(seed, x.shape[0], num_heads, x.shape[1], device=x.device)
+            out = train_attention_block_reference(x, wqkv, bqkv, wo, bo, num_heads, rate, bits,
+                                                  mask)
+        ctx.save_for_backward(x, wqkv, bqkv, wo, mask, bits, qkv)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        x, wqkv, bqkv, wo, mask = ctx.saved_tensors
+        x, wqkv, bqkv, wo, mask, bits, qkv = ctx.saved_tensors
         num_heads, rate, seed = ctx.meta
-        if ctx.qkv is not None:
-            grads = _bwd_cuda(x, ctx.qkv, wqkv, wo, mask, ctx.bits, num_heads, rate, seed, dout)
+        if qkv is not None:
+            grads = _bwd_cuda(x, qkv, wqkv, wo, mask, bits, num_heads, rate, seed, dout)
             LAUNCHES["bwd"] += 1
         else:
             grads = train_attention_block_bwd_reference(x, wqkv, bqkv, wo, num_heads, dout,
-                                                        rate, ctx.bits, mask)
+                                                        rate, bits, mask)
         dx, dwqkv, dbqkv, dwo, dbo = grads
         dt = x.dtype
         return (dx, dwqkv.to(dt), dbqkv.to(dt), dwo.to(dt), dbo.to(dt),

@@ -25,7 +25,7 @@ tail's three outputs included, and counts one in ``LAUNCHES``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -125,16 +125,20 @@ def _dump(name: str, seed: int, B: int, H: int, site: int, R: int, out_shapes, d
     return outs
 
 
-def dropout_bits(seed: int, B: int, num_heads: int, S: int, device="cuda") -> torch.Tensor:
-    """[B, H, S, S] uint32: the bits the attention block draws for head h,
-    query row i, key column j (attention_dropout.py::dropout_bits layout)."""
+def dropout_bits(seed: int, B: int, num_heads: int, S: int, device="cuda", *,
+                 key_len: Optional[int] = None) -> torch.Tensor:
+    """[B, H, S, key_len or S] uint32: the bits the attention block draws
+    for head h, query row i, key column j (attention_dropout.py::dropout_bits
+    layout). ``key_len`` gives a cross-attention its [S, Sk] rows; a word
+    is keyed on its coordinates, so the square case's words do not move."""
     device = torch.device(device)
+    Sk = S if key_len is None else key_len
     if device.type == "cpu":
         b = torch.arange(B)[:, None]
         h = torch.arange(num_heads)[None, :]
-        return philox_bits(seed, b, h, S, S).to(torch.uint32)
+        return philox_bits(seed, b, h, S, Sk).to(torch.uint32)
     # site -1: the heads are the sites, out[b, h] holds site h.
-    return _dump("dropout_bits", seed, B, num_heads, -1, S, [(B, num_heads, S, S)], device)[0]
+    return _dump("dropout_bits", seed, B, num_heads, -1, S, [(B, num_heads, S, Sk)], device)[0]
 
 
 def tail_dropout_bits(seed: int, B: int, S: int, D: int, F: int, device="cuda"

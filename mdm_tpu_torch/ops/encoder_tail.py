@@ -250,29 +250,33 @@ def _bwd_cuda(x, params, acts, rate, dz):
 
 class _Tail(torch.autograd.Function):
     """The backward reads the three keep masks the forward stored (on the
-    card) or the bits it drew (on the CPU)."""
+    card) or the bits it drew (on the CPU). Every tensor it reads, the
+    card's activations too, is saved through ``save_for_backward``, so a
+    checkpointed layer (``MDMConfig.remat``) drops and recomputes them."""
 
     @staticmethod
     def forward(ctx, x, attn, g1, bl1, w1, b1, w2, b2, g2, bl2, bits, rate, seed):
         params = (g1, bl1, w1, b1, w2, b2, g2, bl2)
-        ctx.rate = rate
-        ctx.save_for_backward(x, attn, *params)
-        if x.device.type == "cuda":
-            z, ctx.acts = _fwd_cuda(x, attn, params, rate, seed, bits)
+        ctx.rate, ctx.on_card = rate, x.device.type == "cuda"
+        if ctx.on_card:
+            z, (*acts, masks) = _fwd_cuda(x, attn, params, rate, seed, bits)
+            ctx.save_for_backward(x, attn, *params, *acts, *(masks or (None,) * 3))
             return z
         if rate > 0.0 and bits is None:  # the kernels' own Philox stream, drawn on the CPU
             B, S, D = x.shape
             bits = tail_dropout_bits(seed, B, S, D, w1.shape[0], device=x.device)
-        ctx.acts, ctx.bits = None, bits
+        ctx.save_for_backward(x, attn, *params, *(bits or (None,) * 3))
         return encoder_tail_reference(x, attn, *params, rate, bits)
 
     @staticmethod
     def backward(ctx, dz):
-        x, attn, *params = ctx.saved_tensors
-        if ctx.acts is not None:
-            grads = _bwd_cuda(x, params, ctx.acts, ctx.rate, dz)
+        x, attn, *rest = ctx.saved_tensors
+        params, rest = rest[:8], rest[8:]
+        if ctx.on_card:
+            grads = _bwd_cuda(x, params, (*rest[:7], tuple(rest[7:])), ctx.rate, dz)
         else:
-            grads = encoder_tail_bwd_reference(x, attn, *params, dz, ctx.rate, ctx.bits)
+            bits = None if rest[0] is None else tuple(rest)
+            grads = encoder_tail_bwd_reference(x, attn, *params, dz, ctx.rate, bits)
         dt = x.dtype
         return (*grads[:2], *(g.to(dt) for g in grads[2:]), None, None, None)
 

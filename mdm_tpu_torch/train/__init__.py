@@ -1,11 +1,16 @@
 """Single-device training: the train step, AdamW + EMA state, the loop,
-checkpoints (counterpart of mdm_tpu/train)."""
+checkpoints and goal conditioning (counterpart of mdm_tpu/train)."""
 from .checkpoints import (  # noqa: F401
     find_resume_checkpoint,
     load_args,
     restore_checkpoint,
     save_args,
     save_checkpoint,
+)
+from .goal_cond import (  # noqa: F401
+    goal_cond_modifier,
+    make_target_cond_fn,
+    make_target_loss_builder,
 )
 from .loop import LoopConfig, TrainLoop  # noqa: F401
 from .state import (  # noqa: F401

@@ -2,15 +2,16 @@
 
 Counterpart of mdm_tpu/train/train_step.py::make_train_step (:69-258) for
 a single device (no mesh, no shard_map). Per step, in this order: draw t,
-the noise and the CFG condition dropout, q_sample, the model's training
-forward (dropout from the step's generator), the losses, the backward
-through the hand-written kernels, the metrics, AdamW and the EMA.
+the noise and the CFG condition dropout (and the goal target's), q_sample,
+the model's training forward (dropout from the step's generator), the
+losses (the goal target loss when asked), the backward through the
+hand-written kernels, the metrics, AdamW and the EMA.
 
 Randomness is a pure function of the step's integer ``key`` (the
 counterpart of ``jax.random.fold_in(base, step)``, see ``step_key``): a
 CPU generator seeded with it gives the model's dropout seeds, and a device
-generator seeded from that gives t, the noise and the condition dropout.
-``draws`` replaces those three draws, so tests can feed the step the
+generator seeded from that gives t, the noise and the condition
+dropouts. ``draws`` replaces those draws, so tests can feed the step the
 draws that the JAX step made.
 """
 from __future__ import annotations
@@ -61,16 +62,24 @@ def quartile_metrics(losses: torch.Tensor, t: torch.Tensor, num_timesteps: int
 
 
 def make_train_step(sched: Schedule, config: TrainStepConfig, *,
-                    get_xyz: Optional[Callable] = None):
+                    get_xyz: Optional[Callable] = None,
+                    target_loss_builder: Optional[Callable] = None,
+                    target_cond_fn: Optional[Callable] = None):
     """Returns ``step(state, batch, key, sampler_state=None, *, draws=None)``.
 
     ``batch``: a dict with ``x`` [B, T, D], ``mask`` [B, T] bool and a
-    ``cond`` Conditioning, on the model's device (``sched`` too). ``key``:
-    the step's integer key. ``draws``: optional dict of ``t`` [B] int,
-    ``noise`` like x and ``cond_drop`` [B] bool. Returns ``(state,
-    metrics)``, plus the new sampler state under 'loss-second-moment'. The
-    state is updated in place; after the step each parameter's ``.grad``
-    holds the gradient the update used. Metrics stay on the device."""
+    ``cond`` Conditioning, on the model's device (``sched`` too); DiP's
+    prefix travels in ``cond.prefix``. ``key``: the step's integer key.
+    ``draws``: optional dict of ``t`` [B] int, ``noise`` like x,
+    ``cond_drop`` [B] bool and, for goal conditioning, ``target_uncond``
+    [B] bool. Goal conditioning (train/goal_cond.py): ``target_cond_fn``
+    (x_start, validity) -> targets extracts ``cond.target_cond`` in the
+    step when the batch brings only ``cond.target_validity``;
+    ``target_loss_builder(batch)`` gives the target loss of
+    ``lambda_target_loc``. Returns ``(state, metrics)``, plus the new
+    sampler state under 'loss-second-moment'. The state is updated in
+    place; after the step each parameter's ``.grad`` holds the gradient
+    the update used. Metrics stay on the device."""
     loss_aware = config.schedule_sampler == "loss-second-moment"
     if not loss_aware and config.schedule_sampler != "uniform":
         raise ValueError(f"unknown schedule_sampler {config.schedule_sampler!r}")
@@ -78,11 +87,17 @@ def make_train_step(sched: Schedule, config: TrainStepConfig, *,
     def step(state: TrainState, batch: Dict, key: int,
              sampler_state: Optional[LossAwareState] = None, *, draws: Optional[Dict] = None):
         x_start, mask, cond = batch["x"], batch["mask"], batch["cond"]
+        if (target_cond_fn is not None and cond.target_validity is not None
+                and cond.target_cond is None):
+            cond = cond.replace(target_cond=target_cond_fn(x_start, cond.target_validity))
+            batch = dict(batch, cond=cond)
         B, device = x_start.shape[0], x_start.device
         rng, gen = step_generators(key, device)
         weights = torch.ones((B,), dtype=torch.float32, device=device)
+        draw_target = config.cond_mask_prob > 0 and cond.target_cond is not None
         if draws is not None:
             t, noise, drop = draws["t"], draws["noise"], draws["cond_drop"]
+            target_uncond = draws["target_uncond"] if draw_target else None
         else:
             if loss_aware:
                 t, weights = loss_aware_sample_t(gen, sampler_state, B)
@@ -90,11 +105,18 @@ def make_train_step(sched: Schedule, config: TrainStepConfig, *,
                 t, weights = uniform_sample_t(gen, B, sched.num_timesteps, device)
             noise = torch.randn(x_start.shape, generator=gen, device=device, dtype=x_start.dtype)
             drop = torch.rand((B,), generator=gen, device=device) < config.cond_mask_prob
+            # The target's condition dropout is its own Bernoulli draw, as
+            # the reference's mask_cond of the target embedding.
+            target_uncond = (torch.rand((B,), generator=gen, device=device)
+                             < config.cond_mask_prob) if draw_target else None
         x_t = G.q_sample(sched, x_start, t, noise)
         if config.cond_mask_prob > 0:
             cond = cond.replace(cond_drop=drop, frames_mask=mask)
+            if draw_target:
+                cond = cond.replace(target_uncond=target_uncond)
         else:
             cond = cond.replace(frames_mask=mask)
+        target_loss_fn = target_loss_builder(batch) if target_loss_builder is not None else None
 
         model = state.model
         params = list(model.parameters())
@@ -102,7 +124,7 @@ def make_train_step(sched: Schedule, config: TrainStepConfig, *,
             p.grad = None
         model_out = model(x_t, sched.model_timesteps(t), cond, deterministic=False, rng=rng)
         terms = training_losses(sched, model_out, x_start, x_t, t, noise, mask[..., None],
-                                config.loss, get_xyz=get_xyz)
+                                config.loss, get_xyz=get_xyz, target_loss_fn=target_loss_fn)
         loss = (weights * terms["loss"]).mean()
         loss.backward()
         with torch.no_grad():

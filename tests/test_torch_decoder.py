@@ -255,12 +255,26 @@ def test_bridge_carries_the_decoder_layout():
 
 
 def test_decoder_training_forward_raises():
+    """A training forward of the decoder, which this test once found
+    refused, now runs: finite features of x's shape, other than the eval
+    forward's (dropout 0.1), and the same again under the same generator
+    seed (tests/test_torch_decoder_train.py holds it against mdm_tpu). What
+    still raises: a forward without its prefix, and a training forward with
+    dropout but no generator."""
     _, _, tmodel = build_pair(**DIP)
     _, _, _, (x, t, cond) = _inputs({**SMALL, **DIP}, "tokens")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        tmodel(x, t, cond, deterministic=False, rng=torch.Generator().manual_seed(0))
+    train = lambda seed: tmodel(x, t, cond, deterministic=False,
+                                rng=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        out, again, ref = train(0), train(0), tmodel(x, t, cond)
+    assert out.shape == x.shape
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, again)
+    assert not torch.allclose(out, ref, atol=1e-3)
     with pytest.raises(ValueError, match="prefix"):
         tmodel(x, t, cond.replace(prefix=None))
+    with pytest.raises(ValueError, match="generator"):
+        tmodel(x, t, cond, deterministic=False)
 
 
 @pytest.mark.parametrize("name", sorted(PINS))

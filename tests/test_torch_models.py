@@ -176,12 +176,30 @@ def test_bridge_gives_the_torch_checkpoint_layout():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.MDM(tm.MDMConfig(**SMALL, arch="gru"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.MDM(tm.MDMConfig(**SMALL, cond_mode="action"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.MDM(tm.MDMConfig(**SMALL, remat=True))
+    """The options this test once refused (gru, action, remat) now build and
+    run: a forward of each gives finite features of the input's shape
+    (tests/test_torch_a2m.py holds them against mdm_tpu). What stays
+    refused is what mdm_tpu refuses too: a GRU in bf16 (its scan's carry
+    changes dtype), an action model without actions, an unknown arch."""
+    x, t, *_ = _inputs()
+    a2m = dict(njoints=25, nfeats=6, data_rep="rot6d", cond_mode="action", num_actions=12)
+    cond = tm.Conditioning(action=torch.tensor([0, 11, 5]))
+    for cfg in (dict(arch="gru", **a2m), a2m, dict(remat=True)):
+        model = tm.MDM(tm.MDMConfig(**SMALL, **cfg)).init_weights(torch.Generator().manual_seed(0))
+        feats = model.config.input_feats
+        c = cond if cfg.get("cond_mode") == "action" else tm.Conditioning(
+            text_embed=torch.zeros(B, 512))
+        with torch.no_grad():
+            out = model(torch.from_numpy(x[..., :feats]).contiguous(),
+                        torch.from_numpy(t).long(), c)
+        assert out.shape == (B, T, feats) and torch.isfinite(out).all(), cfg
+    with pytest.raises(ValueError, match="float32"):
+        tm.MDM(tm.MDMConfig(**SMALL, arch="gru", compute_dtype="bfloat16"))
+    with pytest.raises(ValueError, match="Conditioning.action"):
+        tm.MDM(tm.MDMConfig(**SMALL, **a2m))(torch.zeros(B, T, 150),
+                                             torch.zeros(B, dtype=torch.long), tm.Conditioning())
+    with pytest.raises(ValueError, match="arch"):
+        tm.MDM(tm.MDMConfig(**SMALL, arch="lstm"))
 
 
 def test_init_weights_is_seeded():
