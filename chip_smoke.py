@@ -62,7 +62,17 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   and 512); HumanAct12's action-to-motion shape on trans_enc (25 steps,
   timed) and on the GRU (f32, 3 timed steps), an f32 step of each card
   against CPU and a 50-step CFG sample at B=32; one f32 goal-conditioned
-  DiP step card against CPU.
+  DiP step card against CPU;
+- the command-line path (phase 15): on a synthetic HumanML3D tree (512
+  clips of 40-196 frames, from a seed), mdm_tpu_torch.cli.train at the
+  flagship width (B=128, bf16, 50 diffusion steps, AdamW + EMA, 30 steps,
+  checkpoints at 15 and 30; the loss falls; #2-#5 240 launches each, the
+  sequence dump 30), its ms/step by CUDA events beside phase 8's bare
+  step and the loader's own ms/batch; a second cli.train resuming from
+  step 15 whose step-30 checkpoint equals the first run's bitwise;
+  cli.generate at B=32 (50 steps, CFG 2.5, 196 frames: #1's chain 400
+  launches, results.npy with mdm_tpu's keys and shapes), its s/sample
+  beside phase 3's; and cli.edit (in-between, B=32, 400 launches).
 
 Each path checks that every layer call went through its kernels, and the
 sampling and training paths that every product, forward and backward,
@@ -82,6 +92,7 @@ earlier "gemm products" line each main-path product's time, bound, share
 of peak and torch.matmul's time. With no
 CUDA device it exits nonzero and prints no result.
 """
+import contextlib
 import itertools
 import json
 import os
@@ -2105,6 +2116,253 @@ def phase_goal(torch, dev):
                      target_loss_builder=make_target_loss_builder(mean, std)))
 
 
+@contextlib.contextmanager
+def stdout_to(path):
+    """The enclosed code's standard output, appended to ``path``."""
+    with open(path, "a") as f, contextlib.redirect_stdout(f):
+        yield
+
+
+CLI_CLIPS = 512  # phase 15's synthetic HumanML3D tree: clips of 40-196 frames x 263 f32
+CLI_TRAIN = ["--dataset", "humanml", "--batch_size", "128", "--compute_dtype", "bfloat16",
+             "--diffusion_steps", "50", "--num_steps", "30", "--save_interval", "15",
+             "--log_interval", "5", "--text_encoder_type", "hash", "--use_ema", "true",
+             "--device", "0"]
+
+
+def synthetic_humanml(root, clips=CLI_CLIPS, seed=15):
+    """A HumanML3D tree (new_joint_vecs/, texts/, train.txt/test.txt,
+    Mean.npy/Std.npy: tests/test_cli.py's layout) from a fixed numpy seed,
+    its captions from assets/example_text_prompts.txt."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                           "example_text_prompts.txt")) as f:
+        prompts = [p.strip() for p in f if p.strip()]
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "new_joint_vecs"))
+    os.makedirs(os.path.join(root, "texts"))
+    motions = []
+    for i in range(clips):
+        motion = rng.normal(size=(int(rng.integers(40, 197)), 263)).astype(np.float32)
+        motions.append(motion)
+        np.save(os.path.join(root, "new_joint_vecs", f"{i:06d}.npy"), motion)
+        caption = prompts[i % len(prompts)]
+        tokens = " ".join(f"{w}/OTHER" for w in caption.split())
+        with open(os.path.join(root, "texts", f"{i:06d}.txt"), "w") as f:
+            f.write(f"{caption}#{tokens}#0.0#0.0\n")
+    for split in ("train", "test"):
+        with open(os.path.join(root, f"{split}.txt"), "w") as f:
+            f.write("\n".join(f"{i:06d}" for i in range(clips)))
+    allm = np.concatenate(motions)
+    np.save(os.path.join(root, "Mean.npy"), allm.mean(0).astype(np.float32))
+    np.save(os.path.join(root, "Std.npy"), allm.std(0).astype(np.float32))
+
+
+def _cli_counts(TB, ET, DB, li, chain):
+    return dict(_train_counts(TB, ET, DB, chain), fused_layer_inference=li.LAUNCHES)
+
+
+def _zero_cli_counts(TB, ET, DB, li, chain):
+    for counts in (TB.LAUNCHES, ET.LAUNCHES, DB.LAUNCHES, chain.GEMM_LAUNCHES):
+        _zero(counts)
+    li.LAUNCHES = 0
+
+
+def phase_cli(torch, TB, ET, DB, li, dev, bare_step_ms, generate_s_per_sample):
+    """Phase 15, this slice's main path: the command-line entry points a
+    user runs, in this process so that the launch counters count. On a
+    synthetic HumanML3D tree: ``cli.train`` at the flagship width (B = 128,
+    bf16, 50 diffusion steps, AdamW + EMA, 30 steps, checkpoints at 15 and
+    30), its ms/step by CUDA events between steps; a second ``cli.train``
+    resuming from step 15 to 30, whose checkpoint must equal the first run's
+    bitwise; ``cli.generate`` at B = 32 (50 steps, CFG 2.5, 196 frames) from
+    the checkpoint; and ``cli.edit`` (in-between) from it. Each entry
+    point's launches are counted from zero over its own call."""
+    from mdm_tpu_torch import train as T
+    from mdm_tpu_torch.cli import edit as edit_cli
+    from mdm_tpu_torch.cli import generate as gen_cli
+    from mdm_tpu_torch.cli import train as train_cli
+    from mdm_tpu_torch.ops import _chain
+    from mdm_tpu_torch.sampling import MotionGenerator
+
+    counters = (TB, ET, DB, li, _chain)
+    layers, steps, B = FLAGSHIP["num_layers"], 30, 32
+    cwd = os.getcwd()
+    os.environ["MDM_TPU_NO_RENDER"] = "1"
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # the dataset's parse cache goes under ./save
+        try:
+            root = os.path.join(tmp, "HumanML3D")
+            # The CLIs' own output (each log window's loss table, the saves)
+            # goes to this file; the phase prints its summary.
+            quiet = lambda: stdout_to(os.path.join(tmp, "cli.log"))
+            t0 = time.perf_counter()
+            synthetic_humanml(root)
+            print(f"cli: synthetic HumanML3D tree of {CLI_CLIPS} clips in "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+            # cli.train, with a CUDA event after each step (the step factory
+            # wrapped while the CLI builds its step).
+            marks = {}
+            make = T.make_train_step
+
+            def timed_make(*a, **k):
+                inner = make(*a, **k)
+
+                def step(state, batch, key):
+                    out = inner(state, batch, key)
+                    marks[out[0].step] = torch.cuda.Event(enable_timing=True)
+                    marks[out[0].step].record()
+                    return out
+                return step
+
+            run1, run2 = os.path.join(tmp, "run"), os.path.join(tmp, "resumed")
+            T.make_train_step = timed_make
+            try:
+                _zero_cli_counts(*counters)
+                t0 = time.perf_counter()
+                with quiet():
+                    loop = train_cli.main(["--save_dir", run1, "--data_dir", root, *CLI_TRAIN])
+                torch.cuda.synchronize()
+                train_wall = time.perf_counter() - t0
+                train_counts = _cli_counts(*counters)
+            finally:
+                T.make_train_step = make
+            want = {"fused_train_attention_block.fwd": layers * steps,
+                    "fused_train_attention_block.bwd": layers * steps,
+                    "fused_encoder_tail.fwd": layers * steps,
+                    "fused_encoder_tail.bwd": layers * steps,
+                    "sequence_dropout_bits": steps, "products.wgmma": 12 * layers * steps,
+                    "products.fma": 0, "fused_layer_inference": 0}
+            if any(train_counts.get(k) != v for k, v in want.items()):
+                raise AssertionError(f"cli.train launched {train_counts}, expected {want}")
+            ckpts = sorted(f for f in os.listdir(run1) if f.startswith("ckpt_"))
+            if ckpts != ["ckpt_000000015", "ckpt_000000030"] or not os.path.exists(
+                    os.path.join(run1, "args.json")):
+                raise AssertionError(f"cli.train wrote {sorted(os.listdir(run1))}")
+            with open(os.path.join(run1, "progress.jsonl")) as f:
+                losses = [json.loads(line)["loss"] for line in f if line.strip()]
+            if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+                raise AssertionError(f"cli.train's loss (each 5-step window) did not fall: {losses}")
+            window_ms = marks[10].elapsed_time(marks[30]) / 20
+            no_save_ms = marks[16].elapsed_time(marks[30]) / 14
+            print(f"cli.train B=128 bf16 flagship, 30 steps: loss by 5-step window {losses}; "
+                  f"launches {json.dumps(train_counts)}; {train_wall:.1f} s in all (host clock, "
+                  f"dataset parse and checkpoints included)")
+            print(f"cli.train ms/step (CUDA events): steps 10-30 {window_ms:.3f} (the step-15 "
+                  f"checkpoint inside), steps 16-30 {no_save_ms:.3f}; phase 8's bare step "
+                  f"{bare_step_ms:.3f}")
+
+            # The loader alone, as the CLI drives it (hash embedder, pinned
+            # batches), without a step: its batches' cost on this host.
+            from mdm_tpu_torch.data import get_dataset_loader
+            from mdm_tpu_torch.data.loader import pin_batch
+            from mdm_tpu_torch.sampling.text import HashTextEmbedder
+
+            data = get_dataset_loader("humanml", 128, data_root=root)
+            data.text_embedder, data.host_transform = HashTextEmbedder(), pin_batch
+            serial, prefetched = data._gen(0), data.iter_from(0)
+            loader_ms = {}
+            for name, it in (("serial", serial), ("prefetch thread", prefetched)):
+                next(it)
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    next(it)
+                loader_ms[name] = (time.perf_counter() - t0) / 20 * 1e3
+            print(f"cli loader alone, B=128 batches with hash embeddings, pinned: "
+                  f"{json.dumps(loader_ms)} ms/batch (host clock, 20 batches after one)")
+
+            # Resume from step 15 in a second run: its step 30 equals the first's bitwise.
+            _zero_cli_counts(*counters)
+            with quiet():
+                train_cli.main(["--save_dir", run2, "--data_dir", root, *CLI_TRAIN,
+                                "--resume_checkpoint", os.path.join(run1, "ckpt_000000015")])
+            torch.cuda.synchronize()
+            resume_counts = _cli_counts(*counters)
+            load = lambda d: torch.load(os.path.join(d, "ckpt_000000030"), map_location="cpu",
+                                        weights_only=True)
+            a, b = load(run1), load(run2)
+            same = lambda x, y: x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+            moments = lambda sd: {f"{i}.{k}": v for i, st in sd["optimizer"]["state"].items()
+                                  for k, v in st.items() if torch.is_tensor(v)}
+            if not (a["step"] == b["step"] == 30 and same(a["model"], b["model"])
+                    and same(a["ema_params"], b["ema_params"]) and same(moments(a), moments(b))):
+                raise AssertionError("cli.train resumed from step 15 differs from the "
+                                     "uninterrupted run at step 30")
+            print(f"cli.train resume: 15 steps + checkpoint + resume + 15 steps == 30 steps, "
+                  f"bitwise (params, EMA, AdamW moments); the resumed run's launches "
+                  f"{json.dumps(resume_counts)}")
+            del loop, a, b
+            torch.cuda.empty_cache()
+
+            # cli.generate at B = 32 from the step-30 checkpoint, generate() timed.
+            ckpt = os.path.join(run1, "ckpt_000000030")
+            gen_ms = []
+            generate = MotionGenerator.generate
+
+            def timed_generate(self, *a, **k):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = generate(self, *a, **k)
+                end.record()
+                torch.cuda.synchronize()
+                gen_ms.append(start.elapsed_time(end))
+                return out
+
+            out_g, out_e = os.path.join(tmp, "gen"), os.path.join(tmp, "edit")
+            MotionGenerator.generate = timed_generate
+            try:
+                _zero_cli_counts(*counters)
+                t0 = time.perf_counter()
+                with quiet():
+                    gen_cli.main(["--model_path", ckpt, "--text_prompt", "a person walks forward",
+                                  "--num_samples", str(B), "--num_repetitions", "1",
+                                  "--motion_length", "9.8", "--output_dir", out_g, "--seed", "0",
+                                  "--device", "0"])
+                gen_wall = time.perf_counter() - t0
+                gen_counts = _cli_counts(*counters)
+            finally:
+                MotionGenerator.generate = generate
+            diffusion_steps = 50
+            want = {"fused_layer_inference": layers * diffusion_steps,
+                    "products.wgmma": 4 * layers * diffusion_steps, "products.fma": 0}
+            if any(gen_counts.get(k) != v for k, v in want.items()):
+                raise AssertionError(f"cli.generate launched {gen_counts}, expected {want}")
+            res = np.load(os.path.join(out_g, "results.npy"), allow_pickle=True).item()
+            keys = {"motion", "text", "lengths", "num_samples", "num_repetitions"}
+            if (set(res) != keys or res["motion"].shape != (B, 196, 22, 3)
+                    or not np.isfinite(res["motion"]).all()):
+                raise AssertionError(f"cli.generate's results.npy: {sorted(res)}, "
+                                     f"motion {res['motion'].shape}")
+            print(f"cli.generate B={B} T=196 50 steps CFG 2.5 bf16: launches "
+                  f"{json.dumps(gen_counts)}; generate {gen_ms[0]:.1f} ms (CUDA events), "
+                  f"{gen_ms[0] / 1000 / B:.6f} s/sample (phase 3: {generate_s_per_sample:.6f}); "
+                  f"the whole call {gen_wall:.2f} s (host clock: model, checkpoint, embedder, "
+                  f"sampling, results.npy)")
+
+            # cli.edit: in-between, 32 samples of the test split.
+            _zero_cli_counts(*counters)
+            t0 = time.perf_counter()
+            with quiet():
+                edit_cli.main(["--model_path", ckpt, "--data_dir", root, "--num_samples", str(B),
+                               "--output_dir", out_e, "--seed", "0", "--device", "0"])
+            torch.cuda.synchronize()
+            edit_wall = time.perf_counter() - t0
+            edit_counts = _cli_counts(*counters)
+            if any(edit_counts.get(k) != v for k, v in want.items()):
+                raise AssertionError(f"cli.edit launched {edit_counts}, expected {want}")
+            res = np.load(os.path.join(out_e, "results.npy"), allow_pickle=True).item()
+            if (res["motion"].shape != (B, 196, 22, 3) or not np.isfinite(res["motion"]).all()
+                    or res["edit_mode"] != "in_between"):
+                raise AssertionError(f"cli.edit's results.npy: motion {res['motion'].shape}")
+            print(f"cli.edit in_between B={B} T=196 50 steps: launches {json.dumps(edit_counts)}; "
+                  f"{edit_wall:.2f} s (host clock, the whole call)")
+        finally:
+            os.chdir(cwd)
+    return dict(train=train_counts, resume=resume_counts, generate=gen_counts,
+                edit=edit_counts, train_ms=window_ms, train_no_save_ms=no_save_ms,
+                generate_ms=gen_ms[0], loader_ms=loader_ms)
+
+
 def device_busy(torch, fn):
     """(wall ms, kernel ms) of one call of fn under torch.profiler: CUDA
     events around it, and the sum of its kernels' device time."""
@@ -2410,6 +2668,15 @@ def main():
     a2m_rows = phase_a2m(torch, dev)
     phase_goal(torch, dev)
 
+    # Phase 15: the command-line path (this slice's main path): cli.train,
+    # its resume, cli.generate and cli.edit, each counted from zero.
+    cli = phase_cli(torch, TB, ET, DB, li, dev, step_ms, gen_ms / 1000 / B)
+    sampling_paths = {"sampling (phases 3-4)": kernels[0]["launches"],
+                      "cli.generate (phase 15)": cli["generate"]["fused_layer_inference"],
+                      "cli.edit (phase 15)": cli["edit"]["fused_layer_inference"]}
+    kernels[0].update(launches=sum(sampling_paths.values()), launches_by_path=sampling_paths,
+                      path="; ".join(sampling_paths))
+
     # Phase 5's timed shapes (bf16, bool mask, bits drawn in-kernel: no
     # bits are read), analytically.
     Bt, St, Dt, Ht, Ft = (TRAIN_SHAPE[k] for k in ("B", "S", "D", "H", "F"))
@@ -2432,7 +2699,9 @@ def main():
         for d, key in (("forward", "fwd"), ("backward", "bwd")):
             source, replaces = TRAIN_KERNELS[f"{name}.{d}"]
             paths = {"training, AUTO (phase 8)": train_launches[f"{name}.{key}"],
-                     "DiP training, AUTO (phase 14)": dip_train_launches[f"{name}.{key}"]}
+                     "DiP training, AUTO (phase 14)": dip_train_launches[f"{name}.{key}"],
+                     "cli.train (phase 15)": cli["train"][f"{name}.{key}"],
+                     "cli.train, resumed (phase 15)": cli["resume"][f"{name}.{key}"]}
             kernels.append(dict(name=f"{name}.{d}", route="cuda", source=source,
                                 replaces=replaces, launches=sum(paths.values()),
                                 launches_by_path=paths,
@@ -2454,7 +2723,11 @@ def main():
                               train_launches["sequence_dropout_bits"],
                               "training, drop variant (tail)": drop_launches["tail_dropout_bits"],
                               "DiP training, AUTO (sequence and attn-out dropout, phase 14)":
-                              dip_train_launches["sequence_dropout_bits"]},
+                              dip_train_launches["sequence_dropout_bits"],
+                              "cli.train (sequence dropout, phase 15)":
+                              cli["train"]["sequence_dropout_bits"],
+                              "cli.train, resumed (sequence dropout, phase 15)":
+                              cli["resume"]["sequence_dropout_bits"]},
     }
     for name, words in dump_words.items():
         source, replaces = TRAIN_KERNELS[name]
@@ -2498,7 +2771,9 @@ def main():
           f"; ms/step at B=128: AUTO {step_ms:.3f}, drop variant {drop_ms:.3f}; DiP train "
           f"B={DIP_TRAIN_B} {dip_step_ms:.3f}; a2m B={A2M_B} trans_enc "
           f"{a2m_rows['trans_enc']['ms_per_step']:.3f}, gru {a2m_rows['gru']['ms_per_step']:.3f}; "
-          f"remat {json.dumps(remat_rows)}")
+          f"remat {json.dumps(remat_rows)}; cli.train {cli['train_ms']:.3f} (steps 10-30), "
+          f"{cli['train_no_save_ms']:.3f} (16-30); cli.generate "
+          f"{cli['generate_ms'] / 1000 / B:.6f} s/sample")
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel was never launched on its path: {kernels}")
     products = {name: GP.measure(name) for name in GP.MAIN_PATH_PRODUCTS}

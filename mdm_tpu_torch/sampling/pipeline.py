@@ -1,7 +1,8 @@
 """End-to-end generation: conditioning -> features -> joints, on one device.
 
 Counterpart of mdm_tpu/sampling/pipeline.py (GenerationConfig,
-load_norm_stats, MotionGenerator :81-515, the edit masks :522-546) for
+load_norm_stats, dataset_norm_stats, MotionGenerator :81-515, the edit
+masks :522-546) for
 single-device sampling: the four samplers of diffusion/samplers.py with
 exact classifier-free guidance (one double-batched forward) or its cached
 form, and DiP's autoregressive prefix completion as a host loop over
@@ -35,6 +36,17 @@ def load_norm_stats(dataset: str = "humanml"):
     return mean.astype(np.float32), std.astype(np.float32)
 
 
+def dataset_norm_stats(data_root: Optional[str]):
+    """The dataset's own train stats (Mean/Std.npy under ``data_root``) if
+    present, else None."""
+    if not data_root:
+        return None
+    mp, sp = os.path.join(data_root, "Mean.npy"), os.path.join(data_root, "Std.npy")
+    if os.path.exists(mp) and os.path.exists(sp):
+        return np.load(mp).astype(np.float32), np.load(sp).astype(np.float32)
+    return None
+
+
 @dataclass(frozen=True)
 class GenerationConfig:
     guidance_scale: float = 2.5
@@ -53,9 +65,12 @@ class MotionGenerator:
     """Holds a model and its schedule; samples on the model's device."""
 
     def __init__(self, model: MDM, sched: Schedule,
-                 config: GenerationConfig = GenerationConfig(), dataset: str = "humanml"):
-        """Decodes hml_vec features with the bundled t2m/kit stats (the
-        training set's own stats come with checkpoint loading, later)."""
+                 config: GenerationConfig = GenerationConfig(), dataset: str = "humanml",
+                 norm_stats=None):
+        """``norm_stats``: the (mean, std) the model was trained with (the
+        dataset's Mean/Std.npy, ``dataset_norm_stats``), which decode its
+        features; without them an hml_vec model decodes with the bundled
+        t2m/kit stats (close but not identical)."""
         if config.sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {config.sampler!r}; known: {sorted(SAMPLERS)}")
         if config.cfg_cache_interval > 1 and config.sampler not in ("ddpm", "ddim"):
@@ -76,9 +91,11 @@ class MotionGenerator:
         self.config = config
         self.joints_num = 22 if dataset == "humanml" else 21
         self.mean = self.std = None
-        if model.config.data_rep == "hml_vec":
-            self.mean, self.std = (torch.from_numpy(s).to(self.device)
-                                   for s in load_norm_stats(dataset))
+        if norm_stats is None and model.config.data_rep == "hml_vec":
+            norm_stats = load_norm_stats(dataset)
+        if norm_stats is not None:
+            self.mean, self.std = (torch.from_numpy(np.asarray(s, np.float32)).to(self.device)
+                                   for s in norm_stats)
 
     def _sample(self, cond: Conditioning, noise: torch.Tensor,
                 generator: Optional[torch.Generator], **kwargs) -> torch.Tensor:

@@ -1,15 +1,24 @@
 """Text -> conditioning embeddings.
 
 Counterpart of mdm_tpu/sampling/text.py for the asset-free embedder. The
-CLIP and DistilBERT towers need converted weights that the repository does
-not hold; they are ROADMAP Queue 1 item 7.
+CLIP and DistilBERT towers need converted weights under ``assets/text``
+(the JAX package's asset paths), which the repository does not hold:
+``make_text_embedder`` then returns None, as mdm_tpu's does, and the CLIs
+fall back to the hash embedder. Porting the towers is ROADMAP Queue 1
+item 8.
 """
 from __future__ import annotations
 
+import os
 import zlib
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
+
+DEFAULT_ASSETS = os.path.join(os.path.dirname(__file__), "..", "..", "assets", "text")
+# The converted-weight assets each tower needs (mdm_tpu/sampling/text.py:112-126).
+ASSETS = {"clip": ("bpe_simple_vocab_16e6.txt.gz", "clip_text_flax"),
+          "bert": ("bert_vocab.txt", "distilbert_flax")}
 
 
 class HashTextEmbedder:
@@ -46,11 +55,18 @@ class HashTextEmbedder:
         return {"text_embed": out}
 
 
-def make_text_embedder(encoder_type: str = "hash") -> Callable[[List[str]], Dict[str, np.ndarray]]:
-    """The embedder for ``encoder_type``; only "hash" is ported so far."""
+def make_text_embedder(encoder_type: str = "clip", assets_dir: Optional[str] = None
+                       ) -> Optional[Callable[[List[str]], Dict[str, np.ndarray]]]:
+    """The embedder for ``encoder_type``: the hash embedder for "hash";
+    for "clip" and "bert", None when their converted weights are absent
+    (as in mdm_tpu), and NotImplementedError when they are present, since
+    the towers are not ported yet."""
     if encoder_type == "hash":
         return HashTextEmbedder()
-    if encoder_type in ("clip", "bert"):
-        raise NotImplementedError(
-            f"text encoder {encoder_type!r} is not ported yet: ROADMAP Queue 1 item 7")
-    raise ValueError(encoder_type)
+    if encoder_type not in ASSETS:
+        raise ValueError(encoder_type)
+    assets_dir = assets_dir or DEFAULT_ASSETS
+    if not all(os.path.exists(os.path.join(assets_dir, a)) for a in ASSETS[encoder_type]):
+        return None
+    raise NotImplementedError(
+        f"text encoder {encoder_type!r} is not ported yet: ROADMAP Queue 1 item 8")

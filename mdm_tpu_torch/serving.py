@@ -1,11 +1,14 @@
 """Serving wrapper: build once, generate per request.
 
 Counterpart of mdm_tpu/serving.py (PredictorConfig, Predictor.setup /
-predict :18-164) for the ``json`` output. Checkpoint loading is not ported
-yet, so the model carries seeded random weights.
+predict :18-164) for the ``json`` output. ``model_path`` names a
+checkpoint of the port (a file, or the run directory that holds them: the
+highest step is taken), whose EMA parameters are served when it has them
+and ``use_ema``; without one the model carries seeded random weights.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -14,7 +17,7 @@ import torch
 
 @dataclass
 class PredictorConfig:
-    model_path: str = ""  # checkpoint loading is not ported yet: must stay empty
+    model_path: str = ""
     dataset: str = "humanml"
     guidance_scale: float = 2.5
     num_diffusion_steps: int = 1000
@@ -22,11 +25,13 @@ class PredictorConfig:
     max_frames: int = 196
     fps: float = 20.0
     batch_size: int = 1
-    text_encoder_type: str = "hash"  # clip / bert: ROADMAP Queue 1 item 7
+    text_encoder_type: str = "hash"  # clip / bert: ROADMAP Queue 1 item 8
     latent_dim: int = 512
     layers: int = 8
     compute_dtype: str = "bfloat16"
     device: str = "cuda"
+    # Prefer the EMA weights when the checkpoint carries them.
+    use_ema: bool = True
 
 
 class Predictor:
@@ -41,12 +46,9 @@ class Predictor:
         from .models import MDM, Conditioning, MDMConfig
         from .sampling import GenerationConfig, MotionGenerator
         from .sampling.text import make_text_embedder
+        from .train.checkpoints import find_resume_checkpoint, restore_params_only
 
         cfg = self.config
-        if cfg.model_path:
-            raise NotImplementedError(
-                "checkpoint loading is not ported yet (ROADMAP Queue 1 item 5); "
-                "leave model_path empty for seeded random weights")
         device = torch.device(cfg.device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("PredictorConfig.device is cuda but no CUDA device is visible")
@@ -56,6 +58,12 @@ class Predictor:
             compute_dtype=cfg.compute_dtype,
         )
         self.model = MDM(mcfg).init_weights(torch.Generator().manual_seed(0)).to(device)
+        ckpt = cfg.model_path
+        if ckpt and os.path.isdir(ckpt) and not os.path.basename(ckpt).startswith("ckpt_"):
+            found = find_resume_checkpoint(ckpt)
+            ckpt = found[0] if found else ""
+        if ckpt and os.path.exists(ckpt):
+            restore_params_only(ckpt, self.model, use_ema=cfg.use_ema)
         sched = Schedule.create("cosine", cfg.num_diffusion_steps, cfg.respacing)
         self.generator = MotionGenerator(
             self.model, sched, GenerationConfig(guidance_scale=cfg.guidance_scale), cfg.dataset)
@@ -76,13 +84,15 @@ class Predictor:
             raise RuntimeError("call setup() first")
         if output_format != "json":
             raise NotImplementedError(
-                f"output_format {output_format!r} is not ported yet: ROADMAP Queue 1 item 12")
+                f"output_format {output_format!r} is not ported yet: ROADMAP Queue 1 item 11")
         cfg = self.config
         B, T = cfg.batch_size, cfg.max_frames
         n_frames = min(T, int(motion_length_sec * cfg.fps))
-        embeds = self.embedder([prompt] * B)
-        cond = self._cond0.replace(
-            text_embed=torch.from_numpy(embeds["text_embed"]).to(self._cond0.text_embed.device))
+        cond = self._cond0
+        if self.embedder is not None:
+            embeds = self.embedder([prompt] * B)
+            cond = cond.replace(text_embed=torch.from_numpy(embeds["text_embed"]).to(
+                cond.text_embed.device))
         if seed is not None:
             self._rng.manual_seed(seed)
         results = []

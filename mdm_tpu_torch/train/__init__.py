@@ -4,6 +4,7 @@ from .checkpoints import (  # noqa: F401
     find_resume_checkpoint,
     load_args,
     restore_checkpoint,
+    restore_params_only,
     save_args,
     save_checkpoint,
 )

@@ -4,7 +4,10 @@ Counterpart of mdm_tpu/train/checkpoints.py (:19-60; reference
 train/training_loop.py:385-444): one checkpoint per step under save_dir,
 named ``ckpt_{step:09d}`` as in the JAX package (a file here, written by
 ``torch.save`` of the whole train state), the run config as args.json
-beside them, and resume from the highest step.
+beside them, resume from the highest step, and the (EMA) parameters alone
+for sampling (``restore_params_only``). A checkpoint that mdm_tpu wrote is
+an orbax directory, which the port does not read: converting one is
+ROADMAP Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -58,6 +61,29 @@ def find_resume_checkpoint(save_dir: str) -> Optional[Tuple[str, int]]:
 
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load a checkpoint into ``state`` (bit for bit) and return it."""
-    device = next(state.model.parameters()).device
-    state.load_state_dict(torch.load(path, map_location=device, weights_only=True))
+    state.load_state_dict(_load(path, next(state.model.parameters()).device))
     return state
+
+
+def _load(path: str, device) -> Dict[str, Any]:
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory: an orbax checkpoint written by mdm_tpu, which "
+            "mdm_tpu_torch does not read (its checkpoints are torch.save files); "
+            "converting one is ROADMAP Queue 1 item 11")
+    return torch.load(path, map_location=device, weights_only=True)
+
+
+def restore_params_only(path: str, model: torch.nn.Module, use_ema: bool = True
+                        ) -> torch.nn.Module:
+    """Load a checkpoint's parameters into ``model`` (in place; the optimizer
+    state is not read) and return it: the EMA parameters when ``use_ema``
+    and the checkpoint has them, else the trained ones (mdm_tpu's
+    restore_params_only, mdm_tpu/train/checkpoints.py:99-106)."""
+    device = next(model.parameters()).device
+    sd = _load(path, device)
+    weights = dict(sd["model"])
+    if use_ema and sd.get("ema_params") is not None:
+        weights.update(sd["ema_params"])
+    model.load_state_dict(weights)
+    return model

@@ -10,6 +10,9 @@ with ``iter_from(step)`` is fast-forwarded to the resumed step, and every
 kernel reduction runs in a fixed order. Metric sums stay on the device
 until a log window closes, so the host reads the card once per window.
 
+With ``profile_trace_dir`` set, steps 2..6 run under torch.profiler
+(train/profiling.py) and their trace is written there.
+
 Env hook: MDM_TPU_TRAINING_TEST=1 stops after the first save (the
 reference's DIFFUSION_TRAINING_TEST seam, training_loop.py:241).
 """
@@ -26,6 +29,7 @@ import torch
 from .checkpoints import find_resume_checkpoint, restore_checkpoint, save_args, save_checkpoint
 from .logger import KVLogger
 from .platforms import NoPlatform, TrainPlatform
+from .profiling import start_trace, stop_trace
 from .state import TrainState
 from .train_step import step_key
 
@@ -42,6 +46,9 @@ class LoopConfig:
     # explicit checkpoint to resume from; a checkpoint in save_dir wins
     # (reference training_loop.py:131)
     resume_checkpoint: str = ""
+    # non-empty: a torch.profiler trace of steps 2..6 (after the first
+    # steps' kernel builds and warm-up) into this directory
+    profile_trace_dir: str = ""
 
 
 def _to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
@@ -103,47 +110,57 @@ class TrainLoop:
         acc: Optional[Dict[str, torch.Tensor]] = None  # metric sums of the window, on device
         acc_n = 0
         batch_size = None
-        while self.step < cfg.num_steps:
-            batch = _to_device(next(self.data_iter), self.device)
-            if batch_size is None:
-                batch_size = int(batch["x"].shape[0]) if "x" in batch else 0
-            self.state, metrics = self.train_step(self.state, batch,
-                                                  step_key(self.rng_seed, self.step))
-            if acc is None:
-                acc = {k: v.clone() for k, v in metrics.items()}
-            else:
-                for k, v in metrics.items():
-                    acc[k] += v
-            acc_n += 1
+        prof = None  # the torch.profiler of steps 2..6, while it records
+        try:
+            while self.step < cfg.num_steps:
+                if cfg.profile_trace_dir and self.step == 2 and prof is None:
+                    prof = start_trace(cfg.profile_trace_dir)
+                batch = _to_device(next(self.data_iter), self.device)
+                if batch_size is None:
+                    batch_size = int(batch["x"].shape[0]) if "x" in batch else 0
+                self.state, metrics = self.train_step(self.state, batch,
+                                                      step_key(self.rng_seed, self.step))
+                if acc is None:
+                    acc = {k: v.clone() for k, v in metrics.items()}
+                else:
+                    for k, v in metrics.items():
+                        acc[k] += v
+                acc_n += 1
 
-            step = self.step
-            if step % cfg.log_interval == 0 or step == cfg.num_steps:
-                # One read of the card per window; it also waits for every
-                # step of the window, so steps_per_sec is end to end.
-                for k, v in acc.items():
-                    self.logger.logkv(k, v.item() / acc_n)
-                window, acc, acc_n = acc_n, None, 0
-                self.logger.logkv("step", step)
-                sps = window / max(time.time() - t_last, 1e-9)
-                self.logger.logkv("steps_per_sec", sps)
-                if batch_size:
-                    self.logger.logkv("samples_per_sec", sps * batch_size)
-                t_last = time.time()
-                for k, v in self.logger.dumpkvs().items():
-                    self.platform.report_scalar(k, v, step, group_name="Loss")
+                step = self.step
+                if prof is not None and step >= 7:
+                    stop_trace(prof, cfg.profile_trace_dir)
+                    prof = None
+                if step % cfg.log_interval == 0 or step == cfg.num_steps:
+                    # One read of the card per window; it also waits for every
+                    # step of the window, so steps_per_sec is end to end.
+                    for k, v in acc.items():
+                        self.logger.logkv(k, v.item() / acc_n)
+                    window, acc, acc_n = acc_n, None, 0
+                    self.logger.logkv("step", step)
+                    sps = window / max(time.time() - t_last, 1e-9)
+                    self.logger.logkv("steps_per_sec", sps)
+                    if batch_size:
+                        self.logger.logkv("samples_per_sec", sps * batch_size)
+                    t_last = time.time()
+                    for k, v in self.logger.dumpkvs().items():
+                        self.platform.report_scalar(k, v, step, group_name="Loss")
 
-            if step % cfg.save_interval == 0 or step == cfg.num_steps:
-                self.save()
-                if self.eval_fn and cfg.eval_during_training:
-                    for k, v in (self.eval_fn(self.state, step) or {}).items():
-                        self.platform.report_scalar(k, v, step, group_name="Eval")
-                if self.gen_fn and cfg.gen_during_training:
-                    media = self.gen_fn(self.state, step)
-                    for m in ([media] if isinstance(media, str) else media or []):
-                        self.platform.report_media("Motion", "gen", step, m)
-                if os.environ.get("MDM_TPU_TRAINING_TEST", ""):
-                    print("MDM_TPU_TRAINING_TEST set: stopping after first save")
-                    return
+                if step % cfg.save_interval == 0 or step == cfg.num_steps:
+                    self.save()
+                    if self.eval_fn and cfg.eval_during_training:
+                        for k, v in (self.eval_fn(self.state, step) or {}).items():
+                            self.platform.report_scalar(k, v, step, group_name="Eval")
+                    if self.gen_fn and cfg.gen_during_training:
+                        media = self.gen_fn(self.state, step)
+                        for m in ([media] if isinstance(media, str) else media or []):
+                            self.platform.report_media("Motion", "gen", step, m)
+                    if os.environ.get("MDM_TPU_TRAINING_TEST", ""):
+                        print("MDM_TPU_TRAINING_TEST set: stopping after first save")
+                        return
+        finally:
+            if prof is not None:
+                stop_trace(prof, cfg.profile_trace_dir)
 
     def save(self):
         path = save_checkpoint(self.config.save_dir, self.step, self.state)

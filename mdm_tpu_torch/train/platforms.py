@@ -47,4 +47,4 @@ def get_platform(name: str, save_dir: str, **kwargs) -> TrainPlatform:
         raise ImportError(f"train platform {name!r} needs the {package!r} package, "
                           f"which is not installed")
     raise NotImplementedError(f"train platform {name!r} is not ported yet: "
-                              f"ROADMAP Queue 1 item 9 (train/platforms.py)")
+                              f"ROADMAP Queue 1 item 5 (train/platforms.py)")

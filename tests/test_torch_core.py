@@ -62,8 +62,8 @@ def test_hash_embedder_byte_equal():
     ref = JaxHash()(prompts)["text_embed"]
     assert ours.dtype == np.float32 and ours.tobytes() == ref.tobytes()
     assert isinstance(make_text_embedder("hash"), HashTextEmbedder)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_text_embedder("clip")
+    # No CLIP assets in the repository: None, as mdm_tpu's make_text_embedder.
+    assert make_text_embedder("clip") is None
 
 
 def test_norm_stats_equal():

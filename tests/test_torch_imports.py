@@ -1,6 +1,7 @@
-"""mdm_tpu_torch imports neither jax nor flax: every module imports, and a
-tiny generation and a tiny train step run, in a fresh interpreter where
-both are blocked."""
+"""mdm_tpu_torch imports neither jax, flax nor mdm_tpu: every module
+imports, and a tiny generation, a tiny train step and the command-line path
+(train -> generate -> edit with --device cpu on a synthetic HumanML3D tree)
+run, in a fresh interpreter where all three are blocked."""
 import subprocess
 import sys
 from pathlib import Path
@@ -16,6 +17,7 @@ _PROGRAM = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["mdm_tpu"] = None
 import torch
 import mdm_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mdm_tpu_torch.__path__, "mdm_tpu_torch.")]
@@ -43,12 +45,42 @@ batch = {"x": torch.randn(2, 6, 263), "mask": torch.ones(2, 6, dtype=torch.bool)
          "cond": Conditioning(text_embed=torch.zeros(2, 512))}
 state, metrics = make_train_step(Schedule.create("cosine", 100), TrainStepConfig())(state, batch, 0)
 assert state.step == 1 and torch.isfinite(metrics["loss"])
+import os, tempfile
+import numpy as np
+from mdm_tpu_torch.cli import edit, generate, train
+cwd = os.getcwd()
+with tempfile.TemporaryDirectory() as tmp:
+    os.chdir(tmp)  # the dataset's parse cache goes under ./save
+    root = os.path.join(tmp, "HumanML3D")
+    os.makedirs(os.path.join(root, "new_joint_vecs"))
+    os.makedirs(os.path.join(root, "texts"))
+    rng = np.random.default_rng(1)
+    for i in range(3):
+        np.save(os.path.join(root, "new_joint_vecs", f"{i:06d}.npy"),
+                rng.normal(size=(int(rng.integers(45, 80)), 263)).astype(np.float32))
+        with open(os.path.join(root, "texts", f"{i:06d}.txt"), "w") as f:
+            f.write("a person walks#a/DET person/NOUN walk/VERB#0.0#0.0\n")
+    for split in ("train", "test"):
+        with open(os.path.join(root, f"{split}.txt"), "w") as f:
+            f.write("\n".join(f"{i:06d}" for i in range(3)))
+    tiny = ["--latent_dim", "32", "--layers", "1", "--diffusion_steps", "4", "--device", "cpu"]
+    train.main(["--save_dir", "run", "--data_dir", root, "--batch_size", "2", "--num_steps", "1",
+                "--save_interval", "1", "--log_interval", "1", *tiny])
+    generate.main(["--model_path", "run/ckpt_000000001", "--num_samples", "1", "--num_repetitions",
+                   "1", "--motion_length", "0.5", "--output_dir", "gen", "--device", "cpu"])
+    edit.main(["--model_path", "run/ckpt_000000001", "--data_dir", root, "--num_samples", "1",
+               "--output_dir", "edit", "--device", "cpu"])
+    for out, frames in (("gen", 10), ("edit", 196)):
+        res = np.load(os.path.join(out, "results.npy"), allow_pickle=True).item()
+        assert res["motion"].shape == (1, frames, 22, 3) and np.isfinite(res["motion"]).all()
+    os.chdir(cwd)
 assert not any(m.split(".")[0] in ("jax", "flax", "mdm_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print(" ".join(names))
 """
 
-# The counterparts of the sampling, training and attention-route slices' mdm_tpu modules.
+# The counterparts of the sampling, training, attention-route and command-line slices'
+# mdm_tpu modules.
 SLICE = {"ops._mask", "ops.layer_inference", "ops._build", "models.layers", "models.mdm",
          "models.bridge", "diffusion.schedule", "diffusion.gaussian", "diffusion.samplers",
          "core.quaternions", "core.hml_codec", "sampling.text", "sampling.pipeline", "serving",
@@ -57,7 +89,12 @@ SLICE = {"ops._mask", "ops.layer_inference", "ops._build", "models.layers", "mod
          "train.checkpoints", "train.logger", "train.platforms", "train.loop",
          "ops.attention", "ops.attention_v2", "ops.attention_dropout", "ops.attention_block",
          "scripts.bench_sample_kernels", "scripts.bench_train_kernels",
-         "scripts.attention_forward_probe", "core.hml_masks", "scripts.dip_probe"}
+         "scripts.attention_forward_probe", "core.hml_masks", "scripts.dip_probe",
+         "core.rotations", "core.skeleton", "data", "data.collate", "data.word_vectorizer",
+         "data.raw_text", "data.tokenizers", "data.get_opt", "data.humanml", "data.a2m",
+         "data.loader", "utils", "utils.misc", "utils.parser", "utils.factory",
+         "train.profiling", "visualize", "visualize.plot_script", "cli", "cli.train",
+         "cli.generate", "cli.edit"}
 
 
 def test_port_runs_with_jax_and_flax_blocked():

@@ -79,7 +79,7 @@ def test_generate_is_reproducible_from_its_generator():
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
-def test_predictor_answers_prompts_on_cpu():
+def test_predictor_answers_prompts_on_cpu(tmp_path):
     p = Predictor(PredictorConfig(num_diffusion_steps=20, respacing="5", max_frames=24,
                                   latent_dim=128, layers=2, compute_dtype="float32",
                                   device="cpu"))
@@ -93,5 +93,8 @@ def test_predictor_answers_prompts_on_cpu():
     np.testing.assert_array_equal(again, joints)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         p.predict("a person jumps", output_format="animation")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        Predictor(PredictorConfig(model_path="x.ckpt", device="cpu")).setup()
+    # A checkpoint written by mdm_tpu (an orbax directory) is refused.
+    (tmp_path / "ckpt_000000001").mkdir()
+    with pytest.raises(ValueError, match="orbax"):
+        Predictor(PredictorConfig(model_path=str(tmp_path / "ckpt_000000001"), device="cpu",
+                                  latent_dim=128, layers=2, compute_dtype="float32")).setup()
