@@ -72,7 +72,19 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   step 15 whose step-30 checkpoint equals the first run's bitwise;
   cli.generate at B=32 (50 steps, CFG 2.5, 196 frames: #1's chain 400
   launches, results.npy with mdm_tpu's keys and shapes), its s/sample
-  beside phase 3's; and cli.edit (in-between, B=32, 400 launches).
+  beside phase 3's; and cli.edit (in-between, B=32, 400 launches);
+- the t2m evaluation protocol (phase 16), on phase 15's tree with a GloVe
+  vocabulary of its captions: cli.train_evaluators decomp (200 steps) and
+  match (300 steps) at the protocol's widths (movement 512, text hidden
+  512, motion hidden 1024, co-embedding 512), ms/step, and the trained
+  evaluator's embeddings of one batch on the card against the CPU;
+  cli.eval_humanml (debug, 2 replications, B=32) on phase 15's flagship
+  checkpoint: #1's chain 8 x 50 x batches x 2 launches, the ground truth's
+  metrics against a CPU run of the same pass, s per replication split into
+  generation and evaluator time (phase 12 profiles one replication for its
+  busy share); then a 10-step DiP cli.train and its --autoregressive eval
+  at dip_probe's geometry (context 20, pred 40, 10 steps, CFG 7.5), the
+  rate-0 block (#2) and tail (#4) 8 per denoise step of every chunk.
 
 Each path checks that every layer call went through its kernels, and the
 sampling and training paths that every product, forward and backward,
@@ -2167,9 +2179,10 @@ def _zero_cli_counts(TB, ET, DB, li, chain):
     li.LAUNCHES = 0
 
 
-def phase_cli(torch, TB, ET, DB, li, dev, bare_step_ms, generate_s_per_sample):
-    """Phase 15, this slice's main path: the command-line entry points a
-    user runs, in this process so that the launch counters count. On a
+def phase_cli(torch, TB, ET, DB, li, dev, bare_step_ms, generate_s_per_sample, tmp):
+    """Phase 15: the command-line entry points a user runs, in this process
+    so that the launch counters count, in the directory ``tmp`` (phase 16
+    goes on from its tree and checkpoints). On a
     synthetic HumanML3D tree: ``cli.train`` at the flagship width (B = 128,
     bf16, 50 diffusion steps, AdamW + EMA, 30 steps, checkpoints at 15 and
     30), its ms/step by CUDA events between steps; a second ``cli.train``
@@ -2188,179 +2201,462 @@ def phase_cli(torch, TB, ET, DB, li, dev, bare_step_ms, generate_s_per_sample):
     layers, steps, B = FLAGSHIP["num_layers"], 30, 32
     cwd = os.getcwd()
     os.environ["MDM_TPU_NO_RENDER"] = "1"
-    with tempfile.TemporaryDirectory() as tmp:
-        os.chdir(tmp)  # the dataset's parse cache goes under ./save
-        try:
-            root = os.path.join(tmp, "HumanML3D")
-            # The CLIs' own output (each log window's loss table, the saves)
-            # goes to this file; the phase prints its summary.
-            quiet = lambda: stdout_to(os.path.join(tmp, "cli.log"))
-            t0 = time.perf_counter()
-            synthetic_humanml(root)
-            print(f"cli: synthetic HumanML3D tree of {CLI_CLIPS} clips in "
-                  f"{time.perf_counter() - t0:.1f} s")
+    os.chdir(tmp)  # the dataset's parse cache goes under ./save
+    try:
+        root = os.path.join(tmp, "HumanML3D")
+        # The CLIs' own output (each log window's loss table, the saves)
+        # goes to this file; the phase prints its summary.
+        quiet = lambda: stdout_to(os.path.join(tmp, "cli.log"))
+        t0 = time.perf_counter()
+        synthetic_humanml(root)
+        print(f"cli: synthetic HumanML3D tree of {CLI_CLIPS} clips in "
+              f"{time.perf_counter() - t0:.1f} s")
 
-            # cli.train, with a CUDA event after each step (the step factory
-            # wrapped while the CLI builds its step).
-            marks = {}
-            make = T.make_train_step
+        # cli.train, with a CUDA event after each step (the step factory
+        # wrapped while the CLI builds its step).
+        marks = {}
+        make = T.make_train_step
 
-            def timed_make(*a, **k):
-                inner = make(*a, **k)
+        def timed_make(*a, **k):
+            inner = make(*a, **k)
 
-                def step(state, batch, key):
-                    out = inner(state, batch, key)
-                    marks[out[0].step] = torch.cuda.Event(enable_timing=True)
-                    marks[out[0].step].record()
-                    return out
-                return step
-
-            run1, run2 = os.path.join(tmp, "run"), os.path.join(tmp, "resumed")
-            T.make_train_step = timed_make
-            try:
-                _zero_cli_counts(*counters)
-                t0 = time.perf_counter()
-                with quiet():
-                    loop = train_cli.main(["--save_dir", run1, "--data_dir", root, *CLI_TRAIN])
-                torch.cuda.synchronize()
-                train_wall = time.perf_counter() - t0
-                train_counts = _cli_counts(*counters)
-            finally:
-                T.make_train_step = make
-            want = {"fused_train_attention_block.fwd": layers * steps,
-                    "fused_train_attention_block.bwd": layers * steps,
-                    "fused_encoder_tail.fwd": layers * steps,
-                    "fused_encoder_tail.bwd": layers * steps,
-                    "sequence_dropout_bits": steps, "products.wgmma": 12 * layers * steps,
-                    "products.fma": 0, "fused_layer_inference": 0}
-            if any(train_counts.get(k) != v for k, v in want.items()):
-                raise AssertionError(f"cli.train launched {train_counts}, expected {want}")
-            ckpts = sorted(f for f in os.listdir(run1) if f.startswith("ckpt_"))
-            if ckpts != ["ckpt_000000015", "ckpt_000000030"] or not os.path.exists(
-                    os.path.join(run1, "args.json")):
-                raise AssertionError(f"cli.train wrote {sorted(os.listdir(run1))}")
-            with open(os.path.join(run1, "progress.jsonl")) as f:
-                losses = [json.loads(line)["loss"] for line in f if line.strip()]
-            if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-                raise AssertionError(f"cli.train's loss (each 5-step window) did not fall: {losses}")
-            window_ms = marks[10].elapsed_time(marks[30]) / 20
-            no_save_ms = marks[16].elapsed_time(marks[30]) / 14
-            print(f"cli.train B=128 bf16 flagship, 30 steps: loss by 5-step window {losses}; "
-                  f"launches {json.dumps(train_counts)}; {train_wall:.1f} s in all (host clock, "
-                  f"dataset parse and checkpoints included)")
-            print(f"cli.train ms/step (CUDA events): steps 10-30 {window_ms:.3f} (the step-15 "
-                  f"checkpoint inside), steps 16-30 {no_save_ms:.3f}; phase 8's bare step "
-                  f"{bare_step_ms:.3f}")
-
-            # The loader alone, as the CLI drives it (hash embedder, pinned
-            # batches), without a step: its batches' cost on this host.
-            from mdm_tpu_torch.data import get_dataset_loader
-            from mdm_tpu_torch.data.loader import pin_batch
-            from mdm_tpu_torch.sampling.text import HashTextEmbedder
-
-            data = get_dataset_loader("humanml", 128, data_root=root)
-            data.text_embedder, data.host_transform = HashTextEmbedder(), pin_batch
-            serial, prefetched = data._gen(0), data.iter_from(0)
-            loader_ms = {}
-            for name, it in (("serial", serial), ("prefetch thread", prefetched)):
-                next(it)
-                t0 = time.perf_counter()
-                for _ in range(20):
-                    next(it)
-                loader_ms[name] = (time.perf_counter() - t0) / 20 * 1e3
-            print(f"cli loader alone, B=128 batches with hash embeddings, pinned: "
-                  f"{json.dumps(loader_ms)} ms/batch (host clock, 20 batches after one)")
-
-            # Resume from step 15 in a second run: its step 30 equals the first's bitwise.
-            _zero_cli_counts(*counters)
-            with quiet():
-                train_cli.main(["--save_dir", run2, "--data_dir", root, *CLI_TRAIN,
-                                "--resume_checkpoint", os.path.join(run1, "ckpt_000000015")])
-            torch.cuda.synchronize()
-            resume_counts = _cli_counts(*counters)
-            load = lambda d: torch.load(os.path.join(d, "ckpt_000000030"), map_location="cpu",
-                                        weights_only=True)
-            a, b = load(run1), load(run2)
-            same = lambda x, y: x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
-            moments = lambda sd: {f"{i}.{k}": v for i, st in sd["optimizer"]["state"].items()
-                                  for k, v in st.items() if torch.is_tensor(v)}
-            if not (a["step"] == b["step"] == 30 and same(a["model"], b["model"])
-                    and same(a["ema_params"], b["ema_params"]) and same(moments(a), moments(b))):
-                raise AssertionError("cli.train resumed from step 15 differs from the "
-                                     "uninterrupted run at step 30")
-            print(f"cli.train resume: 15 steps + checkpoint + resume + 15 steps == 30 steps, "
-                  f"bitwise (params, EMA, AdamW moments); the resumed run's launches "
-                  f"{json.dumps(resume_counts)}")
-            del loop, a, b
-            torch.cuda.empty_cache()
-
-            # cli.generate at B = 32 from the step-30 checkpoint, generate() timed.
-            ckpt = os.path.join(run1, "ckpt_000000030")
-            gen_ms = []
-            generate = MotionGenerator.generate
-
-            def timed_generate(self, *a, **k):
-                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                start.record()
-                out = generate(self, *a, **k)
-                end.record()
-                torch.cuda.synchronize()
-                gen_ms.append(start.elapsed_time(end))
+            def step(state, batch, key):
+                out = inner(state, batch, key)
+                marks[out[0].step] = torch.cuda.Event(enable_timing=True)
+                marks[out[0].step].record()
                 return out
+            return step
 
-            out_g, out_e = os.path.join(tmp, "gen"), os.path.join(tmp, "edit")
-            MotionGenerator.generate = timed_generate
-            try:
-                _zero_cli_counts(*counters)
-                t0 = time.perf_counter()
-                with quiet():
-                    gen_cli.main(["--model_path", ckpt, "--text_prompt", "a person walks forward",
-                                  "--num_samples", str(B), "--num_repetitions", "1",
-                                  "--motion_length", "9.8", "--output_dir", out_g, "--seed", "0",
-                                  "--device", "0"])
-                gen_wall = time.perf_counter() - t0
-                gen_counts = _cli_counts(*counters)
-            finally:
-                MotionGenerator.generate = generate
-            diffusion_steps = 50
-            want = {"fused_layer_inference": layers * diffusion_steps,
-                    "products.wgmma": 4 * layers * diffusion_steps, "products.fma": 0}
-            if any(gen_counts.get(k) != v for k, v in want.items()):
-                raise AssertionError(f"cli.generate launched {gen_counts}, expected {want}")
-            res = np.load(os.path.join(out_g, "results.npy"), allow_pickle=True).item()
-            keys = {"motion", "text", "lengths", "num_samples", "num_repetitions"}
-            if (set(res) != keys or res["motion"].shape != (B, 196, 22, 3)
-                    or not np.isfinite(res["motion"]).all()):
-                raise AssertionError(f"cli.generate's results.npy: {sorted(res)}, "
-                                     f"motion {res['motion'].shape}")
-            print(f"cli.generate B={B} T=196 50 steps CFG 2.5 bf16: launches "
-                  f"{json.dumps(gen_counts)}; generate {gen_ms[0]:.1f} ms (CUDA events), "
-                  f"{gen_ms[0] / 1000 / B:.6f} s/sample (phase 3: {generate_s_per_sample:.6f}); "
-                  f"the whole call {gen_wall:.2f} s (host clock: model, checkpoint, embedder, "
-                  f"sampling, results.npy)")
-
-            # cli.edit: in-between, 32 samples of the test split.
+        run1, run2 = os.path.join(tmp, "run"), os.path.join(tmp, "resumed")
+        T.make_train_step = timed_make
+        try:
             _zero_cli_counts(*counters)
             t0 = time.perf_counter()
             with quiet():
-                edit_cli.main(["--model_path", ckpt, "--data_dir", root, "--num_samples", str(B),
-                               "--output_dir", out_e, "--seed", "0", "--device", "0"])
+                loop = train_cli.main(["--save_dir", run1, "--data_dir", root, *CLI_TRAIN])
             torch.cuda.synchronize()
-            edit_wall = time.perf_counter() - t0
-            edit_counts = _cli_counts(*counters)
-            if any(edit_counts.get(k) != v for k, v in want.items()):
-                raise AssertionError(f"cli.edit launched {edit_counts}, expected {want}")
-            res = np.load(os.path.join(out_e, "results.npy"), allow_pickle=True).item()
-            if (res["motion"].shape != (B, 196, 22, 3) or not np.isfinite(res["motion"]).all()
-                    or res["edit_mode"] != "in_between"):
-                raise AssertionError(f"cli.edit's results.npy: motion {res['motion'].shape}")
-            print(f"cli.edit in_between B={B} T=196 50 steps: launches {json.dumps(edit_counts)}; "
-                  f"{edit_wall:.2f} s (host clock, the whole call)")
+            train_wall = time.perf_counter() - t0
+            train_counts = _cli_counts(*counters)
         finally:
-            os.chdir(cwd)
+            T.make_train_step = make
+        want = {"fused_train_attention_block.fwd": layers * steps,
+                "fused_train_attention_block.bwd": layers * steps,
+                "fused_encoder_tail.fwd": layers * steps,
+                "fused_encoder_tail.bwd": layers * steps,
+                "sequence_dropout_bits": steps, "products.wgmma": 12 * layers * steps,
+                "products.fma": 0, "fused_layer_inference": 0}
+        if any(train_counts.get(k) != v for k, v in want.items()):
+            raise AssertionError(f"cli.train launched {train_counts}, expected {want}")
+        ckpts = sorted(f for f in os.listdir(run1) if f.startswith("ckpt_"))
+        if ckpts != ["ckpt_000000015", "ckpt_000000030"] or not os.path.exists(
+                os.path.join(run1, "args.json")):
+            raise AssertionError(f"cli.train wrote {sorted(os.listdir(run1))}")
+        with open(os.path.join(run1, "progress.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f if line.strip()]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"cli.train's loss (each 5-step window) did not fall: {losses}")
+        window_ms = marks[10].elapsed_time(marks[30]) / 20
+        no_save_ms = marks[16].elapsed_time(marks[30]) / 14
+        print(f"cli.train B=128 bf16 flagship, 30 steps: loss by 5-step window {losses}; "
+              f"launches {json.dumps(train_counts)}; {train_wall:.1f} s in all (host clock, "
+              f"dataset parse and checkpoints included)")
+        print(f"cli.train ms/step (CUDA events): steps 10-30 {window_ms:.3f} (the step-15 "
+              f"checkpoint inside), steps 16-30 {no_save_ms:.3f}; phase 8's bare step "
+              f"{bare_step_ms:.3f}")
+
+        # The loader alone, as the CLI drives it (hash embedder, pinned
+        # batches), without a step: its batches' cost on this host.
+        from mdm_tpu_torch.data import get_dataset_loader
+        from mdm_tpu_torch.data.loader import pin_batch
+        from mdm_tpu_torch.sampling.text import HashTextEmbedder
+
+        data = get_dataset_loader("humanml", 128, data_root=root)
+        data.text_embedder, data.host_transform = HashTextEmbedder(), pin_batch
+        serial, prefetched = data._gen(0), data.iter_from(0)
+        loader_ms = {}
+        for name, it in (("serial", serial), ("prefetch thread", prefetched)):
+            next(it)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                next(it)
+            loader_ms[name] = (time.perf_counter() - t0) / 20 * 1e3
+        print(f"cli loader alone, B=128 batches with hash embeddings, pinned: "
+              f"{json.dumps(loader_ms)} ms/batch (host clock, 20 batches after one)")
+
+        # Resume from step 15 in a second run: its step 30 equals the first's bitwise.
+        _zero_cli_counts(*counters)
+        with quiet():
+            train_cli.main(["--save_dir", run2, "--data_dir", root, *CLI_TRAIN,
+                            "--resume_checkpoint", os.path.join(run1, "ckpt_000000015")])
+        torch.cuda.synchronize()
+        resume_counts = _cli_counts(*counters)
+        load = lambda d: torch.load(os.path.join(d, "ckpt_000000030"), map_location="cpu",
+                                    weights_only=True)
+        a, b = load(run1), load(run2)
+        same = lambda x, y: x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+        moments = lambda sd: {f"{i}.{k}": v for i, st in sd["optimizer"]["state"].items()
+                              for k, v in st.items() if torch.is_tensor(v)}
+        if not (a["step"] == b["step"] == 30 and same(a["model"], b["model"])
+                and same(a["ema_params"], b["ema_params"]) and same(moments(a), moments(b))):
+            raise AssertionError("cli.train resumed from step 15 differs from the "
+                                 "uninterrupted run at step 30")
+        print(f"cli.train resume: 15 steps + checkpoint + resume + 15 steps == 30 steps, "
+              f"bitwise (params, EMA, AdamW moments); the resumed run's launches "
+              f"{json.dumps(resume_counts)}")
+        del loop, a, b
+        torch.cuda.empty_cache()
+
+        # cli.generate at B = 32 from the step-30 checkpoint, generate() timed.
+        ckpt = os.path.join(run1, "ckpt_000000030")
+        gen_ms = []
+        generate = MotionGenerator.generate
+
+        def timed_generate(self, *a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = generate(self, *a, **k)
+            end.record()
+            torch.cuda.synchronize()
+            gen_ms.append(start.elapsed_time(end))
+            return out
+
+        out_g, out_e = os.path.join(tmp, "gen"), os.path.join(tmp, "edit")
+        MotionGenerator.generate = timed_generate
+        try:
+            _zero_cli_counts(*counters)
+            t0 = time.perf_counter()
+            with quiet():
+                gen_cli.main(["--model_path", ckpt, "--text_prompt", "a person walks forward",
+                              "--num_samples", str(B), "--num_repetitions", "1",
+                              "--motion_length", "9.8", "--output_dir", out_g, "--seed", "0",
+                              "--device", "0"])
+            gen_wall = time.perf_counter() - t0
+            gen_counts = _cli_counts(*counters)
+        finally:
+            MotionGenerator.generate = generate
+        diffusion_steps = 50
+        want = {"fused_layer_inference": layers * diffusion_steps,
+                "products.wgmma": 4 * layers * diffusion_steps, "products.fma": 0}
+        if any(gen_counts.get(k) != v for k, v in want.items()):
+            raise AssertionError(f"cli.generate launched {gen_counts}, expected {want}")
+        res = np.load(os.path.join(out_g, "results.npy"), allow_pickle=True).item()
+        keys = {"motion", "text", "lengths", "num_samples", "num_repetitions"}
+        if (set(res) != keys or res["motion"].shape != (B, 196, 22, 3)
+                or not np.isfinite(res["motion"]).all()):
+            raise AssertionError(f"cli.generate's results.npy: {sorted(res)}, "
+                                 f"motion {res['motion'].shape}")
+        print(f"cli.generate B={B} T=196 50 steps CFG 2.5 bf16: launches "
+              f"{json.dumps(gen_counts)}; generate {gen_ms[0]:.1f} ms (CUDA events), "
+              f"{gen_ms[0] / 1000 / B:.6f} s/sample (phase 3: {generate_s_per_sample:.6f}); "
+              f"the whole call {gen_wall:.2f} s (host clock: model, checkpoint, embedder, "
+              f"sampling, results.npy)")
+
+        # cli.edit: in-between, 32 samples of the test split.
+        _zero_cli_counts(*counters)
+        t0 = time.perf_counter()
+        with quiet():
+            edit_cli.main(["--model_path", ckpt, "--data_dir", root, "--num_samples", str(B),
+                           "--output_dir", out_e, "--seed", "0", "--device", "0"])
+        torch.cuda.synchronize()
+        edit_wall = time.perf_counter() - t0
+        edit_counts = _cli_counts(*counters)
+        if any(edit_counts.get(k) != v for k, v in want.items()):
+            raise AssertionError(f"cli.edit launched {edit_counts}, expected {want}")
+        res = np.load(os.path.join(out_e, "results.npy"), allow_pickle=True).item()
+        if (res["motion"].shape != (B, 196, 22, 3) or not np.isfinite(res["motion"]).all()
+                or res["edit_mode"] != "in_between"):
+            raise AssertionError(f"cli.edit's results.npy: motion {res['motion'].shape}")
+        print(f"cli.edit in_between B={B} T=196 50 steps: launches {json.dumps(edit_counts)}; "
+              f"{edit_wall:.2f} s (host clock, the whole call)")
+    finally:
+        os.chdir(cwd)
     return dict(train=train_counts, resume=resume_counts, generate=gen_counts,
                 edit=edit_counts, train_ms=window_ms, train_no_save_ms=no_save_ms,
                 generate_ms=gen_ms[0], loader_ms=loader_ms)
+
+
+# Phase 16: the t2m evaluation protocol. The evaluators train at the
+# protocol's widths (movement 512, text hidden 512, motion hidden 1024,
+# co-embedding 512) on phase 15's tree with a GloVe vocabulary of its
+# captions; the protocol runs at batch 32, debug mode, 2 replications.
+EVAL_TRAIN_STEPS = {"decomp": 200, "match": 300}
+EVAL_WARM = 20  # steps before ms/step is read
+EVAL_REPS = 2
+EMB_REL = 1e-4  # evaluator embeddings, card vs CPU (f32): of the largest |embedding|
+DIP_EVAL_TRAIN = ["--dataset", "humanml", "--arch", "trans_dec", "--context_len", "20",
+                  "--pred_len", "40", "--mask_frames", "--diffusion_steps", "10",
+                  "--batch_size", "64", "--num_steps", "10", "--save_interval", "10",
+                  "--log_interval", "5", "--compute_dtype", "bfloat16",
+                  "--text_encoder_type", "hash", "--device", "0"]
+
+
+def _gt_pass(root, glove, fixed_len=0, pred_len=0):
+    """The ground-truth batches cli.eval_humanml builds (test split, eval
+    mode, the GloVe vectorizer, batch 32, seed 0) and its dataset."""
+    from mdm_tpu_torch.data import BatchIterator, WordVectorizer, get_dataset
+
+    ds = get_dataset("humanml", split="test", hml_mode="eval", data_root=root,
+                     fixed_len=fixed_len)
+    ds.w_vectorizer = WordVectorizer(glove, "our_vab")
+    return list(BatchIterator(ds, 32, shuffle=True, seed=0, infinite=False,
+                              pred_len=pred_len)), ds
+
+
+@contextlib.contextmanager
+def patched(owner, name, wrap):
+    """``owner.name`` replaced by ``wrap(original)`` inside the block."""
+    original = getattr(owner, name)
+    setattr(owner, name, wrap(original))
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+def _device_timed(torch, fn, times, keep=None):
+    """fn, with the device time of each call (CUDA events, read later)
+    appended to ``times``; ``keep`` records the call's first argument."""
+    def timed(*a, **k):
+        if keep is not None:
+            keep.append(a[0])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a, **k)
+        end.record()
+        times.append((start, end))
+        return out
+    return timed
+
+
+def _eval_run(torch, argv, quiet):
+    """cli.eval_humanml.main(argv) with each replication's host time (the
+    first matching pass's start to the diversity pass's end), the device
+    time of each generation call and of each evaluator embedding, and the
+    generator and the evaluator it built."""
+    from mdm_tpu_torch.cli import eval_humanml as eval_cli
+    from mdm_tpu_torch.eval import EvaluatorWrapper, harness
+    from mdm_tpu_torch.sampling import MotionGenerator
+
+    gen_t, emb_t, gens, wrappers, reps, frames = [], [], [], [], [], []
+
+    def rep_start(fn):
+        def f(*a, **k):
+            reps.append([time.perf_counter()])
+            return fn(*a, **k)
+        return f
+
+    def rep_end(fn):
+        def f(*a, **k):
+            out = fn(*a, **k)
+            reps[-1].append(time.perf_counter())
+            return out
+        return f
+
+    def ar_frames(fn):
+        def f(self, cond, B, generator=None, required_frames=196, **k):
+            frames.append(required_frames)
+            return fn(self, cond, B, generator, required_frames, **k)
+        return f
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(harness, "evaluate_matching_score", rep_start))
+        stack.enter_context(patched(harness, "evaluate_diversity", rep_end))
+        for name in ("sample_features", "sample_autoregressive"):
+            stack.enter_context(patched(MotionGenerator, name,
+                                        lambda fn: _device_timed(torch, fn, gen_t, gens)))
+        stack.enter_context(patched(MotionGenerator, "sample_autoregressive", ar_frames))
+        stack.enter_context(patched(EvaluatorWrapper, "get_co_embeddings_device",
+                                    lambda fn: _device_timed(torch, fn, emb_t, wrappers)))
+        with quiet():
+            summary = eval_cli.main(argv)
+    torch.cuda.synchronize()
+    ms = lambda ts: sum(a.elapsed_time(b) for a, b in ts)
+    rep_s = [b - a for a, b in reps]
+    return dict(summary=summary, rep_s=rep_s, gen_ms=ms(gen_t) / len(rep_s),
+                eval_ms=ms(emb_t) / len(rep_s), gen_calls=len(gen_t), ar_frames=frames,
+                gen=gens[0], wrapper=wrappers[0])
+
+
+def _check_summary(name, summary, loaders=("ground truth", "vald")):
+    if summary["comparable"] is not True:
+        raise AssertionError(f"{name}: not comparable: {summary.get('degraded_reasons')}")
+    for metric in ("Matching Score", "R_precision", "FID", "Diversity"):
+        if set(summary[metric]) != set(loaders) or not all(
+                np.isfinite(v["mean"]).all() for v in summary[metric].values()):
+            raise AssertionError(f"{name}: {metric} {summary[metric]}")
+
+
+def phase_eval(torch, TB, ET, li, dev, tmp):
+    """Phase 16, this slice's main path: the t2m evaluation protocol through
+    its entry points, in ``tmp`` on phase 15's tree and checkpoint.
+    ``cli.train_evaluators`` decomp then match at the protocol's widths
+    (ms/step by CUDA events; the evaluator's embeddings of one batch, card
+    against CPU, from the same finest.npy); ``cli.eval_humanml`` (debug, 2
+    replications, B = 32) on phase 15's flagship checkpoint: #1's chain 8 x
+    50 x batches x 2 launches, its ground-truth rows against a CPU run of
+    the same pass, s per replication and its split between generation and
+    the evaluator; then a short DiP ``cli.train`` and its
+    ``--autoregressive`` eval at dip_probe's geometry (context 20, pred 40,
+    10 steps, CFG 7.5), the rate-0 block (#2) and tail (#4) counted exactly.
+    Returns the launches, the times, and a function that runs one flagship
+    replication (phase 12 profiles it)."""
+    from mdm_tpu_torch.cli import train as train_cli
+    from mdm_tpu_torch.cli import train_evaluators as tev_cli
+    from mdm_tpu_torch.eval import EvalConfig, EvaluatorWrapper, GeneratedMotionLoader, evaluation
+    from mdm_tpu_torch.eval import train_evaluators as TE
+    from mdm_tpu_torch.ops import _chain
+    from mdm_tpu_torch.sampling import HashTextEmbedder
+    from mdm_tpu_torch.sampling.pipeline import dataset_norm_stats
+    from mdm_tpu_torch.scripts.quality_rehearsal import write_glove
+
+    layers = FLAGSHIP["num_layers"]
+    cwd, tf32 = os.getcwd(), torch.backends.cudnn.allow_tf32
+    os.chdir(tmp)
+    # The CLIs run under PyTorch's default, which lets cuDNN take TF32; the
+    # evaluators turn it off themselves, and the card-vs-CPU check holds that.
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        root = os.path.join(tmp, "HumanML3D")
+        quiet = lambda: stdout_to(os.path.join(tmp, "cli.log"))
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                               "example_text_prompts.txt")) as f:
+            words = sorted({w for line in f for w in line.split()})
+        glove = write_glove(tmp, words)
+
+        # 16a: the evaluators, trained on the card (batches cached there, as
+        # the rehearsal runs them).
+        ev_dir = os.path.join(tmp, "t2m", "text_mot_match", "model")
+        os.makedirs(ev_dir)
+        decomp, finest = os.path.join(tmp, "decomp.npy"), os.path.join(ev_dir, "finest.npy")
+        ev_ms, ev_logs = {}, {}
+        for stage, save, extra in (("decomp", decomp, []),
+                                   ("match", finest, ["--decomp_path", decomp])):
+            marks, logs = [], []
+
+            def timed_make(make):
+                def f(*a, **k):
+                    init, step = make(*a, **k)
+
+                    def timed(*sa):
+                        out = step(*sa)
+                        marks.append(torch.cuda.Event(enable_timing=True))
+                        marks[-1].record()
+                        logs.append(out[2]["loss"])
+                        return out
+                    return init, timed
+                return f
+
+            n = EVAL_TRAIN_STEPS[stage]
+            with patched(TE, f"make_{stage}_step", timed_make), quiet():
+                tev_cli.main(["--stage", stage, "--data_dir", root, "--glove_dir", glove,
+                              "--save_path", save, "--num_steps", str(n), "--batch_size", "32",
+                              "--cache_batches", str(CLI_CLIPS // 32), "--log_every", "50",
+                              "--lr", "3e-4", "--device", "0", *extra])
+            torch.cuda.synchronize()
+            ev_ms[stage] = marks[EVAL_WARM - 1].elapsed_time(marks[-1]) / (n - EVAL_WARM)
+            ev_logs[stage] = [float(logs[i]) for i in (0, n // 2, n - 1)]
+            if not np.isfinite(ev_logs[stage]).all():
+                raise AssertionError(f"train_evaluators {stage}: loss {ev_logs[stage]}")
+        if not ev_logs["decomp"][-1] < ev_logs["decomp"][0]:
+            raise AssertionError(f"train_evaluators decomp: loss did not fall {ev_logs['decomp']}")
+        print(f"train_evaluators at the protocol widths, B=32, batches cached on the card: "
+              f"ms/step (CUDA events, steps {EVAL_WARM}..end) {json.dumps(ev_ms)}; loss at the "
+              f"first, middle and last step {json.dumps(ev_logs)}")
+
+        gt, ds = _gt_pass(root, glove)
+        card = EvaluatorWrapper("humanml", tmp, device=dev)
+        host = EvaluatorWrapper("humanml", tmp, device="cpu")
+        b = gt[0]
+        args = (b["word_embeddings"], b["pos_one_hots"], b["sent_lens"], b["x"], b["lengths"])
+        for name, x, y in zip(("text", "motion"), card.get_co_embeddings(*args),
+                              host.get_co_embeddings(*args)):
+            err, scale = float(np.abs(x - y).max()), float(np.abs(y).max())
+            print(f"evaluator {name} embeddings [32, {y.shape[1]}], card (cuDNN TF32 allowed "
+                  f"outside the evaluator) vs CPU on one finest.npy: max abs err {err:.3g} "
+                  f"(tolerance {EMB_REL} x max |embedding| {scale:.3g})")
+            if not err <= EMB_REL * scale:
+                raise AssertionError(f"evaluator {name} embeddings: card and CPU disagree, {err}")
+
+        # 16b: cli.eval_humanml on phase 15's flagship checkpoint.
+        for c in (TB.LAUNCHES, ET.LAUNCHES, _chain.GEMM_LAUNCHES):
+            _zero(c)
+        li.LAUNCHES = 0
+        run = _eval_run(torch, ["--model_path", os.path.join(tmp, "run", "ckpt_000000030"),
+                                "--data_dir", root, "--eval_mode", "debug", "--replications",
+                                str(EVAL_REPS), "--evaluator_dir", tmp, "--device", "0"], quiet)
+        batches = len(gt)
+        want = layers * 50 * batches * EVAL_REPS
+        got = dict(fused_layer_inference=li.LAUNCHES, products=dict(_chain.GEMM_LAUNCHES),
+                   sampling_calls=run["gen_calls"])
+        if got != dict(fused_layer_inference=want, products={"wgmma": 4 * want, "fma": 0},
+                       sampling_calls=batches * EVAL_REPS) or TB.LAUNCHES["fwd"]:
+            raise AssertionError(f"cli.eval_humanml launched {got}, expected {want} layer "
+                                 f"kernel launches ({layers} x 50 steps x {batches} batches x "
+                                 f"{EVAL_REPS} replications) and 4 products each on wgmma")
+        summary = run["summary"]
+        _check_summary("cli.eval_humanml", summary)
+        with quiet():
+            cpu = evaluation(host, lambda: iter(gt), {}, EvalConfig(replication_times=EVAL_REPS))
+        gt_rows = {}
+        for metric, tol in (("R_precision", 0.0), ("Matching Score", 1e-4), ("FID", 1e-4),
+                            ("Diversity", 1e-4)):
+            a = np.asarray(summary[metric]["ground truth"]["mean"])
+            c = np.asarray(cpu[metric]["ground truth"]["mean"])
+            gt_rows[metric] = [a.tolist(), c.tolist()]
+            # R-precision: within one retrieval of the pass's 32 x batches rows
+            ok = (np.abs(a - c).max() <= 1 / (32 * batches) if metric == "R_precision"
+                  else np.allclose(a, c, rtol=tol, atol=1e-6))
+            if not ok:
+                raise AssertionError(f"ground truth {metric}: card {a}, CPU {c}")
+        print(f"cli.eval_humanml flagship (B=32, 50 steps, CFG 2.5, bf16; debug, {EVAL_REPS} "
+              f"replications x {batches} batches): launches {json.dumps(got)}; ground truth "
+              f"card vs CPU {json.dumps(gt_rows)}; vald R-precision "
+              f"{np.round(summary['R_precision']['vald']['mean'], 4).tolist()}, FID "
+              f"{float(summary['FID']['vald']['mean']):.4f}")
+        print(f"t2m protocol s/replication (host clock, matching + FID + diversity passes): "
+              f"{json.dumps(run['rep_s'])}; per replication, generation {run['gen_ms']:.1f} ms "
+              f"and evaluator {run['eval_ms']:.1f} ms (CUDA events)")
+        flagship = dict(li=li.LAUNCHES, rep_s=run["rep_s"], gen_ms=run["gen_ms"],
+                        eval_ms=run["eval_ms"])
+        gen, wrapper = run["gen"], run["wrapper"]
+        stats = dataset_norm_stats(root)
+        loader = GeneratedMotionLoader(gen, gt, HashTextEmbedder(), seed=0, model_mean=stats[0],
+                                       model_std=stats[1], eval_mean=ds.mean, eval_std=ds.std)
+        one_replication = lambda: evaluation(wrapper, lambda: iter(gt), {"vald": lambda r: loader},
+                                             EvalConfig(replication_times=1))
+
+        # 16c: DiP, a short cli.train and the autoregressive protocol.
+        dip_run = os.path.join(tmp, "dip")
+        with quiet():
+            train_cli.main(["--save_dir", dip_run, "--data_dir", root, *DIP_EVAL_TRAIN])
+        torch.cuda.synchronize()
+        for c in (TB.LAUNCHES, ET.LAUNCHES, _chain.GEMM_LAUNCHES):
+            _zero(c)
+        li.LAUNCHES = 0
+        dip = _eval_run(torch, ["--model_path", dip_run, "--data_dir", root, "--eval_mode",
+                                "debug", "--replications", str(EVAL_REPS), "--evaluator_dir", tmp,
+                                "--autoregressive", "--guidance_param", "7.5", "--device", "0"],
+                        quiet)
+        chunks = sum(-(-f // 40) for f in dip["ar_frames"])
+        want = chunks * 10 * layers
+        got = {"fused_block_attention_inference": TB.LAUNCHES["fwd"],
+               "fused_encoder_tail_inference": ET.LAUNCHES["fwd"]}
+        if (got != {k: want for k in got} or li.LAUNCHES
+                or dict(_chain.GEMM_LAUNCHES) != {"wgmma": 4 * want, "fma": 0}):
+            raise AssertionError(f"DiP eval launched {got}, layer kernel {li.LAUNCHES}, products "
+                                 f"{dict(_chain.GEMM_LAUNCHES)}; expected {want} each ({chunks} "
+                                 f"chunks x 10 steps x {layers} layers), 4 products each")
+        _check_summary("cli.eval_humanml --autoregressive", dip["summary"])
+        print(f"cli.eval_humanml --autoregressive DiP (context 20, pred 40, 10 steps, CFG 7.5, "
+              f"bf16; debug, {EVAL_REPS} replications, {len(dip['ar_frames'])} batches, {chunks} "
+              f"chunks): launches {json.dumps(got)}, products {json.dumps(_chain.GEMM_LAUNCHES)}; "
+              f"s/replication {json.dumps(dip['rep_s'])}; per replication generation "
+              f"{dip['gen_ms']:.1f} ms and evaluator {dip['eval_ms']:.1f} ms (CUDA events)")
+    finally:
+        os.chdir(cwd)
+        torch.backends.cudnn.allow_tf32 = tf32
+    return dict(flagship=flagship, dip=dict(got, rep_s=dip["rep_s"]), ev_ms=ev_ms,
+                one_replication=one_replication)
 
 
 def device_busy(torch, fn):
@@ -2668,12 +2964,17 @@ def main():
     a2m_rows = phase_a2m(torch, dev)
     phase_goal(torch, dev)
 
-    # Phase 15: the command-line path (this slice's main path): cli.train,
-    # its resume, cli.generate and cli.edit, each counted from zero.
-    cli = phase_cli(torch, TB, ET, DB, li, dev, step_ms, gen_ms / 1000 / B)
+    # Phase 15: the command-line path: cli.train, its resume, cli.generate
+    # and cli.edit, each counted from zero. Phase 16, this slice's main
+    # path: the t2m evaluation protocol on phase 15's tree and checkpoint,
+    # each entry point counted from zero.
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = phase_cli(torch, TB, ET, DB, li, dev, step_ms, gen_ms / 1000 / B, tmp)
+        protocol = phase_eval(torch, TB, ET, li, dev, tmp)
     sampling_paths = {"sampling (phases 3-4)": kernels[0]["launches"],
                       "cli.generate (phase 15)": cli["generate"]["fused_layer_inference"],
-                      "cli.edit (phase 15)": cli["edit"]["fused_layer_inference"]}
+                      "cli.edit (phase 15)": cli["edit"]["fused_layer_inference"],
+                      "cli.eval_humanml (phase 16)": protocol["flagship"]["li"]}
     kernels[0].update(launches=sum(sampling_paths.values()), launches_by_path=sampling_paths,
                       path="; ".join(sampling_paths))
 
@@ -2761,10 +3062,12 @@ def main():
         kernels.append(dict(name=name, route="cuda", source=ATTENTION_SOURCE, replaces=replaces,
                             launches=n, path=path, **attention[name]))
     for name, (source, replaces) in DIP_SOURCES.items():
+        paths = {"DiP sampling (trans_dec decoder layers), B=1 and B=32 (phase 13)":
+                 dip_launches[name],
+                 "cli.eval_humanml --autoregressive (phase 16)": protocol["dip"][name]}
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=dip_launches[name],
-                            path="DiP sampling (trans_dec decoder layers), B=1 and B=32",
-                            **dip_entries[name]))
+                            launches=sum(paths.values()), launches_by_path=paths,
+                            path="; ".join(paths), **dip_entries[name]))
     print(f"s/sample at B=32: layer kernel {gen_ms / 1000 / B:.6f}, pallas variant "
           f"{pallas_s:.6f}, DiP {dip_ms[32] / 1000 / 32:.6f} (B=1: {dip_ms[1] / 1000:.6f}); "
           f"10-step samplers {json.dumps({k: r['s_per_sample'] for k, r in sampler_rows.items()})}"
@@ -2800,6 +3103,16 @@ def main():
     # Then phase 14's training steps the same way: DiP's, and the flagship's
     # with and without remat.
     phase_train_busy(torch, dev, dip_step_ms, remat_rows)
+    # Then one replication of phase 16's flagship protocol (generation and
+    # evaluator over the ground-truth pass's batches, then the metrics).
+    rep_ms = 1000 * min(protocol["flagship"]["rep_s"])
+    wall, busy = device_busy(torch, protocol["one_replication"])
+    if not busy:
+        raise AssertionError("the t2m protocol's replication: torch.profiler recorded no device "
+                             "time")
+    print(f"t2m protocol replication under torch.profiler: {wall:.1f} ms ({rep_ms:.1f} without "
+          f"it, phase 16's fastest), kernels {busy:.1f} ms on the card: device busy share "
+          f"{busy / rep_ms:.3f} of the unprofiled replication")
     print("gemm products", json.dumps(products))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,10 +9,13 @@ files (torch.save) into --save_dir and resumes from the highest step there
 bit for bit: the batches are a pure function of (seed, step) and so are the
 step's draws.
 
+``--eval_during_training`` runs the t2m evaluation protocol at every save
+when an evaluator checkpoint is present under ``--evaluator_dir``.
+
 Not here (each raises, naming its ROADMAP Queue 1 item): a multi-process
 run (MDM_TPU_COORDINATOR / MDM_TPU_MULTIHOST, item 10), the SMPL geometric
-losses (lambda_rcxyz / lambda_fc, item 7) and evaluation during training
-with an evaluator checkpoint present (item 9).
+losses (lambda_rcxyz / lambda_fc, item 7) and evaluation during training on
+an action-to-motion dataset (item 9).
 """
 from __future__ import annotations
 
@@ -158,7 +161,7 @@ def main(argv=None):
         gen_fn = make_gen_during_training(args, model, data, text_embedder, device)
     eval_fn = None
     if args.eval_during_training and args.dataset in ("humanml", "kit"):
-        eval_fn = make_eval_during_training(args, model, text_embedder)
+        eval_fn = make_eval_during_training(args, model, text_embedder, device)
     elif args.eval_during_training:
         raise NotImplementedError(
             "action-to-motion evaluation during training is not ported yet: "
@@ -193,12 +196,15 @@ def main(argv=None):
     return loop
 
 
-def make_eval_during_training(args, model, text_embedder):
-    """The t2m evaluation pass per checkpoint (reference
-    training_loop.py:252-289) needs the frozen evaluator checkpoint
-    (t2m/text_mot_match/model/finest.tar): without it, a no-op with a
-    message, as in mdm_tpu; with it, NotImplementedError, since the
-    evaluators are not ported yet (ROADMAP Queue 1 item 9)."""
+def make_eval_during_training(args, model, text_embedder, device):
+    """Short t2m eval pass per checkpoint (reference
+    training_loop.py:252-289; mdm_tpu/cli/train.py:229-319), sampling from
+    the EMA weights when the run keeps them.
+
+    Requires the frozen evaluator checkpoint (t2m/text_mot_match/model/
+    finest.tar, or a self-trained finest.npy); a no-op with a message when
+    it is absent. The ground-truth batches, the sampling copy of the model
+    and the evaluator are built on the first call and reused."""
     import glob
 
     evaluator_dir = getattr(args, "evaluator_dir", ".") or "."
@@ -210,9 +216,63 @@ def make_eval_during_training(args, model, text_embedder):
     if not glob.glob(os.path.splitext(ckpt)[0] + ".*"):
         print(f"eval_during_training: evaluator checkpoint {ckpt} missing; skipping")
         return None
-    raise NotImplementedError(
-        f"eval_during_training: the evaluator at {ckpt} is present, but the t2m evaluators "
-        "are not ported yet: ROADMAP Queue 1 item 9")
+    cache = {}
+
+    def eval_fn(state, step):
+        from ..data import BatchIterator, WordVectorizer, get_dataset
+        from ..diffusion import Schedule
+        from ..eval import EvalConfig, EvaluatorWrapper, GeneratedMotionLoader, evaluation
+        from ..sampling import GenerationConfig, MotionGenerator
+
+        if not cache:
+            glove_dir = "glove"
+            w_vec = None
+            if os.path.exists(os.path.join(glove_dir, "our_vab_data.npy")):
+                w_vec = WordVectorizer(glove_dir, "our_vab")
+            dataset = get_dataset(
+                args.dataset, split=args.eval_split, hml_mode="eval",
+                data_root=args.data_dir or None,
+            )
+            dataset.w_vectorizer = w_vec
+            gt_batches = []
+            it = BatchIterator(dataset, args.eval_batch_size, seed=0, infinite=False)
+            for i, b in enumerate(it):
+                if (i + 1) * args.eval_batch_size > args.eval_num_samples:
+                    break
+                gt_batches.append(b)
+            cache["gt_batches"] = gt_batches
+            cache["gen"] = MotionGenerator(
+                _sampling_copy(model), Schedule.create(args.noise_schedule, args.diffusion_steps),
+                GenerationConfig(guidance_scale=args.gen_guidance_param), args.dataset,
+            )
+            cache["wrapper"] = EvaluatorWrapper(args.dataset, checkpoints_dir=evaluator_dir,
+                                                device=device)
+        gt_batches, gen = cache["gt_batches"], cache["gen"]
+        _load_sampling_weights(gen.model, state)
+
+        def embed(texts):
+            if text_embedder is None:
+                return {"text_embed": np.zeros((len(texts), model.config.text_dim), np.float32)}
+            return text_embedder(texts)
+
+        summary = evaluation(
+            cache["wrapper"],
+            gt_loader_fn=lambda: iter(gt_batches),
+            eval_motion_loader_fns={
+                "vald": lambda rep: GeneratedMotionLoader(gen, gt_batches, embed, seed=rep)
+            },
+            config=EvalConfig(replication_times=args.eval_rep_times),
+        )
+        flat = {}
+        for metric, d in summary.items():
+            if not isinstance(d, dict):  # the comparable / degraded_reasons stamps
+                continue
+            for name, v in d.items():
+                mean = np.asarray(v["mean"]).ravel()
+                flat[f"{metric}_{name}"] = float(mean[0]) if mean.size else float("nan")
+        return flat
+
+    return eval_fn
 
 
 def _sampling_copy(model):
@@ -222,6 +282,15 @@ def _sampling_copy(model):
     copy = type(model)(model.config).to(device)
     copy.load_state_dict(model.state_dict())
     return copy
+
+
+def _load_sampling_weights(sampler_model, state):
+    """The trained weights, then the EMA ones where the run keeps them."""
+    with torch.no_grad():
+        sampler_model.load_state_dict(state.model.state_dict())
+        if state.ema_params is not None:
+            for name, p in sampler_model.named_parameters():
+                p.copy_(state.ema_params[name])
 
 
 def make_gen_during_training(args, model, data, text_embedder, device):
@@ -241,11 +310,7 @@ def make_gen_during_training(args, model, data, text_embedder, device):
     def gen_fn(state, step):
         B = args.gen_num_samples
         T = 196 if args.dataset in ("humanml", "kit") else args.num_frames
-        with torch.no_grad():
-            sampler_model.load_state_dict(state.model.state_dict())
-            if state.ema_params is not None:
-                for name, p in sampler_model.named_parameters():
-                    p.copy_(state.ema_params[name])
+        _load_sampling_weights(sampler_model, state)
         batch = next(iter(data))
         texts = batch.get("text", ["sample"] * B)[:B]
         cond_kw = {"frames_mask": torch.ones((B, T), dtype=torch.bool, device=device)}

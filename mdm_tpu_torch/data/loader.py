@@ -271,29 +271,32 @@ def pin_batch(batch: Dict) -> Dict:
             for k, v in batch.items()}
 
 
-def pinned_put(device) -> Callable:
-    """Every tensor or numeric numpy array of a batch (a dict of them, or of
-    a Conditioning) copied to ``device``: to the card from pinned memory,
-    non-blocking."""
+def put_one(v, device):
+    """``v`` on ``device``: a tensor or numeric numpy array to the card from
+    pinned memory, non-blocking (a copy from pageable memory waits for all
+    the card has queued); a dataclass (a Conditioning) field by field;
+    anything else as it is."""
     import dataclasses
 
     import torch
 
-    def put_one(v):
-        if isinstance(v, np.ndarray) and v.dtype.kind in "biuf":
-            v = torch.from_numpy(v)
-        if isinstance(v, torch.Tensor):
-            if (torch.device(device).type == "cuda" and v.device.type == "cpu"
-                    and not v.is_pinned()):
-                v = v.pin_memory()
-            return v.to(device, non_blocking=True)
-        if dataclasses.is_dataclass(v) and not isinstance(v, type):
-            return type(v)(**{f.name: None if getattr(v, f.name) is None
-                              else put_one(getattr(v, f.name))
-                              for f in dataclasses.fields(v)})
-        return v
+    if isinstance(v, np.ndarray) and v.dtype.kind in "biuf":
+        v = torch.from_numpy(v)
+    if isinstance(v, torch.Tensor):
+        if torch.device(device).type == "cuda" and v.device.type == "cpu" and not v.is_pinned():
+            v = v.pin_memory()
+        return v.to(device, non_blocking=True)
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return type(v)(**{f.name: None if getattr(v, f.name) is None
+                          else put_one(getattr(v, f.name), device)
+                          for f in dataclasses.fields(v)})
+    return v
 
-    return lambda batch: {k: put_one(v) for k, v in batch.items()}
+
+def pinned_put(device) -> Callable:
+    """Every tensor or numeric numpy array of a batch (a dict of them, or of
+    a Conditioning) copied to ``device`` by ``put_one``."""
+    return lambda batch: {k: put_one(v, device) for k, v in batch.items()}
 
 
 def cache_device_batches(batches, n: int, put: Optional[Callable] = None, device="cuda"):

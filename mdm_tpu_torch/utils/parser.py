@@ -261,8 +261,12 @@ def _group_arg_names(parser) -> List[str]:
 
 
 def load_args_from_model(args, parser, model_path: str):
-    """Overlay model/diffusion/dataset args from the run's args.json."""
-    args_path = os.path.join(os.path.dirname(model_path), "args.json")
+    """Overlay model/diffusion/dataset args from the run's args.json: beside
+    a checkpoint, or in a run directory given as the model path."""
+    run_dir = (model_path if os.path.isdir(model_path)
+               and not os.path.basename(os.path.normpath(model_path)).startswith("ckpt_")
+               else os.path.dirname(model_path))
+    args_path = os.path.join(run_dir, "args.json")
     if not os.path.exists(args_path):
         return args
     with open(args_path) as f:

@@ -15,7 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
-from test_cli import synthetic_humanact12, synthetic_humanml  # noqa: E402,F401
+from test_cli import synthetic_humanact12, synthetic_humanml, synthetic_kit  # noqa: E402,F401
 
 from mdm_tpu.sampling import text as jtext  # noqa: E402
 from mdm_tpu.utils import factory as jfactory  # noqa: E402
@@ -93,15 +93,14 @@ def test_train_refuses_cpu_fallback(tmp_path, synthetic_humanml, monkeypatch):
         _train(str(tmp_path / "run"), synthetic_humanml, "--num_steps", "2")
 
 
-def test_train_refuses_unported_options(tmp_path, synthetic_humanml):
+def test_train_refuses_unported_options(tmp_path, synthetic_humanml, synthetic_humanact12):
     with pytest.raises(NotImplementedError, match="item 7"):
         _train(str(tmp_path / "a"), synthetic_humanml, "--lambda_rcxyz", "1.0")
-    evaluator = tmp_path / "ev" / "t2m" / "text_mot_match" / "model"
-    evaluator.mkdir(parents=True)
-    (evaluator / "finest.tar").write_bytes(b"")
+    # the action-to-motion half of in-training evaluation (t2m runs: below)
     with pytest.raises(NotImplementedError, match="item 9"):
-        _train(str(tmp_path / "b"), synthetic_humanml, "--num_steps", "2",
-               "--eval_during_training", "--evaluator_dir", str(tmp_path / "ev"))
+        train_cli.main(["--save_dir", str(tmp_path / "b"), "--dataset", "humanact12",
+                        "--data_dir", synthetic_humanact12, *TINY, "--num_steps", "2",
+                        "--eval_during_training", "--device", "cpu"])
 
 
 def test_train_generate_edit_schema_matches_jax(tmp_path, synthetic_humanml, monkeypatch):
@@ -289,3 +288,146 @@ def test_gen_during_training_samples_the_ema(tmp_path, synthetic_humanml, monkey
     assert len(seen) == 1 and seen[0][:3] == (2, 196, (2, 196, 22, 3))
     for name, t in seen[0][3].items():
         assert torch.equal(t, ema[name]), name
+
+
+# The evaluation protocol: train_evaluators -> train -> eval_humanml.
+EV_TINY = ["--movement_dim", "16", "--coemb_dim", "16", "--num_steps", "2", "--batch_size", "4",
+           "--log_every", "1", "--device", "cpu"]
+EVAL_KEYS = {"Matching Score", "R_precision", "FID", "Diversity", "MultiModality", "comparable"}
+
+
+def _evaluators(tmp_path, data_dir, dataset):
+    """decomp -> match (finest.npy where EvaluatorWrapper resolves it) ->
+    length, on the CPU at tiny widths, with a GloVe vocabulary beside the
+    data (where eval_humanml looks for it)."""
+    from test_torch_eval import _write_glove
+
+    from mdm_tpu_torch.cli import train_evaluators as tev_cli
+
+    glove = os.path.join(os.path.dirname(data_dir), "glove")
+    os.makedirs(glove, exist_ok=True)
+    _write_glove(glove)
+    common = ["--dataset", dataset, "--data_dir", data_dir, "--glove_dir", glove, *EV_TINY]
+    family = "t2m" if dataset == "humanml" else dataset
+    finest = tmp_path / family / "text_mot_match" / "model" / "finest.npy"
+    finest.parent.mkdir(parents=True)
+    tev_cli.main(["--stage", "decomp", "--save_path", str(tmp_path / "decomp.npy"), *common])
+    tev_cli.main(["--stage", "match", "--save_path", str(finest), "--decomp_path",
+                  str(tmp_path / "decomp.npy"), *common])
+    tev_cli.main(["--stage", "length", "--save_path", str(tmp_path / "length.npy"),
+                  "--cache_batches", "1", *common])
+    return str(finest)
+
+
+def _eval(ckpt, data_dir, evaluator_dir, *extra, device="cpu"):
+    from mdm_tpu_torch.cli import eval_humanml as eval_cli
+
+    return eval_cli.main(["--model_path", ckpt, "--data_dir", data_dir, "--eval_mode", "debug",
+                          "--replications", "2", "--evaluator_dir", evaluator_dir, *extra,
+                          "--device", device])
+
+
+def _comp_v6_npy(path):
+    """A small Comp_v6 parameter tree at HumanML3D's 263 features, in
+    mdm_tpu's comp_v6 .npy format (its save_comp_v6_params)."""
+    import jax
+
+    from mdm_tpu.eval import train_t2m_generator as jt2m
+
+    cfg = jt2m.CompV6TrainConfig(dim_text_hidden=16, dim_att_vec=16, dim_z=8, dim_pri_hidden=16,
+                                 dim_dec_hidden=16, dim_movement_latent=16,
+                                 dim_movement_hidden=16)
+    jt2m.save_comp_v6_params(path, jt2m.init_comp_v6_params(jax.random.PRNGKey(0), cfg))
+    return path
+
+
+@pytest.mark.parametrize("dataset", ["humanml", "kit"])
+def test_train_evaluators_then_eval_humanml(tmp_path, synthetic_humanml, synthetic_kit, dataset):
+    """The t2m protocol on the CPU: the three evaluator stages, a 2-step
+    cli.train, cli.eval_humanml (debug, 2 replications) against the trained
+    finest.npy — for KIT resolved under kit/ — writing mdm_tpu's
+    eval_<ckpt>_<mode>_gscale<g>.log / .json; on humanml the T2M baseline
+    (a comp_v6 .npy and the length stage's .npy) is scored beside MDM."""
+    data_dir = synthetic_humanml if dataset == "humanml" else synthetic_kit
+    _evaluators(tmp_path, data_dir, dataset)
+    run = str(tmp_path / "run")
+    train_cli.main(["--save_dir", run, "--dataset", dataset, "--data_dir", data_dir, *TINY,
+                    "--num_steps", "2", "--save_interval", "2", "--device", "cpu"])
+    extra = []
+    if dataset == "humanml":
+        extra = ["--t2m_baseline_path", _comp_v6_npy(str(tmp_path / "comp_v6.npy")),
+                 "--t2m_len_est_path", str(tmp_path / "length.npy")]
+    summary = _eval(run, data_dir, str(tmp_path), *extra)
+    assert summary["comparable"] is True and "degraded_reasons" not in summary
+    names = {"vald", "ground truth"} | ({"t2m_baseline"} if extra else set())
+    for metric in ("Matching Score", "R_precision", "FID", "Diversity"):
+        assert set(summary[metric]) == names
+        assert all(np.isfinite(v["mean"]).all() for v in summary[metric].values())
+    stem = os.path.join(run, "eval_ckpt_000000002_debug_gscale2.5")
+    with open(stem + ".json") as f:
+        assert set(json.load(f)) == EVAL_KEYS
+    with open(stem + ".log") as f:
+        assert f.read().count("Replication") == 2
+
+
+def test_eval_humanml_autoregressive(tmp_path, synthetic_humanml):
+    """DiP's protocol: a tiny trans_dec (context 4, pred 8) evaluated with
+    --autoregressive, generated to each clip's original length."""
+    from mdm_tpu_torch.sampling import MotionGenerator
+
+    _evaluators(tmp_path, synthetic_humanml, "humanml")
+    run = str(tmp_path / "run")
+    _train(run, synthetic_humanml, "--num_steps", "2", "--save_interval", "2",
+           "--arch", "trans_dec", "--context_len", "4", "--pred_len", "8", "--autoregressive")
+    frames = []
+    sample = MotionGenerator.sample_autoregressive
+
+    def spy(self, cond, B, generator=None, required_frames=196, **kw):
+        out = sample(self, cond, B, generator, required_frames, **kw)
+        frames.append((required_frames, tuple(out.shape)))
+        return out
+
+    MotionGenerator.sample_autoregressive = spy
+    try:
+        summary = _eval(os.path.join(run, "ckpt_000000002"), synthetic_humanml, str(tmp_path),
+                        "--autoregressive", "--guidance_param", "7.5")
+    finally:
+        MotionGenerator.sample_autoregressive = sample
+    assert len(frames) == 2 and frames[0][1][:2] == (32, frames[0][0]) and frames[0][0] > 12
+    assert np.isfinite(summary["FID"]["vald"]["mean"])
+    assert os.path.exists(os.path.join(run, "eval_ckpt_000000002_debug_gscale7.5.json"))
+
+
+def test_eval_during_training_runs_its_pass(tmp_path, synthetic_humanml, monkeypatch):
+    """With a finest.npy under --evaluator_dir, cli.train evaluates at each
+    save and reports the Eval group (from the EMA weights: the sampling copy
+    holds them)."""
+    from mdm_tpu_torch.train.platforms import NoPlatform
+
+    _evaluators(tmp_path, synthetic_humanml, "humanml")
+    reported = []
+    monkeypatch.setattr(NoPlatform, "report_scalar",
+                        lambda self, name, value, it, group_name="": reported.append(
+                            (group_name, name, it, value)))
+    run = str(tmp_path / "run")
+    _train(run, synthetic_humanml, "--num_steps", "2", "--save_interval", "1", "--use_ema", "true",
+           "--eval_during_training", "--evaluator_dir", str(tmp_path), "--eval_rep_times", "1")
+    evals = {(name, it): v for group, name, it, v in reported if group == "Eval"}
+    assert {it for _, it in evals} == {1, 2}
+    assert {"FID_vald", "R_precision_vald", "Matching Score_ground truth"} <= {
+        n for n, _ in evals}
+    assert all(np.isfinite(v) for v in evals.values())
+
+
+def test_eval_clis_refuse_cpu_fallback(tmp_path, synthetic_humanml, monkeypatch):
+    from mdm_tpu_torch.cli import train_evaluators as tev_cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tev_cli.main(["--stage", "decomp", "--data_dir", synthetic_humanml, "--save_path",
+                      str(tmp_path / "d.npy"), "--num_steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _eval(str(tmp_path / "run"), synthetic_humanml, str(tmp_path), device="0")
+    for stage, item in (("comp_v6", "item 12"), ("a2m_classifier", "item 9")):
+        with pytest.raises(NotImplementedError, match=item):
+            tev_cli.main(["--stage", stage, "--save_path", str(tmp_path / "x.npy")])

@@ -134,6 +134,61 @@ def test_ddim_autoregressive_matches_jax(include_prefix, texts_per_chunk, guidan
                                       tcond.prefix.numpy())
 
 
+def test_dip_eval_loader_matches_jax():
+    """The t2m protocol's DiP branch on a real generator: both packages'
+    ``GeneratedMotionLoader`` over the same two ground-truth batches (ragged
+    original lengths, frame masks, prefixes, one text per batch) on the same
+    weights, DDIM at CFG 2.5 (the well-conditioned loop, as above) with
+    each batch's chunk noise pinned, give the same renormalized features
+    and score them at the clips' original lengths. The port takes the evaluator-normalized prefix back to the
+    model's normalization; mdm_tpu's loader passes its prefix as it is, so
+    it is given the prefix so converted."""
+    from mdm_tpu.eval import harness as jharness
+    from mdm_tpu_torch.eval import harness
+
+    jmodel, params, tmodel = _pair()
+    rng = np.random.default_rng(4)
+    batches, embeds = [], {}
+    for i, orig in enumerate(([20, 13], [9, 16])):
+        frames = np.ones((B, PRED), bool)
+        frames[i, 5:] = False
+        text = [f"clip {i} {j}" for j in range(B)]
+        batches.append(dict(x=rng.normal(size=(B, CTX + PRED, D)).astype(np.float32),
+                            mask=frames, prefix=rng.normal(size=(B, CTX, D)).astype(np.float32),
+                            text=text, lengths=np.full(B, CTX + PRED, np.int32),
+                            orig_lengths=np.array(orig, np.int32)))
+        embeds[tuple(text)] = dict(
+            text_embed=rng.normal(size=(B, L, 768)).astype(np.float32),
+            text_tokens_mask=np.arange(L)[None] < np.array([[L], [2 + i]]))
+    noise = [rng.normal(size=(-(-max(b["orig_lengths"]) // PRED), B, PRED, D)).astype(np.float32)
+             for b in batches]
+    stats = [rng.normal(size=D).astype(np.float32) if k % 2 == 0
+             else rng.uniform(0.8, 1.25, size=D).astype(np.float32) for k in range(4)]
+    kw = _gen_config(2.5, sampler="ddim")
+    jgen = JP.MotionGenerator(jmodel, params, JSchedule.create("cosine", 1000, str(STEPS)),
+                              JP.GenerationConfig(**JAX_AR, **kw))
+    tgen = TP.MotionGenerator(tmodel, Schedule.create("cosine", 1000, str(STEPS)),
+                              TP.GenerationConfig(**kw))
+    model_prefixes = [dict(b, prefix=(b["prefix"] * stats[3] + stats[2] - stats[0]) / stats[1])
+                      for b in batches]
+    outs = []
+    for gen, pkg, as_noise, gt in ((jgen, jharness, jnp.asarray, model_prefixes),
+                                   (tgen, harness, torch.from_numpy, batches)):
+        pinned = iter(noise)
+        sample = gen.sample_autoregressive
+        gen.sample_autoregressive = lambda *a, **k: sample(*a, chunk_noise=as_noise(next(pinned)),
+                                                           **k)
+        loader = pkg.GeneratedMotionLoader(gen, gt, lambda t: embeds[tuple(t)], seed=0,
+                                           model_mean=stats[0], model_std=stats[1],
+                                           eval_mean=stats[2], eval_std=stats[3])
+        outs.append([(np.asarray(b["x"]), b["lengths"]) for b in loader])
+    for (want, want_len), (got, got_len), b in zip(*outs, batches):
+        assert got.shape == want.shape == (B, max(b["orig_lengths"]), D)
+        np.testing.assert_array_equal(got_len, b["orig_lengths"])
+        np.testing.assert_array_equal(want_len, b["orig_lengths"])
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
 def test_ddpm_autoregressive_matches_a_jax_host_loop():
     jmodel, params, tmodel = _pair()
     jcond, tcond, texts = _conds(2)

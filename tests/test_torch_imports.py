@@ -1,7 +1,8 @@
-"""mdm_tpu_torch imports neither jax, flax nor mdm_tpu: every module
+"""mdm_tpu_torch imports neither jax, flax, optax nor mdm_tpu: every module
 imports, and a tiny generation, a tiny train step and the command-line path
-(train -> generate -> edit with --device cpu on a synthetic HumanML3D tree)
-run, in a fresh interpreter where all three are blocked."""
+(train -> generate -> edit, and train_evaluators -> eval_humanml, with
+--device cpu on a synthetic HumanML3D tree) run, in a fresh interpreter
+where all four are blocked."""
 import subprocess
 import sys
 from pathlib import Path
@@ -18,6 +19,7 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["mdm_tpu"] = None
+sys.modules["optax"] = None
 import torch
 import mdm_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mdm_tpu_torch.__path__, "mdm_tpu_torch.")]
@@ -73,14 +75,26 @@ with tempfile.TemporaryDirectory() as tmp:
     for out, frames in (("gen", 10), ("edit", 196)):
         res = np.load(os.path.join(out, "results.npy"), allow_pickle=True).item()
         assert res["motion"].shape == (1, frames, 22, 3) and np.isfinite(res["motion"]).all()
+    from mdm_tpu_torch.cli import eval_humanml, train_evaluators
+    from mdm_tpu_torch.scripts.quality_rehearsal import write_glove
+    write_glove(tmp, ["a", "person", "walk"])
+    ev = ["--data_dir", root, "--glove_dir", os.path.join(tmp, "glove"), "--num_steps", "1",
+          "--batch_size", "2", "--movement_dim", "8", "--coemb_dim", "8", "--device", "cpu"]
+    train_evaluators.main(["--stage", "decomp", "--save_path", "decomp.npy", *ev])
+    os.makedirs("t2m/text_mot_match/model")
+    train_evaluators.main(["--stage", "match", "--save_path", "t2m/text_mot_match/model/finest.npy",
+                           "--decomp_path", "decomp.npy", *ev])
+    summary = eval_humanml.main(["--model_path", "run", "--data_dir", root, "--eval_mode", "debug",
+                                 "--replications", "1", "--evaluator_dir", ".", "--device", "cpu"])
+    assert summary["comparable"] and np.isfinite(summary["FID"]["vald"]["mean"])
     os.chdir(cwd)
-assert not any(m.split(".")[0] in ("jax", "flax", "mdm_tpu")
+assert not any(m.split(".")[0] in ("jax", "flax", "optax", "mdm_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print(" ".join(names))
 """
 
-# The counterparts of the sampling, training, attention-route and command-line slices'
-# mdm_tpu modules.
+# The counterparts of the sampling, training, attention-route, command-line and evaluation
+# slices' mdm_tpu modules.
 SLICE = {"ops._mask", "ops.layer_inference", "ops._build", "models.layers", "models.mdm",
          "models.bridge", "diffusion.schedule", "diffusion.gaussian", "diffusion.samplers",
          "core.quaternions", "core.hml_codec", "sampling.text", "sampling.pipeline", "serving",
@@ -94,7 +108,9 @@ SLICE = {"ops._mask", "ops.layer_inference", "ops._build", "models.layers", "mod
          "data.raw_text", "data.tokenizers", "data.get_opt", "data.humanml", "data.a2m",
          "data.loader", "utils", "utils.misc", "utils.parser", "utils.factory",
          "train.profiling", "visualize", "visualize.plot_script", "cli", "cli.train",
-         "cli.generate", "cli.edit"}
+         "cli.generate", "cli.edit", "eval", "eval.metrics", "eval.networks", "eval.evaluator",
+         "eval.train_evaluators", "eval.harness", "eval.t2m_generator", "cli.eval_humanml",
+         "cli.train_evaluators", "scripts.quality_rehearsal"}
 
 
 def test_port_runs_with_jax_and_flax_blocked():
@@ -109,5 +125,6 @@ def test_no_source_file_names_jax():
         for line in path.read_text().splitlines():
             words = line.replace(",", " ").split()
             if words[:1] in (["import"], ["from"]):
-                assert not {"jax", "flax", "mdm_tpu"} & {w.split(".")[0] for w in words[1:2]}, \
+                assert not {"jax", "flax", "optax", "mdm_tpu"} & {w.split(".")[0]
+                                                                  for w in words[1:2]}, \
                     f"{path.relative_to(REPO)}: {line}"
