@@ -74,8 +74,8 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   launches, results.npy with mdm_tpu's keys and shapes), its s/sample
   beside phase 3's; and cli.edit (in-between, B=32, 400 launches);
 - the t2m evaluation protocol (phase 16), on phase 15's tree with a GloVe
-  vocabulary of its captions: cli.train_evaluators decomp (200 steps) and
-  match (300 steps) at the protocol's widths (movement 512, text hidden
+  vocabulary of its captions: cli.train_evaluators decomp (100 steps) and
+  match (150 steps) at the protocol's widths (movement 512, text hidden
   512, motion hidden 1024, co-embedding 512), ms/step, and the trained
   evaluator's embeddings of one batch on the card against the CPU;
   cli.eval_humanml (debug, 2 replications, B=32) on phase 15's flagship
@@ -83,8 +83,24 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   metrics against a CPU run of the same pass, s per replication split into
   generation and evaluator time (phase 12 profiles one replication for its
   busy share); then a 10-step DiP cli.train and its --autoregressive eval
-  at dip_probe's geometry (context 20, pred 40, 10 steps, CFG 7.5), the
-  rate-0 block (#2) and tail (#4) 8 per denoise step of every chunk.
+  (one replication) at dip_probe's geometry (context 20, pred 40, 10 steps, CFG 7.5), the
+  rate-0 block (#2) and tail (#4) 8 per denoise step of every chunk;
+- the action-to-motion path (phase 17): a synthetic SMPL model at the
+  published sizes (6890 vertices, 24 joints, 10 betas, 207 pose-blend
+  rows, 9 extra regressors, from a seed) through SMPLModel.load, rot2xyz
+  of [64, 60, 25, 6] rot6d for every joint set on the card against the
+  CPU, the smpl set's ms and its peak memory against the vertices'; 25
+  steps of the HumanAct12 recipe at the flagship width (B=64, T=60, bf16,
+  rate 0.1, no condition dropout, the rcxyz, velocity and foot-contact
+  losses through SMPL; launches exact, the loss falls) beside phase 14c's
+  bare step, and one f32 step of it on the card against the CPU; the GRU
+  (72 -> 128 x 2 -> 12) and the UESTC (6 -> 40) and modi-15 (3 -> 12)
+  STGCNs on the card against the CPU; on a synthetic HumanAct12 tree of
+  192 clips, cli.train_evaluators --stage a2m_classifier and
+  unconstrained_stgcn (ms/step), cli.train with the recipe and
+  --eval_during_training, cli.eval_a2m (debug, 2 seeds, self-trained
+  classifier: #1 exactly 8 x 50 x 2, s/seed and its generation / SMPL /
+  classifier split; phase 12 profiles a seed) and cli.eval_unconstrained.
 
 Each path checks that every layer call went through its kernels, and the
 sampling and training paths that every product, forward and backward,
@@ -2379,9 +2395,10 @@ def phase_cli(torch, TB, ET, DB, li, dev, bare_step_ms, generate_s_per_sample, t
 # protocol's widths (movement 512, text hidden 512, motion hidden 1024,
 # co-embedding 512) on phase 15's tree with a GloVe vocabulary of its
 # captions; the protocol runs at batch 32, debug mode, 2 replications.
-EVAL_TRAIN_STEPS = {"decomp": 200, "match": 300}
+EVAL_TRAIN_STEPS = {"decomp": 100, "match": 150}
 EVAL_WARM = 20  # steps before ms/step is read
 EVAL_REPS = 2
+DIP_EVAL_REPS = 1  # DiP's autoregressive protocol: one replication, for the script's time
 EMB_REL = 1e-4  # evaluator embeddings, card vs CPU (f32): of the largest |embedding|
 DIP_EVAL_TRAIN = ["--dataset", "humanml", "--arch", "trans_dec", "--context_len", "20",
                   "--pred_len", "40", "--mask_frames", "--diffusion_steps", "10",
@@ -2496,7 +2513,7 @@ def phase_eval(torch, TB, ET, li, dev, tmp):
     50 x batches x 2 launches, its ground-truth rows against a CPU run of
     the same pass, s per replication and its split between generation and
     the evaluator; then a short DiP ``cli.train`` and its
-    ``--autoregressive`` eval at dip_probe's geometry (context 20, pred 40,
+    ``--autoregressive`` eval (one replication) at dip_probe's geometry (context 20, pred 40,
     10 steps, CFG 7.5), the rate-0 block (#2) and tail (#4) counted exactly.
     Returns the launches, the times, and a function that runs one flagship
     replication (phase 12 profiles it)."""
@@ -2634,8 +2651,9 @@ def phase_eval(torch, TB, ET, li, dev, tmp):
             _zero(c)
         li.LAUNCHES = 0
         dip = _eval_run(torch, ["--model_path", dip_run, "--data_dir", root, "--eval_mode",
-                                "debug", "--replications", str(EVAL_REPS), "--evaluator_dir", tmp,
-                                "--autoregressive", "--guidance_param", "7.5", "--device", "0"],
+                                "debug", "--replications", str(DIP_EVAL_REPS),
+                                "--evaluator_dir", tmp, "--autoregressive", "--guidance_param",
+                                "7.5", "--device", "0"],
                         quiet)
         chunks = sum(-(-f // 40) for f in dip["ar_frames"])
         want = chunks * 10 * layers
@@ -2648,8 +2666,9 @@ def phase_eval(torch, TB, ET, li, dev, tmp):
                                  f"chunks x 10 steps x {layers} layers), 4 products each")
         _check_summary("cli.eval_humanml --autoregressive", dip["summary"])
         print(f"cli.eval_humanml --autoregressive DiP (context 20, pred 40, 10 steps, CFG 7.5, "
-              f"bf16; debug, {EVAL_REPS} replications, {len(dip['ar_frames'])} batches, {chunks} "
-              f"chunks): launches {json.dumps(got)}, products {json.dumps(_chain.GEMM_LAUNCHES)}; "
+              f"bf16; debug, {DIP_EVAL_REPS} replication, {len(dip['ar_frames'])} batches, "
+              f"{chunks} chunks): launches {json.dumps(got)}, products "
+              f"{json.dumps(_chain.GEMM_LAUNCHES)}; "
               f"s/replication {json.dumps(dip['rep_s'])}; per replication generation "
               f"{dip['gen_ms']:.1f} ms and evaluator {dip['eval_ms']:.1f} ms (CUDA events)")
     finally:
@@ -2659,9 +2678,449 @@ def phase_eval(torch, TB, ET, li, dev, tmp):
                 one_replication=one_replication)
 
 
+# Phase 17: the action-to-motion path at the flagship width: SMPL at its
+# published sizes (V 6890, J 24, 10 betas, 207 pose-blend rows, 9 extra
+# regressors; a synthetic model drawn from a seed, since SMPL_NEUTRAL.pkl is
+# a download), the published HumanAct12 recipe (--cond_mask_prob 0
+# --lambda_rcxyz 1 --lambda_vel 1 --lambda_fc 1), the classifiers at the
+# reference's widths and the a2m / unconstrained protocols on a synthetic
+# HumanAct12 tree of A2M_CLIPS clips (the eval megabatch: 6 batches of 32).
+SMPL_TOL = 1e-5  # SMPL and the classifiers, card vs CPU at f32: of the largest |value|
+A2M_RECIPE_LOSS = dict(lambda_rcxyz=1.0, lambda_vel=1.0, lambda_fc=1.0, vel_drop_last_feats=6)
+A2M_RECIPE = ["--cond_mask_prob", "0", "--lambda_rcxyz", "1", "--lambda_vel", "1",
+              "--lambda_fc", "1"]
+A2M_CLIPS = 192
+A2M_CLF_STEPS = 40
+A2M_SEEDS = 2
+A2M_STEPS = 50  # diffusion steps of the protocols' checkpoints
+A2M_CLI = ["--dataset", "humanact12", "--num_frames", "60", "--batch_size", "64",
+           "--compute_dtype", "bfloat16", "--diffusion_steps", str(A2M_STEPS),
+           "--log_interval", "10", "--device", "0"]
+
+
+def _rot6d_clips(torch, rng, B, T):
+    """[B, T, 25, 6]: 24 rotations (random unit quaternions) in rot6d and a
+    translation row, as HumanAct12's features are."""
+    from mdm_tpu_torch.core import rotations as R
+
+    q = torch.from_numpy(rng.normal(size=(B, T, 24, 4)).astype(np.float32))
+    rot6d = R.matrix_to_rotation_6d(R.quaternion_to_matrix(q / q.norm(dim=-1, keepdim=True)))
+    transl = torch.zeros(B, T, 1, 6)
+    transl[..., :3] = torch.from_numpy(rng.normal(size=(B, T, 1, 3)).astype(np.float32))
+    return torch.cat([rot6d, transl], dim=2)
+
+
+def _a2m_smpl_case(torch, rng, B, T):
+    """Phase 14c's a2m batch with valid rot6d features, and its draws."""
+    batch, draws = _a2m_case(torch, rng, B, T)
+    batch["x"] = _rot6d_clips(torch, rng, B, T).reshape(B, T, -1)
+    return batch, draws
+
+
+def _rel_err(torch, got, want):
+    return (got.float().cpu() - want.float()).abs().max().item() / \
+        max(want.float().abs().max().item(), 1e-30)
+
+
+def phase_smpl(torch, dev, tmp):
+    """Phase 17a: a synthetic SMPL pickle at the published sizes through
+    ``SMPLModel.load``; ``rot2xyz`` of [64, 60, 25, 6] rot6d for every joint
+    set, card against CPU at f32 (TF32 off); the smpl set's forward and
+    forward + backward ms; the peak memory of the smpl set against the
+    vertices'. Returns the model and the numbers."""
+    from mdm_tpu_torch.scripts.a2m_rehearsal import write_synthetic_smpl
+    from mdm_tpu_torch.smpl import JOINTSTYPES, Rot2XYZConfig, SMPLModel, rot2xyz
+
+    path = write_synthetic_smpl(tmp)
+    smpl = SMPLModel.load(path, os.path.join(os.path.dirname(path), "J_regressor_extra.npy"))
+    V = smpl.v_template.shape[0]
+    sizes = (V, smpl.num_joints, smpl.num_betas, smpl.posedirs.shape[0],
+             smpl.j_regressor_extra.shape[0])
+    if sizes != (6890, 24, 10, 207, 9):
+        raise AssertionError(f"SMPL sizes {sizes}")
+    B, T = A2M_B, A2M_T
+    x = _rot6d_clips(torch, np.random.default_rng(17), B, T)
+    errs = {}
+    for jt in JOINTSTYPES:
+        cfg = Rot2XYZConfig(jointstype=jt, vertstrans=True)
+        errs[jt] = _rel_err(torch, rot2xyz(smpl, x.to(dev), cfg), rot2xyz(smpl, x, cfg))
+        if not errs[jt] <= SMPL_TOL:
+            raise AssertionError(f"rot2xyz {jt}: card vs CPU {errs[jt]:.3g} of the largest value")
+    cfg = Rot2XYZConfig(jointstype="smpl", vertstrans=True)
+    xg = x.to(dev).requires_grad_(True)
+    fwd_bwd_ms = _time_ms(torch, lambda: rot2xyz(smpl, xg, cfg).square().sum().backward())
+    with torch.no_grad():
+        fwd_ms = _time_ms(torch, lambda: rot2xyz(smpl, xg, cfg))
+        peak = {}
+        for jt in ("smpl", "vertices"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = rot2xyz(smpl, xg, Rot2XYZConfig(jointstype=jt, vertstrans=True))
+            torch.cuda.synchronize()
+            peak[jt] = torch.cuda.max_memory_allocated() - base
+            del out
+    vertex_tensor = B * T * V * 3 * 4
+    if not peak["smpl"] < vertex_tensor:
+        raise AssertionError(f"rot2xyz smpl allocated {peak['smpl']} bytes, not below one "
+                             f"[{B * T}, {V}, 3] f32 tensor")
+    row = dict(rel_err=errs, fwd_ms=fwd_ms, fwd_bwd_ms=fwd_bwd_ms, peak_bytes=peak)
+    print(f"SMPL ({V} vertices, 24 joints, 10 betas, 207 pose-blend rows, 9 extra regressors; "
+          f"synthetic, seeded) rot2xyz [{B}, {T}, 25, 6] f32, card vs CPU (tolerance "
+          f"{SMPL_TOL} of the largest value), ms (CUDA events) and peak bytes: {json.dumps(row)}")
+    return smpl, row
+
+
+def _smpl_get_xyz(smpl):
+    """The recipe's decode: rot6d features [B, T, 150] -> smpl joints."""
+    from mdm_tpu_torch.smpl import Rot2XYZConfig, rot2xyz
+
+    r2x = Rot2XYZConfig(jointstype="smpl", vertstrans=False)
+    return lambda f: rot2xyz(smpl, f.reshape(f.shape[0], f.shape[1], 25, 6), r2x)
+
+
+def _a2m_train_setup(torch, dev, smpl=None):
+    """(state, batch, step) of the a2m step at the flagship width (trans_enc,
+    action, rot6d, B = 64, T = 60, bf16, rate 0.1) on valid rot6d clips: with
+    ``smpl``, the HumanAct12 recipe (no condition dropout, the rcxyz,
+    velocity and foot-contact losses through SMPL, and its ``get_xyz``);
+    without, phase 14c's bare step."""
+    from mdm_tpu_torch.diffusion import LossConfig, Schedule
+    from mdm_tpu_torch.models import MDM, Conditioning, MDMConfig
+    from mdm_tpu_torch.train import (OptimConfig, TrainStepConfig, create_train_state,
+                                     make_train_step)
+
+    B, T = A2M_B, A2M_T
+    x = _rot6d_clips(torch, np.random.default_rng(2), B, T).reshape(B, T, -1)
+    batch = {"x": x.to(dev), "mask": torch.ones(B, T, dtype=torch.bool, device=dev),
+             "cond": Conditioning(action=(torch.arange(B) % A2M["num_actions"]).to(dev))}
+    cfg = MDMConfig(compute_dtype="bfloat16", dropout=RATE, **A2M, **FLAGSHIP)
+    state = create_train_state(MDM(cfg).init_weights(torch.Generator().manual_seed(0)).to(dev),
+                               OptimConfig(lr=1e-3))
+    step_cfg, get_xyz = TrainStepConfig(optim=OptimConfig(lr=1e-3)), None
+    if smpl is not None:
+        get_xyz = _smpl_get_xyz(smpl)
+        step_cfg = TrainStepConfig(loss=LossConfig(**A2M_RECIPE_LOSS),
+                                   optim=OptimConfig(lr=1e-3), cond_mask_prob=0.0)
+    fit = make_train_step(Schedule.create("cosine", 1000).to(dev), step_cfg, get_xyz=get_xyz)
+    return state, batch, fit
+
+
+def phase_a2m_recipe(torch, dev, smpl, bare_ms):
+    """Phase 17b: the HumanAct12 recipe at the flagship width (trans_enc,
+    action, rot6d, B = 64, T = 60, bf16, rate 0.1, no condition dropout,
+    the rcxyz, velocity and foot-contact losses through SMPL): 25 steps on
+    valid rot6d clips, the loss falls, the last 20 timed beside phase 14c's
+    bare step, launches exact; then one f32 step card against CPU."""
+    from mdm_tpu_torch.ops import _chain
+    from mdm_tpu_torch.ops import attention_train_block as TB
+    from mdm_tpu_torch.ops import dropout_bits as DB
+    from mdm_tpu_torch.ops import encoder_tail as ET
+    from mdm_tpu_torch.train import step_key
+
+    B, T, steps = A2M_B, A2M_T, 25
+    state, batch, fit = _a2m_train_setup(torch, dev, smpl)
+    num_layers = FLAGSHIP["num_layers"]
+    for counts in (TB.LAUNCHES, ET.LAUNCHES, DB.LAUNCHES, _chain.GEMM_LAUNCHES):
+        _zero(counts)
+    keys = [step_key(7, i) for i in range(steps)]
+    _run_steps(torch, fit, state, batch, keys[:5])
+    ms, losses = _run_steps(torch, fit, state, batch, keys[5:])
+    launches = _train_counts(TB, ET, DB, _chain)
+    n = num_layers * steps
+    want = {"fused_train_attention_block.fwd": n, "fused_train_attention_block.bwd": n,
+            "fused_encoder_tail.fwd": n, "fused_encoder_tail.bwd": n, "dropout_bits": 0,
+            "tail_dropout_bits": 0, "sequence_dropout_bits": steps, "products.wgmma": 12 * n,
+            "products.fma": 0}
+    if launches != want:
+        raise AssertionError(f"a2m recipe training launched {launches}, expected {want}")
+    first, last = _falls("a2m recipe training", losses)
+    metrics = {k: float(v) for k, v in fit(state, batch, step_key(7, steps))[1].items()
+               if k in ("rot_mse", "rcxyz_mse", "vel_mse", "fc")}
+    row = dict(ms_per_step=ms, bare_ms_per_step=bare_ms, loss_first_10=first,
+               loss_last_10=last, terms=metrics, launches=launches)
+    print(f"a2m recipe B={B} T={T} bf16 dropout {RATE}, rcxyz + vel + fc through SMPL: "
+          f"{json.dumps(row)} (ms/step: CUDA events over the last 20 of {steps} steps; bare: "
+          f"phase 14c)")
+    del state
+    phase_step_card_vs_cpu(torch, dev, steps=1, dropout=RATE, route="a2m recipe (SMPL losses)",
+                           model_kw=A2M, case=_a2m_smpl_case, loss=A2M_RECIPE_LOSS,
+                           step_kw=dict(get_xyz=_smpl_get_xyz(smpl)))
+    return launches, row
+
+
+def _classifiers_card_vs_cpu(torch, dev):
+    """Phase 17c: the GRU (72 -> 128 x 2 -> 12), UESTC's STGCN (smpl, 6 ->
+    40) and the modi-15 STGCN (3 -> 12) at T = 60 and the batches the path
+    runs them at (B = 32, the classifier stages'; B = 192, the protocols'
+    megabatch), seeded weights, card against CPU on the same inputs under
+    f32_math."""
+    import copy
+
+    from mdm_tpu_torch.eval.a2m_setup import StgcnAdapter
+    from mdm_tpu_torch.eval.classifiers import MotionDiscriminator
+    from mdm_tpu_torch.eval.networks import f32_math, reset_seeded
+    from mdm_tpu_torch.eval.stgcn import STGCN, STGCNConfig
+
+    rng = np.random.default_rng(18)
+    T = A2M_T
+    randn = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))  # noqa
+    cases = {
+        "MotionDiscriminator 72 -> 128 x 2 -> 12": (MotionDiscriminator(72, 128, 2, 12), (72,)),
+        "STGCN smpl 6 -> 40": (StgcnAdapter(STGCN(STGCNConfig(in_channels=6, num_class=40))),
+                               (24, 6)),
+        "STGCN openpose_modi15 3 -> 12": (StgcnAdapter(STGCN(STGCNConfig(
+            in_channels=3, num_class=12, layout="openpose_modi15"))), (15, 3)),
+    }
+    errs = {}
+    for name, (clf, shape) in cases.items():
+        reset_seeded(clf, 1)
+        card = copy.deepcopy(clf).to(dev)
+        for B in (32, A2M_CLIPS):
+            x, lengths = randn(B, T, *shape), torch.from_numpy(rng.integers(1, T + 1, B))
+            with torch.no_grad(), f32_math():
+                want, got = clf(x, lengths), card(x.to(dev), lengths)
+            errs[f"{name} [{B}, {T}]"] = {k: _rel_err(torch, got[k], want[k]) for k in want}
+    if not max(max(e.values()) for e in errs.values()) <= SMPL_TOL:
+        raise AssertionError(f"a2m classifiers: card vs CPU {errs}")
+    print(f"a2m classifiers f32 (f32_math; cuDNN TF32 allowed outside), card vs CPU, relative "
+          f"to the largest |output| (tolerance {SMPL_TOL}): {json.dumps(errs)}")
+    return errs
+
+
+def phase_a2m_protocols(torch, TB, ET, DB, li, dev, tmp):
+    """Phase 17c-d in ``tmp`` (its body_models/smpl holds phase 17a's model):
+    the classifiers card against CPU; ``cli.train_evaluators --stage
+    a2m_classifier`` (the GRU on SMPL xyz) and ``--stage
+    unconstrained_stgcn`` (ms/step by CUDA events after step 20);
+    ``cli.train`` of an a2m checkpoint with the recipe and
+    ``--eval_during_training``; ``cli.eval_a2m`` debug (2 seeds) with the
+    self-trained classifier: s/seed, its generation / SMPL / classifier
+    split, #1 exactly 8 x 50 x seeds; an unconditioned ``cli.train`` and
+    ``cli.eval_unconstrained`` debug: s per pass. Each entry point counted
+    from zero. Returns the launches, the times and a function that runs
+    one a2m seed (phase 12 profiles it)."""
+    import mdm_tpu_torch.smpl as smpl_pkg
+    from mdm_tpu_torch.cli import eval_a2m as eval_a2m_cli
+    from mdm_tpu_torch.cli import eval_unconstrained as eval_unc_cli
+    from mdm_tpu_torch.cli import train as train_cli
+    from mdm_tpu_torch.cli import train_evaluators as tev_cli
+    from mdm_tpu_torch.eval import a2m_setup
+    from mdm_tpu_torch.eval import train_evaluators as TE
+    from mdm_tpu_torch.eval.harness_a2m import A2MEvaluation
+    from mdm_tpu_torch.ops import _chain
+    from mdm_tpu_torch.sampling import MotionGenerator
+    from mdm_tpu_torch.scripts.a2m_rehearsal import build_dataset
+
+    layers = FLAGSHIP["num_layers"]
+    cwd, tf32 = os.getcwd(), torch.backends.cudnn.allow_tf32
+    os.chdir(tmp)
+    # The CLIs run under PyTorch's default, which lets cuDNN take TF32; the
+    # classifiers turn it off themselves, and 17c holds that.
+    torch.backends.cudnn.allow_tf32 = True
+    out = {}
+    try:
+        quiet = lambda: stdout_to(os.path.join(tmp, "a2m_cli.log"))  # noqa: E731
+        data = build_dataset(tmp, A2M_CLIPS)
+        out["classifier_rel_err"] = _classifiers_card_vs_cpu(torch, dev)
+
+        # 17c: the classifier stages, batches cached on the card.
+        clf_npy, st_npy = os.path.join(tmp, "a2m_clf.npy"), os.path.join(tmp, "uncon_stgcn.npy")
+        ev_ms, ev_logs = {}, {}
+        for stage, save in (("a2m_classifier", clf_npy), ("unconstrained_stgcn", st_npy)):
+            marks, logs = [], []
+
+            def timed_make(make):
+                def f(*a, **k):
+                    init, step = make(*a, **k)
+
+                    def timed(*sa):
+                        res = step(*sa)
+                        marks.append(torch.cuda.Event(enable_timing=True))
+                        marks[-1].record()
+                        logs.append(res[2]["loss"])
+                        return res
+                    return init, timed
+                return f
+
+            with patched(TE, "make_a2m_classifier_step", timed_make), quiet():
+                tev_cli.main(["--stage", stage, "--dataset", "humanact12", "--data_dir", data,
+                              "--save_path", save, "--num_steps", str(A2M_CLF_STEPS),
+                              "--batch_size", "32", "--cache_batches", str(A2M_CLIPS // 32),
+                              "--log_every", "20", "--lr", "3e-4", "--device", "0"])
+            torch.cuda.synchronize()
+            ev_ms[stage] = (marks[EVAL_WARM - 1].elapsed_time(marks[-1])
+                            / (A2M_CLF_STEPS - EVAL_WARM))
+            ev_logs[stage] = [float(logs[i]) for i in (0, A2M_CLF_STEPS - 1)]
+            if not np.isfinite(ev_logs[stage]).all():
+                raise AssertionError(f"train_evaluators {stage}: loss {ev_logs[stage]}")
+        blob = np.load(clf_npy, allow_pickle=True).item()
+        if (blob["feature"], blob["arch"], blob["input_size"]) != ("xyz", "gru", 72):
+            raise AssertionError(f"a2m_classifier stage: {blob['feature']} {blob['arch']}")
+        print(f"train_evaluators a2m stages at the reference widths, B=32, batches cached on the "
+              f"card: ms/step (CUDA events, steps {EVAL_WARM}..{A2M_CLF_STEPS}) "
+              f"{json.dumps(ev_ms)}; loss first and last {json.dumps(ev_logs)}")
+        out["train_evaluators_ms"] = ev_ms
+
+        # 17d: cli.train of an a2m checkpoint with the recipe, 20 steps, and
+        # one a2m evaluation during training at the save (guidance 1).
+        train_steps, run = 20, os.path.join(tmp, "a2m_run")
+        flats = []
+
+        def capture_eval(make):
+            def f(*a, **k):
+                eval_fn = make(*a, **k)
+                return lambda state, step: flats.append(eval_fn(state, step)) or flats[-1]
+            return f
+
+        for c in (TB.LAUNCHES, ET.LAUNCHES, DB.LAUNCHES, _chain.GEMM_LAUNCHES):
+            _zero(c)
+        li.LAUNCHES = 0
+        with patched(train_cli, "make_a2m_eval_during_training", capture_eval), quiet():
+            train_cli.main(["--save_dir", run, "--data_dir", data, *A2M_CLI, *A2M_RECIPE,
+                            "--num_steps", str(train_steps), "--save_interval", str(train_steps),
+                            "--eval_during_training", "--eval_rep_times", "1",
+                            "--eval_num_samples", "64", "--eval_batch_size", "32"])
+        torch.cuda.synchronize()
+        n = layers * train_steps
+        got = {**_train_counts(TB, ET, DB, _chain), "fused_layer_inference": li.LAUNCHES}
+        want = {"fused_train_attention_block.fwd": n, "fused_train_attention_block.bwd": n,
+                "fused_encoder_tail.fwd": n, "fused_encoder_tail.bwd": n, "dropout_bits": 0,
+                "tail_dropout_bits": 0, "sequence_dropout_bits": train_steps,
+                "products.wgmma": 12 * n + 4 * layers * A2M_STEPS, "products.fma": 0,
+                "fused_layer_inference": layers * A2M_STEPS}
+        if got != want or len(flats) != 1 or not {"accuracy_gen", "fid_gen"} <= set(flats[0]):
+            raise AssertionError(f"cli.train a2m recipe launched {got}, expected {want}; its "
+                                 f"evaluations {flats}")
+        print(f"cli.train a2m recipe (B=64, bf16, {A2M_STEPS} diffusion steps, {train_steps} "
+              f"steps) + eval during training (1 seed, 64 clips, guidance 1): launches "
+              f"{json.dumps(got)}; Eval accuracy_gen {flats[0]['accuracy_gen']:.4f}, fid_gen "
+              f"{flats[0]['fid_gen']:.4f}")
+        out["train"] = got
+
+        # cli.eval_a2m, debug, with the self-trained classifier.
+        gen_t, smpl_t, clf_t, seeds, kept = [], [], [], [], {}
+
+        def seed_start(make_factory):
+            def f(*a, **k):
+                make = make_factory(*a, **k)
+                kept["make_loaders"] = make
+
+                def timed(seed):
+                    seeds.append([time.perf_counter()])
+                    return make(seed)
+                return timed
+            return f
+
+        def seed_end(evaluate):
+            def f(self, *a, **k):
+                kept["evaluation"] = self
+                res = evaluate(self, *a, **k)
+                torch.cuda.synchronize()
+                seeds[-1].append(time.perf_counter())
+                return res
+            return f
+
+        for c in (TB.LAUNCHES, _chain.GEMM_LAUNCHES):
+            _zero(c)
+        li.LAUNCHES = 0
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(a2m_setup, "make_a2m_loaders_factory", seed_start))
+            stack.enter_context(patched(A2MEvaluation, "evaluate", seed_end))
+            stack.enter_context(patched(MotionGenerator, "sample_features",
+                                        lambda fn: _device_timed(torch, fn, gen_t)))
+            stack.enter_context(patched(smpl_pkg, "rot2xyz",
+                                        lambda fn: _device_timed(torch, fn, smpl_t)))
+            stack.enter_context(patched(A2MEvaluation, "_collect",
+                                        lambda fn: _device_timed(torch, fn, clf_t)))
+            stack.enter_context(quiet())
+            summary = eval_a2m_cli.main(["--model_path", run, "--data_dir", data,
+                                         "--eval_mode", "debug", "--a2m_classifier_path",
+                                         clf_npy, "--device", "0"])
+        torch.cuda.synchronize()
+        want_li = layers * A2M_STEPS * A2M_SEEDS
+        got = dict(fused_layer_inference=li.LAUNCHES, products=dict(_chain.GEMM_LAUNCHES),
+                   sampling_calls=len(gen_t))
+        if got != dict(fused_layer_inference=want_li, products={"wgmma": 4 * want_li, "fma": 0},
+                       sampling_calls=A2M_SEEDS) or TB.LAUNCHES["fwd"]:
+            raise AssertionError(f"cli.eval_a2m launched {got}, expected {want_li} layer kernel "
+                                 f"launches ({layers} x {A2M_STEPS} steps x {A2M_SEEDS} seeds, "
+                                 f"guidance 1) and 4 products each on wgmma")
+        if summary["classifier"] != "self-trained" or not all(
+                np.isfinite(summary[k]["mean"]) for k in ("accuracy_gen", "fid_gen", "fid_gt2",
+                                                          "diversity_gen")):
+            raise AssertionError(f"cli.eval_a2m summary {summary}")
+        ms = lambda ts: sum(a.elapsed_time(b) for a, b in ts) / A2M_SEEDS  # noqa: E731
+        s_seed = [b - a for a, b in seeds]
+        split = dict(generation_ms=ms(gen_t), smpl_ms=ms(smpl_t), classifier_ms=ms(clf_t))
+        print(f"cli.eval_a2m (debug, {A2M_SEEDS} seeds, megabatch {A2M_CLIPS} clips, "
+              f"{A2M_STEPS} steps, guidance 1, bf16): launches {json.dumps(got)}; s/seed (host "
+              f"clock, loaders to metrics) {json.dumps(s_seed)}; per seed (CUDA events) "
+              f"{json.dumps(split)}; accuracy_gen {summary['accuracy_gen']['mean']:.4f}, "
+              f"fid_gen {summary['fid_gen']['mean']:.4f}, accuracy_gt "
+              f"{summary['accuracy_gt']['mean']:.4f}")
+        out["eval_a2m"] = dict(got, s_per_seed=s_seed, **split)
+        one_seed = lambda: kept["evaluation"].evaluate(kept["make_loaders"](0), seed=0)  # noqa
+
+        # An unconditioned checkpoint and cli.eval_unconstrained.
+        uncon = os.path.join(tmp, "uncon_run")
+        with quiet():
+            train_cli.main(["--save_dir", uncon, "--data_dir", data, *A2M_CLI, "--unconstrained",
+                            "--cond_mask_prob", "0", "--num_steps", "4", "--save_interval",
+                            "4"])
+        torch.cuda.synchronize()
+        _zero(_chain.GEMM_LAUNCHES)
+        li.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with quiet():
+            summary = eval_unc_cli.main(["--model_path", uncon, "--data_dir", data,
+                                         "--eval_mode", "debug", "--a2m_classifier_path", st_npy,
+                                         "--device", "0"])
+        torch.cuda.synchronize()
+        s_pass = time.perf_counter() - t0
+        want_li = layers * A2M_STEPS * (A2M_CLIPS // 32)
+        if (li.LAUNCHES != want_li or summary["classifier"] != "self-trained"
+                or not all(np.isfinite(summary[k]) for k in ("fid", "kid", "precision"))):
+            raise AssertionError(f"cli.eval_unconstrained: {li.LAUNCHES} layer kernel launches "
+                                 f"(expected {want_li}), summary {summary}")
+        print(f"cli.eval_unconstrained (debug, {A2M_CLIPS // 32} batches of 32, {A2M_STEPS} "
+              f"steps): {li.LAUNCHES} layer kernel launches, {s_pass:.3f} s a pass (host clock, "
+              f"the whole CLI call); fid {summary['fid']:.4f}, kid {summary['kid']:.4f}, "
+              f"precision {summary['precision']:.4f}")
+        out["eval_unconstrained"] = dict(fused_layer_inference=li.LAUNCHES, s_per_pass=s_pass)
+    finally:
+        os.chdir(cwd)
+        torch.backends.cudnn.allow_tf32 = tf32
+    out["one_seed"] = one_seed
+    return out
+
+
+def smpl_forward(torch, smpl, dev):
+    """One smpl rot2xyz forward of phase 17a's shape, without gradients."""
+    from mdm_tpu_torch.smpl import Rot2XYZConfig, rot2xyz
+
+    x = _rot6d_clips(torch, np.random.default_rng(17), A2M_B, A2M_T).to(dev)
+    return lambda: rot2xyz(smpl, x, Rot2XYZConfig(jointstype="smpl", vertstrans=True))
+
+
+def cuda_kernels(torch, fn):
+    """The CUDA kernels one call of fn launches, under torch.profiler (after
+    a warm call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def device_busy(torch, fn):
-    """(wall ms, kernel ms) of one call of fn under torch.profiler: CUDA
-    events around it, and the sum of its kernels' device time."""
+    """(wall ms, kernel ms, kernels) of one call of fn under torch.profiler:
+    CUDA events around it, the sum of its kernels' device time and their
+    number."""
     from torch.profiler import ProfilerActivity, profile
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2671,29 +3130,38 @@ def device_busy(torch, fn):
         fn()
         end.record()
         torch.cuda.synchronize()
-    return start.elapsed_time(end), sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return (start.elapsed_time(end),
+            sum(e.self_device_time_total for e in prof.key_averages()) / 1e3, kernels)
 
 
-def phase_train_busy(torch, dev, dip_step_ms, remat_rows, steps=3):
-    """Phase 12 for training: ``steps`` DiP train steps (phase 14a's) and
-    flagship steps with and without remat at B = 128 and 512 (phase 14b's),
-    each after one warm step, under torch.profiler: the kernels' device ms
-    a step, and the busy share against the unprofiled ms/step."""
+def phase_train_busy(torch, dev, dip_step_ms, remat_rows, a2m_ms, smpl, steps=3):
+    """Phase 12 for training: ``steps`` DiP train steps (phase 14a's),
+    flagship steps with and without remat at B = 128 (phase 14b's; B = 512
+    is card-bound, busy 0.98), and the a2m step bare (phase 14c's) and with
+    the HumanAct12 recipe's SMPL losses (phase 17b's), each after one warm
+    step, under torch.profiler: the kernels' device ms and launches a step,
+    and the busy share against the unprofiled ms/step (``a2m_ms``: bare,
+    recipe)."""
     from mdm_tpu_torch.train import step_key
 
     runs = [("DiP train B=64", lambda: _dip_train_setup(torch, dev, 1e-3), dip_step_ms)]
     runs += [(f"flagship train B={r['B']} remat={r['remat']}",
               lambda r=r: _flagship_train_setup(torch, dev, r["B"], r["remat"]), r["ms_per_step"])
-             for r in remat_rows]
+             for r in remat_rows if r["B"] == 128]
+    runs += [(f"a2m train B={A2M_B} bare", lambda: _a2m_train_setup(torch, dev), a2m_ms[0]),
+             (f"a2m train B={A2M_B} recipe (SMPL losses)",
+              lambda: _a2m_train_setup(torch, dev, smpl), a2m_ms[1])]
     rows = []
     for name, setup, ms in runs:
         state, batch, step = setup()
         _run_steps(torch, step, state, batch, [step_key(6, 0)])
-        wall, busy = device_busy(torch, lambda: _run_steps(
+        wall, busy, kernels = device_busy(torch, lambda: _run_steps(
             torch, step, state, batch, [step_key(6, 1 + i) for i in range(steps)]))
         if not busy:
             raise AssertionError(f"{name}: torch.profiler recorded no device time")
         rows.append(dict(run=name, kernel_ms_per_step=busy / steps,
+                         kernels_per_step=kernels / steps,
                          profiled_ms_per_step=wall / steps, ms_per_step=ms,
                          busy_share=busy / steps / ms))
         print("train under torch.profiler", json.dumps(rows[-1]))
@@ -2737,6 +3205,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    stamp = lambda what: print(f"[{time.perf_counter() - t_start:.1f} s] {what} done")  # noqa
 
     # Phase 0: the card and the software.
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2786,6 +3256,8 @@ def main():
     if tail_spills or not all(tail_ptxas.values()):
         raise AssertionError(f"encoder tail kernels spill or are missing: {tail_spills}")
 
+    stamp("phases 0-1")
+
     # Phase 2a: the wgmma product kernel against the plain product at the
     # edges of its tiling, every form: x . W^T (M on both sides of 128 rows
     # and the paths' M, the four product shapes and two ragged (N, K), bias
@@ -2817,6 +3289,8 @@ def main():
     # 4 (2-byte row copies) and 2 heads of 512 (the wide kernels).
     for width, heads in ((384, H), (1024, H), (128, 32), (1024, 2)):
         compare_layer(torch, li, 64, 197, width, F, heads, torch.bfloat16, "bool")
+
+    stamp("phases 2a-2")
 
     # Phase 2b: the whole slice on the card (kernels) against the CPU (plain
     # versions) at a small f32 width, with identical weights and noise.
@@ -2897,6 +3371,7 @@ def main():
         raise AssertionError(f"main path launched the layer kernels {launches} times, "
                              f"expected {expected}")
 
+    stamp("phases 2b-4")
     M = 64 * 197  # the timed layer: CFG batch 64, bf16, no mask
     layer_bytes = 2 * (2 * M * D + 4 * D * D + 2 * D * F + 9 * D + F)
     lib_ms, lib_device_ms = library_layer_ms(torch, dev)
@@ -2926,6 +3401,8 @@ def main():
                             "bool", timed=False)
     phase_tail_edges(torch, ET, DB, dev)
 
+    stamp("phase 5")
+
     # Phase 6: the random stream. The dumps' launches are counted on the
     # training paths that run them (phases 8 and 11), not over these checks.
     dumps = phase_random_stream(torch, TB, ET, DB, TRAIN_SHAPE, dev)
@@ -2935,6 +3412,8 @@ def main():
 
     # Phase 8: flagship training (the training path's launch counts).
     train_launches, step_ms = phase_flagship_train(torch, TB, ET, DB, dev)
+
+    stamp("phases 6-8")
 
     # Phases 9-11: the opt-in attention routes. Phase 9's comparisons are
     # not counted; #10 and #12 are counted over their direct-entry calls,
@@ -2947,6 +3426,8 @@ def main():
     v2_launches, pallas_s = phase_sampling_variants(torch, dev, gen_ms / 1000 / B)
     drop_launches, drop_ms = phase_train_drop(torch, dev, step_ms)
 
+    stamp("phases 9-11")
+
     # Phase 13: DiP. The decoder layer's kernel route against its plain
     # route and the two rate-0 entries alone (comparisons, not counted);
     # then DiP's generate, whose launches of the rate-0 entries are counted;
@@ -2954,6 +3435,8 @@ def main():
     decoder_rows, dip_entries = phase_decoder_layer(torch, dev)
     dip_gen, dip_conds, dip_launches, dip_ms = phase_dip_generate(torch, dev)
     sampler_rows = phase_samplers(torch, gen, cond, dev)
+
+    stamp("phase 13")
 
     # Phase 14: training every denoiser. DiP training is this slice's main
     # path: its launches are counted from zero over its 30 steps. Then remat
@@ -2963,6 +3446,7 @@ def main():
     remat_rows = phase_remat(torch, dev)
     a2m_rows = phase_a2m(torch, dev)
     phase_goal(torch, dev)
+    stamp("phase 14")
 
     # Phase 15: the command-line path: cli.train, its resume, cli.generate
     # and cli.edit, each counted from zero. Phase 16, this slice's main
@@ -2971,10 +3455,27 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         cli = phase_cli(torch, TB, ET, DB, li, dev, step_ms, gen_ms / 1000 / B, tmp)
         protocol = phase_eval(torch, TB, ET, li, dev, tmp)
+    stamp("phases 15-16")
+
+    # Phase 17, this slice's main path: the action-to-motion family. SMPL on
+    # the card (its comparisons not counted), the HumanAct12 recipe's steps
+    # counted from zero, then the classifiers and the protocols through
+    # their entry points, each counted from zero.
+    with tempfile.TemporaryDirectory() as tmp:
+        smpl, smpl_row = phase_smpl(torch, dev, tmp)
+        recipe_launches, recipe_row = phase_a2m_recipe(torch, dev, smpl,
+                                                       a2m_rows["trans_enc"]["ms_per_step"])
+        a2m = phase_a2m_protocols(torch, TB, ET, DB, li, dev, tmp)
+    stamp("phase 17")
     sampling_paths = {"sampling (phases 3-4)": kernels[0]["launches"],
                       "cli.generate (phase 15)": cli["generate"]["fused_layer_inference"],
                       "cli.edit (phase 15)": cli["edit"]["fused_layer_inference"],
-                      "cli.eval_humanml (phase 16)": protocol["flagship"]["li"]}
+                      "cli.eval_humanml (phase 16)": protocol["flagship"]["li"],
+                      "cli.train --eval_during_training, a2m (phase 17)":
+                      a2m["train"]["fused_layer_inference"],
+                      "cli.eval_a2m (phase 17)": a2m["eval_a2m"]["fused_layer_inference"],
+                      "cli.eval_unconstrained (phase 17)":
+                      a2m["eval_unconstrained"]["fused_layer_inference"]}
     kernels[0].update(launches=sum(sampling_paths.values()), launches_by_path=sampling_paths,
                       path="; ".join(sampling_paths))
 
@@ -3002,7 +3503,9 @@ def main():
             paths = {"training, AUTO (phase 8)": train_launches[f"{name}.{key}"],
                      "DiP training, AUTO (phase 14)": dip_train_launches[f"{name}.{key}"],
                      "cli.train (phase 15)": cli["train"][f"{name}.{key}"],
-                     "cli.train, resumed (phase 15)": cli["resume"][f"{name}.{key}"]}
+                     "cli.train, resumed (phase 15)": cli["resume"][f"{name}.{key}"],
+                     "a2m recipe training (phase 17b)": recipe_launches[f"{name}.{key}"],
+                     "cli.train a2m recipe (phase 17)": a2m["train"][f"{name}.{key}"]}
             kernels.append(dict(name=f"{name}.{d}", route="cuda", source=source,
                                 replaces=replaces, launches=sum(paths.values()),
                                 launches_by_path=paths,
@@ -3028,7 +3531,11 @@ def main():
                               "cli.train (sequence dropout, phase 15)":
                               cli["train"]["sequence_dropout_bits"],
                               "cli.train, resumed (sequence dropout, phase 15)":
-                              cli["resume"]["sequence_dropout_bits"]},
+                              cli["resume"]["sequence_dropout_bits"],
+                              "a2m recipe training (sequence dropout, phase 17b)":
+                              recipe_launches["sequence_dropout_bits"],
+                              "cli.train a2m recipe (sequence dropout, phase 17)":
+                              a2m["train"]["sequence_dropout_bits"]},
     }
     for name, words in dump_words.items():
         source, replaces = TRAIN_KERNELS[name]
@@ -3076,7 +3583,9 @@ def main():
           f"{a2m_rows['trans_enc']['ms_per_step']:.3f}, gru {a2m_rows['gru']['ms_per_step']:.3f}; "
           f"remat {json.dumps(remat_rows)}; cli.train {cli['train_ms']:.3f} (steps 10-30), "
           f"{cli['train_no_save_ms']:.3f} (16-30); cli.generate "
-          f"{cli['generate_ms'] / 1000 / B:.6f} s/sample")
+          f"{cli['generate_ms'] / 1000 / B:.6f} s/sample; a2m recipe "
+          f"{recipe_row['ms_per_step']:.3f} ms/step; cli.eval_a2m s/seed "
+          f"{json.dumps(a2m['eval_a2m']['s_per_seed'])}")
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel was never launched on its path: {kernels}")
     products = {name: GP.measure(name) for name in GP.MAIN_PATH_PRODUCTS}
@@ -3086,33 +3595,48 @@ def main():
     # torch.profiler for the card's busy share.
     # Last, because the profiler's tracing hooks can slow every later launch
     # of this process.
-    wall, busy = device_busy(torch, lambda: gen.generate(cond, B, T,
+    wall, busy, _ = device_busy(torch, lambda: gen.generate(cond, B, T,
                                                          torch.Generator(dev).manual_seed(0)))
     print(f"generate under torch.profiler: {wall:.1f} ms ({gen_ms:.1f} without it, phase 3), "
           f"kernels {busy:.1f} ms on the card: device busy share {busy / gen_ms:.3f} of the "
           f"unprofiled run" if busy else
           "generate under torch.profiler: no device time recorded (busy share not measured)")
     for b, c in dip_conds.items():
-        wall, busy = device_busy(torch, lambda: dip_gen.generate(
+        wall, busy, _ = device_busy(torch, lambda: dip_gen.generate(
             c, b, DP.FRAMES, torch.Generator(dev).manual_seed(1)))
         print(f"DiP generate B={b} under torch.profiler: {wall:.1f} ms ({dip_ms[b]:.1f} without "
               f"it, phase 13), kernels {busy:.1f} ms on the card: device busy share "
               f"{busy / dip_ms[b]:.3f} of the unprofiled run" if busy else
               f"DiP generate B={b} under torch.profiler: no device time recorded (busy share not "
               f"measured)")
-    # Then phase 14's training steps the same way: DiP's, and the flagship's
-    # with and without remat.
-    phase_train_busy(torch, dev, dip_step_ms, remat_rows)
+    # Then phase 14's training steps the same way: DiP's, the flagship's
+    # with and without remat, and the a2m step's bare and with phase 17b's
+    # recipe.
+    phase_train_busy(torch, dev, dip_step_ms, remat_rows,
+                     (a2m_rows["trans_enc"]["ms_per_step"], recipe_row["ms_per_step"]), smpl)
     # Then one replication of phase 16's flagship protocol (generation and
     # evaluator over the ground-truth pass's batches, then the metrics).
     rep_ms = 1000 * min(protocol["flagship"]["rep_s"])
-    wall, busy = device_busy(torch, protocol["one_replication"])
+    wall, busy, _ = device_busy(torch, protocol["one_replication"])
     if not busy:
         raise AssertionError("the t2m protocol's replication: torch.profiler recorded no device "
                              "time")
     print(f"t2m protocol replication under torch.profiler: {wall:.1f} ms ({rep_ms:.1f} without "
           f"it, phase 16's fastest), kernels {busy:.1f} ms on the card: device busy share "
           f"{busy / rep_ms:.3f} of the unprofiled replication")
+    # Then one seed of phase 17's a2m protocol (loaders, generation, SMPL,
+    # classifier, metrics), and the CUDA kernels one smpl rot2xyz forward
+    # launches (the 23-step chain is a Python loop of 4x4 products).
+    seed_s = min(a2m["eval_a2m"]["s_per_seed"])
+    wall, busy, _ = device_busy(torch, a2m["one_seed"])
+    if not busy:
+        raise AssertionError("the a2m protocol's seed: torch.profiler recorded no device time")
+    print(f"a2m protocol seed under torch.profiler: {wall:.1f} ms ({1000 * seed_s:.1f} without "
+          f"it, phase 17's fastest), kernels {busy:.1f} ms on the card: device busy share "
+          f"{busy / (1000 * seed_s):.3f} of the unprofiled seed")
+    n_kernels = cuda_kernels(torch, smpl_forward(torch, smpl, dev))
+    print(f"rot2xyz smpl forward [{A2M_B}, {A2M_T}]: {n_kernels} CUDA kernels (torch.profiler)")
+    stamp("phase 12")
     print("gemm products", json.dumps(products))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,14 +22,14 @@ import numpy as np
 import torch
 
 
-def load_eval_model(args, device):
+def load_eval_model(args, device, num_actions: int = 1):
     """The checkpoint's model on ``device``: a run directory resolves to its
     highest step; EMA weights only when the run kept them (the model-group
     flag rides args.json; reference model_util.py:118-122)."""
     from ..train.checkpoints import find_resume_checkpoint, restore_params_only
     from ..utils.factory import create_model_and_schedule
 
-    model, sched = create_model_and_schedule(args)
+    model, sched = create_model_and_schedule(args, num_actions)
     model = model.init_weights(torch.Generator().manual_seed(0)).to(device)
     ckpt = args.model_path
     if os.path.isdir(ckpt) and not os.path.basename(ckpt).startswith("ckpt_"):

@@ -9,13 +9,18 @@ files (torch.save) into --save_dir and resumes from the highest step there
 bit for bit: the batches are a pure function of (seed, step) and so are the
 step's draws.
 
-``--eval_during_training`` runs the t2m evaluation protocol at every save
-when an evaluator checkpoint is present under ``--evaluator_dir``.
+On HumanAct12 / UESTC, ``--lambda_rcxyz`` / ``--lambda_fc`` decode the
+rot6d features to joints through the SMPL layer inside the loss
+(``body_models/smpl/SMPL_NEUTRAL.pkl``, FileNotFoundError without it); on
+HumanML3D / KIT the step refuses them, as mdm_tpu's does.
 
-Not here (each raises, naming its ROADMAP Queue 1 item): a multi-process
-run (MDM_TPU_COORDINATOR / MDM_TPU_MULTIHOST, item 10), the SMPL geometric
-losses (lambda_rcxyz / lambda_fc, item 7) and evaluation during training on
-an action-to-motion dataset (item 9).
+``--eval_during_training`` runs at every save the t2m evaluation protocol
+(when an evaluator checkpoint is present under ``--evaluator_dir``) or, on
+an action dataset, the a2m protocol at guidance 1, both from the EMA
+weights when the run keeps them.
+
+Not here: a multi-process run (MDM_TPU_COORDINATOR / MDM_TPU_MULTIHOST
+raise, naming ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -57,10 +62,6 @@ def main(argv=None):
             raise FileExistsError(
                 f"save_dir {args.save_dir} exists (use --overwrite or resume)"
             )
-    if args.lambda_rcxyz > 0 or args.lambda_fc > 0:
-        raise NotImplementedError(
-            "lambda_rcxyz / lambda_fc need the SMPL layer (rot6d -> joints), which "
-            "mdm_tpu_torch does not have yet: ROADMAP Queue 1 item 7")
 
     num_frames = 196 if args.dataset in ("humanml", "kit") else args.num_frames
     data = get_dataset_loader(
@@ -136,8 +137,14 @@ def main(argv=None):
         cond_mask_prob=args.cond_mask_prob,
         schedule_sampler=getattr(args, "schedule_sampler", "uniform"),
     )
+    # Geometric losses (rcxyz / vel_rcxyz / fc) decode rot6d -> joints through
+    # the differentiable SMPL layer inside the loss (reference
+    # gaussian_diffusion.py:1241-1347); elsewhere the step refuses them.
+    get_xyz = None
+    if (args.lambda_rcxyz > 0 or args.lambda_fc > 0) and args.dataset in ("humanact12", "uestc"):
+        get_xyz = make_get_xyz()
     step = make_train_step(
-        sched, config,
+        sched, config, get_xyz=get_xyz,
         target_loss_builder=target_loss_builder,
         target_cond_fn=target_cond_fn if target_loss_builder else None,
     )
@@ -162,10 +169,8 @@ def main(argv=None):
     eval_fn = None
     if args.eval_during_training and args.dataset in ("humanml", "kit"):
         eval_fn = make_eval_during_training(args, model, text_embedder, device)
-    elif args.eval_during_training:
-        raise NotImplementedError(
-            "action-to-motion evaluation during training is not ported yet: "
-            "ROADMAP Queue 1 item 9")
+    elif args.eval_during_training and args.dataset in ("humanact12", "uestc"):
+        eval_fn = make_a2m_eval_during_training(args, model, data.dataset, num_frames, device)
 
     batches = wrap_batches(data, model.config, device, goal_modifier)
     if getattr(args, "cache_batches", 0) > 0:
@@ -270,6 +275,57 @@ def make_eval_during_training(args, model, text_embedder, device):
             for name, v in d.items():
                 mean = np.asarray(v["mean"]).ravel()
                 flat[f"{metric}_{name}"] = float(mean[0]) if mean.size else float("nan")
+        return flat
+
+    return eval_fn
+
+
+def make_get_xyz():
+    """features [B, T, 150] -> the smpl joints [B, T, 24, 3] without the
+    translation (rot2xyz, no skinning), in the features' dtype and device."""
+    from ..smpl import Rot2XYZConfig, SMPLModel, rot2xyz
+
+    smpl_model = SMPLModel.load()
+    r2x_cfg = Rot2XYZConfig(jointstype="smpl", vertstrans=False)
+
+    def get_xyz(feats):
+        return rot2xyz(smpl_model, feats.reshape(feats.shape[0], feats.shape[1], 25, 6), r2x_cfg)
+
+    return get_xyz
+
+
+def make_a2m_eval_during_training(args, model, dataset, num_frames, device):
+    """An action-dataset eval pass per checkpoint (mdm_tpu/cli/train.py:
+    322-375; reference train/training_loop.py:275-286): accuracy / FID /
+    diversity / multimodality through the frozen GRU (HumanAct12) or STGCN
+    (UESTC) classifier, ``eval_rep_times`` seeds over ``eval_num_samples``
+    clips each, at guidance 1 (training_loop.py:277), from the EMA weights
+    when the run keeps them; flattened Eval-group scalars, with
+    ``eval_comparable`` 0 when the classifier is a random init. The sampling
+    copy of the model and the classifier are built once."""
+    from ..diffusion import Schedule
+    from ..eval.a2m_setup import build_feature_and_classifier, make_a2m_loaders_factory
+    from ..eval.harness_a2m import A2MEvalConfig, A2MEvaluation, evaluate_multi_seed
+    from ..sampling import GenerationConfig, MotionGenerator
+
+    num_actions = getattr(dataset, "num_actions", 1)
+    feature_input, clf, degraded = build_feature_and_classifier(
+        args.dataset, num_actions, num_frames, model.config.input_feats,
+        chunk=args.eval_batch_size, device=device)
+    max_batches = max(1, args.eval_num_samples // max(1, args.eval_batch_size))
+    gen = MotionGenerator(_sampling_copy(model),
+                          Schedule.create(args.noise_schedule, args.diffusion_steps),
+                          GenerationConfig(guidance_scale=1.0), args.dataset)
+    ev = A2MEvaluation(clf, config=A2MEvalConfig(num_classes=num_actions))
+
+    def eval_fn(state, step):
+        _load_sampling_weights(gen.model, state)
+        make_loaders = make_a2m_loaders_factory(dataset, gen, args.eval_batch_size, num_frames,
+                                                feature_input, max_batches=max_batches)
+        summary = evaluate_multi_seed(make_loaders, ev, num_seeds=args.eval_rep_times)
+        flat = {k: float(v["mean"]) for k, v in summary.items()}
+        if degraded:
+            flat["eval_comparable"] = 0.0
         return flat
 
     return eval_fn

@@ -8,14 +8,21 @@ the CPU. Stages:
   --stage decomp   movement conv autoencoder (run first)
   --stage match    contrastive text/motion encoders (needs --decomp_path)
   --stage length   motion-length estimator
+  --stage a2m_classifier  the action classifier the a2m protocol scores
+                   with (the reference ships it only frozen): humanact12,
+                   the GRU on SMPL xyz (on the raw rot6d features when the
+                   SMPL asset is absent); uestc, the STGCN on rot6d
+  --stage unconstrained_stgcn  the modi-15 STGCN feature extractor of the
+                   unconstrained protocol, on root-centred openpose-15 xyz
 
 `--stage match` writes a `finest.npy` that `EvaluatorWrapper` (of either
 package) loads directly, so a user can produce metric encoders for a NEW
-dataset without any reference checkpoint. Every output is in mdm_tpu's npy
-layout. The other stages raise, naming their ROADMAP Queue 1 item:
-``comp_v6`` (training the T2M baseline generator, item 12) and
-``a2m_classifier`` / ``unconstrained_stgcn`` (the action-to-motion half of
-the evaluation port, item 9).
+dataset without any reference checkpoint; the a2m stages write the .npy
+that ``cli.eval_a2m`` / ``cli.eval_unconstrained`` take as
+``--a2m_classifier_path``, with the architecture and representation
+recorded in it. Every output is in mdm_tpu's npy layout. ``comp_v6``
+(training the T2M baseline generator) raises, naming ROADMAP Queue 1
+item 12.
 """
 from __future__ import annotations
 
@@ -26,9 +33,6 @@ import numpy as np
 NOT_PORTED = {
     "comp_v6": "training the T2M baseline generator (eval/train_t2m_generator.py) is not "
                "ported yet: ROADMAP Queue 1 item 12",
-    "a2m_classifier": "the action-to-motion evaluation is not ported yet: ROADMAP Queue 1 item 9",
-    "unconstrained_stgcn": "the action-to-motion evaluation is not ported yet: "
-                           "ROADMAP Queue 1 item 9",
 }
 
 
@@ -62,6 +66,117 @@ def _batches(dataset, batch_size, stage, seed=0):
                 batch["shift"] = np.asarray(int(rng.integers(0, max(1, batch_size - 1))))
             yield batch
         seed += 1
+
+
+def _classifier_batches(dataset, batch_size, seed, to_inputs, device):
+    """Endless epochs of the classifier's batches on ``device``: inputs,
+    lengths and action labels."""
+    import torch
+
+    from ..data import BatchIterator
+
+    while True:
+        for b in BatchIterator(dataset, batch_size, shuffle=True, seed=seed, infinite=False):
+            yield {"x": to_inputs(b["x"]),
+                   "lengths": torch.as_tensor(np.asarray(b["lengths"], np.int32)).to(device),
+                   "y": torch.as_tensor(np.asarray(b["action"], np.int32)).to(device)}
+        seed += 1
+
+
+def _fit_classifier(args, clf, input_size, num_frames, example_x, batches, device):
+    from ..data.loader import cache_device_batches
+    from ..eval.train_evaluators import EvalTrainConfig, make_a2m_classifier_step, run_training
+
+    init, step = make_a2m_classifier_step(clf.to(device), input_size, num_frames,
+                                          EvalTrainConfig(lr=args.lr), example_x=example_x)
+    if args.cache_batches > 0:
+        batches = cache_device_batches(batches, args.cache_batches, device=device)
+    params, _ = run_training(init, step, batches, args.num_steps, args.seed,
+                             log_every=args.log_every)
+    return params
+
+
+def _train_a2m_classifier(args, device):
+    """--stage a2m_classifier (mdm_tpu/cli/train_evaluators.py:76-159):
+    humanact12, the GRU MotionDiscriminator on SMPL xyz when the SMPL asset
+    is present (eval/a2m/gru_eval.py feeds batch['output_xyz']), else on the
+    raw rot6d features; uestc, the STGCN on rot6d [B, T, 24, 6], the
+    protocol's own architecture and representation (stgcn_eval.py:58-60).
+    The representation and the architecture are saved with the weights."""
+    import torch
+
+    from ..data import get_dataset
+    from ..eval.a2m_setup import StgcnAdapter, make_a2m_feature_input, raw_features
+    from ..eval.classifiers import MotionDiscriminator
+    from ..eval.stgcn import STGCN, STGCNConfig
+    from ..eval.train_evaluators import save_evaluator_params
+
+    num_frames = 60
+    dataset = get_dataset(args.dataset, num_frames=num_frames, data_root=args.data_dir or None)
+    hidden_size, hidden_layers = 128, 2
+    if args.dataset == "uestc":
+        feature_input, feature = make_a2m_feature_input("uestc", device=device), "rot6d"
+    else:
+        try:
+            feature_input, feature = make_a2m_feature_input(args.dataset, device=device), "xyz"
+        except FileNotFoundError as e:
+            print(f"a2m_classifier: SMPL asset missing ({e}); training on raw rot6d features")
+            feature_input, feature = raw_features(device), "raw"
+    feat_dim = dataset.sample(0, np.random.default_rng(0))["motion"].shape[-1]
+    probe = feature_input(np.zeros((1, num_frames, feat_dim), np.float32))
+    input_size = int(probe.shape[-1])
+    if feature == "rot6d":
+        arch, clf = "stgcn", StgcnAdapter(STGCN(STGCNConfig(
+            in_channels=input_size, num_class=dataset.num_actions, layout="smpl")))
+    else:
+        arch, clf = "gru", MotionDiscriminator(input_size, hidden_size, hidden_layers,
+                                               dataset.num_actions)
+    batches = _classifier_batches(dataset, args.batch_size, args.seed, feature_input, device)
+    params = _fit_classifier(args, clf, input_size, num_frames, torch.zeros_like(probe),
+                             batches, device)
+    save_evaluator_params(args.save_path, {
+        "params": {"params": params}, "input_size": input_size, "feature": feature,
+        "num_actions": dataset.num_actions, "arch": arch,
+        "hidden_size": hidden_size, "hidden_layers": hidden_layers,
+    })
+
+
+def _train_unconstrained_stgcn(args, device):
+    """--stage unconstrained_stgcn (mdm_tpu/cli/train_evaluators.py:162-235):
+    the modified-structure 15-joint STGCN of the unconstrained protocol (the
+    reference ships it only frozen, humanact12_gru_modi_struct.pth.tar),
+    trained as an action classifier on root-centred openpose-15 xyz; its
+    penultimate features feed FID / KID / precision-recall. The xyz decode
+    is cli.eval_unconstrained's (a2m_setup.unconstrained_xyz_fn)."""
+    import torch
+
+    from ..data import get_dataset
+    from ..eval.a2m_setup import StgcnAdapter, unconstrained_xyz_fn
+    from ..eval.harness_a2m import UNCONSTRAINED_JOINT_SUBSET
+    from ..eval.stgcn import STGCN, STGCNConfig
+    from ..eval.train_evaluators import save_evaluator_params
+
+    num_frames = 60
+    dataset = get_dataset("humanact12", num_frames=num_frames, data_root=args.data_dir or None)
+    get_xyz, degraded = unconstrained_xyz_fn(num_frames, device=device)
+    if degraded:
+        print("unconstrained_stgcn: SMPL asset missing; training on "
+              "pseudo-joint features (stamped in the saved .npy)")
+
+    def to_inputs(feats):
+        sub = get_xyz(feats)[:, :, UNCONSTRAINED_JOINT_SUBSET]
+        return sub - sub[:, :1, 8:9]  # centred on the first frame's mid-hip
+
+    clf = StgcnAdapter(STGCN(STGCNConfig(in_channels=3, num_class=dataset.num_actions,
+                                         layout="openpose_modi15", edge_importance=True)))
+    batches = _classifier_batches(dataset, args.batch_size, args.seed, to_inputs, device)
+    params = _fit_classifier(args, clf, 3, num_frames, torch.zeros((1, num_frames, 15, 3)),
+                             batches, device)
+    save_evaluator_params(args.save_path, {
+        "params": {"params": params}, "feature": "pseudo" if degraded else "xyz",
+        "num_actions": dataset.num_actions, "arch": "stgcn_modi15",
+        "layout": "openpose_modi15", "in_channels": 3,
+    })
 
 
 def _on_device(batches, device):
@@ -123,6 +238,18 @@ def main(argv=None):
 
     if args.stage in NOT_PORTED:
         raise NotImplementedError(f"--stage {args.stage}: {NOT_PORTED[args.stage]}")
+    if args.stage == "a2m_classifier":
+        assert args.dataset in ("humanact12", "uestc"), \
+            "--stage a2m_classifier needs an action dataset"
+        _train_a2m_classifier(args, select_device(args))
+        print(f"saved {args.save_path}")
+        return
+    if args.stage == "unconstrained_stgcn":
+        assert args.dataset == "humanact12", \
+            "--stage unconstrained_stgcn is a HumanAct12 protocol"
+        _train_unconstrained_stgcn(args, select_device(args))
+        print(f"saved {args.save_path}")
+        return
     assert args.dataset in ("humanml", "kit"), \
         f"--stage {args.stage} needs a t2m dataset"
     device = select_device(args)

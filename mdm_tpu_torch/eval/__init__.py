@@ -1,11 +1,15 @@
 """Evaluation (counterpart of mdm_tpu/eval): frozen evaluator nets, their
-training, metrics, the t2m harness and the T2M baseline generator. The
-action-to-motion half (classifiers, STGCN, its harness) is ROADMAP Queue 1
-item 9."""
+training, metrics, the t2m harness and the T2M baseline generator; the
+action-to-motion half: the GRU and STGCN classifiers, their harness and
+its setup."""
 from . import (  # noqa: F401
+    a2m_setup,
+    classifiers,
     harness,
+    harness_a2m,
     metrics,
     networks,
+    stgcn,
     t2m_generator,
     train_evaluators,
 )

@@ -29,7 +29,8 @@ import torch
 from torch import nn
 
 # (flax path, tensor, layout): "T" a transposed 2-D kernel, "k" a conv kernel
-# stored [k, ., .] in flax (torch [., ., k]), "" the same array.
+# stored [k, ., .] in flax (torch [., ., k]), "k2" a 2-D conv kernel (flax
+# [kh, kw, in, out], torch [out, in, kh, kw]), "" the same array.
 Layout = List[Tuple[Tuple[str, ...], torch.Tensor, str]]
 
 
@@ -62,7 +63,13 @@ def _to_torch_layout(a: np.ndarray, kind: str) -> np.ndarray:
         return a.T
     if kind == "k":
         return np.transpose(a, (2, 1, 0))
+    if kind == "k2":
+        return np.transpose(a, (3, 2, 0, 1))
     return a
+
+
+def _to_flax_layout(a: np.ndarray, kind: str) -> np.ndarray:
+    return np.transpose(a, (2, 3, 1, 0)) if kind == "k2" else _to_torch_layout(a, kind)
 
 
 def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
@@ -90,9 +97,8 @@ def flax_params(module: nn.Module) -> Dict:
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        # both layout changes are their own inverses
-        node[path[-1]] = np.ascontiguousarray(_to_torch_layout(t.detach().float().cpu().numpy(),
-                                                               kind))
+        node[path[-1]] = np.ascontiguousarray(_to_flax_layout(t.detach().float().cpu().numpy(),
+                                                              kind))
     return tree
 
 
@@ -125,7 +131,8 @@ def reset_seeded(module: nn.Module, seed: int) -> nn.Module:
     initialisers (flax's defaults: lecun-normal kernels over the flax
     kernel's fan-in, zero biases, LayerNorm ones and zeros; the learned GRU
     states N(0, 1)), on the CPU, and copy them to the module's device; the
-    global generator is restored."""
+    global generator is restored. A module with parameters of its own kind
+    sets them in its ``init_flax_()``."""
     fresh = copy.deepcopy(module).cpu()
     with torch.random.fork_rng(devices=[]), torch.no_grad():
         torch.manual_seed(seed)
@@ -134,13 +141,19 @@ def reset_seeded(module: nn.Module, seed: int) -> nn.Module:
                 _lecun_normal_(m.weight, m.in_features)
             elif isinstance(m, nn.Conv1d):
                 _lecun_normal_(m.weight, m.in_channels * m.kernel_size[0])
+            elif isinstance(m, nn.Conv2d):
+                _lecun_normal_(m.weight, m.in_channels * m.kernel_size[0] * m.kernel_size[1])
             elif isinstance(m, nn.ConvTranspose1d):  # flax's kernel [k, out, in]
                 _lecun_normal_(m.weight, m.out_channels * m.kernel_size[0])
             elif isinstance(m, nn.GRU):
-                _lecun_normal_(m.weight_ih_l0, m.input_size)
-                _lecun_normal_(m.weight_hh_l0, m.hidden_size)
+                for k in range(m.num_layers):
+                    _lecun_normal_(getattr(m, f"weight_ih_l{k}"),
+                                   m.input_size if k == 0 else m.hidden_size)
+                    _lecun_normal_(getattr(m, f"weight_hh_l{k}"), m.hidden_size)
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
+            elif hasattr(m, "init_flax_"):
+                m.init_flax_()
             for name, p in m.named_parameters(recurse=False):
                 if name.startswith("bias"):
                     p.zero_()

@@ -1,8 +1,8 @@
 """Training for the T2M evaluator networks (reference trainers.py scope).
 
-Counterpart of mdm_tpu/eval/train_evaluators.py (:43-250, :305-330), the
-trainers that produce the frozen metric encoders every t2m eval path
-depends on (reference data_loaders/humanml/networks/trainers.py):
+Counterpart of mdm_tpu/eval/train_evaluators.py (:43-330), the trainers
+that produce the frozen metric encoders every t2m eval path depends on
+(reference data_loaders/humanml/networks/trainers.py):
 
 - DecompTrainerV3 (:25-208): movement conv autoencoder — L1 reconstruction
   + latent sparsity + latent smoothness.
@@ -10,6 +10,9 @@ depends on (reference data_loaders/humanml/networks/trainers.py):
   training (Hadsell-Chopra-LeCun margin loss, modules.py:11-24) on top of
   the frozen movement encoder.
 - LengthEstTrainer (:748-876): cross-entropy motion-length classifier.
+- The a2m protocol's action classifiers (``make_a2m_classifier_step``: the
+  GRU MotionDiscriminator, or the STGCN through ``a2m_setup.StgcnAdapter``),
+  which the reference ships only frozen (assets/actionrecognition/*.tar).
 
 Each ``make_*_step`` returns ``(init, step)``: ``init(seed)`` draws the
 networks' weights from mdm_tpu's initialisers (``networks.reset_seeded``:
@@ -19,9 +22,7 @@ flax's lecun-normal kernels and zero biases) and returns
 batch)`` runs loss, gradients, mdm_tpu's per-network clip and Adam on the
 networks' device in float32 (TF32 off: ``networks.f32_math``) and returns
 ``(params, opt, logs)`` with the logs left on the device. After a step
-each parameter's ``.grad`` holds the clipped gradient that Adam took. The action classifier's trainer
-(``make_a2m_classifier_step``) waits for the a2m half of the evaluation
-port (ROADMAP Queue 1 item 9).
+each parameter's ``.grad`` holds the clipped gradient that Adam took.
 
 Parameters persist in mdm_tpu's npy layout (a pickled dict of flax-layout
 numpy arrays), so a ``finest.npy`` written by either package loads in both.
@@ -202,6 +203,41 @@ def make_length_est_step(estimator: MotionLenEstimatorBiGRU,
         loss = F.cross_entropy(logits, labels)
         _update(opt, loss, {"est": params}, config.grad_clip)
         return params, opt, {"loss": loss.detach()}
+
+    return init, step
+
+
+# ---------------------------------------------------------------------------
+# a2m action classifier
+# ---------------------------------------------------------------------------
+
+def make_a2m_classifier_step(classifier: nn.Module, input_size: int, num_frames: int,
+                             config: EvalTrainConfig = EvalTrainConfig(), example_x=None):
+    """Cross-entropy trainer of an a2m protocol classifier (anything called
+    ``classifier(x, lengths) -> {"yhat": ...}``): Adam, the clip over the
+    whole classifier, the loss and the batch accuracy in the logs.
+    ``init(seed)`` draws mdm_tpu's initialisers and runs the classifier once
+    on ``example_x`` (default [1, num_frames, input_size]; the STGCN takes
+    [1, T, V, C]), so a wrong input shape fails before training.
+
+    batch: ``x`` (the classifier's input), ``lengths`` [B], ``y`` [B]."""
+
+    def init(seed: int):
+        params = reset_seeded(classifier, seed)
+        device = next(params.parameters()).device
+        x0 = example_x if example_x is not None else torch.zeros((1, num_frames, input_size))
+        with torch.no_grad(), f32_math():
+            params(torch.as_tensor(x0).to(device), torch.tensor([num_frames]))
+        return params, _adam(params, config)
+
+    @f32_math()
+    def step(params, opt, batch):
+        yhat = params(batch["x"], batch["lengths"])["yhat"]
+        labels = batch["y"].long()
+        loss = F.cross_entropy(yhat, labels)
+        acc = (yhat.argmax(dim=-1) == labels).float().mean()
+        _update(opt, loss, {"clf": params}, config.grad_clip)
+        return params, opt, {"loss": loss.detach(), "acc": acc.detach()}
 
     return init, step
 

@@ -10,9 +10,9 @@ denoiser), one train step (tests/test_torch_decoder_train.py's
 moments and updates by ``_check_update``) and a 4-step DDPM
 ``p_sample_loop`` through ``cfg_denoiser`` with the same initial and per-
 step noise, to 1e-4 (tests/test_torch_samplers.py's bar). Weights come
-from mdm_tpu's init through models/bridge.py. The geometric losses wait
-for SMPL (ROADMAP Queue 1 item 7); the step holds ``vel_mse``, which needs
-no decoder.
+from mdm_tpu's init through models/bridge.py. The step holds ``vel_mse``,
+which needs no decoder; the geometric losses through SMPL are
+tests/test_torch_eval_a2m.py's.
 """
 import functools
 

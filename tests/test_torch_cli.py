@@ -94,13 +94,16 @@ def test_train_refuses_cpu_fallback(tmp_path, synthetic_humanml, monkeypatch):
 
 
 def test_train_refuses_unported_options(tmp_path, synthetic_humanml, synthetic_humanact12):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _train(str(tmp_path / "a"), synthetic_humanml, "--lambda_rcxyz", "1.0")
-    # the action-to-motion half of in-training evaluation (t2m runs: below)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """mdm_tpu's own refusals of the geometric losses: on HumanML3D the loss
+    has no decoder (mdm_tpu/diffusion/losses.py: "geometric losses need a
+    get_xyz decoder"); on HumanAct12 without body_models/smpl the SMPL load
+    raises FileNotFoundError (mdm_tpu/smpl/lbs.py)."""
+    with pytest.raises(ValueError, match="get_xyz decoder"):
+        _train(str(tmp_path / "a"), synthetic_humanml, "--lambda_rcxyz", "1.0", "--num_steps", "1")
+    with pytest.raises(FileNotFoundError, match="SMPL_NEUTRAL"):
         train_cli.main(["--save_dir", str(tmp_path / "b"), "--dataset", "humanact12",
-                        "--data_dir", synthetic_humanact12, *TINY, "--num_steps", "2",
-                        "--eval_during_training", "--device", "cpu"])
+                        "--data_dir", synthetic_humanact12, *TINY, "--num_steps", "1",
+                        "--lambda_fc", "1.0", "--device", "cpu"])
 
 
 def test_train_generate_edit_schema_matches_jax(tmp_path, synthetic_humanml, monkeypatch):
@@ -428,6 +431,100 @@ def test_eval_clis_refuse_cpu_fallback(tmp_path, synthetic_humanml, monkeypatch)
                       str(tmp_path / "d.npy"), "--num_steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _eval(str(tmp_path / "run"), synthetic_humanml, str(tmp_path), device="0")
-    for stage, item in (("comp_v6", "item 12"), ("a2m_classifier", "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            tev_cli.main(["--stage", stage, "--save_path", str(tmp_path / "x.npy")])
+    from mdm_tpu_torch.cli import eval_a2m, eval_unconstrained
+
+    for cli in (eval_a2m, eval_unconstrained):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["--model_path", str(tmp_path / "run"), "--dataset", "humanact12"])
+    # the only stage not ported
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tev_cli.main(["--stage", "comp_v6", "--save_path", str(tmp_path / "x.npy")])
+    assert set(tev_cli.NOT_PORTED) == {"comp_v6"}
+
+
+# The action-to-motion protocols: train_evaluators -> train -> eval_a2m /
+# eval_unconstrained, with --device cpu on test_cli.py's HumanAct12 tree.
+A2M_TINY = [*TINY, "--num_frames", "60", "--device", "cpu"]
+# mdm_tpu/cli/eval_a2m.py's JSON for the same flags: every metric of its
+# harness for the gt / gt2 / gen passes (mdm_tpu/eval/harness_a2m.py), and
+# the stamps.
+A2M_KEYS = {f"{m}_{p}" for m in ("accuracy", "diversity", "multimodality", "fid")
+            for p in ("gt", "gt2", "gen")} | {"comparable", "classifier"}
+# mdm_tpu/cli/eval_unconstrained.py's.
+UNCONSTRAINED_KEYS = {"fid", "kid", "kid_std", "precision", "recall", "diversity", "comparable",
+                      "classifier"}
+
+
+def _stage(stage, data_dir, save_path):
+    from mdm_tpu_torch.cli import train_evaluators as tev_cli
+
+    tev_cli.main(["--stage", stage, "--dataset", "humanact12", "--data_dir", data_dir,
+                  "--save_path", save_path, "--num_steps", "2", "--batch_size", "4",
+                  "--log_every", "1", "--device", "cpu"])
+    return np.load(save_path, allow_pickle=True).item()
+
+
+def test_a2m_protocol_cli(tmp_path, synthetic_humanact12, monkeypatch):
+    """With a synthetic SMPL pickle in the working directory: the
+    a2m_classifier stage (the GRU on SMPL xyz), a 2-step cli.train with the
+    geometric losses and evaluation during training (the Eval group of
+    mdm_tpu's test_train_a2m_eval_during_training), then cli.eval_a2m with the
+    self-trained classifier and with the random-init one, stamped as
+    mdm_tpu stamps them."""
+    from mdm_tpu_torch.cli import eval_a2m
+    from mdm_tpu_torch.scripts.a2m_rehearsal import write_synthetic_smpl
+    from mdm_tpu_torch.train.platforms import NoPlatform
+
+    write_synthetic_smpl(str(tmp_path), vertices=64, faces=8)
+    blob = _stage("a2m_classifier", synthetic_humanact12, str(tmp_path / "clf.npy"))
+    assert {k: blob[k] for k in ("feature", "arch", "input_size", "num_actions")} == \
+        {"feature": "xyz", "arch": "gru", "input_size": 72, "num_actions": 12}
+    reported = []
+    monkeypatch.setattr(NoPlatform, "report_scalar",
+                        lambda self, name, value, it, group_name="": reported.append(
+                            (group_name, name, value)))
+    run = str(tmp_path / "run")
+    train_cli.main(["--save_dir", run, "--dataset", "humanact12", "--data_dir",
+                    synthetic_humanact12, *A2M_TINY, "--num_steps", "2", "--save_interval", "2",
+                    "--lambda_rcxyz", "1", "--lambda_vel", "1", "--lambda_fc", "1",
+                    "--eval_during_training", "--eval_rep_times", "1", "--eval_num_samples", "4",
+                    "--eval_batch_size", "4"])
+    with open(os.path.join(run, "progress.jsonl")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    assert all(np.isfinite(r[k]) for r in rows for k in ("rcxyz_mse", "vel_mse", "fc", "loss"))
+    evals = {name: v for group, name, v in reported if group == "Eval"}
+    assert {"accuracy_gen", "fid_gen", "fid_gt2", "diversity_gen", "eval_comparable"} <= set(evals)
+    for path, stamp in ((str(tmp_path / "clf.npy"), "self-trained"), ("", "random-init")):
+        summary = eval_a2m.main(["--model_path", run, "--data_dir", synthetic_humanact12,
+                                 "--eval_mode", "debug", "--a2m_classifier_path", path,
+                                 "--device", "cpu"])
+        assert set(summary) == A2M_KEYS | ({"degraded_reasons"} if not path else set())
+        assert summary["classifier"] == stamp and summary["comparable"] is False
+        assert np.isfinite(summary["fid_gen"]["mean"]) and summary["accuracy_gt"]["mean"] >= 0
+        with open(os.path.join(run, "eval_a2m_humanact12.json")) as f:
+            assert json.load(f) == json.loads(json.dumps(summary))
+
+
+def test_unconstrained_protocol_cli(tmp_path, synthetic_humanact12):
+    """Without the SMPL asset: the unconstrained_stgcn stage on the pseudo
+    joints, a 2-step unconditioned cli.train and cli.eval_unconstrained with
+    the trained extractor, stamped no-smpl-asset as mdm_tpu's."""
+    from mdm_tpu_torch.cli import eval_unconstrained
+
+    blob = _stage("unconstrained_stgcn", synthetic_humanact12, str(tmp_path / "st.npy"))
+    assert {k: blob[k] for k in ("feature", "arch", "layout", "in_channels")} == \
+        {"feature": "pseudo", "arch": "stgcn_modi15", "layout": "openpose_modi15",
+         "in_channels": 3}
+    run = str(tmp_path / "run")
+    train_cli.main(["--save_dir", run, "--dataset", "humanact12", "--unconstrained",
+                    "--data_dir", synthetic_humanact12, *A2M_TINY, "--num_steps", "2",
+                    "--save_interval", "2", "--cond_mask_prob", "0"])
+    summary = eval_unconstrained.main(["--model_path", os.path.join(run, "ckpt_000000002"),
+                                       "--data_dir", synthetic_humanact12, "--eval_mode", "debug",
+                                       "--a2m_classifier_path", str(tmp_path / "st.npy"),
+                                       "--device", "cpu"])
+    assert set(summary) == UNCONSTRAINED_KEYS | {"degraded_reasons"}
+    assert summary["degraded_reasons"] == ["no-smpl-asset"]
+    assert summary["classifier"] == "self-trained" and summary["comparable"] is False
+    assert all(np.isfinite(summary[k]) for k in ("fid", "kid", "precision", "recall"))
+    assert os.path.exists(os.path.join(run, "eval_unconstrained.json"))

@@ -1,7 +1,9 @@
 """mdm_tpu_torch imports neither jax, flax, optax nor mdm_tpu: every module
 imports, and a tiny generation, a tiny train step and the command-line path
 (train -> generate -> edit, and train_evaluators -> eval_humanml, with
---device cpu on a synthetic HumanML3D tree) run, in a fresh interpreter
+--device cpu on a synthetic HumanML3D tree; train with the SMPL loss ->
+train_evaluators -> eval_a2m on a synthetic HumanAct12 tree and SMPL
+pickle) run, in a fresh interpreter
 where all four are blocked."""
 import subprocess
 import sys
@@ -87,6 +89,20 @@ with tempfile.TemporaryDirectory() as tmp:
     summary = eval_humanml.main(["--model_path", "run", "--data_dir", root, "--eval_mode", "debug",
                                  "--replications", "1", "--evaluator_dir", ".", "--device", "cpu"])
     assert summary["comparable"] and np.isfinite(summary["FID"]["vald"]["mean"])
+    from mdm_tpu_torch.cli import eval_a2m
+    from mdm_tpu_torch.scripts.a2m_rehearsal import build_dataset, write_synthetic_smpl
+    act = build_dataset(tmp, 12)
+    write_synthetic_smpl(tmp, vertices=32, faces=4)
+    a2m = ["--dataset", "humanact12", "--data_dir", act, "--num_frames", "60", "--batch_size", "2",
+           "--latent_dim", "32", "--layers", "1", "--diffusion_steps", "4", "--device", "cpu"]
+    train.main(["--save_dir", "a2m", "--num_steps", "1", "--save_interval", "1",
+                "--lambda_rcxyz", "1", *a2m])
+    train_evaluators.main(["--stage", "a2m_classifier", "--save_path", "clf.npy",
+                           "--num_steps", "1", *a2m[:4], "--batch_size", "2", "--device", "cpu"])
+    summary = eval_a2m.main(["--model_path", "a2m", "--data_dir", act, "--eval_mode", "debug",
+                             "--replications", "1", "--a2m_classifier_path", "clf.npy",
+                             "--device", "cpu"])
+    assert summary["classifier"] == "self-trained" and np.isfinite(summary["fid_gen"]["mean"])
     os.chdir(cwd)
 assert not any(m.split(".")[0] in ("jax", "flax", "optax", "mdm_tpu")
                for m, mod in sys.modules.items() if mod is not None)
@@ -110,7 +126,9 @@ SLICE = {"ops._mask", "ops.layer_inference", "ops._build", "models.layers", "mod
          "train.profiling", "visualize", "visualize.plot_script", "cli", "cli.train",
          "cli.generate", "cli.edit", "eval", "eval.metrics", "eval.networks", "eval.evaluator",
          "eval.train_evaluators", "eval.harness", "eval.t2m_generator", "cli.eval_humanml",
-         "cli.train_evaluators", "scripts.quality_rehearsal"}
+         "cli.train_evaluators", "scripts.quality_rehearsal", "smpl", "smpl.lbs", "smpl.rot2xyz",
+         "eval.classifiers", "eval.stgcn", "eval.harness_a2m", "eval.a2m_setup", "cli.eval_a2m",
+         "cli.eval_unconstrained", "scripts.a2m_rehearsal"}
 
 
 def test_port_runs_with_jax_and_flax_blocked():

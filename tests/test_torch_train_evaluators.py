@@ -47,7 +47,7 @@ def _flax_moments(modules, opt):
             node = tree
             for k in path[:-1]:
                 node = node.setdefault(k, {})
-            node[path[-1]] = P._to_torch_layout(opt.state[t]["exp_avg"].numpy().copy(), kind)
+            node[path[-1]] = P._to_flax_layout(opt.state[t]["exp_avg"].numpy().copy(), kind)
         out[name] = tree
     return out
 
