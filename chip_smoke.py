@@ -100,7 +100,23 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   unconstrained_stgcn (ms/step), cli.train with the recipe and
   --eval_during_training, cli.eval_a2m (debug, 2 seeds, self-trained
   classifier: #1 exactly 8 x 50 x 2, s/seed and its generation / SMPL /
-  classifier split; phase 12 profiles a seed) and cli.eval_unconstrained.
+  classifier split; phase 12 profiles a seed) and cli.eval_unconstrained;
+- the published-weights path (phase 18): the CLIP (512 wide, 12 layers, 8
+  heads, context 77, vocabulary 49408) and DistilBERT (768, 6 layers, 12
+  heads, FFN 3072, vocabulary 30522) towers with random weights, written
+  through cli.convert_text_encoders from OpenAI- and HF-layout state dicts,
+  32 prompts embedded on the card against the CPU, #2's rate-0 entry
+  exactly 6 per BERT batch and 0 per CLIP batch, and alone at [32, 64,
+  768], 12 heads, f32, a ragged padding row, against its plain version and
+  nn.MultiheadAttention; a synthetic reference checkpoint ({'model',
+  'model_avg'}, clip_model.* and pe buffers) at the flagship shape through
+  cli.convert_checkpoint and cli.generate --text_encoder_type clip (#1
+  exactly 400), and a DiP one through cli.generate --autoregressive on
+  bert (#2 400 + 6, #4 400); Predictor's json, hik and animation formats;
+  cli.render_mesh (150 iterations) on the generated results.npy with SMPL
+  at its published sizes (s per clip, the loss falls); and the classifier
+  stages a2m_classifier and unconstrained_stgcn rerun at phase 17's seed,
+  their weights bitwise equal to phase 17's.
 
 Each path checks that every layer call went through its kernels, and the
 sampling and training paths that every product, forward and backward,
@@ -208,6 +224,7 @@ DIP_SOURCES = {  # the rate-0 entries on the decoder's path -> (source, TPU kern
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores (csrc/gemm.cu's FMA products)
 # The dumps' draws, counted from Philox4x32-10 itself: a word is word 0 at
 # counter (column, row, site, b), ten rounds of two 32x32->64 products and
 # two three-way xors. Along a row only the column varies, so round 1's
@@ -225,10 +242,10 @@ SMS = 132  # H100 SXM
 ISSUE_LANES, IMAD_LANES, LOGIC_LANES = 128, 64, 64
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, peak=BF16_FLOPS_PER_S):
     """(least ms, what bounds it): bytes over the HBM rate or FLOPs over the
-    bf16 peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    peak (bf16's unless given), whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -3091,8 +3108,408 @@ def phase_a2m_protocols(torch, TB, ET, DB, li, dev, tmp):
     finally:
         os.chdir(cwd)
         torch.backends.cudnn.allow_tf32 = tf32
-    out["one_seed"] = one_seed
+    out.update(one_seed=one_seed, data=data,
+               stage_npys={"a2m_classifier": clf_npy, "unconstrained_stgcn": st_npy})
     return out
+
+
+# Phase 18: the published-weights path. The towers at their published
+# widths with random weights drawn from a seed (the weights are downloads),
+# written through cli.convert_text_encoders from the layouts the published
+# checkpoints use; a synthetic reference MDM checkpoint through
+# cli.convert_checkpoint; the Predictor's formats; SMPLify mesh export; and
+# the classifier stages' determinism.
+TOWER_PROMPTS = 32
+TOWER_REL = 1e-4  # the towers' outputs, card (f32, TF32 off) vs CPU: of the largest |value|
+BERT_SHAPE = dict(B=32, S=64, D=768, H=12)  # DistilBERT's attention at the embedder's 64 tokens
+TOWER_MERGES = ["#version synthetic", "p e", "pe r", "per s", "pers o", "perso n</w>", "w a",
+                "wa l", "wal k", "walk s</w>", "j u", "ju m", "jum p", "jump s</w>", "t u",
+                "tu r", "tur n", "turn s</w>"]
+TOWER_WORDS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "a", "person", "walk", "##s", "jump", "turn",
+               "forward", "then", "and", "slowly", ".", ","]
+# A DiP reference run's args.json beside the flagship's: dip_probe's geometry
+DIP_REF = dict(arch="trans_dec", text_encoder_type="bert", context_len=20, pred_len=40,
+               mask_frames=True, diffusion_steps=10)
+MESH_ITERATIONS = 150
+
+
+def _tower_sources(torch, tmp):
+    """An OpenAI-layout CLIP state dict (the text keys, a visual key and
+    logit_scale) and an HF DistilBertModel directory (q/k/v_lin, the
+    ``distilbert.`` prefix), random at the published widths, and the two
+    tokenizer files: a synthetic BPE merges file and WordPiece vocabulary."""
+    import gzip
+
+    from mdm_tpu_torch.models.text_encoders import ClipTextConfig, ClipTextEncoder
+
+    g = torch.Generator().manual_seed(18)
+    clip = ClipTextEncoder(ClipTextConfig())
+    sd = {k: torch.randn(v.shape, generator=g) * (0.02 if v.dim() > 1 else 0.1)
+          for k, v in clip.state_dict().items()}
+    for k in sd:
+        if k.endswith(("ln_1.weight", "ln_2.weight", "ln_final.weight")):
+            sd[k] += 1.0
+    sd.update({"logit_scale": torch.tensor(4.6), "visual.proj": torch.zeros(768, 512)})
+    torch.save(sd, os.path.join(tmp, "ViT-B-32-text.pt"))
+    D, F = 768, 3072
+    bert = {"embeddings.word_embeddings.weight": torch.randn(30522, D, generator=g) * 0.5,
+            "embeddings.position_embeddings.weight": torch.randn(512, D, generator=g) * 0.5,
+            "embeddings.LayerNorm.weight": 1 + 0.1 * torch.randn(D, generator=g),
+            "embeddings.LayerNorm.bias": 0.1 * torch.randn(D, generator=g)}
+    for i in range(6):
+        p = f"transformer.layer.{i}"
+        for n, (o, k) in (("attention.q_lin", (D, D)), ("attention.k_lin", (D, D)),
+                          ("attention.v_lin", (D, D)), ("attention.out_lin", (D, D)),
+                          ("ffn.lin1", (F, D)), ("ffn.lin2", (D, F))):
+            bert[f"{p}.{n}.weight"] = torch.randn(o, k, generator=g) * k ** -0.5
+            bert[f"{p}.{n}.bias"] = 0.1 * torch.randn(o, generator=g)
+        for n in ("sa_layer_norm", "output_layer_norm"):
+            bert[f"{p}.{n}.weight"] = 1 + 0.1 * torch.randn(D, generator=g)
+            bert[f"{p}.{n}.bias"] = 0.1 * torch.randn(D, generator=g)
+    os.makedirs(os.path.join(tmp, "distilbert"))
+    torch.save({f"distilbert.{k}": v for k, v in bert.items()},
+               os.path.join(tmp, "distilbert", "pytorch_model.bin"))
+    assets = os.path.join(tmp, "assets_text")
+    os.makedirs(assets)
+    with gzip.open(os.path.join(assets, "bpe_simple_vocab_16e6.txt.gz"), "wt") as f:
+        f.write("\n".join(TOWER_MERGES))
+    with open(os.path.join(assets, "bert_vocab.txt"), "w") as f:
+        f.write("\n".join(TOWER_WORDS))
+    return os.path.join(tmp, "ViT-B-32-text.pt"), os.path.join(tmp, "distilbert"), assets
+
+
+def _tower_prompts(n=TOWER_PROMPTS):
+    """n prompts of 1-60 words: the BERT rows run from mostly padding to all
+    64 tokens; the CLIP rows from 3 tokens to the 22 of MDM's context."""
+    words = ["a", "person", "walks", "jumps", "turns", "forward", "then", "and", "slowly"]
+    return [" ".join(words[(i * 7 + j) % len(words)] for j in range(1 + (i * 11) % 60))
+            for i in range(n)]
+
+
+def phase_towers(torch, TB, ET, li, dev, tmp):
+    """Phase 18a: both towers through their converter and embedders, card
+    against CPU, launches counted per embedding batch; #2's rate-0 entry
+    alone at DistilBERT's shape. Returns the assets directory and #2's row."""
+    from mdm_tpu_torch.cli import convert_text_encoders as ct_cli
+    from mdm_tpu_torch.models import layers as tl
+    from mdm_tpu_torch.ops import _chain
+    from mdm_tpu_torch.sampling.text import make_text_embedder
+
+    clip_pt, bert_dir, assets = _tower_sources(torch, tmp)
+    t0 = time.perf_counter()
+    with stdout_to(os.path.join(tmp, "convert.log")):
+        ct_cli.main(["--clip", clip_pt, "--bert", bert_dir, "--out_dir", assets])
+    print(f"18a cli.convert_text_encoders (OpenAI .pt + HF directory): "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompts = _tower_prompts()
+    out = {}
+    for kind in ("clip", "bert"):
+        card = make_text_embedder(kind, assets, device=dev)
+        cpu = make_text_embedder(kind, assets, device="cpu")
+        card(prompts)  # warm
+        torch.cuda.synchronize()
+        TB.LAUNCHES["fwd"], li.LAUNCHES = 0, 0
+        _zero(_chain.GEMM_LAUNCHES)
+        t0 = time.perf_counter()
+        got = card(prompts)
+        s = time.perf_counter() - t0
+        launches = dict(block=TB.LAUNCHES["fwd"], layer=li.LAUNCHES, **_chain.GEMM_LAUNCHES)
+        want = cpu(prompts)
+        err = np.abs(got["text_embed"] - want["text_embed"]).max()
+        scale = np.abs(want["text_embed"]).max()
+        n_block = 6 if kind == "bert" else 0
+        expect = dict(block=n_block, layer=0, wgmma=0, fma=2 * n_block)
+        if launches != expect:
+            raise AssertionError(f"18a {kind}: launches {launches}, expected {expect}")
+        if not np.isfinite(got["text_embed"]).all() or err > TOWER_REL * scale:
+            raise AssertionError(f"18a {kind} tower: card vs CPU max abs err {err} > "
+                                 f"{TOWER_REL} x {scale}")
+        if kind == "bert":
+            if not np.array_equal(got["text_tokens_mask"], want["text_tokens_mask"]):
+                raise AssertionError("18a bert: the token masks differ")
+            pad = 1 - got["text_tokens_mask"].mean()
+        out[kind] = dict(launches=launches, rel_err=float(err / scale), s=s)
+        print(f"18a {kind} tower, {TOWER_PROMPTS} prompts, f32: card vs CPU relative "
+              f"{err / scale:.3g} (tolerance {TOWER_REL}); launches per batch "
+              f"{json.dumps(launches)}; {s * 1000:.1f} ms a batch (host clock, tokenizer and "
+              f"copies included)" + (f"; padding {pad:.3f} of the tokens" if kind == "bert"
+                                     else ""))
+
+    # #2's rate-0 entry alone at DistilBERT's self-attention: [32, 64, 768],
+    # 12 heads of 64, f32, the key-padding row of the prompts above.
+    B, S, D, H = (BERT_SHAPE[k] for k in ("B", "S", "D", "H"))
+    g = torch.Generator().manual_seed(181)
+    x = torch.randn(B, S, D, generator=g).to(dev)
+    w = [(torch.randn(*s, generator=g) * sc).to(dev) for s, sc in
+         (((3 * D, D), D ** -0.5), ((3 * D,), 0.1), ((D, D), D ** -0.5), ((D,), 0.1))]
+    mask = torch.from_numpy(got["text_tokens_mask"]).to(dev)
+    kpm = tl._row_bias(tl.key_padding_bias(~mask), S)
+    row = compare_forward(
+        torch, "fused_block_attention_inference (DistilBERT)",
+        lambda: TB.fused_block_attention_inference(x, *w, H, key_padding_mask=kpm),
+        lambda: TB.train_attention_block_reference(x, *w, H, key_padding_mask=kpm),
+        TRAIN_REL["float32"], timed=True)
+    mha = _torch_mha(torch, *w, H, 0.0).eval()
+    M = B * S
+    row.update(
+        shape=f"[{B}, {S}, {D}] f32, {H} heads, key-padding row ({pad:.3f} padding)",
+        launches=out["bert"]["launches"]["block"], path="DistilBERT tower, one prompt batch",
+        library_ms=_no_grad_ms(torch, lambda: mha(x, x, x, key_padding_mask=~mask,
+                                                  need_weights=False)[0]),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(8 * M * D * D + 4 * B * S * S * D, nbytes(x, *w, kpm, x),
+                         F32_FLOPS_PER_S))))
+    print("18a #2 rate-0 entry at DistilBERT's shape", json.dumps(row))
+    return assets, row, out
+
+
+def _reference_checkpoint(torch, run_dir, config, args, seed):
+    """A reference-format MDM checkpoint (the wrapped {'model', 'model_avg'}
+    with clip_model.* and the sinusoidal pe buffers beside the weights, as
+    the reference's training loop saves one) and its args.json."""
+    from mdm_tpu_torch.models import MDM
+
+    os.makedirs(run_dir)
+    sds = []
+    for s in (seed, seed + 1):
+        sd = MDM(config).init_weights(torch.Generator().manual_seed(s)).state_dict()
+        pe = torch.zeros(5000, 1, config.latent_dim)
+        sd.update({"sequence_pos_encoder.pe": pe, "embed_timestep.sequence_pos_encoder.pe": pe,
+                   "clip_model.token_embedding.weight": torch.zeros(49408, 512)})
+        sds.append(sd)
+    path = os.path.join(run_dir, "model000475000.pt")
+    torch.save({"model": sds[0], "model_avg": sds[1]}, path)
+    with open(os.path.join(run_dir, "args.json"), "w") as f:
+        json.dump(args, f)
+    return path
+
+
+def phase_reference_import(torch, TB, ET, DB, li, dev, tmp, assets):
+    """Phase 18b: cli.convert_checkpoint of a synthetic reference checkpoint
+    at the flagship shape, cli.generate --text_encoder_type clip on it (B =
+    32, 50 steps, bf16), #1 exactly 400; a DiP one (bert) through
+    cli.generate --autoregressive, #2 and #4 counted. Returns the launches,
+    the converted flagship run and the results.npy path."""
+    from mdm_tpu_torch.cli import convert_checkpoint as cc_cli
+    from mdm_tpu_torch.cli import generate as gen_cli
+    from mdm_tpu_torch.models import MDMConfig
+    from mdm_tpu_torch.ops import _chain
+    from mdm_tpu_torch.sampling import text as text_mod
+    from mdm_tpu_torch.scripts import dip_probe as DP
+
+    quiet = lambda: stdout_to(os.path.join(tmp, "reference.log"))  # noqa: E731
+    layers, B = FLAGSHIP["num_layers"], 32
+    # the reference run's args.json: the model's fields, as its parser saves them
+    flag_args = dict(dataset="humanml", latent_dim=FLAGSHIP["latent_dim"],
+                     ff_size=FLAGSHIP["ff_size"], num_heads=FLAGSHIP["num_heads"],
+                     layers=layers, arch="trans_enc", text_encoder_type="clip",
+                     cond_mask_prob=0.1, use_ema=True, diffusion_steps=50)
+    cases = {"flagship": (MDMConfig(**FLAGSHIP), flag_args, []),
+             "dip": (DP.DIP, dict(flag_args, **DIP_REF),
+                     ["--autoregressive", "--guidance_param", "7.5"])}
+    out, saved = {}, text_mod.DEFAULT_ASSETS
+    text_mod.DEFAULT_ASSETS = assets
+    os.environ["MDM_TPU_NO_RENDER"] = "1"
+    try:
+        for name, (config, args, extra) in cases.items():
+            t0 = time.perf_counter()
+            ref = _reference_checkpoint(torch, os.path.join(tmp, f"ref_{name}"), config, args,
+                                        seed=18)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with quiet():
+                ckpt = cc_cli.main(["--torch_ckpt", ref, "--out_dir",
+                                    os.path.join(tmp, f"converted_{name}")])
+            convert_s = time.perf_counter() - t0
+            gen_dir = os.path.join(tmp, f"gen_{name}")
+            _zero_cli_counts(TB, ET, DB, li, _chain)
+            t0 = time.perf_counter()
+            with quiet():
+                gen_cli.main(["--model_path", ckpt, "--text_prompt", "a person walks forward",
+                              "--num_samples", str(B), "--num_repetitions", "1",
+                              "--motion_length", "9.8", "--output_dir", gen_dir, "--seed", "0",
+                              "--compute_dtype", "bfloat16", "--device", "0", *extra])
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            counts = dict(fused_layer_inference=li.LAUNCHES,
+                          fused_block_attention_inference=TB.LAUNCHES["fwd"],
+                          fused_encoder_tail_inference=ET.LAUNCHES["fwd"],
+                          **{f"products.{k}": v for k, v in _chain.GEMM_LAUNCHES.items()})
+            if name == "flagship":  # 50 steps x 8 layers, 4 bf16 products each; CLIP: no kernel
+                want = {"fused_layer_inference": layers * 50, "fused_block_attention_inference": 0,
+                        "fused_encoder_tail_inference": 0, "products.wgmma": 4 * layers * 50,
+                        "products.fma": 0}
+            else:  # 196 frames in chunks of 40: 5 chunks x 10 steps x 8 layers, + the tower's 6
+                chunks = -(-196 // DIP_REF["pred_len"])
+                n = chunks * DIP_REF["diffusion_steps"] * layers
+                want = {"fused_layer_inference": 0, "fused_block_attention_inference": n + 6,
+                        "fused_encoder_tail_inference": n, "products.fma": 12}
+            if any(counts[k] != v for k, v in want.items()):
+                raise AssertionError(f"18b {name}: cli.generate launched {counts}, expected "
+                                     f"{want}")
+            res = np.load(os.path.join(gen_dir, "results.npy"), allow_pickle=True).item()
+            if res["motion"].shape[:2] != (B, 196) or not np.isfinite(res["motion"]).all():
+                raise AssertionError(f"18b {name}: results.npy motion {res['motion'].shape}")
+            out[name] = dict(counts=counts, ckpt=ckpt, results=os.path.join(gen_dir,
+                                                                              "results.npy"))
+            print(f"18b {name}: reference checkpoint written in {write_s:.2f} s, "
+                  f"cli.convert_checkpoint {convert_s:.2f} s, cli.generate "
+                  f"--text_encoder_type {args['text_encoder_type']} {' '.join(extra)} B={B} "
+                  f"{gen_s:.2f} s (host clock, the whole call): launches {json.dumps(counts)}")
+    finally:
+        text_mod.DEFAULT_ASSETS = saved
+    return out
+
+
+def phase_predictor_formats(torch, dev, tmp, assets, ckpt):
+    """Phase 18c: Predictor on the converted flagship run with the CLIP
+    tower, output_format json, hik (an SMPL fit per repetition, SMPL at its
+    published sizes under ``tmp``) and animation (an .mp4 where ffmpeg is,
+    else plot_3d_motion's GIF and no .mp4; where matplotlib is absent the
+    format is not asked for, the phase says so and checks no .mp4 is
+    there)."""
+    import importlib.util
+    import shutil
+
+    from mdm_tpu_torch.sampling import text as text_mod
+    from mdm_tpu_torch.serving import Predictor, PredictorConfig
+
+    saved, cwd = text_mod.DEFAULT_ASSETS, os.getcwd()
+    text_mod.DEFAULT_ASSETS = assets
+    os.chdir(tmp)  # body_models/smpl (phase 18d's synthetic model)
+    try:
+        p = Predictor(PredictorConfig(model_path=ckpt, text_encoder_type="clip", batch_size=1,
+                                      latent_dim=FLAGSHIP["latent_dim"],
+                                      layers=FLAGSHIP["num_layers"], device=str(dev)))
+        p.setup()
+        if p.embedder is None:
+            raise AssertionError("18c: Predictor built no CLIP embedder from the assets")
+        times = {}
+        formats = [("json", 6.0), ("hik", 6.0)]
+        mp4 = os.path.join(tmp, "anim", "pred_0.mp4")
+        if importlib.util.find_spec("matplotlib") is None:
+            if os.path.exists(mp4):
+                raise AssertionError(f"18c: {mp4} exists without an animation request")
+            print("18c animation: matplotlib absent on this machine: the format was not asked "
+                  "for, and no .mp4 is there")
+        else:
+            formats.append(("animation", 2.0))
+        for fmt, seconds in formats:
+            t0 = time.perf_counter()
+            res = p.predict("a person walks forward", motion_length_sec=seconds, seed=0,
+                            output_format=fmt, output_dir=os.path.join(tmp, "anim"))
+            torch.cuda.synchronize()
+            times[fmt] = time.perf_counter() - t0
+            if fmt == "json":
+                joints = np.asarray(res["joints"][0])
+                if joints.shape != (1, 120, 22, 3) or not np.isfinite(joints).all():
+                    raise AssertionError(f"18c json: joints {joints.shape}")
+            elif fmt == "hik":
+                th = np.asarray(res["thetas"])
+                if th.shape != (1, 120, 24, 3) or not np.isfinite(th).all():
+                    raise AssertionError(f"18c hik: thetas {th.shape}")
+            else:
+                path = res["animations"][0]
+                if shutil.which("ffmpeg"):
+                    ok = path == mp4 and os.path.getsize(mp4) > 0
+                    note = "ffmpeg present: .mp4 written"
+                else:
+                    ok = path.endswith(".gif") and os.path.exists(path) and not os.path.exists(mp4)
+                    note = "ffmpeg absent on this machine: plot_3d_motion wrote a GIF, no .mp4"
+                if not ok:
+                    raise AssertionError(f"18c animation: {path}")
+                print(f"18c animation: {note} ({os.path.basename(path)})")
+        print(f"18c Predictor (clip, batch 1, 50 steps, bf16): seconds a request (host clock) "
+              f"{json.dumps(times)}")
+        return times
+    finally:
+        text_mod.DEFAULT_ASSETS = saved
+        os.chdir(cwd)
+
+
+def phase_mesh_export(torch, tmp, results):
+    """Phase 18d: cli.render_mesh on 18b's results.npy (one 196-frame clip)
+    with the synthetic SMPL at its published sizes, MESH_ITERATIONS
+    iterations on the card: s a clip, the loss at the first and the last
+    iteration (it must fall)."""
+    from mdm_tpu_torch.cli import render_mesh
+
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        t0 = time.perf_counter()
+        with stdout_to(os.path.join(tmp, "render.log")):
+            conv = render_mesh.main(["--input_path", results, "--iterations",
+                                     str(MESH_ITERATIONS), "--out_dir",
+                                     os.path.join(tmp, "mesh"), "--device", "0"])
+        s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    losses = conv.fit["losses"]
+    objs = [f for f in os.listdir(os.path.join(tmp, "mesh")) if f.endswith(".obj")]
+    if (len(objs) != conv.num_frames or conv.vertices.shape[1:] != (6890, 3)
+            or not np.isfinite(losses).all() or not losses[-1] < losses[0]):
+        raise AssertionError(f"18d render_mesh: {len(objs)} obj, vertices "
+                             f"{conv.vertices.shape}, loss {losses[0]} -> {losses[-1]}")
+    print(f"18d cli.render_mesh: {conv.num_frames} frames, {MESH_ITERATIONS} iterations on the "
+          f"card, {s:.2f} s a clip (host clock: the fit, the skinning and {len(objs)} .obj "
+          f"files); loss {losses[0]:.6g} -> {losses[-1]:.6g}")
+    return dict(s_per_clip=s, loss_first=float(losses[0]), loss_last=float(losses[-1]))
+
+
+def _npy_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _npy_leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def phase_stage_determinism(torch, tmp, first_runs, data):
+    """Phase 18e, in phase 17's directory: the classifier stages rerun with
+    phase 17c's arguments and seed; every saved weight must equal phase
+    17c's bitwise. On a difference the stage runs once more under
+    torch.use_deterministic_algorithms, which names an op that has no
+    deterministic implementation, and the phase fails."""
+    from mdm_tpu_torch.cli import train_evaluators as tev_cli
+
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    rows = {}
+    try:
+        for stage, first in first_runs.items():
+            again = os.path.join(tmp, f"{stage}_again.npy")
+            argv = ["--stage", stage, "--dataset", "humanact12", "--data_dir", data,
+                    "--save_path", again, "--num_steps", str(A2M_CLF_STEPS), "--batch_size",
+                    "32", "--cache_batches", str(A2M_CLIPS // 32), "--log_every", "20", "--lr",
+                    "3e-4", "--device", "0"]
+            with stdout_to(os.path.join(tmp, "determinism.log")):
+                tev_cli.main(argv)
+            a = dict(_npy_leaves(np.load(first, allow_pickle=True).item()))
+            b = dict(_npy_leaves(np.load(again, allow_pickle=True).item()))
+            arrays = [k for k, v in a.items() if isinstance(v, np.ndarray)]
+            differ = {k: float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in arrays
+                      if not np.array_equal(a[k], b[k])}
+            rows[stage] = dict(arrays=len(arrays), differ=len(differ))
+            print(f"18e {stage}: {A2M_CLF_STEPS} steps twice at seed 0: {len(arrays)} weight "
+                  f"arrays, {len(differ)} differ" + (f" {json.dumps(differ)}" if differ else
+                                                     " (bitwise equal)"))
+            if differ:
+                torch.use_deterministic_algorithms(True)
+                try:
+                    with stdout_to(os.path.join(tmp, "determinism.log")):
+                        tev_cli.main(argv[:7] + [os.path.join(tmp, f"{stage}_det.npy")]
+                                     + argv[8:])
+                    note = "no op refused deterministic mode"
+                except RuntimeError as e:
+                    note = str(e).splitlines()[0]
+                finally:
+                    torch.use_deterministic_algorithms(False)
+                raise AssertionError(f"18e {stage} does not repeat: {json.dumps(differ)}; "
+                                     f"under use_deterministic_algorithms: {note}")
+    finally:
+        os.chdir(cwd)
+    return rows
 
 
 def smpl_forward(torch, smpl, dev):
@@ -3185,6 +3602,11 @@ def library_layer_ms(torch, dev):
 
 
 def main():
+    # Before cuBLAS starts: the workspace setting PyTorch documents for
+    # reproducible runs, which the classifier stages' cuDNN GRUs need to
+    # repeat bitwise (phase 18e; cli.train_evaluators sets it when it is the
+    # process's entry point).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3466,7 +3888,27 @@ def main():
         recipe_launches, recipe_row = phase_a2m_recipe(torch, dev, smpl,
                                                        a2m_rows["trans_enc"]["ms_per_step"])
         a2m = phase_a2m_protocols(torch, TB, ET, DB, li, dev, tmp)
-    stamp("phase 17")
+        # Phase 18e, in phase 17's directory: the classifier stages repeat.
+        determinism = phase_stage_determinism(torch, tmp, a2m["stage_npys"], a2m["data"])
+    stamp("phase 17, 18e")
+
+    # Phase 18a-d, this slice's main path: the published-weights path. The
+    # towers' embeddings counted per batch; cli.generate on converted
+    # reference checkpoints counted from zero; the Predictor's formats and
+    # the mesh export on the SMPL at its published sizes.
+    from mdm_tpu_torch.scripts.a2m_rehearsal import write_synthetic_smpl
+
+    with tempfile.TemporaryDirectory() as tmp:
+        assets, bert_row, towers = phase_towers(torch, TB, ET, li, dev, tmp)
+        reference = phase_reference_import(torch, TB, ET, DB, li, dev, tmp, assets)
+        write_synthetic_smpl(tmp)
+        predictor_s = phase_predictor_formats(torch, dev, tmp, assets,
+                                              reference["flagship"]["ckpt"])
+        mesh = phase_mesh_export(torch, tmp, reference["flagship"]["results"])
+    print("phase 18", json.dumps(dict(towers=towers, predictor_s=predictor_s, mesh=mesh,
+                                      determinism=determinism,
+                                      reference={k: v["counts"] for k, v in reference.items()})))
+    stamp("phase 18")
     sampling_paths = {"sampling (phases 3-4)": kernels[0]["launches"],
                       "cli.generate (phase 15)": cli["generate"]["fused_layer_inference"],
                       "cli.edit (phase 15)": cli["edit"]["fused_layer_inference"],
@@ -3475,7 +3917,9 @@ def main():
                       a2m["train"]["fused_layer_inference"],
                       "cli.eval_a2m (phase 17)": a2m["eval_a2m"]["fused_layer_inference"],
                       "cli.eval_unconstrained (phase 17)":
-                      a2m["eval_unconstrained"]["fused_layer_inference"]}
+                      a2m["eval_unconstrained"]["fused_layer_inference"],
+                      "cli.generate, converted reference checkpoint, CLIP (phase 18b)":
+                      reference["flagship"]["counts"]["fused_layer_inference"]}
     kernels[0].update(launches=sum(sampling_paths.values()), launches_by_path=sampling_paths,
                       path="; ".join(sampling_paths))
 
@@ -3571,10 +4015,17 @@ def main():
     for name, (source, replaces) in DIP_SOURCES.items():
         paths = {"DiP sampling (trans_dec decoder layers), B=1 and B=32 (phase 13)":
                  dip_launches[name],
-                 "cli.eval_humanml --autoregressive (phase 16)": protocol["dip"][name]}
+                 "cli.eval_humanml --autoregressive (phase 16)": protocol["dip"][name],
+                 "cli.generate --autoregressive, converted DiP checkpoint, bert (phase 18b)":
+                 reference["dip"]["counts"][name]}
+        extra = {}
+        if name == "fused_block_attention_inference":
+            paths["DistilBERT tower, one batch of 32 prompts (phase 18a)"] = (
+                towers["bert"]["launches"]["block"])
+            extra["distilbert"] = bert_row  # the tower's shape: [32, 64, 768] f32, 12 heads
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=sum(paths.values()), launches_by_path=paths,
-                            path="; ".join(paths), **dip_entries[name]))
+                            path="; ".join(paths), **dip_entries[name], **extra))
     print(f"s/sample at B=32: layer kernel {gen_ms / 1000 / B:.6f}, pallas variant "
           f"{pallas_s:.6f}, DiP {dip_ms[32] / 1000 / 32:.6f} (B=1: {dip_ms[1] / 1000:.6f}); "
           f"10-step samplers {json.dumps({k: r['s_per_sample'] for k, r in sampler_rows.items()})}"

@@ -63,7 +63,7 @@ def main(argv=None):
     elif args.use_dataset_captions and batch.get("text"):
         texts = list(batch["text"][:B])
     if texts is not None:
-        embedder = make_text_embedder(args.text_encoder_type)
+        embedder = make_text_embedder(args.text_encoder_type, device=device)
         if embedder is not None:
             cond = cond0.replace(**{k: torch.as_tensor(v).to(device)
                                     for k, v in embedder(texts).items()})

@@ -88,7 +88,7 @@ def main(argv=None):
         args.dataset,
         norm_stats=train_stats,
     )
-    embedder = make_text_embedder(args.text_encoder_type)
+    embedder = make_text_embedder(args.text_encoder_type, device=device)
 
     def text_embedder(texts):
         if embedder is None:

@@ -185,7 +185,7 @@ def main(argv=None):
         prefix=prefix0,
     ).to(device)
 
-    embedder = make_text_embedder(args.text_encoder_type)
+    embedder = make_text_embedder(args.text_encoder_type, device=device)
     per_chunk_cond = None
     if embedder is not None:
         if dynamic:

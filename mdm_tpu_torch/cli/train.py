@@ -83,7 +83,7 @@ def main(argv=None):
     if args.cond_mode == "text":
         from ..sampling.text import make_text_embedder
 
-        text_embedder = make_text_embedder(args.text_encoder_type)
+        text_embedder = make_text_embedder(args.text_encoder_type, device=device)
         if text_embedder is None:
             print(
                 "WARNING: text encoder assets unavailable "

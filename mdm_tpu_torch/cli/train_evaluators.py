@@ -187,6 +187,12 @@ def _on_device(batches, device):
 
 
 def main(argv=None):
+    # cuBLAS reads its workspace setting when it starts: a fixed one (the
+    # value PyTorch documents for reproducible runs) makes the cuDNN GRUs of
+    # the evaluators and classifiers repeat bitwise at a seed
+    # (eval/networks.py ``f32_math`` pins the rest). A process that started
+    # cuBLAS before this call sets it itself.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import argparse
 
     from ..data import WordVectorizer, get_dataset

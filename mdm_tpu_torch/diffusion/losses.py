@@ -4,8 +4,9 @@ Counterpart of mdm_tpu/diffusion/losses.py (:24-199; reference
 gaussian_diffusion.py:1224-1354 and utils/loss_util.py). Layout: features
 ``x: [B, T, D]`` with ``mask: [B, T, 1]`` (True = valid frame); the
 geometric terms work on decoded joints ``[B, T, J, 3]`` from an injected
-``get_xyz``. The port's schedule has no learned variance and no
-PREVIOUS_X prediction, so the ``vb`` term and that target do not arise.
+``get_xyz``. With a learned variance (``VarType.LEARNED`` /
+``LEARNED_RANGE``) the model emits 2D channels and the variance half
+trains through the variational bound, ``vb``, with the mean frozen.
 """
 from __future__ import annotations
 
@@ -92,11 +93,23 @@ def training_losses(
     get_xyz: features [B, T, D] -> joints [B, T, J, 3], for the rcxyz,
     vel_rcxyz and fc terms. target_loss_fn: model output -> per-sample goal
     loss."""
-    if config.var_type not in (VarType.FIXED_SMALL, VarType.FIXED_LARGE):
-        raise NotImplementedError("learned-variance training (the vb term) is not ported yet: "
-                                  "ROADMAP Queue 1 item 5 (Training: vb)")
     terms: Dict[str, torch.Tensor] = {}
-    target = x_start if config.mean_type == MeanType.START_X else noise
+    if config.var_type in (VarType.LEARNED, VarType.LEARNED_RANGE):
+        # reference gaussian_diffusion.py:1269-1289, mdm_tpu losses.py:128-144
+        D = x_t.shape[-1]
+        if model_output.shape[-1] != 2 * D:
+            raise ValueError(f"learned variance needs 2x{D} output channels, "
+                             f"got {model_output.shape[-1]}")
+        model_output, model_var_values = model_output.chunk(2, dim=-1)
+        vb, _ = G.vb_terms_bpd(sched, model_output.detach(), x_start, x_t, t,
+                               mean_type=config.mean_type, var_type=config.var_type,
+                               model_var_values=model_var_values, clip_denoised=False)
+        terms["vb"] = vb * (sched.num_timesteps / 1000.0 if config.rescale_vb else 1.0)
+
+    if config.mean_type == MeanType.PREVIOUS_X:
+        target, _, _ = G.q_posterior_mean_variance(sched, x_start, x_t, t)
+    else:
+        target = x_start if config.mean_type == MeanType.START_X else noise
 
     terms["rot_mse"] = masked_l2(target, model_output, mask)
 
@@ -136,7 +149,7 @@ def training_losses(
         terms["target_loc"] = target_loss_fn(model_output)
 
     loss = terms["rot_mse"]
-    for weight, name in ((config.lambda_vel, "vel_mse"), (config.lambda_rcxyz, "rcxyz_mse"),
+    for weight, name in ((1.0, "vb"), (config.lambda_vel, "vel_mse"), (config.lambda_rcxyz, "rcxyz_mse"),
                          (config.lambda_vel_rcxyz, "vel_xyz_mse"),
                          (config.lambda_target_loc, "target_loc"), (config.lambda_fc, "fc")):
         if name in terms:

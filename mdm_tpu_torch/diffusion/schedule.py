@@ -25,6 +25,7 @@ __all__ = ["MeanType", "VarType", "named_beta_schedule", "space_timesteps", "Sch
 class MeanType(enum.Enum):
     """What the denoiser predicts."""
 
+    PREVIOUS_X = "previous_x"
     START_X = "start_x"  # MDM's choice
     EPSILON = "epsilon"
 
@@ -34,6 +35,8 @@ class VarType(enum.Enum):
 
     FIXED_SMALL = "fixed_small"  # MDM's choice (posterior variance)
     FIXED_LARGE = "fixed_large"
+    LEARNED = "learned"  # the model emits the log variance
+    LEARNED_RANGE = "learned_range"  # ... an interpolation between the two fixed ones
 
 
 def _cosine_alpha_bar(t: float) -> float:

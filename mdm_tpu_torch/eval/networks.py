@@ -104,16 +104,26 @@ def flax_params(module: nn.Module) -> Dict:
 
 @contextlib.contextmanager
 def f32_math():
-    """Convolutions, GRUs and products in full float32 inside, whatever the
-    process allows outside (cuDNN takes TF32 by default): the evaluators,
-    their training and the T2M baseline compute what mdm_tpu's do only at
-    f32. Also a decorator."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    """Convolutions, GRUs and products in full float32, by deterministic
+    algorithms, inside, whatever the process allows outside: TF32 off
+    (cuDNN takes it by default), so the evaluators, their training and the
+    T2M baseline compute what mdm_tpu's do only at f32; and cuDNN pinned to
+    deterministic algorithms with its benchmark off, so a convolution's
+    backward sums in one order (its default weight-gradient algorithms add
+    with atomics) and a training stage repeats bitwise at a seed. cuDNN's
+    recurrences repeat only with a fixed cuBLAS workspace, which a process
+    sets before cuBLAS starts (``CUBLAS_WORKSPACE_CONFIG``; the classifier
+    stages' CLI does). Also a decorator."""
+    b = torch.backends
+    saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic,
+             b.cudnn.benchmark)
+    b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+    b.cudnn.deterministic, b.cudnn.benchmark = True, False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic,
+         b.cudnn.benchmark) = saved
 
 
 # The standard deviation of a unit normal truncated to [-2, 2] (flax's

@@ -13,6 +13,8 @@ module needs no jax.
 ``train_state_from_flax`` carries a whole JAX ``TrainState`` (params, the
 optax AdamW moments and count, EMA, step) into the port's train state: the
 moments and the EMA have the params' tree, so they map the same way.
+``clip_text_from_flax`` and ``distilbert_from_flax`` carry mdm_tpu's text
+towers (models/text_encoders.py) into the port's.
 """
 from __future__ import annotations
 
@@ -135,6 +137,40 @@ def state_dict_from_flax(params: Mapping, config: MDMConfig) -> Dict[str, torch.
         for i in range(config.num_layers):
             sd.update(layer(p[stack][f"layers_{i}"], f"{stack}.layers.{i}"))
     return {k: torch.tensor(v, dtype=torch.float32) for k, v in sd.items()}
+
+
+def _tensors(sd: Mapping) -> Dict[str, torch.Tensor]:
+    return {k: torch.tensor(np.asarray(v), dtype=torch.float32) for k, v in sd.items()}
+
+
+def clip_text_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """mdm_tpu's ClipTextEncoder params -> the state dict of the port's."""
+    p = params.get("params", params)
+    sd = {"token_embedding.weight": p["token_embedding"],
+          "positional_embedding": p["positional_embedding"],
+          "text_projection": p["text_projection"], **_layernorm(p["ln_final"], "ln_final")}
+    for i in range(sum(k.startswith("resblocks_") for k in p)):
+        b, q = p[f"resblocks_{i}"], f"transformer.resblocks.{i}"
+        sd.update({**_layernorm(b["ln_1"], f"{q}.ln_1"), **_layernorm(b["ln_2"], f"{q}.ln_2"),
+                   **_attention(b["attn"], f"{q}.attn"), **_linear(b["c_fc"], f"{q}.mlp.c_fc"),
+                   **_linear(b["c_proj"], f"{q}.mlp.c_proj")})
+    return _tensors(sd)
+
+
+def distilbert_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """mdm_tpu's DistilBertEncoder params -> the state dict of the port's."""
+    p = params.get("params", params)
+    sd = {"embeddings.word_embeddings.weight": p["word_embeddings"],
+          "embeddings.position_embeddings.weight": p["position_embeddings"],
+          **_layernorm(p["emb_layer_norm"], "embeddings.LayerNorm")}
+    for i in range(sum(k.startswith("layer_") for k in p)):
+        b, q = p[f"layer_{i}"], f"transformer.layer.{i}"
+        sd.update({**_attention(b["attention"], f"{q}.attention"),
+                   **_layernorm(b["sa_layer_norm"], f"{q}.sa_layer_norm"),
+                   **_linear(b["ffn_lin1"], f"{q}.ffn.lin1"),
+                   **_linear(b["ffn_lin2"], f"{q}.ffn.lin2"),
+                   **_layernorm(b["output_layer_norm"], f"{q}.output_layer_norm")})
+    return _tensors(sd)
 
 
 def _adam_state(opt_state):

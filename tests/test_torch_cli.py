@@ -210,16 +210,19 @@ def test_generate_refuses_an_orbax_checkpoint(tmp_path, synthetic_humanml):
 
 def test_text_encoder_contract(tmp_path):
     """None exactly where mdm_tpu's make_text_embedder gives None (the
-    CLIP/BERT assets absent); NotImplementedError once they are present."""
+    CLIP/BERT assets absent); where only mdm_tpu's orbax weights are, a
+    FileNotFoundError naming the port's converter (the towers themselves:
+    tests/test_torch_text_encoders.py)."""
     for kind in ("clip", "bert"):
-        assert text.make_text_embedder(kind) is None
+        assert text.make_text_embedder(kind, device="cpu") is None
         assert jtext.make_text_embedder(kind) is None
         assets = tmp_path / kind
         assets.mkdir()
-        for name in text.ASSETS[kind]:
-            (assets / name).write_bytes(b"")
-        with pytest.raises(NotImplementedError, match="item 8"):
-            text.make_text_embedder(kind, str(assets))
+        vocab, _, orbax = text.ASSETS[kind]
+        (assets / vocab).write_bytes(b"")
+        (assets / orbax).mkdir()
+        with pytest.raises(FileNotFoundError, match="convert_text_encoders"):
+            text.make_text_embedder(kind, str(assets), device="cpu")
     assert isinstance(text.make_text_embedder("hash"), text.HashTextEmbedder)
     with pytest.raises(ValueError):
         text.make_text_embedder("t5")

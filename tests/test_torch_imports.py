@@ -1,10 +1,11 @@
-"""mdm_tpu_torch imports neither jax, flax, optax nor mdm_tpu: every module
-imports, and a tiny generation, a tiny train step and the command-line path
-(train -> generate -> edit, and train_evaluators -> eval_humanml, with
---device cpu on a synthetic HumanML3D tree; train with the SMPL loss ->
-train_evaluators -> eval_a2m on a synthetic HumanAct12 tree and SMPL
-pickle) run, in a fresh interpreter
-where all four are blocked."""
+"""mdm_tpu_torch imports neither jax, flax, optax, orbax nor mdm_tpu: every
+module imports, and a tiny generation, a tiny train step and the
+command-line path (train -> generate -> edit, and train_evaluators ->
+eval_humanml, with --device cpu on a synthetic HumanML3D tree; train with
+the SMPL loss -> train_evaluators -> eval_a2m on a synthetic HumanAct12 tree
+and SMPL pickle; convert_text_encoders -> both embedders, and
+convert_checkpoint -> generate with the CLIP tower) run, in a fresh
+interpreter where all five are blocked."""
 import subprocess
 import sys
 from pathlib import Path
@@ -22,6 +23,7 @@ sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["mdm_tpu"] = None
 sys.modules["optax"] = None
+sys.modules["orbax"] = None
 import torch
 import mdm_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mdm_tpu_torch.__path__, "mdm_tpu_torch.")]
@@ -103,8 +105,43 @@ with tempfile.TemporaryDirectory() as tmp:
                              "--replications", "1", "--a2m_classifier_path", "clf.npy",
                              "--device", "cpu"])
     assert summary["classifier"] == "self-trained" and np.isfinite(summary["fid_gen"]["mean"])
+    import gzip
+    from mdm_tpu_torch.cli import convert_checkpoint, convert_text_encoders
+    from mdm_tpu_torch.models.text_encoders import ClipTextEncoder, ClipTextConfig
+    from mdm_tpu_torch.sampling import text
+    clip = ClipTextEncoder(ClipTextConfig(vocab_size=520, width=64, layers=1))
+    torch.save(clip.state_dict(), "clip.pt")  # the OpenAI names
+    r = lambda *s: torch.randn(*s) * 0.1
+    bert = {"embeddings.word_embeddings.weight": r(20, 64),
+            "embeddings.position_embeddings.weight": r(64, 64),
+            "embeddings.LayerNorm.weight": r(64) + 1, "embeddings.LayerNorm.bias": r(64)}
+    for n, (o, i) in {"attention.q_lin": (64, 64), "attention.k_lin": (64, 64),
+                      "attention.v_lin": (64, 64), "attention.out_lin": (64, 64),
+                      "ffn.lin1": (128, 64), "ffn.lin2": (64, 128), "sa_layer_norm": (64, 0),
+                      "output_layer_norm": (64, 0)}.items():
+        bert[f"transformer.layer.0.{n}.weight"] = r(o, i) if i else r(o) + 1
+        bert[f"transformer.layer.0.{n}.bias"] = r(o)
+    torch.save(bert, "bert.bin")
+    convert_text_encoders.main(["--clip", "clip.pt", "--bert", "bert.bin", "--out_dir", "assets"])
+    with gzip.open("assets/bpe_simple_vocab_16e6.txt.gz", "wt") as f:
+        f.write("#version\nw a\nwa l\nwal k</w>")
+    with open("assets/bert_vocab.txt", "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "a", "walk"]))
+    embeds = text.make_text_embedder("bert", "assets", device="cpu")(["a walk", "walk"])
+    assert embeds["text_embed"].shape == (2, 64, 64) and embeds["text_tokens_mask"].sum() == 7
+    text.DEFAULT_ASSETS = os.path.abspath("assets")
+    sd = torch.load("run/ckpt_000000001", weights_only=True)["model"]
+    os.makedirs("ref")
+    torch.save({"model": sd}, "ref/model000000001.pt")
+    path = convert_checkpoint.main(["--torch_ckpt", "ref/model000000001.pt", "--out_dir", "conv",
+                                    "--latent_dim", "32", "--layers", "1"])
+    generate.main(["--model_path", path, "--text_prompt", "a walk", "--num_samples", "1",
+                   "--num_repetitions", "1", "--motion_length", "0.5", "--output_dir", "gen2",
+                   "--device", "cpu", "--diffusion_steps", "4"])
+    res = np.load("gen2/results.npy", allow_pickle=True).item()
+    assert res["motion"].shape == (1, 10, 22, 3) and np.isfinite(res["motion"]).all()
     os.chdir(cwd)
-assert not any(m.split(".")[0] in ("jax", "flax", "optax", "mdm_tpu")
+assert not any(m.split(".")[0] in ("jax", "flax", "optax", "orbax", "mdm_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print(" ".join(names))
 """
@@ -128,7 +165,9 @@ SLICE = {"ops._mask", "ops.layer_inference", "ops._build", "models.layers", "mod
          "eval.train_evaluators", "eval.harness", "eval.t2m_generator", "cli.eval_humanml",
          "cli.train_evaluators", "scripts.quality_rehearsal", "smpl", "smpl.lbs", "smpl.rot2xyz",
          "eval.classifiers", "eval.stgcn", "eval.harness_a2m", "eval.a2m_setup", "cli.eval_a2m",
-         "cli.eval_unconstrained", "scripts.a2m_rehearsal"}
+         "cli.eval_unconstrained", "scripts.a2m_rehearsal", "models.text_encoders",
+         "models.convert", "cli.convert_text_encoders", "cli.convert_checkpoint",
+         "visualize.prior", "visualize.joints2smpl", "cli.render_mesh"}
 
 
 def test_port_runs_with_jax_and_flax_blocked():
@@ -143,6 +182,6 @@ def test_no_source_file_names_jax():
         for line in path.read_text().splitlines():
             words = line.replace(",", " ").split()
             if words[:1] in (["import"], ["from"]):
-                assert not {"jax", "flax", "optax", "mdm_tpu"} & {w.split(".")[0]
+                assert not {"jax", "flax", "optax", "orbax", "mdm_tpu"} & {w.split(".")[0]
                                                                   for w in words[1:2]}, \
                     f"{path.relative_to(REPO)}: {line}"

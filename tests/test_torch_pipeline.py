@@ -8,6 +8,9 @@ steps feeds the previous step's output back in, which amplifies f32
 reordering: features are held to 1e-4 and the decoded joints, whose root
 trajectory is a cumulative sum over frames, to 1e-3.
 """
+import os
+import shutil
+
 import numpy as np
 import pytest
 
@@ -91,8 +94,14 @@ def test_predictor_answers_prompts_on_cpu(tmp_path):
         assert joints.shape == (1, 20, 22, 3) and np.isfinite(joints).all()
     again = np.asarray(p.predict("a person jumps", motion_length_sec=1.0, seed=3)["joints"][0])
     np.testing.assert_array_equal(again, joints)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p.predict("a person jumps", output_format="animation")
+    # The animation: an .mp4 through ffmpeg, else plot_3d_motion's GIF (the
+    # hik format: tests/test_torch_joints2smpl.py).
+    anim = p.predict("a person jumps", motion_length_sec=0.5, seed=3, output_format="animation",
+                     output_dir=str(tmp_path / "anim"))["animations"]
+    assert len(anim) == 1 and os.path.exists(anim[0])
+    assert anim[0].endswith(".mp4" if shutil.which("ffmpeg") else ".gif")
+    with pytest.raises(ValueError, match="output_format"):
+        p.predict("a person jumps", output_format="bvh")
     # A checkpoint written by mdm_tpu (an orbax directory) is refused.
     (tmp_path / "ckpt_000000001").mkdir()
     with pytest.raises(ValueError, match="orbax"):
