@@ -116,7 +116,19 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   cli.render_mesh (150 iterations) on the generated results.npy with SMPL
   at its published sizes (s per clip, the loss falls); and the classifier
   stages a2m_classifier and unconstrained_stgcn rerun at phase 17's seed,
-  their weights bitwise equal to phase 17's.
+  their weights bitwise equal to phase 17's;
+- the T2M baseline's training and the rest of core/ (phase 19): the
+  kernel library's directory (MDM_TPU_COMPILE_CACHE), built or found, and
+  its warm load in a new process; the Predictor at batch 1 under ddpm (50
+  steps), dpmpp_2m (20) and cached CFG (k=2, 50), MotionGenerator
+  receiving each setting and #1 exactly 8 a model forward; on phase 15-16's
+  tree, cli.train_evaluators --stage length and --stage comp_v6 at the
+  published widths (hidden 1024, z 128, B=32, lengths 10-11) twice at one
+  seed, bitwise equal, the loss falling; comp_v6's ms/step at 10 and 49
+  movements and one f32 step on the card against the CPU; cli.eval_humanml
+  with --t2m_baseline_path scoring the trained baseline beside the
+  flagship (#1 exactly 8 x 50 x batches); and one cli.generate clip through
+  process_file and recover_from_ric (the round trip's error in metres).
 
 Each path checks that every layer call went through its kernels, and the
 sampling and training paths that every product, forward and backward,
@@ -3512,6 +3524,340 @@ def phase_stage_determinism(torch, tmp, first_runs, data):
     return rows
 
 
+# Phase 19: the T2M baseline's training and the rest of core/, after the
+# Predictor's sampler fields. comp_v6 runs at the published widths
+# (t2m_generator.DEFAULTS: hidden 1024, z 128, attention 512, movement
+# latent 512, dim_pose 263) on phase 15's synthetic tree, phase 16's GloVe
+# vocabulary and decomposition weights.
+COMP_V6_B = 32
+COMP_V6_STAGE = ["--schedule_start", "10", "--schedule_end", "11", "--max_sub_epoch", "2",
+                 "--max_batches", "8", "--batch_size", str(COMP_V6_B)]
+COMP_V6_REL = 1e-4  # one f32 step's losses against an f64 step, relative
+COMP_V6_FACTOR = 10  # the card's f32 error against f64, in units of the CPU's f32 error
+COMP_V6_TIMED = (10, 49)  # movements a step: the curriculum's first length and 196 frames
+LENGTH_STEPS = 20
+# (sampler, respacing, cfg_cache_interval, model forwards a request)
+PREDICTOR_SETTINGS = (("ddpm", "50", 1, 50), ("dpmpp_2m", "20", 1, 20), ("ddpm", "50", 2, 75))
+
+
+def warm_library_load(so):
+    """19a: a new process with this one's MDM_TPU_COMPILE_CACHE finds and
+    loads the library phase 1 left; (its seconds importing the package,
+    torch included, its seconds finding and loading the library, the
+    process's seconds)."""
+    probe = ("import time; t0 = time.perf_counter()\n"
+             "from mdm_tpu_torch.ops import _build\n"
+             "t1 = time.perf_counter(); so = _build.build(); _build.load_library()\n"
+             "print(so, t1 - t0, time.perf_counter() - t1)")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                         cwd=os.path.dirname(os.path.abspath(__file__)), timeout=300)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"19a: the warm load failed: {out.stderr[-2000:]}")
+    found, import_s, load_s = out.stdout.split()[-3:]
+    if found != str(so):
+        raise AssertionError(f"19a: the new process used {found}, not {so}")
+    return float(import_s), float(load_s), wall
+
+
+def phase_predictor_samplers(torch, li, dev):
+    """Phase 19b: the Predictor at batch 1, flagship width, bf16, under
+    PREDICTOR_SETTINGS: MotionGenerator must receive the sampler and the
+    cache interval; each of three requests makes the sampler's forwards
+    (a hook on the model) and #1 launches 8 per forward. Returns the
+    launches and the seconds a request."""
+    from mdm_tpu_torch.sampling import pipeline
+    from mdm_tpu_torch.serving import Predictor, PredictorConfig
+
+    launches, rows = 0, {}
+    for sampler, respacing, interval, forwards in PREDICTOR_SETTINGS:
+        seen = []
+
+        def spy(fn):
+            def init(self, model, sched, config=pipeline.GenerationConfig(), *a, **k):
+                seen.append((config.sampler, config.cfg_cache_interval))
+                return fn(self, model, sched, config, *a, **k)
+            return init
+
+        with patched(pipeline.MotionGenerator, "__init__", spy):
+            pred = Predictor(PredictorConfig(text_encoder_type="hash", batch_size=1,
+                                             respacing=respacing, sampler=sampler,
+                                             cfg_cache_interval=interval, device=str(dev)))
+            pred.setup()
+        if seen != [(sampler, interval)]:
+            raise AssertionError(f"19b: MotionGenerator received {seen}, asked "
+                                 f"{(sampler, interval)}")
+        calls = []
+        hook = pred.model.register_forward_hook(lambda m, a, o: calls.append(1))
+        times = []
+        for prompt in ("a person walks forward", "a person jumps twice", "a person waves"):
+            calls.clear()
+            li.LAUNCHES = 0
+            t0 = time.perf_counter()
+            joints = np.asarray(pred.predict(prompt)["joints"][0])  # on the host: synchronized
+            times.append(time.perf_counter() - t0)
+            if joints.shape != (1, 120, 22, 3) or not np.isfinite(joints).all():
+                raise AssertionError(f"19b {sampler} k={interval}: joints {joints.shape}")
+            if len(calls) != forwards or li.LAUNCHES != 8 * forwards:
+                raise AssertionError(f"19b {sampler} k={interval}: {len(calls)} forwards, #1 "
+                                     f"{li.LAUNCHES} launches; expected {forwards}, "
+                                     f"{8 * forwards}")
+            launches += li.LAUNCHES
+        hook.remove()
+        name = f"{sampler} respacing {respacing}" + (f" cfg_cache_interval {interval}"
+                                                     if interval > 1 else "")
+        rows[name] = times
+        del pred
+    torch.cuda.empty_cache()
+    print(f"19b Predictor, batch 1, flagship, bf16, 120 frames, CFG 2.5: seconds a request "
+          f"(host clock, three prompts) {json.dumps(rows)}; #1 8 launches a forward, "
+          f"{launches} in all")
+    return launches, rows
+
+
+def _comp_v6_batch(torch, rng, mov_len):
+    """A batch of the comp_v6 step's shapes: motions of mov_len movements,
+    22-token captions of ragged lengths, true lengths at or above."""
+    B = COMP_V6_B
+    return {"word_embs": torch.from_numpy(rng.normal(size=(B, 22, 300)).astype(np.float32)),
+            "pos_onehot": torch.from_numpy(rng.normal(size=(B, 22, 15)).astype(np.float32)),
+            "cap_lens": torch.from_numpy(np.sort(rng.integers(3, 23, size=B))[::-1].copy()),
+            "motions": torch.from_numpy(rng.normal(size=(B, 4 * mov_len, 263)).astype(
+                np.float32)),
+            "m_lens": torch.from_numpy(4 * mov_len + 4 * rng.integers(0, 3, size=B))}
+
+
+def _comp_v6_card_vs_cpu(torch, TT, tree, batch, dev):
+    """One comp_v6 step from ``tree`` with the same injected noise (teacher
+    forcing 1) three times: float64 on the CPU, the reference; float32 on
+    the CPU; float32 on the card. The f32 losses within COMP_V6_REL of the
+    f64 ones; per network, the card's clipped gradients and updated
+    parameters (where the gradient stands above HELD of its tensor's
+    largest) no further from f64 than COMP_V6_FACTOR x the CPU's f32 error,
+    plus 1e-7 of the network's largest (the gradient) or 1e-7 (the
+    parameters). The loss is mostly the KL of exp(logvar) terms, whose
+    f32 rounding the posterior's and the prior's gradients carry at
+    ~1e-4-1e-3 of their largest on either device, so the card is held to
+    the CPU's own accuracy, not to a fixed distance from it."""
+    cfg = TT.CompV6TrainConfig(lr=1e-4)
+    B, T = batch["motions"].shape[:2]
+    g = torch.Generator().manual_seed(19)
+    eps = tuple(torch.randn((T // 4, B, cfg.dim_z), generator=g, dtype=torch.float64)
+                for _ in range(2))
+    runs = {}
+    for tag, where, dtype in (("f64", "cpu", torch.float64), ("cpu", "cpu", torch.float32),
+                              ("card", dev, torch.float32)):
+        init_opt, step, _ = TT.make_comp_v6_step(cfg)
+        mods = TT.comp_v6_modules(tree, where).to(dtype)
+        b = {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
+        mods, _, logs = step(mods, init_opt(mods), b, None, 1.0,
+                             eps=tuple(e.to(where, dtype) for e in eps))
+        runs[tag] = ({k: float(v) for k, v in logs.items()},
+                     [(n, p.grad.cpu().double(), p.detach().cpu().double())
+                      for n, p in mods.named_parameters() if p.grad is not None])
+    logs64, rows64 = runs["f64"]
+    loss_rel = {tag: max(abs(runs[tag][0][k] - logs64[k]) / abs(logs64[k]) for k in logs64)
+                for tag in ("cpu", "card")}
+    nets = {}
+    for (name, g64, p64), (_, gc, pc), (_, gd, pd) in zip(rows64, runs["cpu"][1],
+                                                          runs["card"][1]):
+        net = nets.setdefault(name.split(".")[0], dict(scale=0.0, cpu=0.0, card=0.0,
+                                                       p_cpu=0.0, p_card=0.0))
+        held = g64.abs() > HELD * g64.abs().max()
+        net["scale"] = max(net["scale"], float(g64.abs().max()))
+        for tag, gx, px in (("cpu", gc, pc), ("card", gd, pd)):
+            net[tag] = max(net[tag], float((gx - g64).abs().max()))
+            if held.any():
+                net["p_" + tag] = max(net["p_" + tag], float((px - p64)[held].abs().max()))
+    bad = {k: n for k, n in nets.items()
+           if not (n["card"] <= COMP_V6_FACTOR * n["cpu"] + 1e-7 * n["scale"]
+                   and n["p_card"] <= COMP_V6_FACTOR * n["p_cpu"] + 1e-7)}
+    if bad or not loss_rel["card"] <= COMP_V6_REL:
+        raise AssertionError(f"19c comp_v6 card vs CPU against f64: losses {loss_rel}, "
+                             f"networks off {json.dumps(bad)}")
+    rel = {k: {t: n[t] / n["scale"] for t in ("cpu", "card")} for k, n in nets.items()}
+    return dict(loss_rel=loss_rel, grad_rel=rel, tensors=len(rows64),
+                param_abs={t: max(n["p_" + t] for n in nets.values()) for t in ("cpu", "card")})
+
+
+def smooth_motion(torch, frames, seed=19):
+    """Joints [frames, 22, 3] in metres: a random walk of small local
+    rotations and of the root through the t2m skeleton's FK
+    (tests/test_torch_hml_encode.py's motion)."""
+    from mdm_tpu_torch.core.skeleton import t2m_skeleton
+
+    rng = np.random.default_rng(seed)
+    skel = t2m_skeleton()
+    offsets = skel.offsets_from_rest_pose(np.abs(rng.normal(size=(22, 3))) * 0.3 + 0.1)
+    quats = np.zeros((frames, 22, 4), np.float32)
+    quats[..., 0] = 1.0
+    quats += np.cumsum(rng.normal(scale=0.01, size=(frames, 22, 4)), axis=0).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    root = np.cumsum(rng.normal(scale=0.02, size=(frames, 3)), axis=0).astype(np.float32)
+    root[:, 1] += 1.0
+    return skel.forward_kinematics(torch.from_numpy(quats), torch.from_numpy(root),
+                                   torch.from_numpy(offsets)).numpy()
+
+
+def phase_t2m_baseline(torch, li, dev, tmp):
+    """Phase 19c-e, in phase 15-16's ``tmp``. 19c: cli.train_evaluators
+    --stage length (LENGTH_STEPS) and --stage comp_v6 (COMP_V6_STAGE, on
+    phase 16's decomp weights) twice at seed 0: the loss falls and the
+    saved weights are bitwise equal; ms/step by CUDA events at
+    COMP_V6_TIMED movements; one f32 step card vs CPU. 19d:
+    cli.eval_humanml (debug, one replication) on phase 15's checkpoint with
+    --t2m_baseline_path / --t2m_len_est_path: #1 8 x 50 x batches, both
+    rows' scores. 19e: one clip of phase 15's cli.generate through
+    process_file and recover_from_ric. Returns the launches, the rows and
+    the timed steps (phase 12 profiles them)."""
+    from mdm_tpu_torch.cli import train_evaluators as tev_cli
+    from mdm_tpu_torch.core.hml_codec import process_file, recover_from_ric
+    from mdm_tpu_torch.eval import train_t2m_generator as TT
+    from mdm_tpu_torch.eval.t2m_generator import load_comp_v6
+
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    root, glove = os.path.join(tmp, "HumanML3D"), os.path.join(tmp, "glove")
+    quiet = lambda: stdout_to(os.path.join(tmp, "comp_v6.log"))  # noqa: E731
+    try:
+        length = os.path.join(tmp, "length.npy")
+        with quiet():
+            tev_cli.main(["--stage", "length", "--data_dir", root, "--glove_dir", glove,
+                          "--save_path", length, "--num_steps", str(LENGTH_STEPS),
+                          "--batch_size", "32", "--log_every", "10", "--device", "0"])
+        losses = []
+
+        def logged(make):
+            def f(*a, **k):
+                init_opt, step, val_step = make(*a, **k)
+
+                def logged_step(*sa, **sk):
+                    out = step(*sa, **sk)
+                    losses.append(out[2]["loss_gen"])
+                    return out
+                return init_opt, logged_step, val_step
+            return f
+
+        argv = ["--stage", "comp_v6", "--data_dir", root, "--glove_dir", glove, "--decomp_path",
+                os.path.join(tmp, "decomp.npy"), *COMP_V6_STAGE, "--device", "0",
+                "--save_path"]
+        stage_s = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            with (patched(TT, "make_comp_v6_step", logged) if i == 0
+                  else contextlib.nullcontext()), quiet():
+                tev_cli.main(argv + [os.path.join(tmp, f"comp_v6_{i}.npy")])
+            torch.cuda.synchronize()
+            stage_s.append(time.perf_counter() - t0)
+        loss = [float(x) for x in losses]
+        if not (np.isfinite(loss).all() and np.mean(loss[-4:]) < np.mean(loss[:4])):
+            raise AssertionError(f"19c comp_v6: the loss did not fall {loss}")
+        first = dict(_npy_leaves(load_comp_v6(os.path.join(tmp, "comp_v6_0.npy"))))
+        again = dict(_npy_leaves(load_comp_v6(os.path.join(tmp, "comp_v6_1.npy"))))
+        differ = {k: float(np.abs(first[k].astype(np.float64) - again[k]).max())
+                  for k in first if not np.array_equal(first[k], again[k])}
+        print(f"19c cli.train_evaluators --stage comp_v6 at the published widths, B="
+              f"{COMP_V6_B}, lengths 10-11, 2 sub-epochs of 8 batches: {len(loss)} steps, "
+              f"loss_gen first/last 4 {np.round(loss[:4], 4).tolist()} / "
+              f"{np.round(loss[-4:], 4).tolist()}; the stage {stage_s[0]:.2f} s / "
+              f"{stage_s[1]:.2f} s (host clock, validation and saving included); twice at seed "
+              f"0: {len(first)} weight arrays, {len(differ)} differ"
+              + (f" {json.dumps(differ)}" if differ else " (bitwise equal)"))
+        if differ:
+            torch.use_deterministic_algorithms(True)
+            try:
+                with quiet():
+                    tev_cli.main(argv + [os.path.join(tmp, "comp_v6_det.npy")])
+                note = "no op refused deterministic mode"
+            except RuntimeError as e:
+                note = str(e).splitlines()[0]
+            finally:
+                torch.use_deterministic_algorithms(False)
+            raise AssertionError(f"19c comp_v6 does not repeat: {json.dumps(differ)}; under "
+                                 f"use_deterministic_algorithms: {note}")
+
+        tree = load_comp_v6(os.path.join(tmp, "comp_v6_0.npy"))
+        rng = np.random.default_rng(19)
+        check = _comp_v6_card_vs_cpu(torch, TT, tree, _comp_v6_batch(torch, rng, 10), dev)
+        print(f"19c comp_v6, one f32 step (B={COMP_V6_B}, 10 movements, teacher forcing 1, "
+              f"injected noise) on the CPU and on the card against an f64 CPU step: losses "
+              f"(relative) {json.dumps(check['loss_rel'])}; gradients, of each network's "
+              f"largest, over {check['tensors']} tensors {json.dumps(check['grad_rel'])}; "
+              f"updated parameters where the gradient stands above {HELD} of its tensor's "
+              f"largest {json.dumps(check['param_abs'])} (the card within {COMP_V6_FACTOR}x the "
+              f"CPU's f32 error)")
+        cfg = TT.CompV6TrainConfig(lr=1e-4)
+        init_opt, step, _ = TT.make_comp_v6_step(cfg)
+        mods = TT.comp_v6_modules(tree, dev)
+        opt, gen = init_opt(mods), torch.Generator(dev).manual_seed(19)
+        step_ms, steps = {}, {}
+        for mov_len in COMP_V6_TIMED:
+            batch = {k: v.to(dev) for k, v in _comp_v6_batch(torch, rng, mov_len).items()}
+            run = lambda b=batch: step(mods, opt, b, gen, 0.0)  # noqa: E731
+            for _ in range(3):
+                run()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _ in range(10):
+                logs = run()[2]
+            end.record()
+            torch.cuda.synchronize()
+            if not torch.isfinite(logs["loss_gen"]):
+                raise AssertionError(f"19c comp_v6 at {mov_len} movements: {logs}")
+            step_ms[mov_len], steps[mov_len] = start.elapsed_time(end) / 10, run
+        print(f"19c comp_v6 ms/step (B={COMP_V6_B}, f32, CUDA events over 10 after 3 warm) by "
+              f"movements: {json.dumps(step_ms)}")
+
+        # 19d: the baseline scored beside the flagship.
+        li.LAUNCHES = 0
+        run = _eval_run(torch, ["--model_path", os.path.join(tmp, "run", "ckpt_000000030"),
+                                "--data_dir", root, "--eval_mode", "debug", "--replications",
+                                "1", "--evaluator_dir", tmp, "--t2m_baseline_path",
+                                os.path.join(tmp, "comp_v6_0.npy"), "--t2m_len_est_path",
+                                length, "--device", "0"], quiet)
+        batches = len(_gt_pass(root, glove)[0])
+        if li.LAUNCHES != 8 * 50 * batches:
+            raise AssertionError(f"19d cli.eval_humanml with the baseline: #1 {li.LAUNCHES} "
+                                 f"launches, expected {8 * 50 * batches}")
+        summary = run["summary"]
+        _check_summary("19d cli.eval_humanml --t2m_baseline_path", summary,
+                       ("ground truth", "vald", "t2m_baseline"))
+        scores = {name: dict(R3=float(np.atleast_1d(summary["R_precision"][name]["mean"])[2]),
+                             FID=float(summary["FID"][name]["mean"]))
+                  for name in ("ground truth", "vald", "t2m_baseline")}
+        print(f"19d cli.eval_humanml (debug, one replication of {batches} batches) with the "
+              f"T2M baseline: R@3 / FID {json.dumps(scores)}; s/replication "
+              f"{json.dumps(run['rep_s'])} (host clock); #1 {li.LAUNCHES} launches")
+        baseline_li = li.LAUNCHES
+
+        # 19e: the encoder round trip on one generated clip (phase 15's
+        # model trained 30 steps on noise: its joints are noise too), and on
+        # a seeded smooth motion through the t2m skeleton's FK.
+        res = np.load(os.path.join(tmp, "gen", "results.npy"), allow_pickle=True).item()
+        frames = int(res["lengths"][0])
+        err = {}
+        for name, joints in (("cli.generate clip", res["motion"][0, :frames]),
+                             ("seeded smooth motion", smooth_motion(torch, frames))):
+            t0 = time.perf_counter()
+            feats, positions = process_file(joints.astype(np.float64), 0.002, "t2m")
+            encode_s = time.perf_counter() - t0
+            rec = recover_from_ric(torch.from_numpy(feats), 22).numpy()
+            rec_card = recover_from_ric(torch.from_numpy(feats).to(dev), 22).cpu().numpy()
+            err[name] = float(np.abs(rec - positions[:-1]).max())
+            if feats.shape != (frames - 1, 263) or not np.isfinite(err[name]):
+                raise AssertionError(f"19e process_file, {name}: features {feats.shape}, "
+                                     f"error {err[name]}")
+            print(f"19e encoder round trip, {name} ({frames} frames): process_file "
+                  f"{encode_s:.3f} s (host), recover_from_ric against the normalized joints "
+                  f"max {err[name]:.4g} m (the decode on the card against the CPU "
+                  f"{float(np.abs(rec_card - rec).max()):.3g})")
+    finally:
+        os.chdir(cwd)
+    return dict(li=baseline_li, step_ms=step_ms, steps=steps, scores=scores,
+                rep_s=run["rep_s"], check=check, round_trip_m=err)
+
+
 def smpl_forward(torch, smpl, dev):
     """One smpl rot2xyz forward of phase 17a's shape, without gradients."""
     from mdm_tpu_torch.smpl import Rot2XYZConfig, rot2xyz
@@ -3641,10 +3987,23 @@ def main():
     print(f"SM clock max: {clock.splitlines()[0]}")
 
     # Phase 1: build the kernels from the sources in this checkout.
+    # 19a: the library's directory (MDM_TPU_COMPILE_CACHE), built or found.
     t0 = time.perf_counter()
+    found = _build.library_path().exists()
     so = _build.build()
     _build.load_library()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(so)}")
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f} s -> {os.path.relpath(so)}")
+    cache_env = os.environ.get("MDM_TPU_COMPILE_CACHE")
+    print(f"19a kernel cache: MDM_TPU_COMPILE_CACHE={cache_env or '(unset)'}, directory "
+          f"{_build.build_dir()}, library {'found' if found else 'built'} in {build_s:.2f} s")
+    if cache_env == "0":
+        print("19a warm load: no persistent cache (MDM_TPU_COMPILE_CACHE=0), not measured")
+    else:
+        import_s, load_s, warm_wall = warm_library_load(so)
+        print(f"19a warm start in a new process with the same MDM_TPU_COMPILE_CACHE: the "
+              f"library found and loaded in {load_s:.4f} s, after {import_s:.2f} s importing "
+              f"the package and torch ({warm_wall:.2f} s the whole process)")
     log = so.with_suffix(".log").read_text()
     regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
     spills, entry = {}, None
@@ -3877,7 +4236,15 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         cli = phase_cli(torch, TB, ET, DB, li, dev, step_ms, gen_ms / 1000 / B, tmp)
         protocol = phase_eval(torch, TB, ET, li, dev, tmp)
-    stamp("phases 15-16")
+        stamp("phases 15-16")
+        # Phase 19c-e, this slice's main path, on phase 15-16's tree,
+        # vocabulary, decomposition weights and checkpoint: the T2M
+        # baseline trained by cli.train_evaluators and scored by
+        # cli.eval_humanml (#1 counted from zero), the encoder round trip.
+        baseline = phase_t2m_baseline(torch, li, dev, tmp)
+    # Phase 19b: the Predictor's sampler settings, each request counted.
+    predictor_launches, predictor_rows = phase_predictor_samplers(torch, li, dev)
+    stamp("phase 19")
 
     # Phase 17, this slice's main path: the action-to-motion family. SMPL on
     # the card (its comparisons not counted), the HumanAct12 recipe's steps
@@ -3919,7 +4286,10 @@ def main():
                       "cli.eval_unconstrained (phase 17)":
                       a2m["eval_unconstrained"]["fused_layer_inference"],
                       "cli.generate, converted reference checkpoint, CLIP (phase 18b)":
-                      reference["flagship"]["counts"]["fused_layer_inference"]}
+                      reference["flagship"]["counts"]["fused_layer_inference"],
+                      "cli.eval_humanml with the T2M baseline (phase 19d)": baseline["li"],
+                      "Predictor, ddpm / dpmpp_2m / cached CFG, batch 1 (phase 19b)":
+                      predictor_launches}
     kernels[0].update(launches=sum(sampling_paths.values()), launches_by_path=sampling_paths,
                       path="; ".join(sampling_paths))
 
@@ -4085,6 +4455,15 @@ def main():
     print(f"a2m protocol seed under torch.profiler: {wall:.1f} ms ({1000 * seed_s:.1f} without "
           f"it, phase 17's fastest), kernels {busy:.1f} ms on the card: device busy share "
           f"{busy / (1000 * seed_s):.3f} of the unprofiled seed")
+    # Then phase 19c's comp_v6 step at both lengths.
+    for mov_len, fn in baseline["steps"].items():
+        wall, busy, n = device_busy(torch, fn)
+        ms = baseline["step_ms"][mov_len]
+        print(f"comp_v6 step, {mov_len} movements, under torch.profiler: {wall:.1f} ms ({ms:.1f} "
+              f"without it, phase 19c), {n} CUDA kernels, kernels {busy:.1f} ms on the card: "
+              f"device busy share {busy / ms:.3f} of the unprofiled step" if busy else
+              f"comp_v6 step, {mov_len} movements, under torch.profiler: no device time "
+              f"recorded (busy share not measured)")
     n_kernels = cuda_kernels(torch, smpl_forward(torch, smpl, dev))
     print(f"rot2xyz smpl forward [{A2M_B}, {A2M_T}]: {n_kernels} CUDA kernels (torch.profiler)")
     stamp("phase 12")

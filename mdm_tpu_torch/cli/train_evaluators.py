@@ -20,20 +20,18 @@ package) loads directly, so a user can produce metric encoders for a NEW
 dataset without any reference checkpoint; the a2m stages write the .npy
 that ``cli.eval_a2m`` / ``cli.eval_unconstrained`` take as
 ``--a2m_classifier_path``, with the architecture and representation
-recorded in it. Every output is in mdm_tpu's npy layout. ``comp_v6``
-(training the T2M baseline generator) raises, naming ROADMAP Queue 1
-item 12.
+recorded in it. ``--stage comp_v6`` trains the T2M baseline generator
+itself (CompTrainerV6, trainers.py:211-746): the scheduled-length
+curriculum over the VAE seq2seq, on ``--decomp_path``'s movement
+autoencoder when given; it writes the params .npy that
+``cli.eval_humanml --t2m_baseline_path`` scores. Every output is in
+mdm_tpu's npy layout.
 """
 from __future__ import annotations
 
 import os
 
 import numpy as np
-
-NOT_PORTED = {
-    "comp_v6": "training the T2M baseline generator (eval/train_t2m_generator.py) is not "
-               "ported yet: ROADMAP Queue 1 item 12",
-}
 
 
 def _batches(dataset, batch_size, stage, seed=0):
@@ -179,6 +177,52 @@ def _train_unconstrained_stgcn(args, device):
     })
 
 
+def _train_comp_v6(args, dataset, w_vec, dim_pose, device):
+    """--stage comp_v6 (mdm_tpu/cli/train_evaluators.py:319-365): the T2M
+    baseline generator, validated on the tree's val split (else test, else
+    train), on ``--decomp_path``'s movement autoencoder when given, its
+    weights and noise drawn from ``--seed``."""
+    import torch
+
+    from ..data import get_dataset
+    from ..eval.train_evaluators import load_evaluator_params
+    from ..eval.train_t2m_generator import (
+        CompV6TrainConfig,
+        comp_v6_modules,
+        init_comp_v6_params,
+        make_curriculum_batches,
+        movement_params_from_flax,
+        save_comp_v6_params,
+        train_comp_v6,
+    )
+
+    val_split = next((s for s in ("val", "test")
+                      if os.path.exists(os.path.join(dataset.opt.data_root, f"{s}.txt"))),
+                     "train")
+    val_ds = get_dataset(args.dataset, split=val_split, hml_mode="eval",
+                         data_root=args.data_dir or None)
+    val_ds.w_vectorizer = w_vec
+    cfg = CompV6TrainConfig(
+        lr=args.lr, unit_length=args.unit_length, dim_pose=dim_pose,
+        lambda_kld=args.lambda_kld, tf_ratio=args.tf_ratio,
+        # the decomp stage's widths (mdm_tpu leaves them at 512, --movement_dim's default)
+        dim_movement_latent=args.movement_dim, dim_movement_hidden=args.movement_dim,
+        schedule_start=args.schedule_start or (10 if args.dataset == "humanml" else 6),
+        schedule_end=args.schedule_end, max_sub_epoch=args.max_sub_epoch)
+    mov_enc = mov_dec = None
+    if args.decomp_path:
+        decomp = load_evaluator_params(args.decomp_path)
+        mov_enc, mov_dec = movement_params_from_flax(decomp["enc"], decomp["dec"])
+    tree = init_comp_v6_params(torch.Generator().manual_seed(args.seed), cfg,
+                               mov_enc=mov_enc, mov_dec=mov_dec)
+    make_batches = make_curriculum_batches(dataset, val_ds, args.batch_size, cfg,
+                                           seed=args.seed, max_batches=args.max_batches)
+    params = train_comp_v6(comp_v6_modules(tree, device), make_batches, cfg,
+                           generator=torch.Generator(device).manual_seed(args.seed),
+                           rng=np.random.default_rng(args.seed))
+    save_comp_v6_params(args.save_path, params)
+
+
 def _on_device(batches, device):
     from ..data.loader import pinned_put
 
@@ -224,7 +268,8 @@ def main(argv=None):
     ap.add_argument("--data_dir", default="")
     ap.add_argument("--glove_dir", default="glove")
     ap.add_argument("--save_path", required=True)
-    ap.add_argument("--decomp_path", default="", help="decomp .npy for --stage match")
+    ap.add_argument("--decomp_path", default="",
+                    help="decomp .npy for --stage match (and comp_v6's movement autoencoder)")
     ap.add_argument("--batch_size", type=int, default=32)
     ap.add_argument("--num_steps", type=int, default=10000)
     ap.add_argument("--lr", type=float, default=1e-4)
@@ -240,10 +285,17 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=0, type=_device_arg,
                     help="CUDA device index (default 0), or 'cpu'")
+    # comp_v6 curriculum (CompTrainerV6.train, trainers.py:604-746)
+    ap.add_argument("--tf_ratio", type=float, default=0.4)
+    ap.add_argument("--lambda_kld", type=float, default=0.01)
+    ap.add_argument("--schedule_start", type=int, default=0,
+                    help="0 = dataset default (10 t2m / 6 kit)")
+    ap.add_argument("--schedule_end", type=int, default=49)
+    ap.add_argument("--max_sub_epoch", type=int, default=50)
+    ap.add_argument("--max_batches", type=int, default=0,
+                    help="cap batches per (length, split) pass; 0 = all")
     args = ap.parse_args(argv)
 
-    if args.stage in NOT_PORTED:
-        raise NotImplementedError(f"--stage {args.stage}: {NOT_PORTED[args.stage]}")
     if args.stage == "a2m_classifier":
         assert args.dataset in ("humanact12", "uestc"), \
             "--stage a2m_classifier needs an action dataset"
@@ -272,6 +324,10 @@ def main(argv=None):
         data_root=args.data_dir or None,
     )
     dataset.w_vectorizer = w_vec
+    if args.stage == "comp_v6":
+        _train_comp_v6(args, dataset, w_vec, dim_pose, device)
+        print(f"saved {args.save_path}")
+        return
 
     cfg = EvalTrainConfig(lr=args.lr, unit_length=args.unit_length,
                           negative_margin=args.negative_margin)

@@ -167,6 +167,21 @@ def _kernel(tree: Mapping, name: str):
     return np.shape(tree[name]["kernel"])
 
 
+def network_modules(params: Mapping, device) -> Dict:
+    """The movement encoder and decoder and the text biGRU of a comp_v6
+    tree as eval/networks.py modules on ``device``, sized from its shapes
+    (in eval mode)."""
+    enc, dec, text = params["mov_enc"], params["mov_dec"], params["text_enc"]
+    mods = {"mov_enc": MovementConvEncoder(*_kernel(enc, "conv1")[1:], _kernel(enc, "conv2")[2]),
+            "mov_dec": MovementConvDecoder(_kernel(dec, "deconv1")[1],
+                                           *_kernel(dec, "deconv2")[1:]),
+            "text_enc": TextEncoderBiGRU(*_kernel(text, "pos_emb")[::-1],
+                                         _kernel(text, "input_emb")[1])}
+    for name, tree in (("mov_enc", enc), ("mov_dec", _swap_deconvs(dec)), ("text_enc", text)):
+        load_flax_params(mods[name], tree).to(device).eval()
+    return mods
+
+
 class CompV6:
     """The generator's networks on ``device`` from a comp_v6 tree, sized
     from its shapes: the movement encoder and decoder and the text biGRU
@@ -174,14 +189,9 @@ class CompV6:
     as tensor trees."""
 
     def __init__(self, params: Mapping, device="cuda"):
-        enc, dec, text = params["mov_enc"], params["mov_dec"], params["text_enc"]
-        self.mov_enc = MovementConvEncoder(*_kernel(enc, "conv1")[1:], _kernel(enc, "conv2")[2])
-        self.mov_dec = MovementConvDecoder(_kernel(dec, "deconv1")[1], *_kernel(dec, "deconv2")[1:])
-        self.text_enc = TextEncoderBiGRU(*_kernel(text, "pos_emb")[::-1],
-                                         _kernel(text, "input_emb")[1])
-        for m, tree in ((self.mov_enc, enc), (self.mov_dec, _swap_deconvs(dec)),
-                        (self.text_enc, text)):
-            load_flax_params(m, tree).to(device).eval()
+        mods = network_modules(params, device)
+        self.mov_enc, self.mov_dec, self.text_enc = (
+            mods[k] for k in ("mov_enc", "mov_dec", "text_enc"))
         self.seq_pri, self.seq_dec, self.att_layer = (
             tree_to_torch(params[k], device) for k in ("seq_pri", "seq_dec", "att_layer"))
 

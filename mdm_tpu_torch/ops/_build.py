@@ -2,12 +2,14 @@
 
 The sources under ``mdm_tpu_torch/csrc/`` have a plain C interface, so they
 compile with ``nvcc`` alone (no PyTorch headers): one ``nvcc -c`` per
-source, all started together, then one link into a shared library in
-``mdm_tpu_torch/_build/``, named by a hash of the sources, headers and
-flags: a changed source builds anew, an unchanged one loads from the cache.
-Nothing is built or imported from outside the repository. The compiler's
-``-Xptxas -v`` report (registers, shared memory, spills) is kept beside the
-library as ``<name>.log``.
+source, all started together, then one link into a shared library named
+by a hash of the sources, headers and flags: a changed source builds anew,
+an unchanged one loads from the cache. The library's directory is
+``utils/compile_cache.kernel_cache_dir()``, read at each call: by default
+``mdm_tpu_torch/_build/`` in the checkout, or what ``MDM_TPU_COMPILE_CACHE``
+names. Nothing is built or imported from outside the repository's sources.
+The compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is
+kept beside the library as ``<name>.log``.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "_build"
+BUILD_DIR = PKG_DIR / "_build"  # the default; build_dir() is the one in force
 SOURCES = ("layer_inference.cu", "gemm.cu", "gemm_sm90.cu", "attention_fwd.cu", "attention_bwd.cu",
            "attention_wide.cu", "attention.cu", "encoder_tail.cu", "dropout_bits.cu")
 HEADERS = ("common.cuh", "philox.cuh", "attention.cuh")
@@ -66,12 +68,19 @@ def _nvcc() -> str:
     return path
 
 
+def build_dir() -> Path:
+    """Where the library is built and found (``MDM_TPU_COMPILE_CACHE``)."""
+    from ..utils.compile_cache import kernel_cache_dir  # utils imports the models, hence ops
+
+    return kernel_cache_dir()
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"mdm_kernels_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"mdm_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -80,9 +89,9 @@ def build() -> Path:
     so = library_path()
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
         objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

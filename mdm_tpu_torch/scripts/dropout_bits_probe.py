@@ -197,12 +197,12 @@ def issue_rates(clock_hz: float) -> dict:
     """Chain steps per SM and clock (threads x steps / time / SMs / the
     highest SM clock): the named instruction's issue rate, each with its
     microbenchmark's SASS opcodes; the library is built in a temporary
-    directory under _build/."""
+    directory under the kernel library's (``_build.build_dir()``)."""
     import ctypes
     import tempfile
 
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+    _build.build_dir().mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.build_dir()) as tmp:
         src, so = os.path.join(tmp, "rates.cu"), os.path.join(tmp, "rates.so")
         with open(src, "w") as f:
             f.write(_RATES_SRC)

@@ -37,6 +37,11 @@ class PredictorConfig:
     latent_dim: int = 512
     layers: int = 8
     compute_dtype: str = "bfloat16"
+    # sampler for serving: "ddpm" | "ddim" | "plms" | "dpmpp_2m" (the fast
+    # ODE solver cuts per-request latency at 20 respaced steps)
+    sampler: str = "ddpm"
+    # >1: cached CFG, the unconditional branch recomputed every k steps
+    cfg_cache_interval: int = 1
     device: str = "cuda"
     # Prefer the EMA weights when the checkpoint carries them.
     use_ema: bool = True
@@ -75,7 +80,10 @@ class Predictor:
             restore_params_only(ckpt, self.model, use_ema=cfg.use_ema)
         sched = Schedule.create("cosine", cfg.num_diffusion_steps, cfg.respacing)
         self.generator = MotionGenerator(
-            self.model, sched, GenerationConfig(guidance_scale=cfg.guidance_scale), cfg.dataset)
+            self.model, sched,
+            GenerationConfig(guidance_scale=cfg.guidance_scale, sampler=cfg.sampler,
+                             cfg_cache_interval=cfg.cfg_cache_interval),
+            cfg.dataset)
         self.embedder = make_text_embedder(cfg.text_encoder_type, device=device)
         B, T = cfg.batch_size, cfg.max_frames
         self._cond0 = Conditioning(

@@ -1,8 +1,10 @@
 """CLI argument system (reference utils/parser_util.py:1-319).
 
 Counterpart of mdm_tpu/utils/parser.py with the same flags and defaults.
-The port has no compile cache to turn on (its kernels' build directory,
-ops/_build.py, takes that place), and ``--device`` picks the card:
+Every CLI parses through ``_build``, which first turns on the kernel cache
+(utils/compile_cache.py: ``MDM_TPU_COMPILE_CACHE`` chooses the directory
+the CUDA kernels' library is built into and loaded from), and ``--device``
+picks the card:
 ``--device N`` (the default, 0) runs on ``cuda:N`` and ``--device cpu``
 on the CPU; ``select_device(args)`` raises when no CUDA device is visible
 and the CPU was not asked for.
@@ -278,6 +280,12 @@ def load_args_from_model(args, parser, model_path: str):
 
 
 def _build(groups, argv=None):
+    # Every CLI funnels through here before its first kernel launch: the
+    # one central place to make the kernel library's directory
+    # (MDM_TPU_COMPILE_CACHE; utils/compile_cache.py).
+    from .compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     parser = argparse.ArgumentParser()
     for g in groups:
         g(parser)

@@ -439,10 +439,11 @@ def test_eval_clis_refuse_cpu_fallback(tmp_path, synthetic_humanml, monkeypatch)
     for cli in (eval_a2m, eval_unconstrained):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["--model_path", str(tmp_path / "run"), "--dataset", "humanact12"])
-    # the only stage not ported
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tev_cli.main(["--stage", "comp_v6", "--save_path", str(tmp_path / "x.npy")])
-    assert set(tev_cli.NOT_PORTED) == {"comp_v6"}
+    # every stage is ported: comp_v6 refuses the fallback too
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tev_cli.main(["--stage", "comp_v6", "--data_dir", synthetic_humanml, "--save_path",
+                      str(tmp_path / "x.npy")])
+    assert not hasattr(tev_cli, "NOT_PORTED")
 
 
 # The action-to-motion protocols: train_evaluators -> train -> eval_a2m /

@@ -1,7 +1,7 @@
 """mdm_tpu_torch imports neither jax, flax, optax, orbax nor mdm_tpu: every
 module imports, and a tiny generation, a tiny train step and the
 command-line path (train -> generate -> edit, and train_evaluators ->
-eval_humanml, with --device cpu on a synthetic HumanML3D tree; train with
+eval_humanml, and the comp_v6 stage, with --device cpu on a synthetic HumanML3D tree; train with
 the SMPL loss -> train_evaluators -> eval_a2m on a synthetic HumanAct12 tree
 and SMPL pickle; convert_text_encoders -> both embedders, and
 convert_checkpoint -> generate with the CLIP tower) run, in a fresh
@@ -88,6 +88,11 @@ with tempfile.TemporaryDirectory() as tmp:
     os.makedirs("t2m/text_mot_match/model")
     train_evaluators.main(["--stage", "match", "--save_path", "t2m/text_mot_match/model/finest.npy",
                            "--decomp_path", "decomp.npy", *ev])
+    train_evaluators.main(["--stage", "comp_v6", "--save_path", "comp_v6.npy", "--decomp_path",
+                           "decomp.npy", "--schedule_start", "2", "--schedule_end", "2",
+                           "--max_sub_epoch", "1", "--max_batches", "1", *ev])
+    from mdm_tpu_torch.eval.t2m_generator import load_comp_v6
+    assert load_comp_v6("comp_v6.npy")["mov_enc"]["out_net"]["kernel"].shape == (8, 8)
     summary = eval_humanml.main(["--model_path", "run", "--data_dir", root, "--eval_mode", "debug",
                                  "--replications", "1", "--evaluator_dir", ".", "--device", "cpu"])
     assert summary["comparable"] and np.isfinite(summary["FID"]["vald"]["mean"])
@@ -146,8 +151,8 @@ assert not any(m.split(".")[0] in ("jax", "flax", "optax", "orbax", "mdm_tpu")
 print(" ".join(names))
 """
 
-# The counterparts of the sampling, training, attention-route, command-line and evaluation
-# slices' mdm_tpu modules.
+# The counterparts of the sampling, training, attention-route, command-line, evaluation,
+# action-to-motion, published-weights and T2M-baseline-training slices' mdm_tpu modules.
 SLICE = {"ops._mask", "ops.layer_inference", "ops._build", "models.layers", "models.mdm",
          "models.bridge", "diffusion.schedule", "diffusion.gaussian", "diffusion.samplers",
          "core.quaternions", "core.hml_codec", "sampling.text", "sampling.pipeline", "serving",
@@ -167,7 +172,8 @@ SLICE = {"ops._mask", "ops.layer_inference", "ops._build", "models.layers", "mod
          "eval.classifiers", "eval.stgcn", "eval.harness_a2m", "eval.a2m_setup", "cli.eval_a2m",
          "cli.eval_unconstrained", "scripts.a2m_rehearsal", "models.text_encoders",
          "models.convert", "cli.convert_text_encoders", "cli.convert_checkpoint",
-         "visualize.prior", "visualize.joints2smpl", "cli.render_mesh"}
+         "visualize.prior", "visualize.joints2smpl", "cli.render_mesh",
+         "eval.train_t2m_generator", "utils.compile_cache"}
 
 
 def test_port_runs_with_jax_and_flax_blocked():
