@@ -128,7 +128,27 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   movements and one f32 step on the card against the CPU; cli.eval_humanml
   with --t2m_baseline_path scoring the trained baseline beside the
   flagship (#1 exactly 8 x 50 x batches); and one cli.generate clip through
-  process_file and recover_from_ric (the round trip's error in metres).
+  process_file and recover_from_ric (the round trip's error in metres);
+- parallelism (phase 20, after phase 18, in its own temp dir): 20a the
+  kernels' batch offset at the training shapes (B=128, S=197, bf16, rate
+  0.1): launched on rows [64, 128) with batch_offset=64, the three dumps,
+  #2's forward and dx, #4's output, packed masks and input gradients and
+  #7's forward equal the whole batch's rows bitwise, and each offset
+  launch its plain version on the offset bits; 20b a torch.distributed
+  world of one under NCCL (MDM_TPU_COORDINATOR on a free port): three
+  flagship steps, one DiP step and the 50-step CFG generate at B=32
+  through MotionGenerator(mesh=) take the data-parallel body, each with
+  its one NCCL all-reduce (counted), and equal the mesh-less ones bitwise,
+  their launches exact, ms/step for both; 20c two gloo ranks sharing the card
+  (launch_local_multihost, mdm_tpu_torch/scripts/parallel_check.py): two
+  flagship DP steps at B=128 global against the one-process steps within
+  TWO_RANK_TOL, the offset-0 control missing by CONTROL_FACTOR x, then a
+  4-step DDIM over a tensor-parallel mesh of both ranks against the
+  one-process sample on the same route (f32 within TP_REL, bf16 within
+  TP_BF16_REL of the sample's largest value) with no hand kernel launched, a data-parallel DDIM sample, and the
+  Predictor at tensor_parallel=2. NCCL takes one card
+  a rank, so the card checks a world of one under NCCL and two ranks under
+  gloo; tensor parallelism across cards is not checked here.
 
 Each path checks that every layer call went through its kernels, and the
 sampling and training paths that every product, forward and backward,
@@ -1888,9 +1908,10 @@ def _train_counts(TB, ET, DB, chain):
             **DB.LAUNCHES, **{f"products.{k}": v for k, v in chain.GEMM_LAUNCHES.items()}}
 
 
-def _dip_train_setup(torch, dev, lr):
+def _dip_train_setup(torch, dev, lr, mesh=None):
     """The main path's model, train state, fixed batch and step: the DiP
-    config at B = 64, weights from seed 0."""
+    config at B = 64, weights from seed 0 (the step over ``mesh`` when
+    given)."""
     from mdm_tpu_torch.diffusion import Schedule
     from mdm_tpu_torch.models import MDM
     from mdm_tpu_torch.scripts import dip_probe as DP
@@ -1904,13 +1925,14 @@ def _dip_train_setup(torch, dev, lr):
     batch = {"x": torch.from_numpy(x.astype(np.float32)).to(dev), "mask": cond.frames_mask,
              "cond": cond}
     step = make_train_step(Schedule.create("cosine", 1000).to(dev),
-                           TrainStepConfig(optim=OptimConfig(lr=lr)))
+                           TrainStepConfig(optim=OptimConfig(lr=lr)), mesh=mesh)
     return create_train_state(model, OptimConfig(lr=lr)), batch, step
 
 
-def _flagship_train_setup(torch, dev, B, remat):
+def _flagship_train_setup(torch, dev, B, remat, mesh=None):
     """The flagship trans_enc (T = 196, bf16, rate 0.1) at batch B, with or
-    without remat: train state, batch and step, weights from seed 0."""
+    without remat: train state, batch and step (over ``mesh`` when given),
+    weights from seed 0."""
     from mdm_tpu_torch.diffusion import Schedule
     from mdm_tpu_torch.models import MDM, Conditioning, MDMConfig
     from mdm_tpu_torch.train import (OptimConfig, TrainStepConfig, create_train_state,
@@ -1925,7 +1947,7 @@ def _flagship_train_setup(torch, dev, B, remat):
     state = create_train_state(MDM(cfg).init_weights(torch.Generator().manual_seed(0)).to(dev),
                                OptimConfig(lr=1e-4))
     step = make_train_step(Schedule.create("cosine", 1000).to(dev),
-                           TrainStepConfig(optim=OptimConfig(lr=1e-4)))
+                           TrainStepConfig(optim=OptimConfig(lr=1e-4)), mesh=mesh)
     return state, batch, step
 
 
@@ -3947,6 +3969,299 @@ def library_layer_ms(torch, dev):
         return _time_ms(torch, lambda: layer(x)), device_ms(lambda: layer(x))
 
 
+# Phase 20c's tolerances, two gloo ranks against one process on the same
+# global batch, keys and weights (bf16, rate 0.1): the first step's loss
+# relative, and after step 2 AdamW's first moments (relative to each
+# tensor's largest) and the parameters' updates at the held coordinates
+# (relative L2, all tensors together; scripts/parallel_check.py). Only the
+# order of the gradient sum and the ranks' bf16-rounded partial gradients
+# differ. Measured in a development run on the H100 (PERF.md, Findings):
+# 7.6e-7, 5.9e-3 and 7.4e-4; the control, every rank's batch offset pinned
+# at 0, 0.60 and 0.18, which must miss by CONTROL_FACTOR times these.
+TWO_RANK_TOL = dict(loss_rel=1e-5, moment_err=2e-2, update_err=5e-3)
+CONTROL_FACTOR = 10
+# Phase 20c's TP DDIM (4 steps, CFG 2.5, B=32, 196 frames) against one
+# process on TP's route (the einsum attention and the plain tail), as the
+# largest difference relative to the sample's largest value. In f32 within
+# TP_REL (development runs on the H100: 6.3e-6). In bf16 every route lands
+# about 5% apart after 4 steps (the same runs: TP 0.138 of 2.74, 5.0%; the
+# plain and kernel routes of one process 0.123 of 2.73, 4.5%, reported
+# beside it), so TP must stay within TP_BF16_REL.
+TP_REL = 1e-4
+TP_BF16_REL = 7e-2
+PARALLEL_STEPS = 3  # phase 20b's flagship steps, bare and on the mesh
+
+
+def _rows_equal(torch, name, full, part, b0):
+    """part is full's rows from b0, bitwise (tensors or lists of them)."""
+    fulls, parts = (full, part) if isinstance(full, (list, tuple)) else ([full], [part])
+    for i, (f, q) in enumerate(zip(fulls, parts)):
+        if not torch.equal(f[b0:b0 + q.shape[0]], q):
+            raise AssertionError(f"20a {name}[{i}]: rows from {b0} of the whole batch's launch "
+                                 "differ from the launch on those rows at that batch offset")
+
+
+def phase_offset(torch, TB, ET, DB, dev):
+    """Phase 20a: the batch offset at the training shapes (B=128, S=197,
+    D=512, 4 heads, ff 1024, bf16, rate 0.1). Launched on rows [64, 128)
+    with batch_offset=64, the dumps (#6's three sites, #9's heads, the
+    sequence dump), #2's forward and dx with in-kernel draws (#3's
+    backward replaying the offset), #4's output, packed masks, dx and
+    dattn, and #7's forward equal the same rows of the whole batch's
+    launch bitwise; each offset launch against its plain version on the
+    offset bits (TRAIN_REL). Comparisons, counted on no path."""
+    from mdm_tpu_torch.ops import attention_dropout as AD
+
+    B, S, D, H, F = (TRAIN_SHAPE[k] for k in ("B", "S", "D", "H", "F"))
+    b0 = n = B // 2
+    seed, dt, rel = 20, torch.bfloat16, TRAIN_REL["bfloat16"]
+    ar = lambda k: torch.arange(k, device=dev)
+    rows = slice(b0, B)
+    # the dumps, and the plain Philox stream at the offset
+    part = DB.dropout_bits(seed, n, H, S, dev, batch_offset=b0)
+    _rows_equal(torch, "dropout_bits", DB.dropout_bits(seed, B, H, S, dev), part, b0)
+    if not torch.equal(part.to(torch.int64), DB.philox_bits(
+            seed, ar(n)[:, None], ar(H)[None, :], S, S, device=dev, batch_offset=b0)):
+        raise AssertionError("20a dropout_bits at an offset differs from philox_bits")
+    tail = DB.tail_dropout_bits(seed, n, S, D, F, dev, batch_offset=b0)
+    _rows_equal(torch, "tail_dropout_bits", DB.tail_dropout_bits(seed, B, S, D, F, dev), tail, b0)
+    for site, (t, c) in enumerate(zip(tail, (D, F, D))):
+        if not torch.equal(t.to(torch.int64), DB.philox_bits(seed, ar(n), site, S, c, device=dev,
+                                                             batch_offset=b0)):
+            raise AssertionError(f"20a tail_dropout_bits site {site} differs from philox_bits")
+    seq = DB.sequence_dropout_bits(seed, n, S, D, dev, batch_offset=b0)
+    _rows_equal(torch, "sequence_dropout_bits", DB.sequence_dropout_bits(seed, B, S, D, dev),
+                seq, b0)
+    # #2/#3: forward and dx, bits drawn in-kernel
+    (x, wqkv, bqkv, wo, bo), dout, _, kpm = _block_operands(torch, B, S, D, H, dt, "bool")
+
+    def block(r, off):
+        leaf = x[r].clone().requires_grad_()
+        out = TB.fused_train_attention_block(leaf, wqkv, bqkv, wo, bo, H, RATE, seed, kpm[r],
+                                             batch_offset=off)
+        return out.detach(), torch.autograd.grad(out, leaf, dout[r])[0]
+
+    out_p, dx_p = block(rows, b0)
+    _rows_equal(torch, "train block (out, dx)", block(slice(None), 0), (out_p, dx_p), b0)
+    errs = {"block_out": _rel_check(torch, "20a #2 at the offset", out_p,
+                                    TB.train_attention_block_reference(
+                                        x[rows], wqkv, bqkv, wo, bo, H, RATE, part, kpm[rows]),
+                                    rel)[1],
+            "block_dx": _rel_check(torch, "20a #3 dx at the offset", dx_p,
+                                   TB.train_attention_block_bwd_reference(
+                                       x[rows], wqkv, bqkv, wo, H, dout[rows], RATE, part,
+                                       kpm[rows])[0], rel)[1]}
+    # #4/#5: output, packed masks and the input gradients
+    ops, dz, _ = _tail_operands(torch, B, S, D, F, dt)
+
+    def tail_run(r, off):
+        leaves = [o[r].clone().requires_grad_() for o in ops[:2]]
+        z = ET.fused_encoder_tail(*leaves, *ops[2:], RATE, seed, batch_offset=off)
+        with torch.no_grad():
+            masks = ET._fwd_cuda(ops[0][r], ops[1][r], tuple(ops[2:]), RATE, seed, None,
+                                 off)[1][-1]
+        return (z.detach(), *torch.autograd.grad(z, leaves, dz[r]),
+                *(m.view(-1, S, m.shape[-1]) for m in masks))
+
+    tail_p = tail_run(rows, b0)
+    _rows_equal(torch, "encoder tail (z, dx, dattn, 3 masks)", tail_run(slice(None), 0), tail_p,
+                b0)
+    if mask_sites_differing(torch, DB, [m.reshape(-1, m.shape[-1]) for m in tail_p[3:]], tail,
+                            RATE):
+        raise AssertionError("20a: the tail's masks at the offset are not its offset bits'")
+    errs["tail_out"] = _rel_check(torch, "20a #4 at the offset", tail_p[0],
+                                  ET.encoder_tail_reference(ops[0][rows], ops[1][rows], *ops[2:],
+                                                            RATE, tail), rel)[1]
+    # #7: the dropout attention's forward
+    q, k, v = (_randn(torch, torch.Generator().manual_seed(i), B, S, D).to(dev, dt)
+               for i in (1, 2, 3))
+    att = lambda r, off: AD.fused_dropout_attention(q[r], k[r], v[r], H, RATE, seed, kpm[r],
+                                                    batch_offset=off)
+    att_p = att(rows, b0).detach()
+    _rows_equal(torch, "dropout attention", att(slice(None), 0).detach(), att_p, b0)
+    errs["dropout_attention"] = _rel_check(
+        torch, "20a #7 at the offset", att_p,
+        AD.dropout_attention_reference(q[rows], k[rows], v[rows], H, RATE, part, kpm[rows]),
+        rel)[1]
+    # the offset costs nothing: #2's forward on the same rows at offset 0 and 64
+    with torch.no_grad():
+        ms = {off: _time_ms(torch, lambda: TB.fused_train_attention_block(
+            x[rows], wqkv, bqkv, wo, bo, H, RATE, seed, kpm[rows], batch_offset=off))
+            for off in (0, b0, 0, b0)}
+    row = dict(shape=dict(TRAIN_SHAPE, rows=[b0, B]), rel_err=errs, rel_tol=rel,
+               block_fwd_ms_at_offset={"0": ms[0], str(b0): ms[b0]})
+    print("20a batch offset: dumps, #2 out/dx, #4 z/dx/dattn/masks and #7 out on rows "
+          f"[{b0}, {B}) == the whole batch's rows, bitwise; {json.dumps(row)}")
+    return row
+
+
+def phase_world_of_one(torch, TB, ET, DB, li, dev, gen, cond, want, B, T):
+    """Phase 20b: a torch.distributed world of one under NCCL, through
+    MDM_TPU_COORDINATOR as a multi-card run starts. On its mesh the step
+    and the generator take their data-parallel body: the rows, the batch
+    offset, and each step's one flat NCCL all-reduce of every gradient, the
+    loss and the per-example terms (each generate's one gather), which over
+    one rank is the identity. PARALLEL_STEPS flagship train steps on the
+    mesh equal the bare (mesh-less) steps from the same state and keys,
+    bitwise (losses, parameters, EMA); one DiP step the same way; then
+    phase 3's 50-step CFG generate through MotionGenerator(mesh=) equals
+    the mesh-less one bitwise. Every all-reduce is counted (a spy on
+    Mesh.sum_over_batch) and launches counted from zero on the mesh runs;
+    ms/step of each, timed in turns (bare, mesh, mesh, bare)."""
+    import torch.distributed as dist
+
+    from mdm_tpu_torch.ops import _chain
+    from mdm_tpu_torch.parallel import Mesh, make_mesh, shard_batch
+    from mdm_tpu_torch.parallel.multihost import find_free_port, maybe_initialize_distributed
+    from mdm_tpu_torch.sampling import MotionGenerator
+    from mdm_tpu_torch.train import step_key
+
+    env = dict(MDM_TPU_COORDINATOR=f"localhost:{find_free_port()}", MDM_TPU_NUM_PROCESSES="1",
+               MDM_TPU_PROCESS_ID="0", MDM_TPU_DIST_BACKEND="nccl")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    sums = []
+
+    def spy(sum_over_batch):
+        def call(self, tensor):
+            sums.append(tuple(tensor.shape))
+            return sum_over_batch(self, tensor)
+        return call
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(patched(Mesh, "sum_over_batch", spy))
+    try:
+        maybe_initialize_distributed()
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError("20b: not an nccl world of one")
+        mesh = make_mesh(device=dev)
+        # NCCL builds a group's communicator at its first collective, which
+        # the mesh's first timed steps would otherwise hold: build it here.
+        dist.all_reduce(torch.zeros(1, device=dev))
+        keys = [step_key(20, i) for i in range(PARALLEL_STEPS)]
+        bare, batch, bare_step = _flagship_train_setup(torch, dev, TRAIN_SHAPE["B"], False)
+        on_mesh, _, mesh_step = _flagship_train_setup(torch, dev, TRAIN_SHAPE["B"], False, mesh)
+        bare_ms, bare_losses = _run_steps(torch, bare_step, bare, batch, keys)
+        for c in (TB.LAUNCHES, ET.LAUNCHES, DB.LAUNCHES, _chain.GEMM_LAUNCHES):
+            _zero(c)
+        mesh_ms, mesh_losses = _run_steps(torch, mesh_step, on_mesh, shard_batch(batch, mesh),
+                                          keys)
+        counts = _train_counts(TB, ET, DB, _chain)
+        n = FLAGSHIP["num_layers"] * PARALLEL_STEPS
+        want_counts = {f"{k}.{d}": n for k in ("fused_train_attention_block",
+                                               "fused_encoder_tail") for d in ("fwd", "bwd")}
+        want_counts["sequence_dropout_bits"] = PARALLEL_STEPS
+        if any(counts[k] != v for k, v in want_counts.items()):
+            raise AssertionError(f"20b: the mesh steps launched {counts}, expected {want_counts}")
+        same = (np.array_equal(bare_losses, mesh_losses)
+                and all(torch.equal(p, on_mesh.params()[k]) for k, p in bare.params().items())
+                and all(torch.equal(e, on_mesh.ema_params[k])
+                        for k, e in bare.ema_params.items()))
+        if not same:
+            raise AssertionError(f"20b: the world-of-one steps differ from the bare steps: "
+                                 f"losses {mesh_losses} vs {bare_losses}")
+        # The times in turns (bare, mesh, mesh, bare): 3 more steps each.
+        more = [step_key(20, i) for i in range(PARALLEL_STEPS, 2 * PARALLEL_STEPS)]
+        turns = dict(bare=[bare_ms], mesh=[mesh_ms])
+        turns["mesh"].append(_run_steps(torch, mesh_step, on_mesh, shard_batch(batch, mesh),
+                                        more)[0])
+        turns["bare"].append(_run_steps(torch, bare_step, bare, batch, more)[0])
+        bare_ms, mesh_ms = (sum(turns[k]) / 2 for k in ("bare", "mesh"))
+        # DiP on the mesh: the cross-attention's [B, H, S, Sk] dump (#9) too
+        dip_bare, dip_batch, dip_step = _dip_train_setup(torch, dev, 1e-4)
+        dip_mesh, _, dip_mesh_step = _dip_train_setup(torch, dev, 1e-4, mesh)
+        _run_steps(torch, dip_step, dip_bare, dip_batch, keys[:1])
+        before = dict(DB.LAUNCHES)
+        _run_steps(torch, dip_mesh_step, dip_mesh, dip_batch, keys[:1])
+        if not all(torch.equal(p, dip_mesh.params()[k]) for k, p in dip_bare.params().items()):
+            raise AssertionError("20b: the world-of-one DiP step differs from the bare step")
+        dip_dumps = {k: v - before[k] for k, v in DB.LAUNCHES.items()}
+        counts.update({f"DiP {k}": v for k, v in dip_dumps.items()})
+        # the 50-step CFG generate
+        li.LAUNCHES = 0
+        out = MotionGenerator(gen.model, gen.sched, gen.config, mesh=mesh).generate(
+            cond, B, T, torch.Generator(dev).manual_seed(0))
+        counts["fused_layer_inference"] = li.LAUNCHES
+        if li.LAUNCHES != FLAGSHIP["num_layers"] * 50 or not torch.equal(out["features"],
+                                                                         want["features"]):
+            raise AssertionError(f"20b: the mesh generate launched #1 {li.LAUNCHES} times or "
+                                 "differs from the mesh-less generate")
+        # an all-reduce a mesh step (3 + 3 timed + DiP's) and the generate's gather
+        if len(sums) != 2 * PARALLEL_STEPS + 2 or sums[-1] != tuple(out["features"].shape):
+            raise AssertionError(f"20b: the mesh runs summed {sums} over the world")
+    finally:
+        stack.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    row = dict(steps=PARALLEL_STEPS, bare_ms_per_step=bare_ms, mesh_ms_per_step=mesh_ms,
+               ms_per_step_by_turn=turns, launches=counts, nccl_all_reduces=len(sums),
+               flat_all_reduce_floats=sums[0][0])
+    print(f"20b nccl world of one: {PARALLEL_STEPS} flagship steps, a DiP step and a 50-step "
+          "generate through the data-parallel body (one NCCL all-reduce each) bitwise the "
+          f"mesh-less ones; {json.dumps(row)}")
+    return row
+
+
+def phase_two_ranks(torch, tmp):
+    """Phase 20c: two gloo ranks on the one card
+    (scripts/parallel_check.py through launch_local_multihost). Two
+    flagship DP steps at B = 128 global (64 a rank), bf16, rate 0.1,
+    against the one-process steps on the same batch and keys, within
+    TWO_RANK_TOL; the control (offset pinned at 0) misses by
+    CONTROL_FACTOR x; then DDIM (4 steps, CFG 2.5, B=32, 196 frames) over a
+    tensor-parallel mesh of both ranks against the one-process sample on
+    TP's route, in bf16 and in f32 (TP_BF16_REL, TP_REL), no hand
+    kernel launched under TP, a data-parallel DDIM sample against the
+    one-process one, and the Predictor at tensor_parallel=2 answering on
+    both ranks."""
+    from mdm_tpu_torch.parallel.multihost import launch_local_multihost
+
+    widths = ["--latent_dim", str(FLAGSHIP["latent_dim"]), "--ff_size", str(FLAGSHIP["ff_size"]),
+              "--layers", str(FLAGSHIP["num_layers"]), "--heads", str(FLAGSHIP["num_heads"]),
+              "--device", "cuda", "--out", tmp]
+    run = lambda *argv: launch_local_multihost(
+        2, module="mdm_tpu_torch.scripts.parallel_check", extra_argv=[*argv, *widths],
+        device="cuda", backend="gloo", timeout=600)
+    run("train", "--batch", str(TRAIN_SHAPE["B"]), "--frames", "196", "--steps", "2",
+        "--dropout", str(RATE), "--lr", "1e-4", "--control", "--dtype", "bfloat16")
+    train = torch.load(os.path.join(tmp, "train.pt"), weights_only=False)
+    dp, control = train["summary"]["dp"], train["summary"]["control"]
+    print(f"20c two gloo ranks, flagship B=128 (64 a rank): {json.dumps(train['summary'])}; "
+          f"ms/step {json.dumps(train['ms'])}; tolerances {json.dumps(TWO_RANK_TOL)}")
+    if not (dp["loss_rel"][0] <= TWO_RANK_TOL["loss_rel"]
+            and dp["moment_err"] <= TWO_RANK_TOL["moment_err"]
+            and dp["update_err"] <= TWO_RANK_TOL["update_err"]):
+        raise AssertionError(f"20c: two ranks disagree with one process: {dp}")
+    if not (control["moment_err"] > CONTROL_FACTOR * TWO_RANK_TOL["moment_err"]
+            and control["update_err"] > CONTROL_FACTOR * TWO_RANK_TOL["update_err"]):
+        raise AssertionError(f"20c: the offset-0 control does not miss the tolerance: {control}")
+    samples = {}
+    for dtype, checks in (("bfloat16", "dp,tp,serve"), ("float32", "tp")):
+        run("sample", "--batch", "32", "--frames", "196", "--steps", "4", "--dropout", "0",
+            "--checks", checks, "--dtype", dtype)
+        samples[dtype] = torch.load(os.path.join(tmp, "sample.pt"), weights_only=False)
+        print(f"20c two gloo ranks, sampling {dtype}: {json.dumps(samples[dtype])}")
+    bf16, f32 = samples["bfloat16"], samples["float32"]
+    for name, out, limit in (
+            ("bf16", bf16, TP_BF16_REL * bf16["tp_ddim"]["scale"]),
+            ("f32", f32, TP_REL * f32["tp_ddim"]["scale"])):
+        if not out["tp_ddim"]["max_abs"] <= limit or any(out["tp_launches"].values()):
+            raise AssertionError(f"20c: TP sampling ({name}) misses {limit} or ran a kernel: "
+                                 f"{out['tp_ddim']}, {out['tp_launches']}")
+    serve = bf16["serve_tp"]
+    if not (serve["same_on_every_rank"] and serve["finite"]):
+        raise AssertionError(f"20c: the TP Predictor's ranks disagree: {serve}")
+    return dict(train=train["summary"], ms=train["ms"], launches=train["launches"]["dp"],
+                dp_launches=bf16["dp_launches"], dp_ddim=bf16["dp_ddim"],
+                tp={"bf16": bf16["tp_ddim"], "f32": f32["tp_ddim"],
+                    "bf16 plain vs kernel route": bf16["plain_vs_kernel_route"]})
+
+
 def main():
     # Before cuBLAS starts: the workspace setting PyTorch documents for
     # reproducible runs, which the classifier stages' cuDNN GRUs need to
@@ -4276,6 +4591,20 @@ def main():
                                       determinism=determinism,
                                       reference={k: v["counts"] for k, v in reference.items()})))
     stamp("phase 18")
+
+    # Phase 20, parallelism: the kernels' batch offset (comparisons, not
+    # counted); a world of one under NCCL, its mesh runs counted from zero;
+    # two gloo ranks on the one card, rank 0's launches counted by the
+    # script (its own process's).
+    offset_row = phase_offset(torch, TB, ET, DB, dev)
+    world_one = phase_world_of_one(torch, TB, ET, DB, li, dev, gen, cond, out2, B, T)
+    torch.cuda.empty_cache()  # the two ranks' processes share the card
+    with tempfile.TemporaryDirectory() as tmp:
+        two_ranks = phase_two_ranks(torch, tmp)
+    print("phase 20", json.dumps(dict(offset=offset_row, world_of_one=world_one,
+                                      two_ranks=two_ranks)))
+    stamp("phase 20")
+    par_one, par_two = world_one["launches"], two_ranks["launches"]
     sampling_paths = {"sampling (phases 3-4)": kernels[0]["launches"],
                       "cli.generate (phase 15)": cli["generate"]["fused_layer_inference"],
                       "cli.edit (phase 15)": cli["edit"]["fused_layer_inference"],
@@ -4289,7 +4618,11 @@ def main():
                       reference["flagship"]["counts"]["fused_layer_inference"],
                       "cli.eval_humanml with the T2M baseline (phase 19d)": baseline["li"],
                       "Predictor, ddpm / dpmpp_2m / cached CFG, batch 1 (phase 19b)":
-                      predictor_launches}
+                      predictor_launches,
+                      "parallelism (phase 20): generate on a world of one (20b)":
+                      par_one["fused_layer_inference"],
+                      "parallelism (phase 20): data-parallel DDIM, two gloo ranks, rank 0 (20c)":
+                      two_ranks["dp_launches"]["fused_layer_inference"]}
     kernels[0].update(launches=sum(sampling_paths.values()), launches_by_path=sampling_paths,
                       path="; ".join(sampling_paths))
 
@@ -4319,7 +4652,10 @@ def main():
                      "cli.train (phase 15)": cli["train"][f"{name}.{key}"],
                      "cli.train, resumed (phase 15)": cli["resume"][f"{name}.{key}"],
                      "a2m recipe training (phase 17b)": recipe_launches[f"{name}.{key}"],
-                     "cli.train a2m recipe (phase 17)": a2m["train"][f"{name}.{key}"]}
+                     "cli.train a2m recipe (phase 17)": a2m["train"][f"{name}.{key}"],
+                     "parallelism (phase 20): world of one (20b)": par_one[f"{name}.{key}"],
+                     "parallelism (phase 20): two gloo ranks, rank 0 (20c)":
+                     par_two[f"{name}.{key}"]}
             kernels.append(dict(name=f"{name}.{d}", route="cuda", source=source,
                                 replaces=replaces, launches=sum(paths.values()),
                                 launches_by_path=paths,
@@ -4336,7 +4672,9 @@ def main():
     dump_paths = {
         "dropout_bits": {"training, xla variant": drop_launches["dropout_bits"],
                          "DiP training, AUTO (cross-attention, phase 14)":
-                         dip_train_launches["dropout_bits"]},
+                         dip_train_launches["dropout_bits"],
+                         "parallelism (phase 20): DiP on a world of one (cross-attention, 20b)":
+                         par_one["DiP dropout_bits"]},
         "tail_dropout_bits": {"training, AUTO (sequence dropout)":
                               train_launches["sequence_dropout_bits"],
                               "training, drop variant (tail)": drop_launches["tail_dropout_bits"],
@@ -4349,7 +4687,12 @@ def main():
                               "a2m recipe training (sequence dropout, phase 17b)":
                               recipe_launches["sequence_dropout_bits"],
                               "cli.train a2m recipe (sequence dropout, phase 17)":
-                              a2m["train"]["sequence_dropout_bits"]},
+                              a2m["train"]["sequence_dropout_bits"],
+                              "parallelism (phase 20): world of one (sequence dropout, 20b)":
+                              par_one["sequence_dropout_bits"]
+                              + par_one["DiP sequence_dropout_bits"],
+                              "parallelism (phase 20): two gloo ranks, rank 0 (sequence "
+                              "dropout, 20c)": par_two["sequence_dropout_bits"]},
     }
     for name, words in dump_words.items():
         source, replaces = TRAIN_KERNELS[name]

@@ -8,6 +8,9 @@ of hand-written Hopper kernels (ops/layer_inference.py); and single-device
 training (train/: losses, AdamW + EMA, the train step and loop,
 checkpoints), whose encoder layers run the train attention block and the
 encoder tail, forward and backward, as hand-written kernel chains
-(ops/attention_train_block.py, ops/encoder_tail.py). It imports torch and
-numpy, never jax or flax.
+(ops/attention_train_block.py, ops/encoder_tail.py); since then every
+other path of mdm_tpu (DiP, the action-to-motion and t2m evaluation
+protocols, the published weights, the T2M baseline) and its parallelism
+(parallel/: data-parallel training and sampling over torch.distributed,
+tensor-parallel sampling). It imports torch and numpy, never jax or flax.
 """

@@ -11,7 +11,9 @@ the reference's frozen ``.tar``, a self-trained one with
 FID / diversity / multimodality, summarized over the seeds (debug: 2,
 else 20; ``--replications`` overrides). The summary, with mdm_tpu's
 ``comparable`` / ``classifier`` / ``degraded_reasons`` stamps, goes to
-``eval_a2m_<dataset>.json`` beside the checkpoint.
+``eval_a2m_<dataset>.json`` beside the checkpoint. Under a
+torch.distributed world each rank generates its rows of every batch
+(``auto_mesh``) and rank 0 writes the summary.
 """
 from __future__ import annotations
 
@@ -23,10 +25,12 @@ def main(argv=None):
     from ..data import get_dataset
     from ..eval.a2m_setup import build_feature_and_classifier, make_a2m_loaders_factory
     from ..eval.harness_a2m import A2MEvalConfig, A2MEvaluation, evaluate_multi_seed
-    from ..sampling import GenerationConfig, MotionGenerator
+    from ..parallel.multihost import is_primary, maybe_initialize_distributed
+    from ..sampling import GenerationConfig, MotionGenerator, auto_mesh
     from ..utils.parser import evaluation_args, select_device
     from .eval_humanml import load_eval_model
 
+    maybe_initialize_distributed()  # a world samples data-parallel (auto_mesh)
     args = evaluation_args(argv)
     device = select_device(args)
     assert args.dataset in ("humanact12", "uestc")
@@ -37,7 +41,7 @@ def main(argv=None):
     model, sched, ckpt = load_eval_model(args, device, num_actions)
     B = args.batch_size
     gen = MotionGenerator(model, sched, GenerationConfig(guidance_scale=args.guidance_param),
-                          args.dataset)
+                          args.dataset, mesh=auto_mesh(device))
 
     # UESTC's STGCN classifier consumes rot6d features (without the
     # translation row, stgcn_eval.py:58-60); HumanAct12's GRU consumes xyz
@@ -62,8 +66,9 @@ def main(argv=None):
         summary["degraded_reasons"] = ["random-init-a2m-classifier"]
 
     out_path = os.path.join(os.path.dirname(ckpt), f"eval_a2m_{args.dataset}.json")
-    with open(out_path, "w") as f:
-        json.dump(summary, f, indent=2)
+    if is_primary():
+        with open(out_path, "w") as f:
+            json.dump(summary, f, indent=2)
     print(json.dumps(summary, indent=2))
     return summary
 

@@ -1,9 +1,13 @@
 """T2M evaluation entry point: `python -m mdm_tpu_torch.cli.eval_humanml`.
 
-Counterpart of mdm_tpu/cli/eval_humanml.py (reference eval/eval_humanml.py)
-on one device: ``--device N`` (the default, 0) generates and embeds on
-``cuda:N``, where every denoise step runs the hand-written kernels;
-``--device cpu`` on the CPU. Protocol: batch 32, eval modes debug (5
+Counterpart of mdm_tpu/cli/eval_humanml.py (reference eval/eval_humanml.py):
+``--device N`` (the default, 0) generates and embeds on ``cuda:N``, where
+every denoise step runs the hand-written kernels; ``--device cpu`` on the
+CPU. Under a torch.distributed world (torchrun with
+``MDM_TPU_MULTIHOST=auto``, or ``MDM_TPU_COORDINATOR``) each rank samples
+its rows of every batch on its own card (``auto_mesh``), the metrics come
+from the gathered samples on every rank, and rank 0 writes the log.
+Protocol: batch 32, eval modes debug (5
 replications) / wo_mm (20) / mm_short (5 + multimodality) / full, frozen
 evaluator encoders (``--evaluator_dir``: the reference's finest.tar or a
 finest.npy of either package), generated-vs-GT metrics, mean +- CI log.
@@ -45,11 +49,15 @@ def main(argv=None):
     from ..data import BatchIterator, WordVectorizer, get_dataset
     from ..eval import EvalConfig, EvaluatorWrapper, GeneratedMotionLoader, evaluation
     from ..eval.harness import MMGeneratedLoader
-    from ..sampling import GenerationConfig, MotionGenerator
+    from ..parallel.multihost import is_primary, maybe_initialize_distributed
+    from ..sampling import GenerationConfig, MotionGenerator, auto_mesh
     from ..sampling.pipeline import dataset_norm_stats
     from ..sampling.text import make_text_embedder
     from ..utils.parser import evaluation_args, select_device
 
+    # Under a world (torchrun, MDM_TPU_COORDINATOR) every rank samples its
+    # rows of each batch and computes the metrics from the gathered samples.
+    maybe_initialize_distributed()
     args = evaluation_args(argv)
     device = select_device(args)
     mode = args.eval_mode
@@ -79,14 +87,13 @@ def main(argv=None):
     model, sched, ckpt = load_eval_model(args, device)
     train_stats = dataset_norm_stats(args.data_dir or None)
     eval_mean, eval_std = dataset.mean, dataset.std  # evaluator-family stats
-    # The single-device port passes no mesh (data-parallel sampling is
-    # ROADMAP Queue 1 item 10).
     gen = MotionGenerator(
         model, sched,
         GenerationConfig(guidance_scale=args.guidance_param,
                          autoregressive=args.autoregressive),
         args.dataset,
         norm_stats=train_stats,
+        mesh=auto_mesh(device),
     )
     embedder = make_text_embedder(args.text_encoder_type, device=device)
 
@@ -140,14 +147,16 @@ def main(argv=None):
         gt_loader_fn=lambda: iter(gt_batches),
         eval_motion_loader_fns=eval_motion_loader_fns,
         config=EvalConfig(
-            replication_times=replication_times, run_mm=run_mm, log_file=log_file
+            replication_times=replication_times, run_mm=run_mm,
+            log_file=log_file if is_primary() else None,  # rank 0 writes the log
         ),
         mm_loader_fns=mm_loader_fns,
     )
     if not w_vec and "zero-glove-text-features" not in summary.get("degraded_reasons", []):
         summary["comparable"] = False
         summary.setdefault("degraded_reasons", []).append("no-glove-vectorizer")
-    _write_summary_json(log_file.replace(".log", ".json"), summary)
+    if is_primary():
+        _write_summary_json(log_file.replace(".log", ".json"), summary)
     return summary
 
 

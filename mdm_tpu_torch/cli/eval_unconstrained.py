@@ -10,7 +10,9 @@ centred on the first frame's mid-hip, and reads the modi-15 STGCN's
 features (the reference's frozen checkpoint, a self-trained one with
 ``--a2m_classifier_path``, or a random init stamped degraded): FID / KID /
 precision-recall / diversity against the ground truth, written to
-``eval_unconstrained.json`` beside the checkpoint.
+``eval_unconstrained.json`` beside the checkpoint. Under a
+torch.distributed world each rank generates its rows of every batch
+(``auto_mesh``) and rank 0 writes the result.
 """
 from __future__ import annotations
 
@@ -27,10 +29,12 @@ def main(argv=None):
     from ..eval.networks import f32_math, load_flax_params, reset_seeded
     from ..eval.stgcn import STGCN, STGCNConfig, convert_stgcn
     from ..models.mdm import Conditioning
-    from ..sampling import GenerationConfig, MotionGenerator
+    from ..parallel.multihost import is_primary, maybe_initialize_distributed
+    from ..sampling import GenerationConfig, MotionGenerator, auto_mesh
     from ..utils.parser import evaluation_args, select_device
     from .eval_humanml import load_eval_model
 
+    maybe_initialize_distributed()  # a world samples data-parallel (auto_mesh)
     args = evaluation_args(argv)
     device = select_device(args)
     args.cond_mode = "no_cond"  # whatever the checkpoint's args.json says
@@ -38,7 +42,8 @@ def main(argv=None):
     dataset = get_dataset("humanact12", num_frames=num_frames, data_root=args.data_dir or None)
     model, sched, ckpt = load_eval_model(args, device, dataset.num_actions)
     B = args.batch_size
-    gen = MotionGenerator(model, sched, GenerationConfig(guidance_scale=1.0), "humanact12")
+    gen = MotionGenerator(model, sched, GenerationConfig(guidance_scale=1.0), "humanact12",
+                          mesh=auto_mesh(device))
 
     degraded = []
     get_xyz, xyz_degraded = unconstrained_xyz_fn(num_frames, device=device)
@@ -107,8 +112,9 @@ def main(argv=None):
     if degraded:
         metrics["degraded_reasons"] = degraded
     out_path = os.path.join(os.path.dirname(ckpt), "eval_unconstrained.json")
-    with open(out_path, "w") as f:
-        json.dump(metrics, f, indent=2)
+    if is_primary():
+        with open(out_path, "w") as f:
+            json.dump(metrics, f, indent=2)
     print(json.dumps(metrics, indent=2))
     return metrics
 

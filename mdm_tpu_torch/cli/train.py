@@ -1,13 +1,23 @@
 """Training entry point: `python -m mdm_tpu_torch.cli.train --save_dir ...`.
 
-Counterpart of mdm_tpu/cli/train.py (reference train/train_mdm.py) on one
-device: ``--device N`` (the default, 0) trains on ``cuda:N``, where every
-layer runs the hand-written kernels; ``--device cpu`` trains on the CPU
-through their plain versions. With no CUDA device visible and the CPU not
-asked for, it raises. The run writes args.json and ``ckpt_{step:09d}``
-files (torch.save) into --save_dir and resumes from the highest step there
-bit for bit: the batches are a pure function of (seed, step) and so are the
+Counterpart of mdm_tpu/cli/train.py (reference train/train_mdm.py):
+``--device N`` (the default, 0) trains on ``cuda:N``, where every layer
+runs the hand-written kernels; ``--device cpu`` trains on the CPU through
+their plain versions. With no CUDA device visible and the CPU not asked
+for, it raises. The run writes args.json and ``ckpt_{step:09d}`` files
+(torch.save) into --save_dir and resumes from the highest step there bit
+for bit: the batches are a pure function of (seed, step) and so are the
 step's draws.
+
+Multi-process data parallelism (mdm_tpu/cli/train.py:19-55): under
+``MDM_TPU_COORDINATOR`` (with ``MDM_TPU_NUM_PROCESSES`` and
+``MDM_TPU_PROCESS_ID``) or ``MDM_TPU_MULTIHOST=auto`` under torchrun, each
+process joins the torch.distributed world (parallel/multihost.py), loads
+only its rows of every global ``--batch_size`` batch (the loader's
+``shard=(rank, world)``) and trains on its own device: ``--device 0``, the
+default, names the rank's card ``cuda:{LOCAL_RANK % device_count}``; an
+nccl world refuses ``--device cpu``. The gradients are summed over the
+world in each step; rank 0 writes args.json, the logs and the checkpoints.
 
 On HumanAct12 / UESTC, ``--lambda_rcxyz`` / ``--lambda_fc`` decode the
 rot6d features to joints through the SMPL layer inside the loss
@@ -18,9 +28,6 @@ HumanML3D / KIT the step refuses them, as mdm_tpu's does.
 (when an evaluator checkpoint is present under ``--evaluator_dir``) or, on
 an action dataset, the a2m protocol at guidance 1, both from the EMA
 weights when the run keeps them.
-
-Not here: a multi-process run (MDM_TPU_COORDINATOR / MDM_TPU_MULTIHOST
-raise, naming ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -30,18 +37,12 @@ import numpy as np
 import torch
 
 
-def refuse_multi_process():
-    """The port trains on one device: a multi-process launch raises."""
-    for var in ("MDM_TPU_COORDINATOR", "MDM_TPU_MULTIHOST"):
-        if os.environ.get(var):
-            raise NotImplementedError(
-                f"{var}={os.environ[var]!r} asks for a multi-process run; mdm_tpu_torch's "
-                "training is single-device (data parallelism is ROADMAP Queue 1 item 10)")
-
-
 def main(argv=None):
     from ..data import get_dataset_loader
     from ..data.loader import pin_batch
+    from ..parallel import make_mesh_for_batch
+    from ..parallel.multihost import (barrier, is_primary, maybe_initialize_distributed,
+                                      rank, replicate, world_size)
     from ..train import (
         LoopConfig,
         OptimConfig,
@@ -54,7 +55,8 @@ def main(argv=None):
     from ..utils.factory import create_loss_config, create_model_and_schedule
     from ..utils.parser import select_device, train_args
 
-    refuse_multi_process()
+    # Multi-process activation comes first: the rank's device follows it.
+    maybe_initialize_distributed()
     args = train_args(argv)
     device = select_device(args)
     if os.path.exists(args.save_dir) and os.listdir(args.save_dir) and not args.overwrite:
@@ -62,13 +64,20 @@ def main(argv=None):
             raise FileExistsError(
                 f"save_dir {args.save_dir} exists (use --overwrite or resume)"
             )
+    barrier()  # every rank has looked before rank 0 writes args.json
 
+    mesh = make_mesh_for_batch(args.batch_size, device=device)
     num_frames = 196 if args.dataset in ("humanml", "kit") else args.num_frames
+    # Each process builds only its rows of every global batch; the batches
+    # are pure functions of (seed, step), so the rows are those of the
+    # one-process batch.
+    world = world_size()
     data = get_dataset_loader(
         args.dataset, args.batch_size, num_frames=num_frames,
         data_root=args.data_dir or None,
         fixed_len=args.context_len + args.pred_len,
         pred_len=args.pred_len,
+        shard=(rank(), world) if world > 1 else None,
     )
     if device.type == "cuda":
         # Pinned in the prefetch thread, so the copy to the card is non-blocking.
@@ -147,6 +156,7 @@ def main(argv=None):
         sched, config, get_xyz=get_xyz,
         target_loss_builder=target_loss_builder,
         target_cond_fn=target_cond_fn if target_loss_builder else None,
+        mesh=mesh,
     )
     if config.schedule_sampler == "loss-second-moment":
         # The loss-aware step threads its per-timestep loss history beside
@@ -160,8 +170,10 @@ def main(argv=None):
             state, metrics, sampler_box["s"] = inner_step(state, batch, key, sampler_box["s"])
             return state, metrics
 
-    state = create_train_state(model, config.optim)
-    platform = get_platform(args.train_platform_type, args.save_dir)
+    state = replicate(create_train_state(model, config.optim))
+    # File-writing platforms belong to rank 0.
+    platform = get_platform(args.train_platform_type if is_primary() else "NoPlatform",
+                            args.save_dir)
 
     gen_fn = None
     if args.gen_during_training:
@@ -195,6 +207,7 @@ def main(argv=None):
         gen_fn=gen_fn,
         eval_fn=eval_fn,
         rng_seed=args.seed,
+        mesh=mesh,
     )
     loop.run()
     platform.close()

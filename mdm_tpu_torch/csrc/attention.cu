@@ -312,8 +312,9 @@ cudaError_t dispatch(const Call& c, bool backward, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-Dropout make_drop(const void* bits, int seed, unsigned thr, float inv_keep, int mode) {
-  return Dropout{static_cast<const uint32_t*>(bits), (uint32_t)seed, thr, inv_keep, mode};
+Dropout make_drop(const void* bits, int seed, int boff, unsigned thr, float inv_keep, int mode) {
+  return Dropout{static_cast<const uint32_t*>(bits), (uint32_t)seed, (uint32_t)boff, thr, inv_keep,
+                 mode};
 }
 
 }  // namespace
@@ -321,17 +322,17 @@ Dropout make_drop(const void* bits, int seed, unsigned thr, float inv_keep, int 
 // dtype, out_dtype: 0 = float32, 1 = bfloat16. q, k, v share the view
 // (sb, sh, ld); out and dout the view (osb, osh, old); bias is additive
 // f32 with strides (bb, bh, bi), or null. mode: 0 no dropout, 1 injected
-// bits ([B, H, S, S] uint32), 2 in-kernel Philox keyed on seed. Dh: any
-// head dim from 1.
+// bits ([B, H, S, S] uint32), 2 in-kernel Philox keyed on seed, with boff
+// added to the batch index of its counter. Dh: any head dim from 1.
 extern "C" int mdm_attention_fwd(const void* q, const void* k, const void* v, long long sb,
                                  long long sh, int ld, const void* bias, long long bb,
-                                 long long bh, int bi, const void* bits, int seed, unsigned thr,
-                                 float inv_keep, int mode, void* out, long long osb,
+                                 long long bh, int bi, const void* bits, int seed, int boff,
+                                 unsigned thr, float inv_keep, int mode, void* out, long long osb,
                                  long long osh, int old, int out_dtype, int B, int S, int H,
                                  int Dh, int dtype, void* stream) {
   const Call c{q, k, v, View{sb, sh, ld}, Bias{static_cast<const float*>(bias), bb, bh, bi},
-               make_drop(bits, seed, thr, inv_keep, mode), out, View{osb, osh, old}, out_dtype,
-               nullptr, nullptr, nullptr, nullptr, nullptr, B, S, H, Dh, dtype};
+               make_drop(bits, seed, boff, thr, inv_keep, mode), out, View{osb, osh, old},
+               out_dtype, nullptr, nullptr, nullptr, nullptr, nullptr, B, S, H, Dh, dtype};
   return (int)dispatch(c, false, static_cast<cudaStream_t>(stream));
 }
 
@@ -360,13 +361,13 @@ extern "C" int mdm_attention_bwd_occupancy(int Dh, int form, int kernel, int* bl
 // ctx (dtype, through the out view).
 extern "C" int mdm_attention_bwd(const void* q, const void* k, const void* v, long long sb,
                                  long long sh, int ld, const void* bias, long long bb,
-                                 long long bh, int bi, const void* bits, int seed, unsigned thr,
-                                 float inv_keep, int mode, const void* dout, void* ctx,
+                                 long long bh, int bi, const void* bits, int seed, int boff,
+                                 unsigned thr, float inv_keep, int mode, const void* dout, void* ctx,
                                  long long osb, long long osh, int old, void* dq, void* dk,
                                  void* dv, void* stats, int B, int S, int H, int Dh,
                                  int dtype, void* stream) {
   const Call c{q, k, v, View{sb, sh, ld}, Bias{static_cast<const float*>(bias), bb, bh, bi},
-               make_drop(bits, seed, thr, inv_keep, mode), ctx, View{osb, osh, old}, dtype,
+               make_drop(bits, seed, boff, thr, inv_keep, mode), ctx, View{osb, osh, old}, dtype,
                dout, dq, dk, dv, static_cast<float*>(stats), B, S, H, Dh, dtype};
   return (int)dispatch(c, true, static_cast<cudaStream_t>(stream));
 }

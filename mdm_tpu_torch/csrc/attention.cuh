@@ -305,7 +305,8 @@ __device__ __forceinline__ uint32_t keep_bits(const Attn<bf16>& a, int b, int h,
   for (int x = 0; x < 32; ++x) {
     const int r = r0 + ((x >> 1) & 1) * 8, c = c0 + 8 * (x >> 2) + (x & 1);
     const int i = TRANSPOSED ? c : r, j = TRANSPOSED ? r : c;
-    const uint32_t w = mdm::philox_word(d.seed, (uint32_t)j, (uint32_t)i, (uint32_t)h, (uint32_t)b);
+    const uint32_t w = mdm::philox_word(d.seed, (uint32_t)j, (uint32_t)i, (uint32_t)h,
+                                        (uint32_t)b + d.boff);
     bits |= (uint32_t)(w < d.thr && i < S && j < S) << x;
   }
   return bits;

@@ -74,6 +74,7 @@ struct Seg {
 struct Plan {
   Seg seg[kMaxSegs];
   uint32_t k0[10];  // k0 of each round: seed + round x 0x9E3779B9
+  uint32_t boff;    // added to the counter's batch word (philox.cuh::Dropout::boff)
   int nseg;
 };
 
@@ -101,7 +102,7 @@ __device__ __forceinline__ uint32_t philox_word_keyed(const uint32_t (&k0)[10], 
   return c0;
 }
 
-// out[b][h][r][c] = philox(seed; c, r, site == kHeadSite ? h : site, b).
+// out[b][h][r][c] = philox(seed; c, r, site == kHeadSite ? h : site, b + boff).
 // Group g of a row at flat offset o covers the flat words
 // [o - o % 4 + 4g, o - o % 4 + 4g + 4), columns 4g - o % 4 onwards; thread
 // t of the row takes groups t + v ceil(G / kGroups), v = 0 .. kGroups - 1.
@@ -127,7 +128,7 @@ __global__ void __launch_bounds__(kThreads) philox_dump(const __grid_constant__ 
   for (int v = 0; v < kGroups; ++v) {
     const uint32_t c = 4 * (t + v * sg.threads_per_row.d) - off;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) w[v][j] = philox_word_keyed(p.k0, c + j, r, site, b);
+    for (int j = 0; j < 4; ++j) w[v][j] = philox_word_keyed(p.k0, c + j, r, site, b + p.boff);
   }
 #pragma unroll
   for (int v = 0; v < kGroups; ++v) {
@@ -156,12 +157,14 @@ struct Out {
 // output may hold 2^35 words, more than the card's memory); a row width C
 // below 2^31 (an int), so a group's columns, at most C + 17, fit 32
 // unsigned bits.
-cudaError_t dump(const Out* outs, int n_out, int seed, int B, int H, int R, cudaStream_t st) {
+cudaError_t dump(const Out* outs, int n_out, int seed, int boff, int B, int H, int R,
+                 cudaStream_t st) {
   if (B <= 0 || H <= 0 || R <= 0 || n_out > kMaxSegs) return cudaErrorInvalidValue;
   const uint64_t rows = (uint64_t)B * H * R;
   if (rows >= (1ull << 31)) return cudaErrorInvalidValue;
   Plan p{};
   p.nseg = n_out;
+  p.boff = (uint32_t)boff;
   for (int i = 0; i < 10; ++i) p.k0[i] = (uint32_t)seed + (uint32_t)i * 0x9E3779B9u;
   uint32_t blocks = 0;
   for (int i = 0; i < n_out; ++i) {
@@ -187,17 +190,18 @@ cudaError_t dump(const Out* outs, int n_out, int seed, int B, int H, int R, cuda
 }  // namespace
 
 // out [B][H][R][C]: site < 0 draws site h for head h (the attention
-// block's bits), else the one site for every head.
-extern "C" int mdm_philox_dump(void* out, int seed, int B, int H, int site, int R, int C,
-                               void* stream) {
+// block's bits), else the one site for every head. boff: the global batch
+// index of row 0 (0 outside data parallelism).
+extern "C" int mdm_philox_dump(void* out, int seed, int boff, int B, int H, int site, int R,
+                               int C, void* stream) {
   const Out o{out, C, site};
-  return (int)dump(&o, 1, seed, B, H, R, static_cast<cudaStream_t>(stream));
+  return (int)dump(&o, 1, seed, boff, B, H, R, static_cast<cudaStream_t>(stream));
 }
 
 // The tail's three outputs [B][R][C0], [B][R][C1], [B][R][C2] at sites 0,
 // 1 and 2, in one launch.
-extern "C" int mdm_philox_dump3(void* out0, void* out1, void* out2, int seed, int B, int R,
-                                int C0, int C1, int C2, void* stream) {
+extern "C" int mdm_philox_dump3(void* out0, void* out1, void* out2, int seed, int boff, int B,
+                                int R, int C0, int C1, int C2, void* stream) {
   const Out o[3] = {{out0, C0, 0}, {out1, C1, 1}, {out2, C2, 2}};
-  return (int)dump(o, 3, seed, B, 1, R, static_cast<cudaStream_t>(stream));
+  return (int)dump(o, 3, seed, boff, B, 1, R, static_cast<cudaStream_t>(stream));
 }

@@ -107,7 +107,7 @@ __device__ __forceinline__ unsigned draw8(const Dropout& d, size_t idx, uint32_t
   } else {
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      byte |= (unsigned)(mdm::philox_word(d.seed, c0 + j, s, site, b) < d.thr) << j;
+      byte |= (unsigned)(mdm::philox_word(d.seed, c0 + j, s, site, b + d.boff) < d.thr) << j;
   }
   return byte;
 }
@@ -491,8 +491,9 @@ cudaError_t launch_ln_bwd(const void* r, const void* h, const void* mask, float 
                          (size_t)NQ * D, (int)chunks, st);
 }
 
-Dropout make_drop(const void* bits, int seed, unsigned thr, float inv_keep, int mode) {
-  return Dropout{static_cast<const uint32_t*>(bits), (uint32_t)seed, thr, inv_keep, mode};
+Dropout make_drop(const void* bits, int seed, int boff, unsigned thr, float inv_keep, int mode) {
+  return Dropout{static_cast<const uint32_t*>(bits), (uint32_t)seed, (uint32_t)boff, thr, inv_keep,
+                 mode};
 }
 
 // Whether a forward's dropout arguments hold: mode 0-2, the mask to write
@@ -508,28 +509,29 @@ bool shape_ok(int M, int S, int D) { return M > 0 && S > 0 && D > 0 && D % 8 == 
 // dtype: 0 = float32, 1 = bfloat16 (x, attn, the LayerNorm parameters and
 // the dt outputs); y32, u, o, dhd, dy, ds2 and the partials are f32. Forward
 // mode: 0 no dropout (mask unused), 1 injected bits (the site's [B, S, n]
-// uint32), 2 Philox on seed; modes 1 and 2 write the site's packed keep
+// uint32), 2 Philox on seed, boff added to the batch index of its
+// counter; modes 1 and 2 write the site's packed keep
 // mask, uint32 [M, ceil(n / 32)]. D and F: multiples of 8, 16-byte aligned
 // operands. Backward: mask null for no dropout; work f32 [ceil(M / 32), q,
 // n] holds the column partials, sums f32 [q, n] their sums.
 extern "C" int mdm_tail_ln1_fwd(const void* x, const void* a, const void* bits, int seed,
-                                unsigned thr, float inv_keep, int mode, void* mask, const void* g,
-                                const void* beta, void* y, void* y32, int M, int S, int D,
-                                int dtype, void* stream) {
+                                int boff, unsigned thr, float inv_keep, int mode, void* mask,
+                                const void* g, const void* beta, void* y, void* y32, int M, int S,
+                                int D, int dtype, void* stream) {
   if (!shape_ok(M, S, D) || !drop_ok(bits, mode, mask)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout d = make_drop(bits, seed, thr, inv_keep, mode);
+  const Dropout d = make_drop(bits, seed, boff, thr, inv_keep, mode);
   if (dtype == 0) return (int)launch_ln_fwd<float, float>(x, a, d, 0, mask, g, beta, y, y32, M, S, D, st);
   if (dtype == 1) return (int)launch_ln_fwd<bf16, bf16>(x, a, d, 0, mask, g, beta, y, y32, M, S, D, st);
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int mdm_tail_gelu_dropout(const void* u, const void* bits, int seed, unsigned thr,
-                                     float inv_keep, int mode, void* mask, void* hd, int M, int S,
-                                     int F, int dtype, void* stream) {
+extern "C" int mdm_tail_gelu_dropout(const void* u, const void* bits, int seed, int boff,
+                                     unsigned thr, float inv_keep, int mode, void* mask, void* hd,
+                                     int M, int S, int F, int dtype, void* stream) {
   if (!shape_ok(M, S, F) || !drop_ok(bits, mode, mask)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout d = make_drop(bits, seed, thr, inv_keep, mode);
+  const Dropout d = make_drop(bits, seed, boff, thr, inv_keep, mode);
   int threads;
   const dim3 grid = elem_grid(M, GELU_FWD_ROWS, F, threads);
   const float* uf = static_cast<const float*>(u);
@@ -544,12 +546,12 @@ extern "C" int mdm_tail_gelu_dropout(const void* u, const void* bits, int seed, 
 }
 
 extern "C" int mdm_tail_ln2_fwd(const void* y32, const void* o, const void* bits, int seed,
-                                unsigned thr, float inv_keep, int mode, void* mask, const void* g,
-                                const void* beta, void* z, int M, int S, int D, int dtype,
-                                void* stream) {
+                                int boff, unsigned thr, float inv_keep, int mode, void* mask,
+                                const void* g, const void* beta, void* z, int M, int S, int D,
+                                int dtype, void* stream) {
   if (!shape_ok(M, S, D) || !drop_ok(bits, mode, mask)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout d = make_drop(bits, seed, thr, inv_keep, mode);
+  const Dropout d = make_drop(bits, seed, boff, thr, inv_keep, mode);
   if (dtype == 0)
     return (int)launch_ln_fwd<float, float>(y32, o, d, 2, mask, g, beta, z, nullptr, M, S, D, st);
   if (dtype == 1)

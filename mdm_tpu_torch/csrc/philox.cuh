@@ -45,10 +45,14 @@ __host__ __device__ __forceinline__ uint32_t philox_word(uint32_t k0, uint32_t c
 // The dropout of one site. mode 0: no dropout (rate 0, no bits drawn);
 // 1: injected bits (tests: the TPU kernels' use_prng=False path);
 // 2: in-kernel Philox. Keep where bits < thr, scaled by inv_keep
-// (attention_train_block.py::_keep_threshold).
+// (attention_train_block.py::_keep_threshold). boff is added to the
+// counter's batch word: a data-parallel rank whose rows start at global row
+// boff draws exactly the words of those rows in the whole batch (the
+// counterpart of mdm_tpu/ops/__init__.py::shard_seed_offset).
 struct Dropout {
   const uint32_t* bits;  // mode 1: the site's bits, indexed by the caller
   uint32_t seed;
+  uint32_t boff;  // the first row's global batch index
   uint32_t thr;
   float inv_keep;
   int mode;
@@ -56,7 +60,7 @@ struct Dropout {
   __device__ __forceinline__ float keep(size_t idx, uint32_t b, uint32_t site,
                                         uint32_t row, uint32_t col) const {
     if (mode == 0) return 1.0f;
-    const uint32_t r = mode == 1 ? bits[idx] : philox_word(seed, col, row, site, b);
+    const uint32_t r = mode == 1 ? bits[idx] : philox_word(seed, col, row, site, b + boff);
     return r < thr ? inv_keep : 0.0f;
   }
 };

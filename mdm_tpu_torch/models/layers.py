@@ -20,7 +20,14 @@ interpret mode only; the port's kernels draw no TPU bits, so it lifts them
 always. Every training route draws its dropout seeds from the step's CPU
 generator and its masks from the Philox stream of ops/dropout_bits.py, so
 the CPU and the card drop the same elements and the einsum route and the
-dropout kernel compute the same function under the same seed.
+dropout kernel compute the same function under the same seed. Every
+dropout site passes ``ops.shard_seed_offset()`` as its batch offset, so a
+data-parallel rank drops exactly its rows of the one-process masks.
+
+Under tensor parallelism (parallel/tp_rules.py) an attention holds its
+rank's heads and a layer its FFN columns; the row-parallel products
+(``out_proj``, ``linear2``, marked with a ``tp_group``) sum the ranks'
+partial products before their bias.
 """
 from __future__ import annotations
 
@@ -123,9 +130,21 @@ def layer_seeds(rng: Optional[torch.Generator], n: int, rate: float) -> list:
     return draw_seeds(rng, n)
 
 
-def _dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dt: torch.dtype):
-    """flax nn.Dense(dtype=dt): the product and the bias in dt."""
-    return F.linear(x.to(dt), weight.to(dt), bias.to(dt))
+def _dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dt: torch.dtype,
+           group=None):
+    """flax nn.Dense(dtype=dt): the product and the bias in dt. With a
+    tensor-parallel ``group`` the weight holds this rank's input columns
+    (row-parallel): each rank's partial product of the dt-rounded operands
+    is kept in f32, the partials are summed over the group, the bias is
+    added once and the sum rounded to dt: one rounding, where the whole
+    product has it."""
+    if group is None:
+        return F.linear(x.to(dt), weight.to(dt), bias.to(dt))
+    import torch.distributed as dist
+
+    y = F.linear(x.to(dt).float(), weight.to(dt).float())
+    dist.all_reduce(y, group=group)
+    return (y + bias.to(dt).float()).to(dt)
 
 
 class MultiHeadAttention(nn.Module):
@@ -174,12 +193,14 @@ class MultiHeadAttention(nn.Module):
             # The casts sit inside the autograd graph: the parameter
             # gradients come back rounded to cdt, as the JAX wrappers' do.
             return fused_train_attention_block(query.to(cdt), *weights, H, self.dropout, seed,
-                                               key_padding_mask=kpm)
+                                               key_padding_mask=kpm,
+                                               batch_offset=ops.shard_seed_offset())
 
         q, k, v = self._project(query, key, value, *weights[:2], cdt)
         if (ops.pallas_train_attention_enabled() and not deterministic and self.dropout > 0.0
                 and same_len and row_bias and D % 128 == 0):
-            out = fused_dropout_attention(q, k, v, H, self.dropout, seed, key_padding_mask=kpm)
+            out = fused_dropout_attention(q, k, v, H, self.dropout, seed, key_padding_mask=kpm,
+                                          batch_offset=ops.shard_seed_offset())
             return _dense(out.to(cdt), *weights[2:], cdt)
         if (ops.pallas_attention_enabled() and deterministic and same_len and row_bias
                 and D % 128 == 0):
@@ -205,10 +226,11 @@ class MultiHeadAttention(nn.Module):
             logits = logits + attn_bias.to(logits.dtype)
         weights = torch.softmax(logits.float(), dim=-1).to(cdt)
         if self.dropout > 0.0 and not deterministic:
-            bits = dropout_bits(seed, B, H, Sq, device=q.device, key_len=Sk)
+            bits = dropout_bits(seed, B, H, Sq, device=q.device, key_len=Sk,
+                                batch_offset=ops.shard_seed_offset())
             weights = (weights.float() * keep_factors(bits, self.dropout)).to(cdt)
         out = (weights @ split(v)).transpose(1, 2).reshape(B, Sq, D)
-        return _dense(out, *out_proj, cdt)
+        return _dense(out, *out_proj, cdt, getattr(self.out_proj, "tp_group", None))
 
 
 def _cached_cast(layer: nn.Module, params, dt: torch.dtype):
@@ -233,7 +255,8 @@ def _plain_tail(x, attn, norm_a, linear1, linear2, norm_b, keep=(None, None, Non
     cdt = attn.dtype
     y = norm_a((x + _drop(attn, keep[0])).float()).to(cdt)
     h = gelu_exact(_dense(y, linear1.weight, linear1.bias, cdt))
-    h = _dense(_drop(h, keep[1]), linear2.weight, linear2.bias, cdt)
+    h = _dense(_drop(h, keep[1]), linear2.weight, linear2.bias, cdt,
+               getattr(linear2, "tp_group", None))
     return norm_b((y + _drop(h, keep[2])).float()).to(cdt)
 
 
@@ -254,12 +277,14 @@ def _tail(layer: nn.Module, x, attn, norms, deterministic: bool, seed: int):
     if ops.pallas_encoder_tail_enabled(deterministic) and d_model % 128 == 0 and ff_size % 128 == 0:
         if deterministic:
             return fused_encoder_tail_inference(x, attn, *_cached_cast(layer, params, attn.dtype))
-        return fused_encoder_tail(x, attn, *params, layer.dropout, seed)
+        return fused_encoder_tail(x, attn, *params, layer.dropout, seed,
+                                  batch_offset=ops.shard_seed_offset())
     keep = (None, None, None)
     if not deterministic and layer.dropout > 0.0:
         B, S, D = x.shape
         keep = tuple(keep_factors(b, layer.dropout)
-                     for b in tail_dropout_bits(seed, B, S, D, ff_size, device=x.device))
+                     for b in tail_dropout_bits(seed, B, S, D, ff_size, device=x.device,
+                                                batch_offset=ops.shard_seed_offset()))
     return _plain_tail(x, attn, norm_a, layer.linear1, layer.linear2, norm_b, keep)
 
 
@@ -353,7 +378,8 @@ class TransformerDecoderLayer(nn.Module):
         s_self, s_out, s_cross, s_tail = seeds
         attn = self.self_attn(tgt, tgt, tgt, tgt_bias, deterministic, s_self)
         if not deterministic and self.dropout > 0.0:
-            bits = sequence_dropout_bits(s_out, *attn.shape, device=attn.device)
+            bits = sequence_dropout_bits(s_out, *attn.shape, device=attn.device,
+                                         batch_offset=ops.shard_seed_offset())
             attn = _drop(attn, keep_factors(bits, self.dropout))
         cdt = self.compute_dtype or attn.dtype
         tgt = self.norm1((tgt + attn).float()).to(cdt)

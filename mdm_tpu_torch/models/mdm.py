@@ -27,6 +27,7 @@ from typing import List, Optional
 import torch
 from torch import nn
 
+from .. import ops
 from ..core.goals import ALL_GOAL_JOINT_NAMES, extended_goal_names
 from ..ops.dropout_bits import keep_threshold, sequence_dropout_bits
 from .layers import (TimestepEmbedder, TransformerDecoder, TransformerEncoder, draw_seeds,
@@ -126,8 +127,11 @@ def sequence_dropout(x: torch.Tensor, rate: float, rng: torch.Generator) -> torc
     """flax nn.Dropout on the input sequence: keep with probability 1-rate,
     scale kept values by 1/(1-rate) in x's dtype. The mask is Philox keyed
     on one seed drawn from the step's CPU ``rng`` (``sequence_dropout_bits``:
-    the dump kernel on the card), the keep rule the kernels'."""
-    bits = sequence_dropout_bits(draw_seeds(rng, 1)[0], *x.shape, device=x.device)
+    the dump kernel on the card), the keep rule the kernels'; a
+    data-parallel rank draws its rows of the whole batch's mask
+    (``ops.shard_seed_offset``)."""
+    bits = sequence_dropout_bits(draw_seeds(rng, 1)[0], *x.shape, device=x.device,
+                                 batch_offset=ops.shard_seed_offset())
     keep = bits.to(torch.int64) < keep_threshold(rate)  # uint32 has no CPU compare
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 

@@ -5,12 +5,21 @@ The kernel choice follows the tensor's device: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel or raises. The flags are the
 JAX package's (mdm_tpu/ops/__init__.py:118-248), under the same names: two
 opt-in routes, off by default, and four tri-state ones where None is AUTO.
-AUTO is the JAX package's single-device decision, the only one the port
-makes (its multi-device ``_with_auto_*`` wrappers come with data-parallel
-training): the train block, the sample block and the encoder tail on, and
-the whole-layer kernel on whenever the sample block and the tail are. The
-JAX package's interpret mode has no counterpart: the CPU runs the plain
-versions, so no route needs the card to be taken.
+AUTO is on by default: the train block, the sample block and the encoder
+tail on, and the whole-layer kernel on whenever the sample block and the
+tail are. ``auto_kernels`` binds AUTO for a body, as the JAX package's
+``_with_auto_train_block`` / ``_with_auto_sample_block`` do per call: on
+for a single device and for data parallelism (each rank runs the kernels
+on its rows, as JAX's shard_map does), off for a generator on a mesh with
+a model axis above 1, where the layers take the einsum attention and the
+plain tail on the rank's heads and FFN columns. The JAX package's interpret mode has no
+counterpart: the CPU runs the plain versions, so no route needs the card
+to be taken.
+
+``sharded_rows(b0)`` declares, for its body, that this process holds the
+global batch rows from b0: every dropout site then passes b0 as its
+``batch_offset``, so a data-parallel rank draws exactly its rows of the
+one-process masks (the counterpart of ``shard_seed_offset``).
 """
 import contextlib
 
@@ -43,6 +52,46 @@ from .layer_inference import (  # noqa: F401
 # name -> pinned value; None is AUTO for the four tri-state flags.
 _FLAGS = {"attention": False, "train_attention": False, "train_block": None,
           "sample_block": None, "encoder_tail": None, "layer_inference": None}
+_AUTO = {"kernels": True}  # what AUTO resolves to, set for a body by auto_kernels
+_SHARD = {"first_row": 0}  # the global batch row of local row 0, set by sharded_rows
+
+
+def _auto(name: str) -> bool:
+    pinned = _FLAGS[name]
+    return _AUTO["kernels"] if pinned is None else pinned
+
+
+@contextlib.contextmanager
+def auto_kernels(enabled: bool):
+    """AUTO resolves to ``enabled`` for the body, then to what it was, also
+    when the body raises (ADVICE r4: AUTO must not leak past its call)."""
+    saved = _AUTO["kernels"]
+    _AUTO["kernels"] = bool(enabled)
+    try:
+        yield
+    finally:
+        _AUTO["kernels"] = saved
+
+
+@contextlib.contextmanager
+def sharded_rows(first_row: int):
+    """For the body, this process holds the global batch rows from
+    ``first_row``: every dropout site adds it to its Philox counter's batch
+    word (``shard_seed_offset``). Restored on exit, also when the body
+    raises; the autograd Functions keep the offset their forward drew
+    under, and a rematerialised layer runs inside the body."""
+    saved = _SHARD["first_row"]
+    _SHARD["first_row"] = int(first_row)
+    try:
+        yield
+    finally:
+        _SHARD["first_row"] = saved
+
+
+def shard_seed_offset() -> int:
+    """The batch offset every dropout site passes: the first global row of
+    this rank's rows inside ``sharded_rows``, else 0."""
+    return _SHARD["first_row"]
 
 
 def enable_pallas_attention(enabled: bool = True) -> None:
@@ -71,7 +120,7 @@ def enable_pallas_train_block(enabled=True) -> None:
 
 
 def pallas_train_block_enabled() -> bool:
-    return _FLAGS["train_block"] is not False
+    return _auto("train_block")
 
 
 def enable_pallas_sample_block(enabled=True) -> None:
@@ -81,7 +130,7 @@ def enable_pallas_sample_block(enabled=True) -> None:
 
 
 def pallas_sample_block_enabled() -> bool:
-    return _FLAGS["sample_block"] is not False
+    return _auto("sample_block")
 
 
 def enable_pallas_encoder_tail(enabled=True) -> None:
@@ -93,10 +142,11 @@ def enable_pallas_encoder_tail(enabled=True) -> None:
 
 def pallas_encoder_tail_enabled(deterministic: bool) -> bool:
     """Whether the layer tail runs the fused tail. ``deterministic`` is not
-    read: it is there only to keep the JAX signature, whose multi-device
-    AUTO differs between sampling and training (ROADMAP Queue 1 item 10); the
-    port's single-device AUTO is on for both."""
-    return _FLAGS["encoder_tail"] is not False
+    read: it keeps the JAX signature, whose AUTO tells sampling from
+    training. The port's AUTO is one decision for both, bound by
+    ``auto_kernels``: on for one device and data parallelism, off under
+    tensor parallelism."""
+    return _auto("encoder_tail")
 
 
 def enable_pallas_layer_inference(enabled=True) -> None:

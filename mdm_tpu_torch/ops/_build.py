@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _U, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_longlong
-_DROP = [_P, _I, _U, _F, _I]  # bits, seed, threshold, 1/(1-rate), mode (philox.cuh::Dropout)
+# bits, seed, batch offset, threshold, 1/(1-rate), mode (philox.cuh::Dropout)
+_DROP = [_P, _I, _I, _U, _F, _I]
 _VIEW = [_L, _L, _I]  # batch, head and row strides of an attention operand (attention.cu::View)
 # name -> argtypes of each exported C function; every one returns a cudaError_t.
 SIGNATURES = {
@@ -53,8 +54,8 @@ SIGNATURES = {
     "mdm_tail_ln2_bwd": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mdm_tail_gelu_bwd": [_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
     "mdm_tail_ln1_bwd": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "mdm_philox_dump": [_P, _I, _I, _I, _I, _I, _I, _P],
-    "mdm_philox_dump3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mdm_philox_dump": [_P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mdm_philox_dump3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -63,16 +63,17 @@ def check_shapes(x: torch.Tensor, operands, what: str) -> None:
                              f"expected {tuple(shape)} on {x.device}")
 
 
-def dropout_args(bits: Optional[torch.Tensor], seed: int, rate: float):
-    """(bits, seed, threshold, 1/(1-rate), mode) of philox.cuh::Dropout:
-    mode 0 draws nothing (rate 0), 1 reads the injected uint32 bits, 2 draws
-    in-kernel Philox from the int32 seed."""
+def dropout_args(bits: Optional[torch.Tensor], seed: int, rate: float, batch_offset: int = 0):
+    """(bits, seed, batch offset, threshold, 1/(1-rate), mode) of
+    philox.cuh::Dropout: mode 0 draws nothing (rate 0), 1 reads the injected
+    uint32 bits, 2 draws in-kernel Philox from the int32 seed, the counter's
+    batch word moved by ``batch_offset`` (the global index of row 0)."""
     if rate <= 0.0:
-        return None, 0, 0, 1.0, 0
+        return None, 0, 0, 0, 1.0, 0
     inv_keep = float(np.float32(1.0 / (1.0 - rate)))
     mode = 2 if bits is None else 1
     seed = (int(seed) + 2 ** 31) % 2 ** 32 - 2 ** 31  # the int32 the kernel takes
-    return ptr(bits), seed, keep_threshold(rate), inv_keep, mode
+    return ptr(bits), seed, int(batch_offset), keep_threshold(rate), inv_keep, mode
 
 
 def split_rows(k: int, splits: int) -> int:
@@ -240,7 +241,7 @@ def check_head_dim(D: int, num_heads: int, what: str) -> int:
 
 
 def attention_fwd(q, k, v, view, out, out_view, B: int, S: int, H: int, head_dim: int,
-                  bias=None, bias_strides=(0, 0, 0), drop=(None, 0, 0, 1.0, 0)) -> None:
+                  bias=None, bias_strides=(0, 0, 0), drop=(None, 0, 0, 0, 1.0, 0)) -> None:
     """out = dropout(softmax(q k^T / sqrt(Dh) + bias)) v per (batch, head)
     (csrc/attention.cu). q, k, v share ``view``, out (f32 or q's dtype) has
     ``out_view``; bias is additive f32 with ``bias_strides`` or None; drop is
@@ -282,7 +283,7 @@ def attention_bwd_occupancy(head_dim: int, bias_form: int, kernel: str) -> int:
 
 
 def attention_bwd(q, k, v, view, dout, out_view, dq, dk, dv, B: int, S: int, H: int,
-                  head_dim: int, bias=None, bias_strides=(0, 0, 0), drop=(None, 0, 0, 1.0, 0),
+                  head_dim: int, bias=None, bias_strides=(0, 0, 0), drop=(None, 0, 0, 0, 1.0, 0),
                   ctx=None) -> None:
     """dq, dk, dv (q's view and dtype) of ``attention_fwd`` given dout (q's
     dtype, out_view): p recomputed, the bits replayed; the forward's out

@@ -122,23 +122,23 @@ def _check(q, k, v, num_heads, mask, bits):
     return check_head_dim(D, num_heads, "fused_dropout_attention")
 
 
-def _fwd_cuda(q, k, v, mask, bits, num_heads, rate, seed):
+def _fwd_cuda(q, k, v, mask, bits, num_heads, rate, seed, boff=0):
     Dh = _check(q, k, v, num_heads, mask, bits)
     B, S, D = q.shape
     out = torch.empty((B, S, D), dtype=torch.float32, device=q.device)
     view = bsd_view(S, D, Dh)
     attention_fwd(q, k, v, view, out, view, B, S, num_heads, Dh, mask, row_bias_strides(S),
-                  dropout_args(bits, seed, rate))
+                  dropout_args(bits, seed, rate, boff))
     return out
 
 
-def _bwd_cuda(q, k, v, mask, bits, num_heads, rate, seed, dout):
+def _bwd_cuda(q, k, v, mask, bits, num_heads, rate, seed, boff, dout):
     B, S, D = q.shape
     Dh = D // num_heads
     grads = [torch.empty((B, S, D), dtype=q.dtype, device=q.device) for _ in range(3)]
     view = bsd_view(S, D, Dh)
     attention_bwd(q, k, v, view, dev(dout, q.dtype), view, *grads, B, S, num_heads, Dh, mask,
-                  row_bias_strides(S), dropout_args(bits, seed, rate))
+                  row_bias_strides(S), dropout_args(bits, seed, rate, boff))
     return grads
 
 
@@ -148,14 +148,15 @@ class _DropoutAttention(torch.autograd.Function):
     checkpointed layer (``MDMConfig.remat``) drops and recomputes them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, bits, num_heads, rate, seed):
-        ctx.meta = (num_heads, rate, seed)
+    def forward(ctx, q, k, v, mask, bits, num_heads, rate, seed, boff):
+        ctx.meta = (num_heads, rate, seed, boff)
         if q.device.type == "cuda":
-            out = _fwd_cuda(q, k, v, mask, bits, num_heads, rate, seed)
+            out = _fwd_cuda(q, k, v, mask, bits, num_heads, rate, seed, boff)
             LAUNCHES["fwd"] += 1
         else:
             if rate > 0.0 and bits is None:  # the kernel's own Philox stream, drawn on the CPU
-                bits = dropout_bits(seed, q.shape[0], num_heads, q.shape[1], device=q.device)
+                bits = dropout_bits(seed, q.shape[0], num_heads, q.shape[1], device=q.device,
+                                    batch_offset=boff)
             out = dropout_attention_reference(q, k, v, num_heads, rate, bits, mask)
         ctx.save_for_backward(q, k, v, mask, bits)
         return out
@@ -163,13 +164,13 @@ class _DropoutAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, mask, bits = ctx.saved_tensors
-        num_heads, rate, seed = ctx.meta
+        num_heads, rate, seed, boff = ctx.meta
         if q.device.type == "cuda":
-            grads = _bwd_cuda(q, k, v, mask, bits, num_heads, rate, seed, dout)
+            grads = _bwd_cuda(q, k, v, mask, bits, num_heads, rate, seed, boff, dout)
             LAUNCHES["bwd"] += 1
         else:
             grads = dropout_attention_bwd_reference(q, k, v, num_heads, dout, rate, bits, mask)
-        return (*grads, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None)
 
 
 def fused_dropout_attention(
@@ -181,13 +182,15 @@ def fused_dropout_attention(
     seed: int,  # int32, drawn per layer per step
     key_padding_mask: Optional[torch.Tensor] = None,  # [B, S] bool True=ignore, or additive f32
     bits: Optional[torch.Tensor] = None,  # [B, H, S, S] uint32: injected (use_prng=False)
+    batch_offset: int = 0,  # global batch index of row 0 (data parallelism)
 ) -> torch.Tensor:
     """Training attention with probability dropout, differentiable in q, k
     and v; f32 [B, S, D] output.
 
     On a CPU tensor the plain versions run; on a CUDA tensor the kernels
     run (forward and backward each add one to ``LAUNCHES``) or raise.
-    ``bits`` replaces the in-kernel Philox draw with the given bits."""
+    ``bits`` replaces the in-kernel Philox draw with the given bits;
+    ``batch_offset`` moves the draw's batch word."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_dropout_attention runs on cpu or cuda, not {q.device}")
     mask = None if key_padding_mask is None else row_bias_contrib(key_padding_mask)
@@ -196,4 +199,5 @@ def fused_dropout_attention(
         q, k, v = dev(q), dev(k, dt), dev(v, dt)
         mask = None if mask is None else dev(mask)
         bits = None if bits is None else dev(bits)
-    return _DropoutAttention.apply(q, k, v, mask, bits, num_heads, float(rate), int(seed))
+    return _DropoutAttention.apply(q, k, v, mask, bits, num_heads, float(rate), int(seed),
+                                   int(batch_offset))

@@ -142,16 +142,16 @@ def _check(x, wqkv, bqkv, wo, bo, num_heads, mask, bits):
         raise ValueError(f"bits must be uint32, got {bits.dtype}")
 
 
-def _fwd_cuda(x, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed):
+def _fwd_cuda(x, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed, boff=0):
     """The forward chain; returns (out [B, S, D], qkv [B*S, 3D])."""
     _check(x, wqkv, bqkv, wo, bo, num_heads, mask, bits)
     B, S, D = x.shape
     out, qkv = _fwd_chain(dev(x).view(B * S, D), S, dev(wqkv), dev(bqkv), dev(wo), dev(bo), mask,
-                          bits, num_heads, rate, seed)
+                          bits, num_heads, rate, seed, boff)
     return out.view(B, S, D), qkv
 
 
-def _fwd_chain(x, S, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed):
+def _fwd_chain(x, S, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed, boff=0):
     """``_fwd_cuda`` on rows x [B*S, D] already checked and made ``dev``:
     (out [B*S, D], qkv). Every torch op here costs host time on every layer
     call, so k and v go to the attention as addresses, not views."""
@@ -162,11 +162,11 @@ def _fwd_chain(x, S, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed):
     col = D * qkv.element_size()
     attention_fwd(qkv, qkv.data_ptr() + col, qkv.data_ptr() + 2 * col, bsd_view(S, D, Dh, 3 * D),
                   ctx, bsd_view(S, D, Dh), M // S, S, num_heads, Dh, mask, row_bias_strides(S),
-                  dropout_args(bits, seed, rate))
+                  dropout_args(bits, seed, rate, boff))
     return gemm(ctx, wo, bias=bo), qkv
 
 
-def _bwd_cuda(x, qkv, wqkv, wo, mask, bits, num_heads, rate, seed, dout):
+def _bwd_cuda(x, qkv, wqkv, wo, mask, bits, num_heads, rate, seed, boff, dout):
     B, S, D = x.shape
     M, dt = B * S, x.dtype
     xs = dev(x).view(M, D)
@@ -178,7 +178,8 @@ def _bwd_cuda(x, qkv, wqkv, wo, mask, bits, num_heads, rate, seed, dout):
     Dh = D // num_heads
     packed = bsd_view(S, D, Dh, 3 * D)
     attention_bwd(*_split(qkv, D), packed, dctx, bsd_view(S, D, Dh), *_split(dqkv, D), B, S,
-                  num_heads, Dh, mask, row_bias_strides(S), dropout_args(bits, seed, rate), ctx)
+                  num_heads, Dh, mask, row_bias_strides(S), dropout_args(bits, seed, rate, boff),
+                  ctx)
     dwo = gemm(do, ctx, a_km=True, b_kn=True, out_f32=True, splits=splits_for(D, D, M))
     dbo = colsum(do)
     dwqkv = gemm(dqkv, xs, a_km=True, b_kn=True, out_f32=True, splits=splits_for(3 * D, D, M))
@@ -193,21 +194,23 @@ def _split(qkv: torch.Tensor, D: int):
 
 
 class _TrainBlock(torch.autograd.Function):
-    """Seed-replay VJP: the backward recomputes p and replays the bits.
-    Every tensor it reads (on the card also the forward's q/k/v) is saved
-    through ``save_for_backward``, so a checkpointed layer
-    (``MDMConfig.remat``) drops and recomputes them."""
+    """Seed-replay VJP: the backward recomputes p and replays the bits
+    under the forward's seed and batch offset. Every tensor it reads (on
+    the card also the forward's q/k/v) is saved through
+    ``save_for_backward``, so a checkpointed layer (``MDMConfig.remat``)
+    drops and recomputes them."""
 
     @staticmethod
-    def forward(ctx, x, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed):
-        ctx.meta = (num_heads, rate, seed)
+    def forward(ctx, x, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed, boff):
+        ctx.meta = (num_heads, rate, seed, boff)
         qkv = None
         if x.device.type == "cuda":
-            out, qkv = _fwd_cuda(x, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed)
+            out, qkv = _fwd_cuda(x, wqkv, bqkv, wo, bo, mask, bits, num_heads, rate, seed, boff)
             LAUNCHES["fwd"] += 1
         else:
             if rate > 0.0 and bits is None:  # the kernel's own Philox stream, drawn on the CPU
-                bits = dropout_bits(seed, x.shape[0], num_heads, x.shape[1], device=x.device)
+                bits = dropout_bits(seed, x.shape[0], num_heads, x.shape[1], device=x.device,
+                                    batch_offset=boff)
             out = train_attention_block_reference(x, wqkv, bqkv, wo, bo, num_heads, rate, bits,
                                                   mask)
         ctx.save_for_backward(x, wqkv, bqkv, wo, mask, bits, qkv)
@@ -216,9 +219,9 @@ class _TrainBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         x, wqkv, bqkv, wo, mask, bits, qkv = ctx.saved_tensors
-        num_heads, rate, seed = ctx.meta
+        num_heads, rate, seed, boff = ctx.meta
         if qkv is not None:
-            grads = _bwd_cuda(x, qkv, wqkv, wo, mask, bits, num_heads, rate, seed, dout)
+            grads = _bwd_cuda(x, qkv, wqkv, wo, mask, bits, num_heads, rate, seed, boff, dout)
             LAUNCHES["bwd"] += 1
         else:
             grads = train_attention_block_bwd_reference(x, wqkv, bqkv, wo, num_heads, dout,
@@ -226,7 +229,7 @@ class _TrainBlock(torch.autograd.Function):
         dx, dwqkv, dbqkv, dwo, dbo = grads
         dt = x.dtype
         return (dx, dwqkv.to(dt), dbqkv.to(dt), dwo.to(dt), dbo.to(dt),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def _mask_row(x, key_padding_mask):
@@ -244,6 +247,7 @@ def fused_train_attention_block(
     seed: int,  # int32, drawn per layer per step
     key_padding_mask: Optional[torch.Tensor] = None,  # [B, S] bool True=ignore, or additive f32
     bits: Optional[torch.Tensor] = None,  # [B, H, S, S] uint32: injected (use_prng=False)
+    batch_offset: int = 0,  # global batch index of row 0 (data parallelism)
 ) -> torch.Tensor:
     """Whole training attention block with probability dropout,
     differentiable in x and the four weights and biases.
@@ -252,7 +256,9 @@ def fused_train_attention_block(
     gradients come back rounded to it. On a CPU tensor the plain versions
     run; on a CUDA tensor the kernel chains run (forward and backward each
     add one to ``LAUNCHES``) or raise. ``bits`` replaces the in-kernel
-    Philox draw with the given bits."""
+    Philox draw with the given bits; ``batch_offset`` moves the draw's
+    batch word, so rows [b0, b0 + B) drawn at b0 are those rows of a
+    whole-batch call."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_train_attention_block runs on cpu or cuda, not {x.device}")
     dt = x.dtype
@@ -260,7 +266,7 @@ def fused_train_attention_block(
         bits = dev(bits)
     return _TrainBlock.apply(x, wqkv.to(dt), bqkv.to(dt), wo.to(dt), bo.to(dt),
                              _mask_row(x, key_padding_mask), bits, num_heads, float(rate),
-                             int(seed))
+                             int(seed), int(batch_offset))
 
 
 @torch.no_grad()

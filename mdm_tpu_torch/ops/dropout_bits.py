@@ -22,6 +22,11 @@ The dumps run on the card unless the caller asks for the CPU
 (``device="cpu"``), where they return ``philox_bits``. On the card each
 entry point is one launch of ``csrc/dropout_bits.cu::philox_dump``, the
 tail's three outputs included, and counts one in ``LAUNCHES``.
+
+Every entry point takes ``batch_offset``, added to the counter's batch
+word: a data-parallel rank that holds the global rows [b0, b0 + n) passes
+b0 and gets exactly those rows of the whole batch's words (the counterpart
+of mdm_tpu/ops/__init__.py::shard_seed_offset, for every dropout site).
 """
 from __future__ import annotations
 
@@ -87,18 +92,21 @@ def philox4x32(counter, key) -> Tuple[torch.Tensor, ...]:
 
 
 def philox_bits(seed: int, b: torch.Tensor, site, rows: int, cols: int,
-                device=None) -> torch.Tensor:
-    """Word 0 of Philox(counter=(col, row, site, b), key=(seed, 0)) for every
-    (b, site, row, col): b and site broadcast against [rows, cols]. Returns
-    int64 holding the uint32 bits, shape [*broadcast(b, site), rows, cols]."""
+                device=None, batch_offset: int = 0) -> torch.Tensor:
+    """Word 0 of Philox(counter=(col, row, site, b + batch_offset),
+    key=(seed, 0)) for every (b, site, row, col): b and site broadcast
+    against [rows, cols]. Returns int64 holding the uint32 bits, shape
+    [*broadcast(b, site), rows, cols]."""
     r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
     c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
-    b = torch.as_tensor(b, dtype=torch.int64, device=device)[..., None, None]
+    b = (torch.as_tensor(b, dtype=torch.int64, device=device)[..., None, None]
+         + batch_offset) & _MASK32
     site = torch.as_tensor(site, dtype=torch.int64, device=device)[..., None, None]
     return philox4x32((c, r, site, b), (int(seed), 0))[0]
 
 
-def _dump_into(outs, seed: int, B: int, H: int, site: int, R: int) -> None:
+def _dump_into(outs, seed: int, B: int, H: int, site: int, R: int, batch_offset: int = 0
+               ) -> None:
     """Fill uint32 card tensors with the stream, in one launch: one output
     [B, H, R, C] at ``site`` (-1: the heads are the sites,
     ``mdm_philox_dump``), or the tail's three [B, R, C_s] at sites 0, 1
@@ -109,24 +117,25 @@ def _dump_into(outs, seed: int, B: int, H: int, site: int, R: int) -> None:
     lib = _build.load_library()
     st = torch.cuda.current_stream(outs[0].device).cuda_stream
     if len(outs) == 1:
-        err = lib.mdm_philox_dump(outs[0].data_ptr(), int(seed), B, H, site, R,
-                                  outs[0].shape[-1], st)
+        err = lib.mdm_philox_dump(outs[0].data_ptr(), int(seed), int(batch_offset), B, H, site,
+                                  R, outs[0].shape[-1], st)
     else:
-        err = lib.mdm_philox_dump3(*(o.data_ptr() for o in outs), int(seed), B, R,
+        err = lib.mdm_philox_dump3(*(o.data_ptr() for o in outs), int(seed), int(batch_offset),
+                                   B, R,
                                    *(o.shape[-1] for o in outs), st)
     _build.check(err, "philox dump")
 
 
-def _dump(name: str, seed: int, B: int, H: int, site: int, R: int, out_shapes, device
-          ) -> Tuple[torch.Tensor, ...]:
+def _dump(name: str, seed: int, B: int, H: int, site: int, R: int, out_shapes, device,
+          batch_offset: int) -> Tuple[torch.Tensor, ...]:
     outs = tuple(torch.empty(s, dtype=torch.uint32, device=device) for s in out_shapes)
-    _dump_into(outs, seed, B, H, site, R)
+    _dump_into(outs, seed, B, H, site, R, batch_offset)
     LAUNCHES[name] += 1
     return outs
 
 
 def dropout_bits(seed: int, B: int, num_heads: int, S: int, device="cuda", *,
-                 key_len: Optional[int] = None) -> torch.Tensor:
+                 key_len: Optional[int] = None, batch_offset: int = 0) -> torch.Tensor:
     """[B, H, S, key_len or S] uint32: the bits the attention block draws
     for head h, query row i, key column j (attention_dropout.py::dropout_bits
     layout). ``key_len`` gives a cross-attention its [S, Sk] rows; a word
@@ -136,13 +145,14 @@ def dropout_bits(seed: int, B: int, num_heads: int, S: int, device="cuda", *,
     if device.type == "cpu":
         b = torch.arange(B)[:, None]
         h = torch.arange(num_heads)[None, :]
-        return philox_bits(seed, b, h, S, Sk).to(torch.uint32)
+        return philox_bits(seed, b, h, S, Sk, batch_offset=batch_offset).to(torch.uint32)
     # site -1: the heads are the sites, out[b, h] holds site h.
-    return _dump("dropout_bits", seed, B, num_heads, -1, S, [(B, num_heads, S, Sk)], device)[0]
+    return _dump("dropout_bits", seed, B, num_heads, -1, S, [(B, num_heads, S, Sk)], device,
+                 batch_offset)[0]
 
 
-def tail_dropout_bits(seed: int, B: int, S: int, D: int, F: int, device="cuda"
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def tail_dropout_bits(seed: int, B: int, S: int, D: int, F: int, device="cuda", *,
+                      batch_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The tail's three masks' bits: attn-out [B,S,D] (site 0), ffn-hidden
     [B,S,F] (site 1), ffn-out [B,S,D] (site 2) (encoder_tail.py layout);
     one launch on the card."""
@@ -150,15 +160,18 @@ def tail_dropout_bits(seed: int, B: int, S: int, D: int, F: int, device="cuda"
     shapes = [(B, S, D), (B, S, F), (B, S, D)]
     if device.type == "cpu":
         b = torch.arange(B)
-        return tuple(philox_bits(seed, b, site, S, n).to(torch.uint32)
+        return tuple(philox_bits(seed, b, site, S, n, batch_offset=batch_offset).to(torch.uint32)
                      for site, (_, _, n) in enumerate(shapes))
-    return _dump("tail_dropout_bits", seed, B, 1, 0, S, shapes, device)
+    return _dump("tail_dropout_bits", seed, B, 1, 0, S, shapes, device, batch_offset)
 
 
-def sequence_dropout_bits(seed: int, B: int, S: int, D: int, device="cuda") -> torch.Tensor:
+def sequence_dropout_bits(seed: int, B: int, S: int, D: int, device="cuda", *,
+                          batch_offset: int = 0) -> torch.Tensor:
     """[B, S, D] uint32: the bits of MDM's input-sequence dropout, site 0 of
     the stream under its own seed (the layout of the tail's first mask)."""
     device = torch.device(device)
     if device.type == "cpu":
-        return philox_bits(seed, torch.arange(B), 0, S, D).to(torch.uint32)
-    return _dump("sequence_dropout_bits", seed, B, 1, 0, S, [(B, S, D)], device)[0]
+        return philox_bits(seed, torch.arange(B), 0, S, D, batch_offset=batch_offset
+                           ).to(torch.uint32)
+    return _dump("sequence_dropout_bits", seed, B, 1, 0, S, [(B, S, D)], device,
+                 batch_offset)[0]

@@ -177,7 +177,7 @@ def mask_words(n: int) -> int:
     return -(-n // 32)
 
 
-def _fwd_cuda(x, attn, params, rate, seed, bits):
+def _fwd_cuda(x, attn, params, rate, seed, bits, boff=0):
     """The forward chain; returns (z, the activations the backward reads:
     x, attn, y, y32, u, hd, o, and the three sites' packed keep masks, or
     None at rate 0)."""
@@ -197,16 +197,16 @@ def _fwd_cuda(x, attn, params, rate, seed, bits):
     st = stream(x)
     y = torch.empty((M, D), dtype=dt, device=x.device)
     y32 = torch.empty((M, D), dtype=torch.float32, device=x.device)
-    _build.check(lib.mdm_tail_ln1_fwd(ptr(xs), ptr(a), *dropout_args(bits0, seed, rate), ptr(m0),
+    _build.check(lib.mdm_tail_ln1_fwd(ptr(xs), ptr(a), *dropout_args(bits0, seed, rate, boff), ptr(m0),
                                       ptr(g1), ptr(bl1), ptr(y), ptr(y32), M, S, D, code, st),
                  "tail ln1")
     u = gemm(y, w1, bias=b1, out_f32=True)
     hd = torch.empty((M, F), dtype=dt, device=x.device)
-    _build.check(lib.mdm_tail_gelu_dropout(ptr(u), *dropout_args(bits1, seed, rate), ptr(m1),
+    _build.check(lib.mdm_tail_gelu_dropout(ptr(u), *dropout_args(bits1, seed, rate, boff), ptr(m1),
                                            ptr(hd), M, S, F, code, st), "tail gelu")
     o = gemm(hd, w2, bias=b2, out_f32=True)
     z = torch.empty((M, D), dtype=dt, device=x.device)
-    _build.check(lib.mdm_tail_ln2_fwd(ptr(y32), ptr(o), *dropout_args(bits2, seed, rate), ptr(m2),
+    _build.check(lib.mdm_tail_ln2_fwd(ptr(y32), ptr(o), *dropout_args(bits2, seed, rate, boff), ptr(m2),
                                       ptr(g2), ptr(bl2), ptr(z), M, S, D, code, st), "tail ln2")
     LAUNCHES["fwd"] += 1
     return z.view(B, S, D), (xs, a, y, y32, u, hd, o, masks)
@@ -219,7 +219,7 @@ def _bwd_cuda(x, params, acts, rate, dz):
     M, F, dt = B * S, w1.shape[0], x.dtype
     code = check_dtype(x, "encoder tail")
     m0, m1, m2 = masks if masks is not None else (None, None, None)
-    inv_keep = dropout_args(None, 0, rate)[3]
+    inv_keep = dropout_args(None, 0, rate)[4]
     f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x.device)
     low = lambda n: torch.empty((M, n), dtype=dt, device=x.device)
     chunks = -(-M // CHUNK_ROWS)
@@ -255,16 +255,17 @@ class _Tail(torch.autograd.Function):
     checkpointed layer (``MDMConfig.remat``) drops and recomputes them."""
 
     @staticmethod
-    def forward(ctx, x, attn, g1, bl1, w1, b1, w2, b2, g2, bl2, bits, rate, seed):
+    def forward(ctx, x, attn, g1, bl1, w1, b1, w2, b2, g2, bl2, bits, rate, seed, boff):
         params = (g1, bl1, w1, b1, w2, b2, g2, bl2)
         ctx.rate, ctx.on_card = rate, x.device.type == "cuda"
         if ctx.on_card:
-            z, (*acts, masks) = _fwd_cuda(x, attn, params, rate, seed, bits)
+            z, (*acts, masks) = _fwd_cuda(x, attn, params, rate, seed, bits, boff)
             ctx.save_for_backward(x, attn, *params, *acts, *(masks or (None,) * 3))
             return z
         if rate > 0.0 and bits is None:  # the kernels' own Philox stream, drawn on the CPU
             B, S, D = x.shape
-            bits = tail_dropout_bits(seed, B, S, D, w1.shape[0], device=x.device)
+            bits = tail_dropout_bits(seed, B, S, D, w1.shape[0], device=x.device,
+                                     batch_offset=boff)
         ctx.save_for_backward(x, attn, *params, *(bits or (None,) * 3))
         return encoder_tail_reference(x, attn, *params, rate, bits)
 
@@ -278,7 +279,7 @@ class _Tail(torch.autograd.Function):
             bits = None if rest[0] is None else tuple(rest)
             grads = encoder_tail_bwd_reference(x, attn, *params, dz, ctx.rate, bits)
         dt = x.dtype
-        return (*grads[:2], *(g.to(dt) for g in grads[2:]), None, None, None)
+        return (*grads[:2], *(g.to(dt) for g in grads[2:]), None, None, None, None)
 
 
 def _bits_arg(x, bits):
@@ -297,18 +298,20 @@ def fused_encoder_tail(
     rate: float,
     seed: int,  # int32, drawn per layer per step
     bits: Bits = None,  # injected uint32 bits for the three sites (use_prng=False)
+    batch_offset: int = 0,  # global batch index of row 0 (data parallelism)
 ) -> torch.Tensor:
     """Training encoder tail with three dropouts, differentiable in x, attn
     and the eight parameters (cast to x's dtype inside the autograd graph,
     so their gradients come back rounded to it). CPU tensors run the plain
     versions; CUDA tensors run the kernel chains (each direction adds one
-    to ``LAUNCHES``) or raise."""
+    to ``LAUNCHES``) or raise. ``batch_offset`` moves the draws' batch
+    word; the backward reads the forward's masks, so it draws nothing."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_encoder_tail runs on cpu or cuda, not {x.device}")
     dt = x.dtype
     params = (g1, bl1, w1, b1, w2, b2, g2, bl2)
     return _Tail.apply(x, attn.to(dt), *(p.to(dt) for p in params), _bits_arg(x, bits),
-                       float(rate), int(seed))
+                       float(rate), int(seed), int(batch_offset))
 
 
 @torch.no_grad()

@@ -1,6 +1,7 @@
 from .pipeline import (  # noqa: F401
     GenerationConfig,
     MotionGenerator,
+    auto_mesh,
     dataset_norm_stats,
     in_between_mask,
     load_norm_stats,

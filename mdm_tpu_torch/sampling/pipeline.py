@@ -1,18 +1,32 @@
-"""End-to-end generation: conditioning -> features -> joints, on one device.
+"""End-to-end generation: conditioning -> features -> joints.
 
 Counterpart of mdm_tpu/sampling/pipeline.py (GenerationConfig,
-load_norm_stats, dataset_norm_stats, MotionGenerator :81-515, the edit
-masks :522-546) for
-single-device sampling: the four samplers of diffusion/samplers.py with
+load_norm_stats, dataset_norm_stats, auto_mesh, MotionGenerator :81-515,
+the edit masks :522-546): the four samplers of diffusion/samplers.py with
 exact classifier-free guidance (one double-batched forward) or its cached
 form, and DiP's autoregressive prefix completion as a host loop over
 chunks with the prefix kept on the card. The denoise loop runs eagerly;
 on a CUDA device every encoder layer of every step goes through the
 hand-written layer kernel chain, and every decoder layer through the
 rate-0 attention block and the rate-0 fused tail.
+
+Over a mesh of several ranks (parallel/mesh.py), the counterpart of the
+JAX package's shard_map sampling (:141-157, :225-229, :288-364):
+
+- data parallel: each rank samples its rows of the batch through the
+  kernels and the features are gathered (an all-reduce of zeroed global
+  rows, exact). The initial noise is the global draw (or the one given),
+  sliced; each rank's later draws (step noise, DiP's chunk noise) come
+  from its own generator, seeded from one draw of the caller's generator
+  and the rank's batch index (JAX's ``fold_in(key, shard index)``). A
+  batch the data axis does not divide runs whole on every rank;
+- tensor parallel (a model axis above 1): each rank holds its Megatron
+  part of the denoiser (parallel/tp_rules.py) and runs the whole batch on
+  the einsum attention and the plain tail; AUTO turns the kernels off.
 """
 from __future__ import annotations
 
+import copy
 import os
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -26,6 +40,18 @@ from ..diffusion.schedule import Schedule
 from ..models.mdm import MDM, Conditioning, cfg_denoiser, cfg_denoiser_cached
 
 STATS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "assets", "stats")
+
+
+def auto_mesh(device=None):
+    """The world's data-parallel mesh for the sampling and eval CLIs when a
+    torch.distributed world of more than one rank is up, else None."""
+    from ..parallel.multihost import world_size
+
+    if world_size() <= 1:
+        return None
+    from ..parallel.mesh import make_mesh
+
+    return make_mesh(device=device)
 
 
 def load_norm_stats(dataset: str = "humanml"):
@@ -66,11 +92,17 @@ class MotionGenerator:
 
     def __init__(self, model: MDM, sched: Schedule,
                  config: GenerationConfig = GenerationConfig(), dataset: str = "humanml",
-                 norm_stats=None):
+                 norm_stats=None, mesh=None):
         """``norm_stats``: the (mean, std) the model was trained with (the
         dataset's Mean/Std.npy, ``dataset_norm_stats``), which decode its
         features; without them an hml_vec model decodes with the bundled
-        t2m/kit stats (close but not identical)."""
+        t2m/kit stats (close but not identical).
+
+        ``mesh``: a parallel.mesh.Mesh. Without a model axis above 1 the
+        generator samples data-parallel over its batch axes (a mesh of one
+        rank too, whose gather is the identity); with one, it samples a
+        tensor-parallel copy of ``model`` (the model passed is left
+        whole)."""
         if config.sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {config.sampler!r}; known: {sorted(SAMPLERS)}")
         if config.cfg_cache_interval > 1 and config.sampler not in ("ddpm", "ddim"):
@@ -85,6 +117,12 @@ class MotionGenerator:
                 "autoregressive generation needs a prefix-completion model: "
                 f"MDMConfig.context_len={model.config.context_len} and "
                 f"pred_len={model.config.pred_len} must both be > 0")
+        self.mesh = mesh
+        self.tensor_parallel = self.mesh is not None and self.mesh.model_parallel > 1
+        if self.tensor_parallel:
+            from ..parallel.tp_rules import shard_model_
+
+            model = shard_model_(copy.deepcopy(model), self.mesh)
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.sched = sched.to(self.device)
@@ -96,6 +134,48 @@ class MotionGenerator:
         if norm_stats is not None:
             self.mean, self.std = (torch.from_numpy(np.asarray(s, np.float32)).to(self.device)
                                    for s in norm_stats)
+
+    def _kernels(self):
+        """AUTO for this generator's calls: the kernels on, except under
+        tensor parallelism, where a pinned kernel flag raises (a kernel
+        would run one rank's heads as if they were the layer's)."""
+        from .. import ops
+
+        if self.tensor_parallel:
+            pinned = [k for k in ("train_block", "sample_block", "encoder_tail",
+                                  "layer_inference", "attention") if ops._FLAGS[k]]
+            if pinned:
+                raise ValueError(f"kernel flags {pinned} are pinned on, but tensor-parallel "
+                                 "sampling runs the einsum attention and the plain tail")
+        return ops.auto_kernels(not self.tensor_parallel)
+
+    def _dp_rows(self, batch_size: int) -> Optional[slice]:
+        """This rank's rows when the data axis divides the batch, else None
+        (the batch runs whole on every rank)."""
+        if self.mesh is None or self.tensor_parallel:
+            return None
+        if batch_size % self.mesh.data_parallel:
+            return None
+        return self.mesh.rows(batch_size)
+
+    def _rank_generator(self, generator: Optional[torch.Generator]) -> torch.Generator:
+        """This rank's stream for the draws after the initial noise: one
+        draw of ``generator`` (the same on every rank) folded with the
+        rank's batch index; with one rank, ``generator`` itself."""
+        if self.mesh.data_parallel == 1:
+            return generator
+        dev = generator.device if generator is not None else self.device
+        base = int(torch.randint(0, 2 ** 62, (1,), generator=generator, device=dev).item())
+        seed = np.random.SeedSequence([base, self.mesh.batch_index]).generate_state(1, np.uint64)
+        return torch.Generator(self.device).manual_seed(int(seed[0] >> 1))
+
+    def _gather(self, local: torch.Tensor, rows: slice, batch_size: int) -> torch.Tensor:
+        """The global [B, ...] from each rank's rows: an all-reduce of zeroed
+        global rows over the batch group (exact)."""
+        out = torch.zeros((batch_size,) + tuple(local.shape[1:]), dtype=local.dtype,
+                          device=local.device)
+        out[rows] = local
+        return self.mesh.sum_over_batch(out)
 
     def _sample(self, cond: Conditioning, noise: torch.Tensor,
                 generator: Optional[torch.Generator], **kwargs) -> torch.Tensor:
@@ -139,9 +219,20 @@ class MotionGenerator:
         kwargs = {}
         if step_noise is not None:  # only the ancestral sampler takes it
             kwargs["step_noise"] = step_noise.to(self.device)
-        return self._sample(cond.to(self.device), noise.to(self.device), generator,
-                            inpainting_mask=inpainting_mask, inpainted_motion=inpainted_motion,
-                            **kwargs)
+        cond, noise = cond.to(self.device), noise.to(self.device)
+        rows = self._dp_rows(batch_size)
+        with self._kernels():
+            if rows is None:
+                return self._sample(cond, noise, generator, inpainting_mask=inpainting_mask,
+                                    inpainted_motion=inpainted_motion, **kwargs)
+            local = _rows_of(dict(cond=cond, noise=noise, inpainting_mask=inpainting_mask,
+                                  inpainted_motion=inpainted_motion), batch_size, rows)
+            if "step_noise" in kwargs:  # [steps, B, T, D]
+                kwargs["step_noise"] = kwargs["step_noise"][:, rows]
+            sample = self._sample(local["cond"], local["noise"], self._rank_generator(generator),
+                                  inpainting_mask=local["inpainting_mask"],
+                                  inpainted_motion=local["inpainted_motion"], **kwargs)
+            return self._gather(sample, rows, batch_size)
 
     @torch.inference_mode()
     def sample_autoregressive(
@@ -169,6 +260,27 @@ class MotionGenerator:
         ``autoregressive_include_prefix``."""
         if cond.prefix is None:
             raise ValueError("autoregressive sampling requires an initial Conditioning.prefix")
+        rows = self._dp_rows(batch_size)
+        with self._kernels():
+            if rows is None:
+                return self._autoregressive(cond, batch_size, generator, required_frames,
+                                            per_chunk_cond, chunk_noise, chunk_step_noise)
+            # Per rank, as JAX's _sm_ar: its rows of the condition and of any
+            # given noise ([n_chunks, B, ...]); its own stream for the rest.
+            local = _rows_of(dict(cond=cond.to(self.device)), batch_size, rows)["cond"]
+            per_chunk = None
+            if per_chunk_cond is not None:
+                per_chunk = lambda i, c: _rows_of(dict(c=per_chunk_cond(i, c).to(self.device)),
+                                                   batch_size, rows)["c"]
+            sample = self._autoregressive(
+                local, rows.stop - rows.start, self._rank_generator(generator),
+                required_frames, per_chunk,
+                None if chunk_noise is None else chunk_noise[:, rows],
+                None if chunk_step_noise is None else chunk_step_noise[:, :, rows])
+            return self._gather(sample, rows, batch_size)
+
+    def _autoregressive(self, cond, batch_size, generator, required_frames, per_chunk_cond,
+                        chunk_noise, chunk_step_noise):
         mcfg = self.model.config
         n_chunks = -(-required_frames // mcfg.pred_len)
         cond = cond.to(self.device)
@@ -212,6 +324,14 @@ class MotionGenerator:
         if self.mean is not None:
             out["joints"] = self.features_to_joints(feats)
         return out
+
+
+def _rows_of(tree: dict, batch_size: int, rows: slice) -> dict:
+    """Each tensor of ``tree`` (a Conditioning's too) whose first axis is
+    the batch, cut to ``rows``; everything else as it is."""
+    from ..parallel.mesh import _map
+
+    return _map(tree, lambda t: t[rows] if t.dim() and t.shape[0] == batch_size else t)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,13 @@ its assets the prompts condition on zeros, as in mdm_tpu. Output formats:
 ``visualize.joints2smpl.motions2hik``, an SMPL fit per repetition) and
 ``animation`` (stick-figure videos from ``visualize.plot_script``; a GIF
 where ffmpeg is absent).
+
+``tensor_parallel`` > 1 (mdm_tpu/serving.py:37-40,89-92) serves through a
+tensor-parallel generator over ``make_mesh(model_parallel=...)``: the
+process joins the torch.distributed world of the environment
+(parallel/multihost.py), every rank builds the Predictor and answers each
+request together with the others, on its own device (``device="cuda"``
+names the rank's card).
 """
 from __future__ import annotations
 
@@ -42,6 +49,10 @@ class PredictorConfig:
     sampler: str = "ddpm"
     # >1: cached CFG, the unconditional branch recomputed every k steps
     cfg_cache_interval: int = 1
+    # >1: Megatron-shard the denoiser over a 'model' mesh axis of this size
+    # (parallel/tp_rules.py), one rank a part; the world size must be a
+    # multiple of it.
+    tensor_parallel: int = 1
     device: str = "cuda"
     # Prefer the EMA weights when the checkpoint carries them.
     use_ema: bool = True
@@ -62,7 +73,15 @@ class Predictor:
         from .train.checkpoints import find_resume_checkpoint, restore_params_only
 
         cfg = self.config
-        device = torch.device(cfg.device)
+        mesh = None
+        if cfg.tensor_parallel > 1:
+            from .parallel import make_mesh
+            from .parallel.multihost import local_device, maybe_initialize_distributed
+
+            maybe_initialize_distributed()
+            mesh = make_mesh(model_parallel=cfg.tensor_parallel,
+                             device=local_device() if cfg.device == "cuda" else cfg.device)
+        device = mesh.device if mesh is not None else torch.device(cfg.device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("PredictorConfig.device is cuda but no CUDA device is visible")
         tokens = cfg.text_encoder_type == "bert"  # DistilBERT token memory (utils/factory.py)
@@ -83,7 +102,7 @@ class Predictor:
             self.model, sched,
             GenerationConfig(guidance_scale=cfg.guidance_scale, sampler=cfg.sampler,
                              cfg_cache_interval=cfg.cfg_cache_interval),
-            cfg.dataset)
+            cfg.dataset, mesh=mesh)
         self.embedder = make_text_embedder(cfg.text_encoder_type, device=device)
         B, T = cfg.batch_size, cfg.max_frames
         self._cond0 = Conditioning(

@@ -1,10 +1,12 @@
-"""Single-device training: the train step, AdamW + EMA state, the loop,
-checkpoints and goal conditioning (counterpart of mdm_tpu/train)."""
+"""Training on one device or data-parallel: the train step, AdamW + EMA
+state, the loop, checkpoints and goal conditioning (counterpart of
+mdm_tpu/train)."""
 from .checkpoints import (  # noqa: F401
     find_resume_checkpoint,
     load_args,
     restore_checkpoint,
     restore_params_only,
+    restore_pytree_numpy,
     save_args,
     save_checkpoint,
 )

@@ -5,7 +5,10 @@ train/training_loop.py:385-444): one checkpoint per step under save_dir,
 named ``ckpt_{step:09d}`` as in the JAX package (a file here, written by
 ``torch.save`` of the whole train state), the run config as args.json
 beside them, resume from the highest step, and the (EMA) parameters alone
-for sampling (``restore_params_only``). A checkpoint that mdm_tpu wrote is
+for sampling (``restore_params_only``), and any checkpoint as numpy
+arrays whatever world wrote it (``restore_pytree_numpy``; in a
+multi-process world rank 0 writes the one file and every rank reads it
+onto its own device). A checkpoint that mdm_tpu wrote is
 an orbax directory, which the port does not read: converting one is
 ROADMAP Queue 1 item 11.
 """
@@ -72,6 +75,23 @@ def _load(path: str, device) -> Dict[str, Any]:
             "mdm_tpu_torch does not read (its checkpoints are torch.save files); "
             "converting one is ROADMAP Queue 1 item 11")
     return torch.load(path, map_location=device, weights_only=True)
+
+
+def restore_pytree_numpy(path: str):
+    """A checkpoint as nested dicts and lists of numpy arrays (the tensors
+    read onto the CPU; other values as saved), whatever world and device
+    wrote it: mdm_tpu/train/checkpoints.py:65-98's counterpart for the
+    port's own files."""
+    def to_numpy(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().cpu().numpy()
+        if isinstance(v, dict):
+            return {k: to_numpy(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return type(v)(to_numpy(x) for x in v)
+        return v
+
+    return to_numpy(_load(path, "cpu"))
 
 
 def restore_params_only(path: str, model: torch.nn.Module, use_ema: bool = True

@@ -1,8 +1,13 @@
 """Host-side training loop around the train step.
 
 Counterpart of mdm_tpu/train/loop.py (:28-189; reference
-train/training_loop.py:37-475) on one device: it feeds batches, logs KVs,
-checkpoints and runs the eval/generate callbacks.
+train/training_loop.py:37-475): it feeds batches, logs KVs, checkpoints
+and runs the eval/generate callbacks. In a multi-process world every rank
+runs the loop on its rows (each batch through ``parallel.shard_batch``);
+rank 0 alone writes args.json, the progress logs, the platform's reports,
+the generated media and each checkpoint, which every rank then waits for
+at a barrier. On resume every rank reads the same checkpoint onto its own
+device.
 
 Resume is bit exact: the step's randomness is ``step_key(rng_seed, step)``,
 a pure function of the step index (JAX's ``fold_in``), a data iterable
@@ -18,7 +23,6 @@ reference's DIFFUSION_TRAINING_TEST seam, training_loop.py:241).
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 import time
 from dataclasses import dataclass
@@ -26,6 +30,8 @@ from typing import Any, Callable, Dict, Iterable, Optional
 
 import torch
 
+from ..parallel.mesh import Mesh, mesh_grid, shard_batch
+from ..parallel.multihost import barrier, is_primary
 from .checkpoints import find_resume_checkpoint, restore_checkpoint, save_args, save_checkpoint
 from .logger import KVLogger
 from .platforms import NoPlatform, TrainPlatform
@@ -51,12 +57,6 @@ class LoopConfig:
     profile_trace_dir: str = ""
 
 
-def _to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
-    """The batch's tensors (and its Conditioning) on ``device``."""
-    return {k: v.to(device) if isinstance(v, torch.Tensor) or dataclasses.is_dataclass(v)
-            else v for k, v in batch.items()}
-
-
 class TrainLoop:
     def __init__(
         self,
@@ -70,19 +70,23 @@ class TrainLoop:
         eval_fn: Optional[Callable[[Any, int], Dict[str, float]]] = None,
         gen_fn: Optional[Callable[[Any, int], Optional[str]]] = None,
         rng_seed: int = 10,
+        mesh: Optional[Mesh] = None,
     ):
         self.train_step = train_step
         self.state = state
         self.config = config
+        self.is_primary = is_primary()
         self.platform = platform or NoPlatform(config.save_dir)
-        self.logger = KVLogger(config.save_dir)
+        self.logger = KVLogger(config.save_dir if self.is_primary else None)
         self.eval_fn = eval_fn
         self.gen_fn = gen_fn
         self.rng_seed = rng_seed
         self.device = next(state.model.parameters()).device
+        # One rank on the model's device when no mesh is given.
+        self.mesh = mesh if mesh is not None else Mesh(*mesh_grid(1), device=self.device)
 
         os.makedirs(config.save_dir, exist_ok=True)
-        if args is not None:
+        if args is not None and self.is_primary:
             save_args(config.save_dir, args)
             self.platform.report_args(args, "args")
 
@@ -115,9 +119,11 @@ class TrainLoop:
             while self.step < cfg.num_steps:
                 if cfg.profile_trace_dir and self.step == 2 and prof is None:
                     prof = start_trace(cfg.profile_trace_dir)
-                batch = _to_device(next(self.data_iter), self.device)
+                batch = shard_batch(next(self.data_iter), self.mesh)
                 if batch_size is None:
-                    batch_size = int(batch["x"].shape[0]) if "x" in batch else 0
+                    # the global batch: every rank holds its rows
+                    batch_size = (int(batch["x"].shape[0]) * self.mesh.data_parallel
+                                  if "x" in batch else 0)
                 self.state, metrics = self.train_step(self.state, batch,
                                                       step_key(self.rng_seed, self.step))
                 if acc is None:
@@ -151,7 +157,7 @@ class TrainLoop:
                     if self.eval_fn and cfg.eval_during_training:
                         for k, v in (self.eval_fn(self.state, step) or {}).items():
                             self.platform.report_scalar(k, v, step, group_name="Eval")
-                    if self.gen_fn and cfg.gen_during_training:
+                    if self.gen_fn and cfg.gen_during_training and self.is_primary:
                         media = self.gen_fn(self.state, step)
                         for m in ([media] if isinstance(media, str) else media or []):
                             self.platform.report_media("Motion", "gen", step, m)
@@ -163,6 +169,10 @@ class TrainLoop:
                 stop_trace(prof, cfg.profile_trace_dir)
 
     def save(self):
-        path = save_checkpoint(self.config.save_dir, self.step, self.state)
-        print(f"saved checkpoint {path}")
+        """Rank 0 writes the checkpoint; every rank returns once it is whole."""
+        path = None
+        if self.is_primary:
+            path = save_checkpoint(self.config.save_dir, self.step, self.state)
+            print(f"saved checkpoint {path}")
+        barrier()
         return path

@@ -1,11 +1,29 @@
-"""One training step on one device: loss, gradients, AdamW and EMA.
+"""One training step: loss, gradients, AdamW and EMA, on one device or
+data-parallel over a torch.distributed world.
 
-Counterpart of mdm_tpu/train/train_step.py::make_train_step (:69-258) for
-a single device (no mesh, no shard_map). Per step, in this order: draw t,
-the noise and the CFG condition dropout (and the goal target's), q_sample,
-the model's training forward (dropout from the step's generator), the
-losses (the goal target loss when asked), the backward through the
-hand-written kernels, the metrics, AdamW and the EMA.
+Counterpart of mdm_tpu/train/train_step.py::make_train_step (:69-288).
+Per step, in this order: draw t, the noise and the CFG condition dropout
+(and the goal target's), q_sample, the model's training forward (dropout
+from the step's generator), the losses (the goal target loss when asked),
+the backward through the hand-written kernels, the metrics, AdamW and the
+EMA.
+
+Under a data-parallel mesh (the counterpart of ``_sm_grads``, :128-178)
+each rank holds its rows of the global batch. It draws the global t,
+noise and condition dropouts from the step's generators and keeps its
+rows, runs the model on its rows inside ``ops.sharded_rows`` (every
+dropout mask is then exactly its rows of the one-process masks: the seeds
+come from the same CPU generator on every rank, and the first global row
+moves the Philox counter's batch word), and takes the local partial
+``sum(weights * terms) / B_global`` of the global mean. One all-reduce
+over the batch group then sums, in a fixed parameter order, every
+gradient, the loss, and the per-example terms and t written into zeroed
+global rows (an exact gather, which gloo's CUDA tensors also take). The
+reduction order is a function of the world alone, so resume stays bitwise
+within a topology; the norms, AdamW and the EMA then run identically on
+every rank. One body serves every case: without a mesh the rows are the
+whole batch and nothing is summed, and a mesh of one rank runs the same
+all-reduce (the identity), so its step is the mesh-less step, bitwise.
 
 Randomness is a pure function of the step's integer ``key`` (the
 counterpart of ``jax.random.fold_in(base, step)``, see ``step_key``): a
@@ -22,6 +40,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import ops
 from ..diffusion import gaussian as G
 from ..diffusion.losses import LossConfig, training_losses
 from ..diffusion.schedule import Schedule
@@ -61,10 +80,31 @@ def quartile_metrics(losses: torch.Tensor, t: torch.Tensor, num_timesteps: int
     return out
 
 
+def _sum_over_ranks(mesh, grads, loss: torch.Tensor, table: torch.Tensor, rows: slice,
+                    B: int):
+    """One all-reduce over the mesh's batch group of every gradient (in
+    place, in parameter order), the loss, and ``table``'s per-example
+    columns [K, b] written into zeroed global columns [K, B] (an exact
+    gather, which gloo's CUDA tensors also take). Returns the global
+    (loss, table); without a mesh, the step's own."""
+    if mesh is None:
+        return loss, table
+    cols = torch.zeros(table.shape[:1] + (B,), dtype=table.dtype, device=table.device)
+    cols[:, rows] = table
+    flat = mesh.sum_over_batch(torch.cat([g.reshape(-1).float() for g in grads]
+                                         + [loss.float().reshape(1), cols.reshape(-1)]))
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return flat[offset], flat[offset + 1:].view(-1, B)
+
+
 def make_train_step(sched: Schedule, config: TrainStepConfig, *,
                     get_xyz: Optional[Callable] = None,
                     target_loss_builder: Optional[Callable] = None,
-                    target_cond_fn: Optional[Callable] = None):
+                    target_cond_fn: Optional[Callable] = None,
+                    mesh=None):
     """Returns ``step(state, batch, key, sampler_state=None, *, draws=None)``.
 
     ``batch``: a dict with ``x`` [B, T, D], ``mask`` [B, T] bool and a
@@ -79,10 +119,21 @@ def make_train_step(sched: Schedule, config: TrainStepConfig, *,
     ``lambda_target_loc``. Returns ``(state, metrics)``, plus the new
     sampler state under 'loss-second-moment'. The state is updated in
     place; after the step each parameter's ``.grad`` holds the gradient
-    the update used. Metrics stay on the device."""
+    the update used. Metrics stay on the device.
+
+    ``mesh`` (parallel.mesh.Mesh): with more than one rank, ``batch`` holds
+    this rank's rows and ``draws`` the global draws; the metrics, the
+    sampler state and the update are the global step's on every rank; a
+    mesh of one rank runs the same body, its all-reduce the identity. A
+    model axis above 1 (tensor-parallel training) raises: it is not
+    ported."""
     loss_aware = config.schedule_sampler == "loss-second-moment"
     if not loss_aware and config.schedule_sampler != "uniform":
         raise ValueError(f"unknown schedule_sampler {config.schedule_sampler!r}")
+    if mesh is not None and mesh.model_parallel > 1:
+        raise NotImplementedError(
+            f"tensor-parallel training (mesh {mesh.shape}) is not ported to "
+            "mdm_tpu_torch, data parallelism only (ROADMAP Queue 1 item 15)")
 
     def step(state: TrainState, batch: Dict, key: int,
              sampler_state: Optional[LossAwareState] = None, *, draws: Optional[Dict] = None):
@@ -91,7 +142,9 @@ def make_train_step(sched: Schedule, config: TrainStepConfig, *,
                 and cond.target_cond is None):
             cond = cond.replace(target_cond=target_cond_fn(x_start, cond.target_validity))
             batch = dict(batch, cond=cond)
-        B, device = x_start.shape[0], x_start.device
+        device, b = x_start.device, x_start.shape[0]
+        B = b if mesh is None else b * mesh.data_parallel
+        rows = slice(0, B) if mesh is None else mesh.rows(B)
         rng, gen = step_generators(key, device)
         weights = torch.ones((B,), dtype=torch.float32, device=device)
         draw_target = config.cond_mask_prob > 0 and cond.target_cond is not None
@@ -103,38 +156,50 @@ def make_train_step(sched: Schedule, config: TrainStepConfig, *,
                 t, weights = loss_aware_sample_t(gen, sampler_state, B)
             else:
                 t, weights = uniform_sample_t(gen, B, sched.num_timesteps, device)
-            noise = torch.randn(x_start.shape, generator=gen, device=device, dtype=x_start.dtype)
+            noise = torch.randn((B,) + tuple(x_start.shape[1:]), generator=gen, device=device,
+                                dtype=x_start.dtype)
             drop = torch.rand((B,), generator=gen, device=device) < config.cond_mask_prob
             # The target's condition dropout is its own Bernoulli draw, as
             # the reference's mask_cond of the target embedding.
             target_uncond = (torch.rand((B,), generator=gen, device=device)
                              < config.cond_mask_prob) if draw_target else None
+        t, weights, noise, drop = (v.to(device)[rows] for v in (t, weights, noise, drop))
         x_t = G.q_sample(sched, x_start, t, noise)
         if config.cond_mask_prob > 0:
             cond = cond.replace(cond_drop=drop, frames_mask=mask)
             if draw_target:
-                cond = cond.replace(target_uncond=target_uncond)
+                cond = cond.replace(target_uncond=target_uncond.to(device)[rows])
         else:
             cond = cond.replace(frames_mask=mask)
+        # The goal loss closes over this rank's cond, as JAX's local_fn's.
         target_loss_fn = target_loss_builder(batch) if target_loss_builder is not None else None
 
         model = state.model
         params = list(model.parameters())
         for p in params:
             p.grad = None
-        model_out = model(x_t, sched.model_timesteps(t), cond, deterministic=False, rng=rng)
-        terms = training_losses(sched, model_out, x_start, x_t, t, noise, mask[..., None],
-                                config.loss, get_xyz=get_xyz, target_loss_fn=target_loss_fn)
-        loss = (weights * terms["loss"]).mean()
-        loss.backward()
+        with ops.sharded_rows(rows.start):
+            model_out = model(x_t, sched.model_timesteps(t), cond, deterministic=False, rng=rng)
+            terms = training_losses(sched, model_out, x_start, x_t, t, noise, mask[..., None],
+                                    config.loss, get_xyz=get_xyz, target_loss_fn=target_loss_fn)
+            partial = weights * terms["loss"]
+            # the local partial of the global mean
+            loss = partial.mean() if B == b else partial.sum() / B
+            loss.backward()
+
+        names = sorted(terms)
         with torch.no_grad():
-            grad_norm = global_norm(p.grad for p in params if p.grad is not None)
+            grads = [p.grad for p in params if p.grad is not None]
+            loss, table = _sum_over_ranks(
+                mesh, grads, loss.detach(),
+                torch.stack([terms[k].detach().float() for k in names] + [t.float()]), rows, B)
+            grad_norm = global_norm(grads)
             param_norm = global_norm(params)
         apply_gradients(state, config.optim)
 
-        losses = terms["loss"].detach()
-        metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "param_norm": param_norm,
-                   **{k: v.detach().mean() for k, v in terms.items() if k != "loss"},
+        losses, t = table[names.index("loss")], table[-1].round().long()
+        metrics = {"loss": loss, "grad_norm": grad_norm, "param_norm": param_norm,
+                   **{k: v.mean() for k, v in zip(names, table) if k != "loss"},
                    **quartile_metrics(losses, t, sched.num_timesteps)}
         if loss_aware:
             return state, metrics, loss_aware_update(sampler_state, t, losses)

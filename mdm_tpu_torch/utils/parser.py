@@ -37,9 +37,23 @@ def _device_arg(value: str) -> Union[int, str]:
 def select_device(args):
     """The torch device ``args.device`` names, made the current CUDA device:
     ``cuda:N`` for an index, which must exist (no silent CPU run), or the
-    CPU for ``cpu``."""
+    CPU for ``cpu``. In a torch.distributed world of several ranks the
+    default index 0 names the rank's own card,
+    ``cuda:{LOCAL_RANK % device_count}`` (parallel/multihost.py), and an
+    nccl world refuses the CPU."""
     import torch
 
+    from ..parallel.multihost import local_device, world_size
+
+    if world_size() > 1:
+        import torch.distributed as dist
+
+        if args.device == "cpu" and dist.get_backend() == "nccl":
+            raise RuntimeError("--device cpu in an nccl world: nccl moves CUDA tensors only; "
+                               "set MDM_TPU_DIST_BACKEND=gloo for a CPU world")
+        if args.device == 0 and torch.cuda.is_available():
+            torch.cuda.set_device(local_device())
+            return local_device()
     if args.device == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():

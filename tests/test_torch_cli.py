@@ -83,14 +83,38 @@ def test_device_argument():
 
 def test_train_refuses_cpu_fallback(tmp_path, synthetic_humanml, monkeypatch):
     """--device 0 (the default) with no CUDA device raises, before any step
-    runs on the CPU."""
+    runs on the CPU. A one-process world through MDM_TPU_COORDINATOR (gloo)
+    trains two steps and writes the checkpoint of the run without it,
+    bitwise."""
+    import torch.distributed as dist
+
+    from mdm_tpu_torch.parallel.multihost import find_free_port
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _train(str(tmp_path / "run"), synthetic_humanml, "--num_steps", "2", device="0")
     assert not (tmp_path / "run").exists()
-    monkeypatch.setenv("MDM_TPU_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _train(str(tmp_path / "run"), synthetic_humanml, "--num_steps", "2")
+    args = ("--num_steps", "2", "--save_interval", "2", "--use_ema", "true")
+    _train(str(tmp_path / "alone"), synthetic_humanml, *args)
+    monkeypatch.setenv("MDM_TPU_COORDINATOR", f"localhost:{find_free_port()}")
+    monkeypatch.setenv("MDM_TPU_NUM_PROCESSES", "1")
+    monkeypatch.setenv("MDM_TPU_PROCESS_ID", "0")
+    try:
+        _train(str(tmp_path / "world"), synthetic_humanml, *args)
+        assert dist.is_initialized() and dist.get_world_size() == 1
+        assert dist.get_backend() == "gloo"  # no CUDA device: the CPU world
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    load = lambda d: torch.load(os.path.join(d, "ckpt_000000002"), weights_only=True)
+    a, w = load(tmp_path / "alone"), load(tmp_path / "world")
+    assert a["step"] == w["step"] == 2
+    for part in ("model", "ema_params"):
+        for k in a[part]:
+            assert torch.equal(a[part][k], w[part][k]), (part, k)
+    for i, s in a["optimizer"]["state"].items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(s[k], w["optimizer"]["state"][i][k]), (i, k)
 
 
 def test_train_refuses_unported_options(tmp_path, synthetic_humanml, synthetic_humanact12):

@@ -261,7 +261,7 @@ def test_rectangular_dump_is_the_square_dumps_corner(monkeypatch):
 
     class Lib:
         def mdm_philox_dump(self, *args):
-            calls.append(args[1:7])
+            calls.append(args[1:8])
             return 0
 
     monkeypatch.setattr(DB._build, "load_library", lambda: Lib())
@@ -270,5 +270,5 @@ def test_rectangular_dump_is_the_square_dumps_corner(monkeypatch):
     monkeypatch.setattr(DB, "LAUNCHES", dict.fromkeys(DB.LAUNCHES, 0))
     out = DB.dropout_bits(seed, Bq, H, 60, device="meta", key_len=64)
     assert out.shape == (Bq, H, 60, 64)
-    assert calls == [(seed, Bq, H, -1, 60, 64)]  # seed, B, H, site, R, C
+    assert calls == [(seed, 0, Bq, H, -1, 60, 64)]  # seed, batch offset, B, H, site, R, C
     assert DB.LAUNCHES["dropout_bits"] == 1

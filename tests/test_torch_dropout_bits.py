@@ -119,9 +119,10 @@ def test_card_entry_points_launch_once_with_the_c_arguments(monkeypatch):
     src = (_build.CSRC / "dropout_bits.cu").read_text()
     params = {m.group(1): [a.split()[-1].lstrip("*") for a in m.group(2).split(",")]
               for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src)}
-    assert params == {"mdm_philox_dump": ["out", "seed", "B", "H", "site", "R", "C", "stream"],
-                      "mdm_philox_dump3": ["out0", "out1", "out2", "seed", "B", "R", "C0", "C1",
-                                           "C2", "stream"]}
+    assert params == {"mdm_philox_dump": ["out", "seed", "boff", "B", "H", "site", "R", "C",
+                                          "stream"],
+                      "mdm_philox_dump3": ["out0", "out1", "out2", "seed", "boff", "B", "R", "C0",
+                                           "C1", "C2", "stream"]}
     for name, names in params.items():
         assert len(_build.SIGNATURES[name]) == len(names)
     calls = []
@@ -139,13 +140,17 @@ def test_card_entry_points_launch_once_with_the_c_arguments(monkeypatch):
     bits = DB.dropout_bits(SEED, B, H, S, device="meta")
     seq = DB.sequence_dropout_bits(SEED, B, S, D, device="meta")
     assert bits.shape == (B, H, S, S) and seq.shape == (B, S, D)
-    common = dict(seed=SEED, B=B, R=S, stream=7)
+    common = dict(seed=SEED, boff=0, B=B, R=S, stream=7)
     assert calls == [
         ("mdm_philox_dump3", dict(out0=0, out1=0, out2=0, C0=D, C1=F, C2=D, **common)),
         ("mdm_philox_dump", dict(out=0, H=H, site=-1, C=S, **common)),
         ("mdm_philox_dump", dict(out=0, H=1, site=0, C=D, **common)),
     ]
     assert DB.LAUNCHES == {"dropout_bits": 1, "tail_dropout_bits": 1, "sequence_dropout_bits": 1}
+    # A data-parallel rank's first global row reaches the counter's batch word.
+    DB.sequence_dropout_bits(SEED, B, S, D, device="meta", batch_offset=B)
+    DB.tail_dropout_bits(SEED, B, S, D, F, device="meta", batch_offset=2 * B)
+    assert [c[1]["boff"] for c in calls[3:]] == [B, 2 * B]
     with pytest.raises(ValueError, match="uint32"):
         DB._dump_into([torch.empty(4, dtype=torch.int32, device="meta")], SEED, 1, 1, 0, 1)
     with pytest.raises(ValueError, match="contiguous"):

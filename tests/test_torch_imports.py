@@ -5,7 +5,8 @@ eval_humanml, and the comp_v6 stage, with --device cpu on a synthetic HumanML3D 
 the SMPL loss -> train_evaluators -> eval_a2m on a synthetic HumanAct12 tree
 and SMPL pickle; convert_text_encoders -> both embedders, and
 convert_checkpoint -> generate with the CLIP tower) run, in a fresh
-interpreter where all five are blocked."""
+interpreter where all five are blocked; the parallel package builds a
+mesh of one rank and gives a tensor-parallel split there too."""
 import subprocess
 import sys
 from pathlib import Path
@@ -51,6 +52,12 @@ batch = {"x": torch.randn(2, 6, 263), "mask": torch.ones(2, 6, dtype=torch.bool)
          "cond": Conditioning(text_embed=torch.zeros(2, 512))}
 state, metrics = make_train_step(Schedule.create("cosine", 100), TrainStepConfig())(state, batch, 0)
 assert state.step == 1 and torch.isfinite(metrics["loss"])
+from mdm_tpu_torch.parallel import make_mesh, shard_batch
+from mdm_tpu_torch.parallel.multihost import maybe_initialize_distributed
+from mdm_tpu_torch.parallel.tp_rules import spec_for_param
+assert maybe_initialize_distributed() == 0 and make_mesh().size == 1
+assert shard_batch(batch)["x"].shape == (2, 6, 263)
+assert spec_for_param("seqTransEncoder.layers.0.linear2.weight", 2).dim == 1
 import os, tempfile
 import numpy as np
 from mdm_tpu_torch.cli import edit, generate, train

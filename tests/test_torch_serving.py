@@ -1,6 +1,6 @@
 """mdm_tpu_torch.serving.Predictor's sampler settings on the CPU: its
-PredictorConfig has mdm_tpu's fields (but tensor_parallel, the parallelism
-slice's, and with the port's device) at mdm_tpu's defaults, and a request
+PredictorConfig has mdm_tpu's fields (with the port's device) at mdm_tpu's
+defaults, and a request
 with ``sampler="dpmpp_2m"`` or ``cfg_cache_interval=2`` reaches
 MotionGenerator with those values, makes that sampler's model forwards and
 answers."""
@@ -19,9 +19,8 @@ from mdm_tpu_torch.sampling import pipeline  # noqa: E402
 def test_config_fields_are_mdm_tpus():
     ours = {f.name: f.default for f in dataclasses.fields(serving.PredictorConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(jserving.PredictorConfig)}
-    assert set(ours) == set(theirs) - {"tensor_parallel"} | {"device"}
-    assert {k: v for k, v in ours.items() if k != "device"} == {
-        k: v for k, v in theirs.items() if k != "tensor_parallel"}
+    assert set(ours) == set(theirs) | {"device"}
+    assert {k: v for k, v in ours.items() if k != "device"} == theirs
     assert ours["sampler"] == "ddpm" and ours["cfg_cache_interval"] == 1
 
 
