@@ -146,9 +146,23 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   4-step DDIM over a tensor-parallel mesh of both ranks against the
   one-process sample on the same route (f32 within TP_REL, bf16 within
   TP_BF16_REL of the sample's largest value) with no hand kernel launched, a data-parallel DDIM sample, and the
-  Predictor at tensor_parallel=2. NCCL takes one card
-  a rank, so the card checks a world of one under NCCL and two ranks under
-  gloo; tensor parallelism across cards is not checked here.
+  Predictor at tensor_parallel=2; 20a also holds the model offsets of the
+  dumps (#9 at head_offset = H/2, #6's FFN-hidden site at ffn_offset =
+  F/2) bitwise against the matching heads and columns of the whole dumps
+  and the plain philox_bits, and the words at offset 0 against a known
+  answer (OFFSET_ZERO_SHA256); 20d tensor-parallel training, two gloo
+  ranks sharing the card (parallel_check.py train --model_parallel 2): the
+  flagship at B = 32, 196 frames, bf16, rate 0.1, 2 steps on a TP=2 state
+  against the one-process steps on TP's route (the einsum attention and the
+  plain tail) within TP_TRAIN_TOL, the model offsets pinned at 0 missing by
+  CONTROL_FACTOR x, a gathered checkpoint saved after step 1, restored onto
+  the TP mesh and stepped on, bitwise the uninterrupted run and in the
+  one-process file's layout, then the same in f32 within TP_TRAIN_F32_TOL
+  (no checkpoint); per rank and step #9 and #6 8 launches each,
+  the sequence dump 1, every fused kernel 0; each rank's ms per step and its
+  model group's all-reduces (count, bytes). NCCL takes one card a rank, so
+  the card checks a world of one under NCCL and two ranks under gloo;
+  tensor parallelism across cards is not checked here.
 
 Each path checks that every layer call went through its kernels, and the
 sampling and training paths that every product, forward and backward,
@@ -3990,6 +4004,26 @@ CONTROL_FACTOR = 10
 TP_REL = 1e-4
 TP_BF16_REL = 7e-2
 PARALLEL_STEPS = 3  # phase 20b's flagship steps, bare and on the mesh
+# Phase 20d's tolerances, TP=2 training (two gloo ranks) against one
+# process on TP's route, bf16, rate 0.1, at scripts/parallel_check.py's
+# measures (as TWO_RANK_TOL's): the masks are the same, and TP sums the
+# row-parallel partial products and the column-parallel partial input
+# gradients in f32, each rounded once to bf16 as the one-process product
+# is, so only the order of the f32 sums differs (an f32 product of the
+# bf16 operands against cuBLAS's bf16 one). Set before the first run on the
+# card: the loss within 1e-3 relative (a layer's output may move by a bf16
+# ulp), the moments and updates within 20c's bars.
+TP_TRAIN_TOL = dict(loss_rel=1e-3, moment_err=2e-2, update_err=5e-3)
+# The same steps in f32, where no bf16 rounding hides the masks: set before
+# its first run on the card from the CPU's f32 distances at 32 and 64 wide
+# (moments 1.1e-6 and 6.7e-6 of the largest, updates 1.0e-6 and 2.3e-6).
+TP_TRAIN_F32_TOL = dict(loss_rel=1e-5, moment_err=1e-4, update_err=1e-4)
+TP_TRAIN = dict(B=32, frames=196, steps=2)  # phase 20d's global batch and steps
+# sha256 of the words of dropout_bits(20, 3, 4, 37, key_len=41) and then
+# tail_dropout_bits(20, 3, 37, 40, 72), both at batch_offset 5, from the
+# stream before the model offsets existed (tests/test_torch_dropout_bits.py
+# holds the plain version to it): at offset 0 the card's words must not move.
+OFFSET_ZERO_SHA256 = "368ad1344c66d3000c9055d69b2191253b18d8a9ed4ecc4a93115bfb9fa6e2cf"
 
 
 def _rows_equal(torch, name, full, part, b0):
@@ -4083,16 +4117,57 @@ def phase_offset(torch, TB, ET, DB, dev):
         torch, "20a #7 at the offset", att_p,
         AD.dropout_attention_reference(q[rows], k[rows], v[rows], H, RATE, part, kpm[rows]),
         rel)[1]
+    model_offsets = phase_model_offsets(torch, DB, dev, seed)
     # the offset costs nothing: #2's forward on the same rows at offset 0 and 64
     with torch.no_grad():
         ms = {off: _time_ms(torch, lambda: TB.fused_train_attention_block(
             x[rows], wqkv, bqkv, wo, bo, H, RATE, seed, kpm[rows], batch_offset=off))
             for off in (0, b0, 0, b0)}
     row = dict(shape=dict(TRAIN_SHAPE, rows=[b0, B]), rel_err=errs, rel_tol=rel,
+               model_offsets=model_offsets,
                block_fwd_ms_at_offset={"0": ms[0], str(b0): ms[b0]})
     print("20a batch offset: dumps, #2 out/dx, #4 z/dx/dattn/masks and #7 out on rows "
           f"[{b0}, {B}) == the whole batch's rows, bitwise; {json.dumps(row)}")
     return row
+
+
+def phase_model_offsets(torch, DB, dev, seed):
+    """Phase 20a, tensor parallelism: at the training shapes, #9 at
+    head_offset = H/2 (the second rank's heads) and #6 at ffn_offset = F/2
+    (its FFN columns) are bitwise the matching heads and columns of the
+    whole layer's dumps and the plain philox_bits, #6's sites 0 and 2 the
+    whole ones; at offset 0 the card's words hash to OFFSET_ZERO_SHA256.
+    Comparisons, counted on no path."""
+    import hashlib
+
+    B, S, D, H, F = (TRAIN_SHAPE[k] for k in ("B", "S", "D", "H", "F"))
+    h, f = H // 2, F // 2
+    ar = lambda k: torch.arange(k, device=dev)
+    whole = DB.dropout_bits(seed, B, H, S, dev)
+    mine = DB.dropout_bits(seed, B, h, S, dev, head_offset=h)
+    if not torch.equal(mine, whole[:, h:]):
+        raise AssertionError("20a dropout_bits at head_offset differs from the whole dump's heads")
+    if not torch.equal(mine.to(torch.int64), DB.philox_bits(seed, ar(B)[:, None],
+                                                            ar(h)[None, :] + h, S, S,
+                                                            device=dev)):
+        raise AssertionError("20a dropout_bits at head_offset differs from philox_bits")
+    tail = DB.tail_dropout_bits(seed, B, S, D, F, dev)
+    part = DB.tail_dropout_bits(seed, B, S, D, f, dev, ffn_offset=f)
+    if not (torch.equal(part[0], tail[0]) and torch.equal(part[2], tail[2])
+            and torch.equal(part[1], tail[1][..., f:])):
+        raise AssertionError("20a tail_dropout_bits at ffn_offset differs from the whole dump")
+    if not torch.equal(part[1].to(torch.int64), DB.philox_bits(seed, ar(B), 1, S, f, device=dev,
+                                                               col_offset=f)):
+        raise AssertionError("20a tail_dropout_bits at ffn_offset differs from philox_bits")
+    digest = hashlib.sha256()
+    for words in (DB.dropout_bits(20, 3, 4, 37, dev, key_len=41, batch_offset=5),
+                  *DB.tail_dropout_bits(20, 3, 37, 40, 72, dev, batch_offset=5)):
+        digest.update(words.cpu().numpy().tobytes())
+    if digest.hexdigest() != OFFSET_ZERO_SHA256:
+        raise AssertionError("20a: the dumps' words at offset 0 moved")
+    print(f"20a model offsets: #9 heads [{h}, {H}) and #6 columns [{f}, {F}) at B={B}, S={S} "
+          "bitwise the whole dumps' and philox_bits; offset-0 words unchanged")
+    return {"head_offset": h, "ffn_offset": f, "bitwise": True}
 
 
 def phase_world_of_one(torch, TB, ET, DB, li, dev, gen, cond, want, B, T):
@@ -4260,6 +4335,75 @@ def phase_two_ranks(torch, tmp):
                 dp_launches=bf16["dp_launches"], dp_ddim=bf16["dp_ddim"],
                 tp={"bf16": bf16["tp_ddim"], "f32": f32["tp_ddim"],
                     "bf16 plain vs kernel route": bf16["plain_vs_kernel_route"]})
+
+
+def phase_tensor_parallel_train(torch, tmp):
+    """Phase 20d: tensor-parallel training, two gloo ranks sharing the card
+    (scripts/parallel_check.py train --model_parallel 2 through
+    launch_local_multihost). The flagship at TP_TRAIN's batch, rate 0.1, in
+    bf16: the TP steps against the one-process steps on TP's route within
+    TP_TRAIN_TOL; the model offsets pinned at 0 missing by CONTROL_FACTOR x;
+    a gathered checkpoint after step 1 restored onto the TP mesh, whose
+    step 2 is the uninterrupted run's bitwise, in the one-process file's
+    layout; then in f32 (TP_TRAIN_F32_TOL, the control again). Each rank's
+    launches, from zero in its process: #9 and #6 one a layer a step, the
+    sequence dump one a step, no fused kernel; each rank's ms per step and
+    its model group's all-reduces (per step 4 a layer of [B, S, D] f32 and
+    the two norms' scalars). Rank 0's bf16 launches are the kernels line's."""
+    from mdm_tpu_torch.parallel.multihost import launch_local_multihost
+
+    B, T, steps = TP_TRAIN["B"], TP_TRAIN["frames"], TP_TRAIN["steps"]
+    layers = FLAGSHIP["num_layers"]
+    want = {"dropout_bits": layers * steps, "tail_dropout_bits": layers * steps,
+            "sequence_dropout_bits": steps}
+    one = B * (T + 1) * FLAGSHIP["latent_dim"] * 4
+    rows = {}
+    for dtype, tol, extra in (("bfloat16", TP_TRAIN_TOL, ["--save_resume"]),
+                              ("float32", TP_TRAIN_F32_TOL, [])):
+        launch_local_multihost(
+            2, module="mdm_tpu_torch.scripts.parallel_check", device="cuda", backend="gloo",
+            timeout=600, extra_argv=[
+                "train", "--model_parallel", "2", "--batch", str(B), "--frames", str(T),
+                "--steps", str(steps), "--dropout", str(RATE), "--lr", "1e-4", "--control",
+                *extra, "--dtype", dtype, "--latent_dim", str(FLAGSHIP["latent_dim"]),
+                "--ff_size", str(FLAGSHIP["ff_size"]), "--layers", str(layers), "--heads",
+                str(FLAGSHIP["num_heads"]), "--device", "cuda", "--out", tmp])
+        out = torch.load(os.path.join(tmp, "train.pt"), weights_only=False)
+        summary = out["summary"]
+        ranks = [{run: {k: r[run][k] for k in ("ms", "launches", "all_reduces")} for run in r}
+                 for r in out["ranks"]]
+        print(f"20d TP=2 training, two gloo ranks, flagship B={B} {dtype}: "
+              f"{json.dumps(summary)}; save/resume {json.dumps(out.get('save_resume'))}; one "
+              f"process ms/step {json.dumps(out['ms']['reference'])}; per rank "
+              f"{json.dumps(ranks)}; tolerances {json.dumps(tol)}")
+        for name in [k for k in ("tp", "resumed") if k in summary]:
+            got = summary[name]
+            if not (max(got["loss_rel"]) <= tol["loss_rel"]
+                    and got["moment_err"] <= tol["moment_err"]
+                    and got["update_err"] <= tol["update_err"]):
+                raise AssertionError(f"20d {dtype}: the TP steps ({name}) disagree with one "
+                                     f"process: {got}")
+        control = summary["control"]
+        if not (control["moment_err"] > CONTROL_FACTOR * tol["moment_err"]
+                and control["update_err"] > CONTROL_FACTOR * tol["update_err"]):
+            raise AssertionError(f"20d {dtype}: the offset-0 control does not miss the "
+                                 f"tolerance: {control}")
+        if extra and out["save_resume"] != {"same_layout_as_one_process": True,
+                                            "resumed_equals_uninterrupted": True}:
+            raise AssertionError(f"20d: the gathered checkpoint failed: {out['save_resume']}")
+        for i, r in enumerate(out["ranks"]):
+            got = r["tp"]["launches"]
+            if any(got[k] != want.get(k, 0) for k in got):
+                raise AssertionError(f"20d {dtype}: rank {i} launched {got}, expected {want} "
+                                     "and 0 else")
+            model = r["tp"]["all_reduces"]["model"]
+            if model != {"count": steps * (4 * layers + 2),
+                         "bytes": steps * (4 * layers * one + 8)}:
+                raise AssertionError(f"20d {dtype}: rank {i}'s model group all-reduced {model}")
+        rows[dtype] = dict(summary=summary, save_resume=out.get("save_resume"), ranks=ranks,
+                           one_process_ms=out["ms"]["reference"], tol=tol,
+                           launches=out["ranks"][0]["tp"]["launches"])
+    return dict(rows, launches=rows["bfloat16"]["launches"])
 
 
 def main():
@@ -4601,10 +4745,12 @@ def main():
     torch.cuda.empty_cache()  # the two ranks' processes share the card
     with tempfile.TemporaryDirectory() as tmp:
         two_ranks = phase_two_ranks(torch, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        tp_train = phase_tensor_parallel_train(torch, tmp)
     print("phase 20", json.dumps(dict(offset=offset_row, world_of_one=world_one,
-                                      two_ranks=two_ranks)))
+                                      two_ranks=two_ranks, tp_train=tp_train)))
     stamp("phase 20")
-    par_one, par_two = world_one["launches"], two_ranks["launches"]
+    par_one, par_two, par_tp = world_one["launches"], two_ranks["launches"], tp_train["launches"]
     sampling_paths = {"sampling (phases 3-4)": kernels[0]["launches"],
                       "cli.generate (phase 15)": cli["generate"]["fused_layer_inference"],
                       "cli.edit (phase 15)": cli["edit"]["fused_layer_inference"],
@@ -4674,7 +4820,9 @@ def main():
                          "DiP training, AUTO (cross-attention, phase 14)":
                          dip_train_launches["dropout_bits"],
                          "parallelism (phase 20): DiP on a world of one (cross-attention, 20b)":
-                         par_one["DiP dropout_bits"]},
+                         par_one["DiP dropout_bits"],
+                         "parallelism (phase 20): TP=2 training, rank 0 (20d)":
+                         par_tp["dropout_bits"]},
         "tail_dropout_bits": {"training, AUTO (sequence dropout)":
                               train_launches["sequence_dropout_bits"],
                               "training, drop variant (tail)": drop_launches["tail_dropout_bits"],
@@ -4692,7 +4840,10 @@ def main():
                               par_one["sequence_dropout_bits"]
                               + par_one["DiP sequence_dropout_bits"],
                               "parallelism (phase 20): two gloo ranks, rank 0 (sequence "
-                              "dropout, 20c)": par_two["sequence_dropout_bits"]},
+                              "dropout, 20c)": par_two["sequence_dropout_bits"],
+                              "parallelism (phase 20): TP=2 training, rank 0 (tail and "
+                              "sequence dropout, 20d)": par_tp["tail_dropout_bits"]
+                              + par_tp["sequence_dropout_bits"]},
     }
     for name, words in dump_words.items():
         source, replaces = TRAIN_KERNELS[name]

@@ -26,6 +26,13 @@
 // - the key schedule (k0 of each round) is computed on the host and read
 //   from the kernel's parameters; k1's are constants;
 // - the tail's three sites are three segments of one grid: one launch.
+//
+// Under tensor parallelism a rank holds heads [h0, h0 + H) of an attention
+// and FFN columns [f0, f0 + F) of a layer. The plan's head offset is added
+// to the site word where the heads are the sites, and a segment's column
+// offset to its column word (the tail's site 1, the FFN-hidden mask), so
+// the rank's dump is exactly its slice of the whole layer's; at offset 0
+// every word is the one before.
 
 #include <cstdint>
 
@@ -67,6 +74,7 @@ struct Seg {
   uint32_t* out;
   FastDiv threads_per_row, R, H;  // threads_per_row = ceil(G / kGroups)
   uint32_t C, G, site;  // G groups a row; site kHeadSite: the heads are the sites
+  uint32_t coff;        // added to the column word (a rank's first FFN column)
   uint32_t threads;     // rows x threads per row, at most 2^31 - kThreads
   uint32_t block0;      // first block of the segment in the launch
 };
@@ -75,6 +83,7 @@ struct Plan {
   Seg seg[kMaxSegs];
   uint32_t k0[10];  // k0 of each round: seed + round x 0x9E3779B9
   uint32_t boff;    // added to the counter's batch word (philox.cuh::Dropout::boff)
+  uint32_t hoff;    // added to the site word where the heads are the sites
   int nseg;
 };
 
@@ -102,7 +111,8 @@ __device__ __forceinline__ uint32_t philox_word_keyed(const uint32_t (&k0)[10], 
   return c0;
 }
 
-// out[b][h][r][c] = philox(seed; c, r, site == kHeadSite ? h : site, b + boff).
+// out[b][h][r][c] = philox(seed; c + coff, r, site == kHeadSite ? h + hoff : site,
+// b + boff).
 // Group g of a row at flat offset o covers the flat words
 // [o - o % 4 + 4g, o - o % 4 + 4g + 4), columns 4g - o % 4 onwards; thread
 // t of the row takes groups t + v ceil(G / kGroups), v = 0 .. kGroups - 1.
@@ -117,7 +127,7 @@ __global__ void __launch_bounds__(kThreads) philox_dump(const __grid_constant__ 
   const uint32_t t = lt - row * sg.threads_per_row.d;
   const uint32_t bh = sg.R.div(row), r = row - bh * sg.R.d;
   const uint32_t b = sg.H.div(bh), h = bh - b * sg.H.d;
-  const uint32_t site = sg.site == kHeadSite ? h : sg.site;
+  const uint32_t site = sg.site == kHeadSite ? h + p.hoff : sg.site;
   const size_t base = (size_t)row * sg.C;
   const uint32_t off = (uint32_t)base & 3u;
   // Columns are unsigned: a group's first column 4g - off wraps past 2^32
@@ -128,7 +138,8 @@ __global__ void __launch_bounds__(kThreads) philox_dump(const __grid_constant__ 
   for (int v = 0; v < kGroups; ++v) {
     const uint32_t c = 4 * (t + v * sg.threads_per_row.d) - off;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) w[v][j] = philox_word_keyed(p.k0, c + j, r, site, b + p.boff);
+    for (int j = 0; j < 4; ++j)
+      w[v][j] = philox_word_keyed(p.k0, c + j + sg.coff, r, site, b + p.boff);
   }
 #pragma unroll
   for (int v = 0; v < kGroups; ++v) {
@@ -149,6 +160,7 @@ __global__ void __launch_bounds__(kThreads) philox_dump(const __grid_constant__ 
 struct Out {
   void* ptr;
   int C, site;  // site < 0: the heads are the sites
+  int coff;     // the column word of column 0
 };
 
 // One segment per output, one launch. What the kernel takes: rows
@@ -156,20 +168,21 @@ struct Out {
 // 2^31 - 256, so the thread and row indices stay in FastDiv's range (an
 // output may hold 2^35 words, more than the card's memory); a row width C
 // below 2^31 (an int), so a group's columns, at most C + 17, fit 32
-// unsigned bits.
-cudaError_t dump(const Out* outs, int n_out, int seed, int boff, int B, int H, int R,
+// unsigned bits; offsets at least 0, a column offset plus C below 2^31.
+cudaError_t dump(const Out* outs, int n_out, int seed, int boff, int hoff, int B, int H, int R,
                  cudaStream_t st) {
-  if (B <= 0 || H <= 0 || R <= 0 || n_out > kMaxSegs) return cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || R <= 0 || hoff < 0 || n_out > kMaxSegs) return cudaErrorInvalidValue;
   const uint64_t rows = (uint64_t)B * H * R;
   if (rows >= (1ull << 31)) return cudaErrorInvalidValue;
   Plan p{};
   p.nseg = n_out;
   p.boff = (uint32_t)boff;
+  p.hoff = (uint32_t)hoff;
   for (int i = 0; i < 10; ++i) p.k0[i] = (uint32_t)seed + (uint32_t)i * 0x9E3779B9u;
   uint32_t blocks = 0;
   for (int i = 0; i < n_out; ++i) {
     const Out& o = outs[i];
-    if (o.C <= 0) return cudaErrorInvalidValue;
+    if (o.C <= 0 || o.coff < 0 || o.C > INT32_MAX - o.coff) return cudaErrorInvalidValue;
     if (reinterpret_cast<uintptr_t>(o.ptr) % 16) return cudaErrorMisalignedAddress;
     // Groups a row touches: (o % 4 + C - 1) / 4 + 1 at most, o % 4 = 0
     // for every row when C % 4 == 0, at most 2 when C % 4 == 2, else 3.
@@ -180,7 +193,8 @@ cudaError_t dump(const Out* outs, int n_out, int seed, int boff, int B, int H, i
     if (threads > (1ull << 31) - kThreads) return cudaErrorInvalidValue;
     p.seg[i] = Seg{static_cast<uint32_t*>(o.ptr), FastDiv::make(T), FastDiv::make((uint32_t)R),
                    FastDiv::make((uint32_t)H), (uint32_t)o.C, G,
-                   o.site < 0 ? kHeadSite : (uint32_t)o.site, (uint32_t)threads, blocks};
+                   o.site < 0 ? kHeadSite : (uint32_t)o.site, (uint32_t)o.coff,
+                   (uint32_t)threads, blocks};
     blocks += (uint32_t)((threads + kThreads - 1) / kThreads);
   }
   philox_dump<<<blocks, kThreads, 0, st>>>(p);
@@ -189,19 +203,22 @@ cudaError_t dump(const Out* outs, int n_out, int seed, int boff, int B, int H, i
 
 }  // namespace
 
-// out [B][H][R][C]: site < 0 draws site h for head h (the attention
+// out [B][H][R][C]: site < 0 draws site h + hoff for head h (the attention
 // block's bits), else the one site for every head. boff: the global batch
-// index of row 0 (0 outside data parallelism).
+// index of row 0 (0 outside data parallelism); hoff: the global index of
+// head 0 (0 outside tensor parallelism).
 extern "C" int mdm_philox_dump(void* out, int seed, int boff, int B, int H, int site, int R,
-                               int C, void* stream) {
-  const Out o{out, C, site};
-  return (int)dump(&o, 1, seed, boff, B, H, R, static_cast<cudaStream_t>(stream));
+                               int C, int hoff, void* stream) {
+  const Out o{out, C, site, 0};
+  return (int)dump(&o, 1, seed, boff, hoff, B, H, R, static_cast<cudaStream_t>(stream));
 }
 
 // The tail's three outputs [B][R][C0], [B][R][C1], [B][R][C2] at sites 0,
-// 1 and 2, in one launch.
+// 1 and 2, in one launch. foff: the global index of site 1's column 0 (a
+// tensor-parallel rank's first FFN column); sites 0 and 2 are [B, R, D],
+// whole on every rank, so their columns do not move.
 extern "C" int mdm_philox_dump3(void* out0, void* out1, void* out2, int seed, int boff, int B,
-                                int R, int C0, int C1, int C2, void* stream) {
-  const Out o[3] = {{out0, C0, 0}, {out1, C1, 1}, {out2, C2, 2}};
-  return (int)dump(o, 3, seed, boff, B, 1, R, static_cast<cudaStream_t>(stream));
+                                int R, int C0, int C1, int C2, int foff, void* stream) {
+  const Out o[3] = {{out0, C0, 0, 0}, {out1, C1, 1, foff}, {out2, C2, 2, 0}};
+  return (int)dump(o, 3, seed, boff, 0, B, 1, R, static_cast<cudaStream_t>(stream));
 }

@@ -25,9 +25,21 @@ dropout site passes ``ops.shard_seed_offset()`` as its batch offset, so a
 data-parallel rank drops exactly its rows of the one-process masks.
 
 Under tensor parallelism (parallel/tp_rules.py) an attention holds its
-rank's heads and a layer its FFN columns; the row-parallel products
-(``out_proj``, ``linear2``, marked with a ``tp_group``) sum the ranks'
-partial products before their bias.
+rank's heads and a layer its FFN columns, and both hold the mesh's model
+group (``tp_group``). Megatron's conjugate pair of collectives runs over
+it (``_dense`` with the group): *f*, the identity forward whose backward sums the input gradient of a
+column-parallel product (the packed q/k/v, the cross-attention's q, k and
+v, ``linear1``), and *g*, which sums the row-parallel partial products
+(``out_proj``, ``linear2``) before their bias and passes the gradient
+through. Both sum f32 partials and round once to the compute dtype, where
+the one-process product rounds its whole sum. Each
+dropout site of the rank's heads or columns adds the rank's
+``head_offset`` or ``ffn_offset`` to its Philox counter, so a rank draws
+exactly its slice of the one-process masks. Under ``remat`` a layer's
+backward reruns its forward, *g*'s all-reduces included: every rank runs
+the same graph, so each reruns them in the same order and the ranks'
+collectives still pair up. Without a group (one process, data
+parallelism) neither collective exists.
 """
 from __future__ import annotations
 
@@ -130,21 +142,60 @@ def layer_seeds(rng: Optional[torch.Generator], n: int, rate: float) -> list:
     return draw_seeds(rng, n)
 
 
+class _CopyToModelGroup(torch.autograd.Function):
+    """Megatron's *f*: the identity forward. A column-parallel product
+    gives each rank only its columns' part of its input's gradient, so the
+    backward sums the parts over the model group, in f32 (``_dense`` gives
+    it the f32 input, so the sum is rounded once, by the cast before it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        total = grad.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+        dist.all_reduce(total, group=ctx.group)
+        return total.to(grad.dtype), None
+
+
+class _SumOverModelGroup(torch.autograd.Function):
+    """Megatron's *g*: sums the row-parallel partial products over the
+    model group (in place, on the f32 partials). The backward is the
+    identity: each rank's partial product takes the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, partial, group):
+        import torch.distributed as dist
+
+        dist.all_reduce(partial, group=group)
+        ctx.mark_dirty(partial)
+        return partial
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def _dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dt: torch.dtype,
-           group=None):
+           group=None, column: bool = False):
     """flax nn.Dense(dtype=dt): the product and the bias in dt. With a
-    tensor-parallel ``group`` the weight holds this rank's input columns
-    (row-parallel): each rank's partial product of the dt-rounded operands
-    is kept in f32, the partials are summed over the group, the bias is
-    added once and the sum rounded to dt: one rounding, where the whole
-    product has it."""
+    tensor-parallel ``group`` the product is split over it and computed in
+    f32 on the dt-rounded operands, rounded once to dt where the whole
+    product is. ``column``: the weight holds this rank's output columns,
+    and the f32 input passes *f*, so the ranks' partial input gradients are
+    summed in f32 and rounded once, where the whole product's gradient is.
+    Else the weight holds this rank's input columns (row-parallel): *g*
+    sums the partial products, then the bias is added once."""
     if group is None:
         return F.linear(x.to(dt), weight.to(dt), bias.to(dt))
-    import torch.distributed as dist
-
-    y = F.linear(x.to(dt).float(), weight.to(dt).float())
-    dist.all_reduce(y, group=group)
-    return (y + bias.to(dt).float()).to(dt)
+    x, w, b = x.to(dt).float(), weight.to(dt).float(), bias.to(dt).float()
+    if column:
+        return F.linear(_CopyToModelGroup.apply(x, group), w, b).to(dt)
+    return (_SumOverModelGroup.apply(F.linear(x, w), group) + b).to(dt)
 
 
 class MultiHeadAttention(nn.Module):
@@ -154,7 +205,14 @@ class MultiHeadAttention(nn.Module):
     the sample block (#2 at rate 0), the train block (#2/#3), the dropout
     kernel (#7/#8), the v2 kernel (#11), then the einsum route with
     probability dropout when training. ``attn_bias`` is additive, broadcast
-    to [B, 1|H, Sq, Sk]; the kernels take only its key-padding row."""
+    to [B, 1|H, Sq, Sk]; the kernels take only its key-padding row.
+    Under tensor parallelism (``tp_rules.shard_model_``) it holds heads
+    [``head_offset``, ``head_offset`` + ``num_heads``) of the whole
+    attention and the model group ``tp_group``, and takes the einsum
+    route."""
+
+    tp_group = None  # the mesh's model group under tensor parallelism
+    head_offset = 0  # the global index of this rank's first head
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0,
                  compute_dtype: Optional[torch.dtype] = None):
@@ -209,9 +267,11 @@ class MultiHeadAttention(nn.Module):
         return self._einsum(q, k, v, attn_bias, deterministic, seed, weights[2:], cdt)
 
     def _project(self, query, key, value, w, b, cdt):
+        """q, k, v: column-parallel under tensor parallelism."""
+        dense = lambda t, wi, bi: _dense(t, wi, bi, cdt, self.tp_group, column=True)
         if query is key and key is value:
-            return _dense(query, w, b, cdt).chunk(3, dim=-1)
-        return tuple(_dense(t, wi, bi, cdt)
+            return dense(query, w, b).chunk(3, dim=-1)
+        return tuple(dense(t, wi, bi)
                      for t, wi, bi in zip((query, key, value), w.chunk(3), b.chunk(3)))
 
     def _einsum(self, q, k, v, attn_bias, deterministic, seed, out_proj, cdt):
@@ -227,10 +287,11 @@ class MultiHeadAttention(nn.Module):
         weights = torch.softmax(logits.float(), dim=-1).to(cdt)
         if self.dropout > 0.0 and not deterministic:
             bits = dropout_bits(seed, B, H, Sq, device=q.device, key_len=Sk,
-                                batch_offset=ops.shard_seed_offset())
+                                batch_offset=ops.shard_seed_offset(),
+                                head_offset=self.head_offset)
             weights = (weights.float() * keep_factors(bits, self.dropout)).to(cdt)
         out = (weights @ split(v)).transpose(1, 2).reshape(B, Sq, D)
-        return _dense(out, *out_proj, cdt, getattr(self.out_proj, "tp_group", None))
+        return _dense(out, *out_proj, cdt, self.tp_group)
 
 
 def _cached_cast(layer: nn.Module, params, dt: torch.dtype):
@@ -246,17 +307,18 @@ def _cached_cast(layer: nn.Module, params, dt: torch.dtype):
     return layer._cast[1]
 
 
-def _plain_tail(x, attn, norm_a, linear1, linear2, norm_b, keep=(None, None, None)):
+def _plain_tail(x, attn, norm_a, linear1, linear2, norm_b, keep=(None, None, None), group=None):
     """The JAX layers' non-kernel tail (layers.py:387-399, :433-441) in
     attn's dtype, LayerNorm in f32: dropout + residual + ``norm_a``, the
     GELU FFN, dropout + residual + ``norm_b``. ``keep``: the keep factors
     of the three dropout sites (attn-out, ffn-hidden, ffn-out), the fused
-    tail's, or None where nothing is dropped."""
+    tail's, or None where nothing is dropped. ``group``: the model group
+    of a tensor-parallel layer, whose ``linear1`` is column- and
+    ``linear2`` row-parallel."""
     cdt = attn.dtype
     y = norm_a((x + _drop(attn, keep[0])).float()).to(cdt)
-    h = gelu_exact(_dense(y, linear1.weight, linear1.bias, cdt))
-    h = _dense(_drop(h, keep[1]), linear2.weight, linear2.bias, cdt,
-               getattr(linear2, "tp_group", None))
+    h = gelu_exact(_dense(y, linear1.weight, linear1.bias, cdt, group, column=True))
+    h = _dense(_drop(h, keep[1]), linear2.weight, linear2.bias, cdt, group)
     return norm_b((y + _drop(h, keep[2])).float()).to(cdt)
 
 
@@ -284,8 +346,10 @@ def _tail(layer: nn.Module, x, attn, norms, deterministic: bool, seed: int):
         B, S, D = x.shape
         keep = tuple(keep_factors(b, layer.dropout)
                      for b in tail_dropout_bits(seed, B, S, D, ff_size, device=x.device,
-                                                batch_offset=ops.shard_seed_offset()))
-    return _plain_tail(x, attn, norm_a, layer.linear1, layer.linear2, norm_b, keep)
+                                                batch_offset=ops.shard_seed_offset(),
+                                                ffn_offset=layer.ffn_offset))
+    return _plain_tail(x, attn, norm_a, layer.linear1, layer.linear2, norm_b, keep,
+                       layer.tp_group)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -294,6 +358,8 @@ class TransformerEncoderLayer(nn.Module):
     fused tail, and attention plus the plain LN/Linear/GELU/dropout tail."""
 
     N_SEEDS = 2  # a training forward's dropout seeds: attention, tail
+    tp_group = None  # the mesh's model group under tensor parallelism
+    ffn_offset = 0  # the global index of this rank's first FFN column
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int,
                  compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
@@ -348,6 +414,8 @@ class TransformerDecoderLayer(nn.Module):
     not read here."""
 
     N_SEEDS = 4  # self-attention, its output's dropout, cross-attention, tail
+    tp_group = None  # the mesh's model group under tensor parallelism
+    ffn_offset = 0  # the global index of this rank's first FFN column
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int,
                  compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
@@ -396,7 +464,10 @@ def _run_layers(layers: nn.ModuleList, x: torch.Tensor, args: tuple, determinist
     (``torch.utils.checkpoint``, JAX's ``nn.remat``): its backward reruns
     its forward under the same seeds, so the same masks, and the generator
     moves as it does without remat (checkpoint restores only the global
-    and device RNGs, not an explicit generator)."""
+    and device RNGs, not an explicit generator). Under tensor parallelism
+    the rerun forward reruns *g*'s all-reduces over the model group; every
+    rank reruns the same layers in the same order, so the collectives pair
+    up as they did in the forward."""
     for layer in layers:
         seeds = None if deterministic else layer_seeds(rng, layer.N_SEEDS, layer.dropout)
         if remat and torch.is_grad_enabled():

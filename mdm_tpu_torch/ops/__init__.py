@@ -10,9 +10,10 @@ tail on, and the whole-layer kernel on whenever the sample block and the
 tail are. ``auto_kernels`` binds AUTO for a body, as the JAX package's
 ``_with_auto_train_block`` / ``_with_auto_sample_block`` do per call: on
 for a single device and for data parallelism (each rank runs the kernels
-on its rows, as JAX's shard_map does), off for a generator on a mesh with
-a model axis above 1, where the layers take the einsum attention and the
-plain tail on the rank's heads and FFN columns. The JAX package's interpret mode has no
+on its rows, as JAX's shard_map does), off for a train step or a
+generator on a mesh with a model axis above 1, where the layers take the
+einsum attention and the plain tail on the rank's heads and FFN columns
+(``mesh_kernels``, which refuses a kernel flag pinned on there). The JAX package's interpret mode has no
 counterpart: the CPU runs the plain versions, so no route needs the card
 to be taken.
 
@@ -71,6 +72,22 @@ def auto_kernels(enabled: bool):
         yield
     finally:
         _AUTO["kernels"] = saved
+
+
+def mesh_kernels(tensor_parallel: bool):
+    """AUTO for one call of a train step or a generator on its mesh, as
+    the JAX package's ``_with_auto_train_block(..., use_sm)`` binds it: the
+    kernels on for one device and data parallelism, off under tensor
+    parallelism, where a kernel flag pinned on raises. A fused kernel would
+    run one rank's heads or FFN columns as if they were the layer's: it
+    draws its dropout from head and column 0 and sums no partial product
+    over the model group."""
+    if tensor_parallel:
+        pinned = sorted(k for k, v in _FLAGS.items() if v)
+        if pinned:
+            raise ValueError(f"kernel flags {pinned} are pinned on, but a tensor-parallel "
+                             "step or sample runs the einsum attention and the plain tail")
+    return auto_kernels(not tensor_parallel)
 
 
 @contextlib.contextmanager

@@ -54,8 +54,8 @@ SIGNATURES = {
     "mdm_tail_ln2_bwd": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mdm_tail_gelu_bwd": [_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
     "mdm_tail_ln1_bwd": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "mdm_philox_dump": [_P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "mdm_philox_dump3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mdm_philox_dump": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mdm_philox_dump3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -27,6 +27,13 @@ Every entry point takes ``batch_offset``, added to the counter's batch
 word: a data-parallel rank that holds the global rows [b0, b0 + n) passes
 b0 and gets exactly those rows of the whole batch's words (the counterpart
 of mdm_tpu/ops/__init__.py::shard_seed_offset, for every dropout site).
+Under tensor parallelism a rank holds heads [h0, h0 + H) of an attention
+and FFN columns [f0, f0 + F) of a layer: ``dropout_bits``' ``head_offset``
+h0 is added to the site word (the heads are the sites) and
+``tail_dropout_bits``' ``ffn_offset`` f0 to the column word of site 1, the
+FFN-hidden mask, so the rank's words are exactly its slice of the whole
+layer's. Sites 0 and 2 are [B, S, D], whole on every rank, and do not move.
+At offset 0 every word is the one before.
 """
 from __future__ import annotations
 
@@ -92,25 +99,26 @@ def philox4x32(counter, key) -> Tuple[torch.Tensor, ...]:
 
 
 def philox_bits(seed: int, b: torch.Tensor, site, rows: int, cols: int,
-                device=None, batch_offset: int = 0) -> torch.Tensor:
-    """Word 0 of Philox(counter=(col, row, site, b + batch_offset),
-    key=(seed, 0)) for every (b, site, row, col): b and site broadcast
-    against [rows, cols]. Returns int64 holding the uint32 bits, shape
-    [*broadcast(b, site), rows, cols]."""
+                device=None, batch_offset: int = 0, col_offset: int = 0) -> torch.Tensor:
+    """Word 0 of Philox(counter=(col + col_offset, row, site, b +
+    batch_offset), key=(seed, 0)) for every (b, site, row, col): b and site
+    broadcast against [rows, cols]. Returns int64 holding the uint32 bits,
+    shape [*broadcast(b, site), rows, cols]."""
     r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
-    c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
+    c = (torch.arange(cols, dtype=torch.int64, device=device)[None, :] + col_offset) & _MASK32
     b = (torch.as_tensor(b, dtype=torch.int64, device=device)[..., None, None]
          + batch_offset) & _MASK32
     site = torch.as_tensor(site, dtype=torch.int64, device=device)[..., None, None]
     return philox4x32((c, r, site, b), (int(seed), 0))[0]
 
 
-def _dump_into(outs, seed: int, B: int, H: int, site: int, R: int, batch_offset: int = 0
-               ) -> None:
+def _dump_into(outs, seed: int, B: int, H: int, site: int, R: int, batch_offset: int = 0,
+               offset: int = 0) -> None:
     """Fill uint32 card tensors with the stream, in one launch: one output
-    [B, H, R, C] at ``site`` (-1: the heads are the sites,
-    ``mdm_philox_dump``), or the tail's three [B, R, C_s] at sites 0, 1
-    and 2 (``mdm_philox_dump3``). Raises on what the kernel cannot take."""
+    [B, H, R, C] at ``site`` (-1: the heads are the sites, from head
+    ``offset``; ``mdm_philox_dump``), or the tail's three [B, R, C_s] at
+    sites 0, 1 and 2, site 1's columns from ``offset``
+    (``mdm_philox_dump3``). Raises on what the kernel cannot take."""
     for o in outs:
         if o.dtype != torch.uint32 or not o.is_contiguous():
             raise ValueError(f"a dump writes contiguous uint32 tensors, not {o.dtype}")
@@ -118,51 +126,57 @@ def _dump_into(outs, seed: int, B: int, H: int, site: int, R: int, batch_offset:
     st = torch.cuda.current_stream(outs[0].device).cuda_stream
     if len(outs) == 1:
         err = lib.mdm_philox_dump(outs[0].data_ptr(), int(seed), int(batch_offset), B, H, site,
-                                  R, outs[0].shape[-1], st)
+                                  R, outs[0].shape[-1], int(offset), st)
     else:
         err = lib.mdm_philox_dump3(*(o.data_ptr() for o in outs), int(seed), int(batch_offset),
-                                   B, R,
-                                   *(o.shape[-1] for o in outs), st)
+                                   B, R, *(o.shape[-1] for o in outs), int(offset), st)
     _build.check(err, "philox dump")
 
 
 def _dump(name: str, seed: int, B: int, H: int, site: int, R: int, out_shapes, device,
-          batch_offset: int) -> Tuple[torch.Tensor, ...]:
+          batch_offset: int, offset: int = 0) -> Tuple[torch.Tensor, ...]:
     outs = tuple(torch.empty(s, dtype=torch.uint32, device=device) for s in out_shapes)
-    _dump_into(outs, seed, B, H, site, R, batch_offset)
+    _dump_into(outs, seed, B, H, site, R, batch_offset, offset)
     LAUNCHES[name] += 1
     return outs
 
 
 def dropout_bits(seed: int, B: int, num_heads: int, S: int, device="cuda", *,
-                 key_len: Optional[int] = None, batch_offset: int = 0) -> torch.Tensor:
+                 key_len: Optional[int] = None, batch_offset: int = 0,
+                 head_offset: int = 0) -> torch.Tensor:
     """[B, H, S, key_len or S] uint32: the bits the attention block draws
     for head h, query row i, key column j (attention_dropout.py::dropout_bits
     layout). ``key_len`` gives a cross-attention its [S, Sk] rows; a word
-    is keyed on its coordinates, so the square case's words do not move."""
+    is keyed on its coordinates, so the square case's words do not move.
+    ``head_offset``: the global index of head 0 (a tensor-parallel rank's
+    first head)."""
     device = torch.device(device)
     Sk = S if key_len is None else key_len
     if device.type == "cpu":
         b = torch.arange(B)[:, None]
-        h = torch.arange(num_heads)[None, :]
+        h = torch.arange(num_heads)[None, :] + head_offset
         return philox_bits(seed, b, h, S, Sk, batch_offset=batch_offset).to(torch.uint32)
-    # site -1: the heads are the sites, out[b, h] holds site h.
+    # site -1: the heads are the sites, out[b, h] holds site h + head_offset.
     return _dump("dropout_bits", seed, B, num_heads, -1, S, [(B, num_heads, S, Sk)], device,
-                 batch_offset)[0]
+                 batch_offset, head_offset)[0]
 
 
 def tail_dropout_bits(seed: int, B: int, S: int, D: int, F: int, device="cuda", *,
-                      batch_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                      batch_offset: int = 0, ffn_offset: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The tail's three masks' bits: attn-out [B,S,D] (site 0), ffn-hidden
     [B,S,F] (site 1), ffn-out [B,S,D] (site 2) (encoder_tail.py layout);
-    one launch on the card."""
+    one launch on the card. ``ffn_offset``: the global index of site 1's
+    column 0 (a tensor-parallel rank's first FFN column)."""
     device = torch.device(device)
     shapes = [(B, S, D), (B, S, F), (B, S, D)]
     if device.type == "cpu":
         b = torch.arange(B)
-        return tuple(philox_bits(seed, b, site, S, n, batch_offset=batch_offset).to(torch.uint32)
+        return tuple(philox_bits(seed, b, site, S, n, batch_offset=batch_offset,
+                                 col_offset=ffn_offset if site == 1 else 0).to(torch.uint32)
                      for site, (_, _, n) in enumerate(shapes))
-    return _dump("tail_dropout_bits", seed, B, 1, 0, S, shapes, device, batch_offset)
+    return _dump("tail_dropout_bits", seed, B, 1, 0, S, shapes, device, batch_offset,
+                 ffn_offset)
 
 
 def sequence_dropout_bits(seed: int, B: int, S: int, D: int, device="cuda", *,

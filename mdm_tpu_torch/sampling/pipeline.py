@@ -136,18 +136,12 @@ class MotionGenerator:
                                    for s in norm_stats)
 
     def _kernels(self):
-        """AUTO for this generator's calls: the kernels on, except under
-        tensor parallelism, where a pinned kernel flag raises (a kernel
-        would run one rank's heads as if they were the layer's)."""
+        """AUTO for this generator's calls (``ops.mesh_kernels``): the
+        kernels on, except under tensor parallelism, where a pinned kernel
+        flag raises."""
         from .. import ops
 
-        if self.tensor_parallel:
-            pinned = [k for k in ("train_block", "sample_block", "encoder_tail",
-                                  "layer_inference", "attention") if ops._FLAGS[k]]
-            if pinned:
-                raise ValueError(f"kernel flags {pinned} are pinned on, but tensor-parallel "
-                                 "sampling runs the einsum attention and the plain tail")
-        return ops.auto_kernels(not self.tensor_parallel)
+        return ops.mesh_kernels(self.tensor_parallel)
 
     def _dp_rows(self, batch_size: int) -> Optional[slice]:
         """This rank's rows when the data axis divides the batch, else None

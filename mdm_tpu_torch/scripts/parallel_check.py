@@ -13,7 +13,16 @@ state and sample) into ``--out``.
   masks of global rows 0..n, not its own): the negative control that shows
   the comparison sees the masks. Per variant: the losses, AdamW's first
   moments and the parameters' updates against the one-process run's, and
-  ms per step (CUDA events on the card).
+  ms per step (CUDA events on the card). With ``--model_parallel P`` the
+  steps are tensor-parallel over a ``data x model`` mesh of the world (the
+  state split by ``tp_rules.shard_state_``, gathered after each step) and
+  the one-process steps run TP's route, the einsum attention and the plain
+  tail; ``--control`` then pins the model offsets at 0 instead (every rank
+  draws heads 0..H/P and FFN columns 0..F/P), and ``--save_resume`` adds a
+  TP run that saves its gathered checkpoint after step 1, restores it onto
+  a new TP state and goes on (the one-process run saves its own beside it,
+  for the layout). Every rank reports its metrics, ms per step, launches
+  and its all-reduces' count and bytes by group (model, batch).
 - ``sample``: ``--checks`` among ``dp`` (a data-parallel DDIM sample from
   the global initial noise against the one-process one), ``ar`` (DiP's
   autoregressive path the same way, the chunk noise given), ``ddpm`` (a
@@ -48,17 +57,20 @@ import torch
 from .. import ops
 from ..diffusion import LossConfig, Schedule
 from ..models import MDM, Conditioning, MDMConfig
+from ..parallel import tp_rules
 from ..parallel.mesh import make_mesh, shard_batch
 from ..parallel.multihost import barrier, maybe_initialize_distributed, rank, replicate, world_size
 from ..sampling import GenerationConfig, MotionGenerator
 from ..train import OptimConfig, TrainStepConfig, create_train_state, make_train_step, step_key
+from ..train.checkpoints import restore_checkpoint, save_checkpoint
 from ..train.resample import LossAwareState
+
 
 def parse(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("check", choices=["train", "sample"])
     p.add_argument("--out", required=True, help="directory for <check>.pt (rank 0)")
-    p.add_argument("--device", default="cpu", help="cpu or cuda (the rank's card)")
+    p.add_argument("--device", default="cuda", help="cuda (the rank's card) or cpu")
     p.add_argument("--arch", default="trans_enc", choices=["trans_enc", "trans_dec"])
     p.add_argument("--latent_dim", type=int, default=64)
     p.add_argument("--ff_size", type=int, default=128)
@@ -73,7 +85,12 @@ def parse(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--schedule_sampler", default="uniform")
     p.add_argument("--goal", action="store_true", help="goal conditioning (trans_dec)")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="train: the mesh's model axis (tensor parallelism above 1)")
+    p.add_argument("--remat", action="store_true", help="rematerialise the layers")
     p.add_argument("--control", action="store_true", help="add the offset-0 control run")
+    p.add_argument("--save_resume", action="store_true",
+                   help="train: add a run through a gathered checkpoint after step 1")
     p.add_argument("--checks", default="dp,ar,ddpm,tp,serve")
     p.add_argument("--inputs", default="", help="torch.save'd dict of given inputs")
     p.add_argument("--keep", action="store_true", help="save every state and sample")
@@ -83,7 +100,7 @@ def parse(argv=None):
 def model_config(args, **over) -> MDMConfig:
     kw = dict(njoints=263, nfeats=1, latent_dim=args.latent_dim, ff_size=args.ff_size,
               num_layers=args.layers, num_heads=args.heads, dropout=args.dropout,
-              compute_dtype=args.dtype, mask_frames=True)
+              compute_dtype=args.dtype, mask_frames=True, remat=args.remat)
     if over.get("arch", args.arch) == "trans_dec":
         kw.update(arch="trans_dec", text_dim=768, text_tokens=True, context_len=5,
                   pred_len=args.frames)
@@ -142,6 +159,50 @@ def offset_pinned_at_zero():
         ops.sharded_rows = real
 
 
+@contextlib.contextmanager
+def model_offsets_pinned_at_zero():
+    """Every tensor-parallel rank draws its masks as if its heads and FFN
+    columns were the layer's first ones."""
+    real = tp_rules.shard_model_
+
+    def pinned(model, mesh):
+        real(model, mesh)
+        for m in model.modules():
+            for name in ("head_offset", "ffn_offset"):
+                if hasattr(m, name):
+                    setattr(m, name, 0)
+        return model
+
+    tp_rules.shard_model_ = pinned
+    try:
+        yield
+    finally:
+        tp_rules.shard_model_ = real
+
+
+@contextlib.contextmanager
+def counting_all_reduces(mesh, counts: dict):
+    """Count every ``torch.distributed.all_reduce`` of the body into
+    ``counts``: group name (model, batch, other) -> count and bytes."""
+    import torch.distributed as dist
+
+    real = dist.all_reduce
+
+    def spy(tensor, *args, group=None, **kw):
+        name = ("model" if group is mesh.model_group else
+                "batch" if group is mesh.batch_group else "other")
+        c = counts.setdefault(name, {"count": 0, "bytes": 0})
+        c["count"] += 1
+        c["bytes"] += tensor.numel() * tensor.element_size()
+        return real(tensor, *args, group=group, **kw)
+
+    dist.all_reduce = spy
+    try:
+        yield
+    finally:
+        dist.all_reduce = real
+
+
 def _timer(device):
     """() -> a function returning the ms since the call: CUDA events on the
     card, the host clock on the CPU."""
@@ -176,14 +237,14 @@ def _since(before: dict) -> dict:
     return {k: v - before[k] for k, v in launch_counts().items()}
 
 
-def run_train(args, cfg, batch, init, draws, mesh, device) -> dict:
+def run_train(args, cfg, batch, init, draws, mesh, device, resume_dir: str = "") -> dict:
     """The steps of one variant from ``init``: per-step metrics and ms, and
-    the state before the first step and after each (on the CPU)."""
+    the state before the first step and after each (on the CPU; a
+    tensor-parallel state gathered). With ``resume_dir`` the state after
+    step 1 is saved there and the steps go on from a new state restored
+    from the file. On a mesh, the all-reduces by group."""
     from ..train import goal_cond as GC
 
-    model = MDM(cfg)
-    model.load_state_dict(init)
-    model = model.to(device)
     # Weight decay, the LR anneal and the EMA decay each move the update.
     optim = OptimConfig(lr=args.lr, weight_decay=0.5, lr_anneal_steps=4, ema_decay=0.9)
     tcfg = TrainStepConfig(loss=LossConfig(lambda_target_loc=1.0 if cfg.multi_target_cond
@@ -198,30 +259,49 @@ def run_train(args, cfg, batch, init, draws, mesh, device) -> dict:
                   target_cond_fn=GC.make_target_cond_fn(mean, std))
     sched = Schedule.create("cosine", 1000).to(device)
     step = make_train_step(sched, tcfg, mesh=mesh, **kw)
-    state = create_train_state(model, optim)
+
+    def new_state():
+        model = MDM(cfg)
+        model.load_state_dict(init)
+        state = create_train_state(model.to(device), optim)
+        if mesh is not None:
+            state = tp_rules.shard_state_(replicate(state), mesh)
+        return state
+
+    state = new_state()
     if mesh is not None:
-        state = replicate(state)
         data = shard_batch(_to(batch, "cpu"), mesh, global_batch=True)
     else:
         data = _to(batch, device)
     sampler = (LossAwareState.create(sched.num_timesteps, device=device)
                if args.schedule_sampler == "loss-second-moment" else None)
-    states, metrics, ms = [_cpu(state.state_dict())], [], []
+    states, metrics, ms, reduces = [_cpu(tp_rules.gather_state(state))], [], [], {}
+    counting = lambda: (counting_all_reduces(mesh, reduces) if mesh is not None
+                        else contextlib.nullcontext())
     before = launch_counts()
     for i in range(args.steps):
         d = None if draws is None else {k: torch.as_tensor(v).to(device)
                                         for k, v in draws[i].items()}
         stop = _timer(device)
-        if sampler is not None:
-            state, m, sampler = step(state, data, step_key(args.seed, i), sampler, draws=d)
-        else:
-            state, m = step(state, data, step_key(args.seed, i), draws=d)
+        with counting():
+            if sampler is not None:
+                state, m, sampler = step(state, data, step_key(args.seed, i), sampler, draws=d)
+            else:
+                state, m = step(state, data, step_key(args.seed, i), draws=d)
         metrics.append({k: float(v) for k, v in m.items()})
         ms.append(stop())
-        states.append(_cpu(state.state_dict()))
+        states.append(_cpu(tp_rules.gather_state(state)))
+        if resume_dir and i == 0:
+            # every rank of a split state gathers; rank 0 writes
+            path = os.path.abspath(os.path.join(resume_dir, "ckpt_000000001"))
+            if state.tp is not None or rank() == 0:
+                path = save_checkpoint(resume_dir, 1, state)
+            if mesh is not None:
+                barrier()  # the file is whole before any rank reads it
+            state = restore_checkpoint(path, new_state())
     # AdamW's state i belongs to the i-th parameter
     return {"metrics": metrics, "ms": ms, "states": states, "launches": _since(before),
-            "params": [n for n, _ in model.named_parameters()]}
+            "all_reduces": reduces, "params": [n for n, _ in state.model.named_parameters()]}
 
 
 HELD = 2e-3  # a coordinate is held where |m| > HELD x its tensor's largest at every step
@@ -262,6 +342,15 @@ def compare_train(run: dict, ref: dict) -> dict:
             "update_err": (num / max(den, 1e-300)) ** 0.5, "held": n_held / max(n_all, 1)}
 
 
+def _layout(path: str) -> dict:
+    """A checkpoint's tensors' names and shapes, by part of the state."""
+    sd = torch.load(path, weights_only=True)
+    shapes = lambda d: {str(k): tuple(v.shape) for k, v in d.items() if isinstance(v, torch.Tensor)}
+    return {"model": shapes(sd["model"]), "ema_params": shapes(sd["ema_params"] or {}),
+            "moments": {f"{i}.{k}": tuple(v.shape) for i, st in sd["optimizer"]["state"].items()
+                        for k, v in st.items()}}
+
+
 def check_train(args, device) -> dict:
     inputs = torch.load(args.inputs, weights_only=False) if args.inputs else {}
     cfg = model_config(args)
@@ -269,22 +358,58 @@ def check_train(args, device) -> dict:
     init = inputs.get("state_dict") or MDM(cfg).init_weights(
         torch.Generator().manual_seed(args.seed)).state_dict()
     draws = inputs.get("draws")
-    mesh = make_mesh(device=device)
-    runs = {"dp": run_train(args, cfg, batch, init, draws, mesh, device)}
+    tp = args.model_parallel > 1
+    mesh = make_mesh(model_parallel=args.model_parallel, device=device)
+    name = "tp" if tp else "dp"
+    runs = {name: run_train(args, cfg, batch, init, draws, mesh, device)}
     if args.control:
-        with offset_pinned_at_zero():
+        with model_offsets_pinned_at_zero() if tp else offset_pinned_at_zero():
             runs["control"] = run_train(args, cfg, batch, init, draws, mesh, device)
+    resume_dirs = [os.path.join(args.out, d) for d in ("resume_mesh", "resume_one")]
+    if args.save_resume:
+        runs["resumed"] = run_train(args, cfg, batch, init, draws, mesh, device, resume_dirs[0])
+    import torch.distributed as dist
+
+    per_rank = [None] * world_size()
+    dist.all_gather_object(per_rank, {
+        run: {"metrics": r["metrics"], "ms": r["ms"], "launches": r["launches"],
+              "all_reduces": r["all_reduces"]} for run, r in runs.items()})
     out = {}
     if rank() == 0:
-        runs["reference"] = run_train(args, cfg, batch, init, draws, None, device)
+        # TP's route in one process: the einsum attention and the plain tail
+        route = ops.pinned(train_block=False, encoder_tail=False) if tp else contextlib.nullcontext()
+        with route:
+            runs["reference"] = run_train(args, cfg, batch, init, draws, None, device,
+                                          resume_dirs[1] if args.save_resume else "")
         out = {"summary": {name: compare_train(r, runs["reference"])
                            for name, r in runs.items() if name != "reference"},
                "ms": {name: r["ms"] for name, r in runs.items()},
                "launches": {name: r["launches"] for name, r in runs.items()},
-               "metrics": {name: r["metrics"] for name, r in runs.items()}}
+               "metrics": {name: r["metrics"] for name, r in runs.items()},
+               "mesh": {"model_parallel": mesh.model_parallel,
+                        "data_parallel": mesh.data_parallel},
+               "ranks": per_rank}
+        if args.save_resume:
+            ckpt = [_layout(os.path.join(d, "ckpt_000000001")) for d in resume_dirs]
+            last = [runs[k]["states"][-1] for k in ("resumed", name)]
+            out["save_resume"] = {
+                "same_layout_as_one_process": ckpt[0] == ckpt[1],
+                "resumed_equals_uninterrupted": all(
+                    torch.equal(a, b) for a, b in zip(*(_leaves(s) for s in last)))}
         if args.keep:
             out["states"] = {name: r["states"] for name, r in runs.items()}
     return out
+
+
+def _leaves(tree) -> list:
+    """Every tensor of a nested state dict, in key order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree, key=str) for t in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return []
 
 
 def _sample_inputs(args, cfg, inputs, device):
@@ -421,6 +546,9 @@ def main(argv=None):
     if device.type == "cuda":
         from ..parallel.multihost import local_device
 
+        if not torch.cuda.is_available():
+            raise RuntimeError("parallel_check --device cuda: no CUDA device is visible "
+                               "(--device cpu runs the checks on the CPU)")
         device = local_device()
         torch.cuda.set_device(device)
     if world_size() < 2:

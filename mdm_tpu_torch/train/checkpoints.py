@@ -8,7 +8,10 @@ beside them, resume from the highest step, and the (EMA) parameters alone
 for sampling (``restore_params_only``), and any checkpoint as numpy
 arrays whatever world wrote it (``restore_pytree_numpy``; in a
 multi-process world rank 0 writes the one file and every rank reads it
-onto its own device). A checkpoint that mdm_tpu wrote is
+onto its own device). A tensor-parallel state (``tp_rules.shard_state_``)
+is saved gathered, in the one-process layout, so every reader takes it as
+it is, and restores onto a tensor-parallel state as this rank's part. A
+checkpoint that mdm_tpu wrote is
 an orbax directory, which the port does not read: converting one is
 ROADMAP Queue 1 item 11.
 """
@@ -42,10 +45,22 @@ def load_args(save_dir_or_ckpt: str) -> Dict[str, Any]:
 
 
 def save_checkpoint(save_dir: str, step: int, state: TrainState) -> str:
-    """Write the whole train state; a reader never sees a partial file."""
-    os.makedirs(save_dir, exist_ok=True)
+    """Write the whole train state; a reader never sees a partial file. A
+    tensor-parallel state is first gathered over its model group
+    (``tp_rules.gather_state``, a collective every rank calls), and rank 0
+    alone writes the one-process file; every rank returns its path."""
     path = os.path.abspath(os.path.join(save_dir, f"ckpt_{step:09d}"))
-    torch.save(state.state_dict(), path + ".tmp")
+    if state.tp is not None:
+        from ..parallel.multihost import is_primary
+        from ..parallel.tp_rules import gather_state
+
+        sd = gather_state(state)
+        if not is_primary():
+            return path
+    else:
+        sd = state.state_dict()
+    os.makedirs(save_dir, exist_ok=True)
+    torch.save(sd, path + ".tmp")
     os.replace(path + ".tmp", path)
     return path
 
@@ -63,8 +78,14 @@ def find_resume_checkpoint(save_dir: str) -> Optional[Tuple[str, int]]:
 
 
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
-    """Load a checkpoint into ``state`` (bit for bit) and return it."""
-    state.load_state_dict(_load(path, next(state.model.parameters()).device))
+    """Load a checkpoint into ``state`` (bit for bit) and return it; a
+    tensor-parallel state loads the whole tensors and keeps its part."""
+    sd = _load(path, next(state.model.parameters()).device)
+    if state.tp is not None:
+        from ..parallel.tp_rules import local_state_dict
+
+        sd = local_state_dict(sd, state)
+    state.load_state_dict(sd)
     return state
 
 

@@ -169,10 +169,12 @@ class TrainLoop:
                 stop_trace(prof, cfg.profile_trace_dir)
 
     def save(self):
-        """Rank 0 writes the checkpoint; every rank returns once it is whole."""
+        """Rank 0 writes the checkpoint; every rank returns once it is whole.
+        Every rank of a tensor-parallel state takes part in its gather."""
         path = None
-        if self.is_primary:
+        if self.is_primary or self.state.tp is not None:
             path = save_checkpoint(self.config.save_dir, self.step, self.state)
+        if self.is_primary:
             print(f"saved checkpoint {path}")
         barrier()
         return path

@@ -15,11 +15,18 @@ the EMA is ``optax.incremental_update``. Here:
 
 The state updates the model in place: no copies of the parameters exist
 beyond the EMA and AdamW's two moments.
+
+Under tensor parallelism (``parallel.tp_rules.shard_state_``) each rank
+holds its part of every split parameter, and of its moments and EMA, and
+``state.tp`` records the layout. AdamW and the EMA are elementwise and run
+on the parts unchanged; the norms (``tree_norm``: the clip's, and the
+step's ``grad_norm`` / ``param_norm``) are the global tree's, as GSPMD
+computes optax's ``global_norm`` over it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -42,6 +49,7 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.AdamW
     ema_params: Optional[Dict[str, torch.Tensor]]  # parameter name -> EMA tensor
+    tp: Any = None  # parallel.tp_rules.TPLayout of a tensor-parallel state, else None
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
@@ -79,9 +87,31 @@ def create_train_state(model: nn.Module, config: OptimConfig) -> TrainState:
     return TrainState(0, model, make_optimizer(model.parameters(), config), ema)
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+def global_norm(tensors: Iterable[torch.Tensor], split: Optional[Sequence[bool]] = None,
+                group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm).
+    With a tensor-parallel model ``group``, ``split[i]`` marks tensors[i]
+    as this rank's part of a leaf split over the group: those squares are
+    summed over the group (one all-reduce), the replicated leaves', which
+    every rank holds whole, counted once."""
+    if group is None:
+        return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+    import torch.distributed as dist
+
+    squares = [t.float().pow(2).sum() for t in tensors]
+    zero = squares[0].new_zeros(())
+    parted = sum((q for q, s in zip(squares, split) if s), zero).reshape(1)
+    dist.all_reduce(parted, group=group)
+    return torch.sqrt(parted[0] + sum((q for q, s in zip(squares, split) if not s), zero))
+
+
+def tree_norm(state: TrainState, tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``global_norm`` of tensors named like ``state``'s parameters (the
+    parameters or their gradients): under tensor parallelism the norm of
+    the whole tree, on every rank."""
+    if state.tp is None:
+        return global_norm(tensors.values())
+    return global_norm(tensors.values(), state.tp.is_split(tensors), state.tp.mesh.model_group)
 
 
 @torch.no_grad()
@@ -90,7 +120,8 @@ def apply_gradients(state: TrainState, config: OptimConfig) -> TrainState:
     first when ``grad_clip`` > 0), then the EMA; advances ``state.step``."""
     params = [p for p in state.model.parameters() if p.grad is not None]
     if config.grad_clip > 0:
-        norm = global_norm(p.grad for p in params)
+        norm = tree_norm(state, {n: p.grad for n, p in state.model.named_parameters()
+                                 if p.grad is not None})
         for p in params:  # optax.clip_by_global_norm: (g / norm) * max unless norm < max
             p.grad.copy_(torch.where(norm < config.grad_clip, p.grad,
                                      p.grad / norm * config.grad_clip))

@@ -1,5 +1,5 @@
-"""One training step: loss, gradients, AdamW and EMA, on one device or
-data-parallel over a torch.distributed world.
+"""One training step: loss, gradients, AdamW and EMA, on one device, or
+data- and tensor-parallel over a torch.distributed world.
 
 Counterpart of mdm_tpu/train/train_step.py::make_train_step (:69-288).
 Per step, in this order: draw t, the noise and the CFG condition dropout
@@ -25,6 +25,20 @@ every rank. One body serves every case: without a mesh the rows are the
 whole batch and nothing is summed, and a mesh of one rank runs the same
 all-reduce (the identity), so its step is the mesh-less step, bitwise.
 
+Under tensor parallelism (a model axis above 1, mdm_tpu's
+``state_shardings``, :255-288) the state is split by
+``parallel.tp_rules.shard_state_``: each rank holds its heads and FFN
+columns of every layer, and their AdamW moments and EMA. The same body
+runs: the model's forward and backward run Megatron's collectives over
+the model group (models/layers.py) and draw each dropout mask at the
+rank's batch, head and FFN-column offsets, so the global step is the
+one-process step, mask for mask; the batch group's flat all-reduce sums
+the rank's parts, whose shapes its batch group shares (its members share
+its model index); the norms are the global tree's (``state.tree_norm``).
+AUTO resolves to off (``ops.mesh_kernels``): the layers take the einsum
+attention and the plain tail, whose dumps (#6, #9) are the only hand
+kernels that run, and a fused kernel pinned on raises.
+
 Randomness is a pure function of the step's integer ``key`` (the
 counterpart of ``jax.random.fold_in(base, step)``, see ``step_key``): a
 CPU generator seeded with it gives the model's dropout seeds, and a device
@@ -45,7 +59,7 @@ from ..diffusion import gaussian as G
 from ..diffusion.losses import LossConfig, training_losses
 from ..diffusion.schedule import Schedule
 from .resample import LossAwareState, loss_aware_sample_t, loss_aware_update, uniform_sample_t
-from .state import OptimConfig, TrainState, apply_gradients, global_norm
+from .state import OptimConfig, TrainState, apply_gradients, tree_norm
 
 
 @dataclass(frozen=True)
@@ -122,21 +136,27 @@ def make_train_step(sched: Schedule, config: TrainStepConfig, *,
     the update used. Metrics stay on the device.
 
     ``mesh`` (parallel.mesh.Mesh): with more than one rank, ``batch`` holds
-    this rank's rows and ``draws`` the global draws; the metrics, the
-    sampler state and the update are the global step's on every rank; a
-    mesh of one rank runs the same body, its all-reduce the identity. A
-    model axis above 1 (tensor-parallel training) raises: it is not
-    ported."""
+    this rank's rows (the rows of its batch index) and ``draws`` the global
+    draws; the metrics, the sampler state and the update are the global
+    step's on every rank; a mesh of one rank runs the same body, its
+    all-reduce the identity. With a model axis above 1 the state must be
+    split over it (``tp_rules.shard_state_``)."""
     loss_aware = config.schedule_sampler == "loss-second-moment"
     if not loss_aware and config.schedule_sampler != "uniform":
         raise ValueError(f"unknown schedule_sampler {config.schedule_sampler!r}")
-    if mesh is not None and mesh.model_parallel > 1:
-        raise NotImplementedError(
-            f"tensor-parallel training (mesh {mesh.shape}) is not ported to "
-            "mdm_tpu_torch, data parallelism only (ROADMAP Queue 1 item 15)")
+    tensor_parallel = mesh is not None and mesh.model_parallel > 1
 
     def step(state: TrainState, batch: Dict, key: int,
              sampler_state: Optional[LossAwareState] = None, *, draws: Optional[Dict] = None):
+        split_over = None if state.tp is None else state.tp.mesh.model_parallel
+        if split_over != (mesh.model_parallel if tensor_parallel else None):
+            raise ValueError(f"a state split over {split_over or 1} model-parallel rank(s) on a "
+                             f"step over {mesh.model_parallel if mesh else 1}: split a state for "
+                             "a tensor-parallel mesh with tp_rules.shard_state_")
+        with ops.mesh_kernels(tensor_parallel):
+            return _step(state, batch, key, sampler_state, draws)
+
+    def _step(state, batch, key, sampler_state, draws):
         x_start, mask, cond = batch["x"], batch["mask"], batch["cond"]
         if (target_cond_fn is not None and cond.target_validity is not None
                 and cond.target_cond is None):
@@ -175,8 +195,8 @@ def make_train_step(sched: Schedule, config: TrainStepConfig, *,
         target_loss_fn = target_loss_builder(batch) if target_loss_builder is not None else None
 
         model = state.model
-        params = list(model.parameters())
-        for p in params:
+        named = dict(model.named_parameters())
+        for p in named.values():
             p.grad = None
         with ops.sharded_rows(rows.start):
             model_out = model(x_t, sched.model_timesteps(t), cond, deterministic=False, rng=rng)
@@ -189,12 +209,12 @@ def make_train_step(sched: Schedule, config: TrainStepConfig, *,
 
         names = sorted(terms)
         with torch.no_grad():
-            grads = [p.grad for p in params if p.grad is not None]
+            grads = {n: p.grad for n, p in named.items() if p.grad is not None}
             loss, table = _sum_over_ranks(
-                mesh, grads, loss.detach(),
+                mesh, list(grads.values()), loss.detach(),
                 torch.stack([terms[k].detach().float() for k in names] + [t.float()]), rows, B)
-            grad_norm = global_norm(grads)
-            param_norm = global_norm(params)
+            grad_norm = tree_norm(state, grads)
+            param_norm = tree_norm(state, named)
         apply_gradients(state, config.optim)
 
         losses, t = table[names.index("loss")], table[-1].round().long()

@@ -120,9 +120,9 @@ def test_card_entry_points_launch_once_with_the_c_arguments(monkeypatch):
     params = {m.group(1): [a.split()[-1].lstrip("*") for a in m.group(2).split(",")]
               for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src)}
     assert params == {"mdm_philox_dump": ["out", "seed", "boff", "B", "H", "site", "R", "C",
-                                          "stream"],
+                                          "hoff", "stream"],
                       "mdm_philox_dump3": ["out0", "out1", "out2", "seed", "boff", "B", "R", "C0",
-                                           "C1", "C2", "stream"]}
+                                           "C1", "C2", "foff", "stream"]}
     for name, names in params.items():
         assert len(_build.SIGNATURES[name]) == len(names)
     calls = []
@@ -142,16 +142,61 @@ def test_card_entry_points_launch_once_with_the_c_arguments(monkeypatch):
     assert bits.shape == (B, H, S, S) and seq.shape == (B, S, D)
     common = dict(seed=SEED, boff=0, B=B, R=S, stream=7)
     assert calls == [
-        ("mdm_philox_dump3", dict(out0=0, out1=0, out2=0, C0=D, C1=F, C2=D, **common)),
-        ("mdm_philox_dump", dict(out=0, H=H, site=-1, C=S, **common)),
-        ("mdm_philox_dump", dict(out=0, H=1, site=0, C=D, **common)),
+        ("mdm_philox_dump3", dict(out0=0, out1=0, out2=0, C0=D, C1=F, C2=D, foff=0, **common)),
+        ("mdm_philox_dump", dict(out=0, H=H, site=-1, C=S, hoff=0, **common)),
+        ("mdm_philox_dump", dict(out=0, H=1, site=0, C=D, hoff=0, **common)),
     ]
     assert DB.LAUNCHES == {"dropout_bits": 1, "tail_dropout_bits": 1, "sequence_dropout_bits": 1}
     # A data-parallel rank's first global row reaches the counter's batch word.
     DB.sequence_dropout_bits(SEED, B, S, D, device="meta", batch_offset=B)
     DB.tail_dropout_bits(SEED, B, S, D, F, device="meta", batch_offset=2 * B)
     assert [c[1]["boff"] for c in calls[3:]] == [B, 2 * B]
+    # A tensor-parallel rank's first head and first FFN column reach theirs.
+    DB.dropout_bits(SEED, B, H, S, device="meta", head_offset=3 * H)
+    DB.tail_dropout_bits(SEED, B, S, D, F, device="meta", ffn_offset=F)
+    assert calls[5][1]["hoff"] == 3 * H and calls[6][1]["foff"] == F
     with pytest.raises(ValueError, match="uint32"):
         DB._dump_into([torch.empty(4, dtype=torch.int32, device="meta")], SEED, 1, 1, 0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         DB._dump_into([torch.empty(4, 4, dtype=torch.uint32, device="meta").T], SEED, 1, 1, 0, 4)
+
+
+# sha256 of the words of dropout_bits(20, 3, 4, 37, key_len=41) and then
+# tail_dropout_bits(20, 3, 37, 40, 72), both at batch_offset 5, taken from
+# the stream before the model offsets existed: at offset 0 no word moved.
+OFFSET_ZERO_SHA256 = "368ad1344c66d3000c9055d69b2191253b18d8a9ed4ecc4a93115bfb9fa6e2cf"
+
+
+def test_offset_zero_words_are_the_words_before_the_model_offsets():
+    import hashlib
+
+    h = hashlib.sha256()
+    for words in (DB.dropout_bits(20, 3, 4, 37, "cpu", key_len=41, batch_offset=5, head_offset=0),
+                  *DB.tail_dropout_bits(20, 3, 37, 40, 72, "cpu", batch_offset=5, ffn_offset=0)):
+        h.update(words.numpy().tobytes())
+    assert h.hexdigest() == OFFSET_ZERO_SHA256
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("seed", [SEED, 2 ** 31 - 1])
+def test_model_offsets_give_each_rank_its_slice_of_the_whole_dump(seed, parts):
+    """A tensor-parallel rank holding heads [h0, h0 + H/P) and FFN columns
+    [f0, f0 + F/P) draws exactly those heads and columns of the whole
+    layer's dumps: #9 at ``head_offset`` (the cross-attention's [S, Sk] rows
+    too), #6's site 1 at ``ffn_offset``; its sites 0 and 2 stay whole."""
+    Hw, Fw, Sq, Sk, b0 = 8, 24, 7, 9, 3
+    whole = DB.dropout_bits(seed, B, Hw, Sq, "cpu", key_len=Sk, batch_offset=b0)
+    tail = DB.tail_dropout_bits(seed, B, S, D, Fw, "cpu", batch_offset=b0)
+    h, f = Hw // parts, Fw // parts
+    for i in range(parts):
+        part = DB.dropout_bits(seed, B, h, Sq, "cpu", key_len=Sk, batch_offset=b0,
+                               head_offset=i * h)
+        assert torch.equal(part, whole[:, i * h:(i + 1) * h])
+        mine = DB.tail_dropout_bits(seed, B, S, D, f, "cpu", batch_offset=b0, ffn_offset=i * f)
+        assert torch.equal(mine[0], tail[0]) and torch.equal(mine[2], tail[2])
+        assert torch.equal(mine[1], tail[1][..., i * f:(i + 1) * f])
+        # the plain stream at the column offset, word for word
+        assert torch.equal(mine[1].to(torch.int64), DB.philox_bits(
+            seed, torch.arange(B), 1, S, f, batch_offset=b0, col_offset=i * f))
+    assert torch.equal(DB.philox_bits(seed, 0, 1, 2, 3, col_offset=2 ** 32),
+                       DB.philox_bits(seed, 0, 1, 2, 3))  # the column word wraps at 2^32

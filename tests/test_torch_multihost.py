@@ -50,7 +50,8 @@ ENV = {"OMP_NUM_THREADS": "2"}
 
 def _world(out, *argv):
     launch_local_multihost(2, module="mdm_tpu_torch.scripts.parallel_check",
-                           extra_argv=["train", "--out", str(out), *argv], extra_env=ENV,
+                           extra_argv=["train", "--out", str(out), "--device", "cpu", *argv],
+                           extra_env=ENV,
                            timeout=TIMEOUT)
     return torch.load(out / "train.pt", weights_only=False)
 

@@ -57,7 +57,8 @@ def world(tmp_path_factory):
     torch.save({"state_dict": sd, "text_embed": text, "noise": noise}, tmp / "inputs.pt")
     launch_local_multihost(
         2, module="mdm_tpu_torch.scripts.parallel_check",
-        extra_argv=["sample", "--out", str(tmp), "--inputs", str(tmp / "inputs.pt"), "--keep",
+        extra_argv=["sample", "--out", str(tmp), "--device", "cpu", "--inputs",
+                    str(tmp / "inputs.pt"), "--keep",
                     "--batch", str(B), "--frames", str(T), "--steps", str(STEPS),
                     "--latent_dim", "32", "--ff_size", "64", "--layers", "2", "--heads", "4"],
         extra_env={"OMP_NUM_THREADS": "2"}, timeout=120)

@@ -409,16 +409,29 @@ def test_no_world_unless_asked_and_nccl_needs_a_card(monkeypatch):
 
 
 def test_tensor_parallel_training_and_pinned_kernels_under_tp_raise():
-    """TP training is not ported: a mesh with a model axis above 1 raises
-    in make_train_step. TP sampling runs the einsum attention and the plain
-    tail, so a kernel flag pinned on raises before any forward."""
+    """A mesh with a model axis above 1 builds a train step, which takes a
+    state split over that axis (tp_rules.shard_state_) and refuses a whole
+    one; a fused training kernel pinned on raises before any forward. TP
+    sampling runs the einsum attention and the plain tail, so a kernel flag
+    pinned on raises there too."""
     from mdm_tpu_torch.diffusion import Schedule
+    from mdm_tpu_torch.parallel import tp_rules as TP
     from mdm_tpu_torch.sampling import MotionGenerator
-    from mdm_tpu_torch.train import TrainStepConfig, make_train_step
+    from mdm_tpu_torch.train import OptimConfig, TrainStepConfig, create_train_state, make_train_step
 
     tp = M.Mesh(*M.mesh_grid(2, 2))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        make_train_step(Schedule.create("cosine", 10), TrainStepConfig(), mesh=tp)
+    step = make_train_step(Schedule.create("cosine", 10), TrainStepConfig(), mesh=tp)
+    cfg = MDMConfig(latent_dim=32, ff_size=64, num_layers=1, num_heads=4)
+    state = create_train_state(MDM(cfg), OptimConfig())
+    batch = {"x": torch.zeros(2, 4, cfg.njoints), "mask": torch.ones(2, 4, dtype=torch.bool),
+             "cond": Conditioning(text_embed=torch.zeros(2, 512))}
+    with pytest.raises(ValueError, match="shard_state_"):
+        step(state, batch, 0)
+    TP.shard_state_(state, tp)
+    assert state.tp is not None and state.model.seqTransEncoder.layers[0].linear1.out_features == 32
+    for flag in ("train_block", "train_attention", "encoder_tail"):
+        with ops.pinned(**{flag: True}), pytest.raises(ValueError, match="pinned on"):
+            step(state, batch, 0)
     model = MDM(MDMConfig(latent_dim=32, ff_size=64, num_layers=1, num_heads=4))
     gen = MotionGenerator(model, Schedule.create("cosine", 10, "2"), mesh=tp)
     assert gen.tensor_parallel and gen.model.seqTransEncoder.layers[0].self_attn.num_heads == 2
