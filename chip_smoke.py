@@ -162,7 +162,21 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   the sequence dump 1, every fused kernel 0; each rank's ms per step and its
   model group's all-reduces (count, bytes). NCCL takes one card a rank, so
   the card checks a world of one under NCCL and two ranks under gloo;
-  tensor parallelism across cards is not checked here.
+  tensor parallelism across cards is not checked here;
+- the float32 route (phase 21; compute_dtype="float32" is every CLI's
+  default): the f32 product kernel (3xTF32 on the tensor cores,
+  csrc/gemm.cu) at the edges of its tiling, each kernel's f32 instance
+  against its plain version at its table shape (#1 at B=64; #2/#3 and
+  #4/#5 at the CLI's B=64, rate 0.1; #7/#8 at the training shape; #10-#12
+  at the sampling attention; #2's rate-0 entry at DistilBERT's shape)
+  under the unchanged f32 tolerances, two launches bitwise equal, timed
+  beside the plain version and one PyTorch call in f32 (TF32 off), with
+  bounds at the f32 FMA peak and, for the products, three TF32 passes;
+  MotionGenerator.generate at B=32 (50 steps, CFG 2.5) and make_train_step
+  at B=64 (rate 0.1) in f32, their launches exact (every product on the
+  f32 kernel, none on wgmma), timed with CUDA events; and #7/#8, #10-#12
+  launched on their f32 routes. ``python3 chip_smoke.py --f32-route`` runs
+  the build and this phase alone.
 
 Each path checks that every layer call went through its kernels, and the
 sampling and training paths that every product, forward and backward,
@@ -270,7 +284,13 @@ DIP_SOURCES = {  # the rate-0 entries on the decoder's path -> (source, TPU kern
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
-F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores (csrc/gemm.cu's FMA products)
+# float32 outside the tensor cores (exact f32 FMA, what the f32 attention
+# core runs). The f32 rows' bound is the tensor cores' instead: f32
+# accuracy there takes three TF32 passes (3xTF32, what csrc/gemm.cu's f32
+# products run), at the TF32 peak, so every f32 FLOP is three at 495
+# TFLOP/s (see _f32_bounds).
+F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12  # dense TF32 tensor-core peak
 # The dumps' draws, counted from Philox4x32-10 itself: a word is word 0 at
 # counter (column, row, site, b), ten rounds of two 32x32->64 products and
 # two three-way xors. Along a row only the column varies, so round 1's
@@ -930,7 +950,7 @@ def phase_flagship_train(torch, TB, ET, DB, dev):
     # tail's linear1 and linear2 forward, and the backward's four dY . W and
     # dY^T . X products each for block and tail, all on wgmma.
     products = dict(_chain.GEMM_LAUNCHES)
-    want = {"wgmma": 12 * expected, "fma": 0}
+    want = {"wgmma": 12 * expected, "tf32x3": 0}
     if products != want:
         raise AssertionError(f"training's products launched {products}, expected {want}")
     seq_bits = DB.LAUNCHES["sequence_dropout_bits"]
@@ -1448,7 +1468,7 @@ def phase_direct_entries(torch, model, dev):
     n = len(model.seqTransEncoder.layers)
     if any(c != n for c in launches.values()):
         raise AssertionError(f"direct entries launched {launches}, expected {n} each")
-    if _chain.GEMM_LAUNCHES != {"wgmma": 2 * n, "fma": 0}:  # #12's two projections
+    if _chain.GEMM_LAUNCHES != {"wgmma": 2 * n, "tf32x3": 0}:  # #12's two projections
         raise AssertionError(f"#12's products launched {_chain.GEMM_LAUNCHES}, expected "
                              f"{2 * n} on the wgmma kernel")
     print(f"direct entries, one call per layer of the flagship model: {launches}")
@@ -1755,7 +1775,7 @@ def phase_dip_generate(torch, dev):
             raise AssertionError(f"DiP generate B={B}: (rate-0 block, rate-0 tail, decoder layer "
                                  f"calls) = {got}, whole-layer kernel {li.LAUNCHES}; expected "
                                  f"{n * per_run} each and none of the whole-layer kernel")
-        if _chain.GEMM_LAUNCHES != {"wgmma": 4 * n * per_run, "fma": 0}:
+        if _chain.GEMM_LAUNCHES != {"wgmma": 4 * n * per_run, "tf32x3": 0}:
             raise AssertionError(f"DiP generate's block and tail products launched "
                                  f"{_chain.GEMM_LAUNCHES}, expected {4 * n * per_run} on wgmma")
         joints = out["joints"]
@@ -2002,7 +2022,7 @@ def phase_dip_train(torch, dev):
     want = {"fused_train_attention_block.fwd": n, "fused_train_attention_block.bwd": n,
             "fused_encoder_tail.fwd": n, "fused_encoder_tail.bwd": n, "dropout_bits": n,
             "tail_dropout_bits": 0, "sequence_dropout_bits": n + steps,
-            "products.wgmma": 12 * n, "products.fma": 0}
+            "products.wgmma": 12 * n, "products.tf32x3": 0}
     if launches != want:
         raise AssertionError(f"DiP training launched {launches}, expected {want}")
     first, last = _falls("DiP training", losses)
@@ -2157,7 +2177,7 @@ def phase_a2m(torch, dev):
             want = {"fused_train_attention_block.fwd": n, "fused_train_attention_block.bwd": n,
                     "fused_encoder_tail.fwd": n, "fused_encoder_tail.bwd": n,
                     "dropout_bits": 0, "tail_dropout_bits": 0, "sequence_dropout_bits": steps,
-                    "products.wgmma": 12 * n, "products.fma": 0}
+                    "products.wgmma": 12 * n, "products.tf32x3": 0}
             if launches != want:
                 raise AssertionError(f"a2m training launched {launches}, expected {want}")
             first, last = _falls("a2m training", losses)
@@ -2325,7 +2345,7 @@ def phase_cli(torch, TB, ET, DB, li, dev, bare_step_ms, generate_s_per_sample, t
                 "fused_encoder_tail.fwd": layers * steps,
                 "fused_encoder_tail.bwd": layers * steps,
                 "sequence_dropout_bits": steps, "products.wgmma": 12 * layers * steps,
-                "products.fma": 0, "fused_layer_inference": 0}
+                "products.tf32x3": 0, "fused_layer_inference": 0}
         if any(train_counts.get(k) != v for k, v in want.items()):
             raise AssertionError(f"cli.train launched {train_counts}, expected {want}")
         ckpts = sorted(f for f in os.listdir(run1) if f.startswith("ckpt_"))
@@ -2417,7 +2437,7 @@ def phase_cli(torch, TB, ET, DB, li, dev, bare_step_ms, generate_s_per_sample, t
             MotionGenerator.generate = generate
         diffusion_steps = 50
         want = {"fused_layer_inference": layers * diffusion_steps,
-                "products.wgmma": 4 * layers * diffusion_steps, "products.fma": 0}
+                "products.wgmma": 4 * layers * diffusion_steps, "products.tf32x3": 0}
         if any(gen_counts.get(k) != v for k, v in want.items()):
             raise AssertionError(f"cli.generate launched {gen_counts}, expected {want}")
         res = np.load(os.path.join(out_g, "results.npy"), allow_pickle=True).item()
@@ -2670,7 +2690,7 @@ def phase_eval(torch, TB, ET, li, dev, tmp):
         want = layers * 50 * batches * EVAL_REPS
         got = dict(fused_layer_inference=li.LAUNCHES, products=dict(_chain.GEMM_LAUNCHES),
                    sampling_calls=run["gen_calls"])
-        if got != dict(fused_layer_inference=want, products={"wgmma": 4 * want, "fma": 0},
+        if got != dict(fused_layer_inference=want, products={"wgmma": 4 * want, "tf32x3": 0},
                        sampling_calls=batches * EVAL_REPS) or TB.LAUNCHES["fwd"]:
             raise AssertionError(f"cli.eval_humanml launched {got}, expected {want} layer "
                                  f"kernel launches ({layers} x 50 steps x {batches} batches x "
@@ -2725,7 +2745,7 @@ def phase_eval(torch, TB, ET, li, dev, tmp):
         got = {"fused_block_attention_inference": TB.LAUNCHES["fwd"],
                "fused_encoder_tail_inference": ET.LAUNCHES["fwd"]}
         if (got != {k: want for k in got} or li.LAUNCHES
-                or dict(_chain.GEMM_LAUNCHES) != {"wgmma": 4 * want, "fma": 0}):
+                or dict(_chain.GEMM_LAUNCHES) != {"wgmma": 4 * want, "tf32x3": 0}):
             raise AssertionError(f"DiP eval launched {got}, layer kernel {li.LAUNCHES}, products "
                                  f"{dict(_chain.GEMM_LAUNCHES)}; expected {want} each ({chunks} "
                                  f"chunks x 10 steps x {layers} layers), 4 products each")
@@ -2896,7 +2916,7 @@ def phase_a2m_recipe(torch, dev, smpl, bare_ms):
     want = {"fused_train_attention_block.fwd": n, "fused_train_attention_block.bwd": n,
             "fused_encoder_tail.fwd": n, "fused_encoder_tail.bwd": n, "dropout_bits": 0,
             "tail_dropout_bits": 0, "sequence_dropout_bits": steps, "products.wgmma": 12 * n,
-            "products.fma": 0}
+            "products.tf32x3": 0}
     if launches != want:
         raise AssertionError(f"a2m recipe training launched {launches}, expected {want}")
     first, last = _falls("a2m recipe training", losses)
@@ -3052,7 +3072,7 @@ def phase_a2m_protocols(torch, TB, ET, DB, li, dev, tmp):
         want = {"fused_train_attention_block.fwd": n, "fused_train_attention_block.bwd": n,
                 "fused_encoder_tail.fwd": n, "fused_encoder_tail.bwd": n, "dropout_bits": 0,
                 "tail_dropout_bits": 0, "sequence_dropout_bits": train_steps,
-                "products.wgmma": 12 * n + 4 * layers * A2M_STEPS, "products.fma": 0,
+                "products.wgmma": 12 * n + 4 * layers * A2M_STEPS, "products.tf32x3": 0,
                 "fused_layer_inference": layers * A2M_STEPS}
         if got != want or len(flats) != 1 or not {"accuracy_gen", "fid_gen"} <= set(flats[0]):
             raise AssertionError(f"cli.train a2m recipe launched {got}, expected {want}; its "
@@ -3106,7 +3126,7 @@ def phase_a2m_protocols(torch, TB, ET, DB, li, dev, tmp):
         want_li = layers * A2M_STEPS * A2M_SEEDS
         got = dict(fused_layer_inference=li.LAUNCHES, products=dict(_chain.GEMM_LAUNCHES),
                    sampling_calls=len(gen_t))
-        if got != dict(fused_layer_inference=want_li, products={"wgmma": 4 * want_li, "fma": 0},
+        if got != dict(fused_layer_inference=want_li, products={"wgmma": 4 * want_li, "tf32x3": 0},
                        sampling_calls=A2M_SEEDS) or TB.LAUNCHES["fwd"]:
             raise AssertionError(f"cli.eval_a2m launched {got}, expected {want_li} layer kernel "
                                  f"launches ({layers} x {A2M_STEPS} steps x {A2M_SEEDS} seeds, "
@@ -3262,11 +3282,18 @@ def phase_towers(torch, TB, ET, li, dev, tmp):
         got = card(prompts)
         s = time.perf_counter() - t0
         launches = dict(block=TB.LAUNCHES["fwd"], layer=li.LAUNCHES, **_chain.GEMM_LAUNCHES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            card(prompts)
+        end.record()
+        torch.cuda.synchronize()
+        ms_events = start.elapsed_time(end) / 5  # tokenizer, copies and the tower, one batch
         want = cpu(prompts)
         err = np.abs(got["text_embed"] - want["text_embed"]).max()
         scale = np.abs(want["text_embed"]).max()
         n_block = 6 if kind == "bert" else 0
-        expect = dict(block=n_block, layer=0, wgmma=0, fma=2 * n_block)
+        expect = dict(block=n_block, layer=0, wgmma=0, tf32x3=2 * n_block)
         if launches != expect:
             raise AssertionError(f"18a {kind}: launches {launches}, expected {expect}")
         if not np.isfinite(got["text_embed"]).all() or err > TOWER_REL * scale:
@@ -3276,12 +3303,12 @@ def phase_towers(torch, TB, ET, li, dev, tmp):
             if not np.array_equal(got["text_tokens_mask"], want["text_tokens_mask"]):
                 raise AssertionError("18a bert: the token masks differ")
             pad = 1 - got["text_tokens_mask"].mean()
-        out[kind] = dict(launches=launches, rel_err=float(err / scale), s=s)
+        out[kind] = dict(launches=launches, rel_err=float(err / scale), s=s, ms_events=ms_events)
         print(f"18a {kind} tower, {TOWER_PROMPTS} prompts, f32: card vs CPU relative "
               f"{err / scale:.3g} (tolerance {TOWER_REL}); launches per batch "
               f"{json.dumps(launches)}; {s * 1000:.1f} ms a batch (host clock, tokenizer and "
-              f"copies included)" + (f"; padding {pad:.3f} of the tokens" if kind == "bert"
-                                     else ""))
+              f"copies included), {ms_events:.3f} ms (CUDA events, 5 batches after it)"
+              + (f"; padding {pad:.3f} of the tokens" if kind == "bert" else ""))
 
     # #2's rate-0 entry alone at DistilBERT's self-attention: [32, 64, 768],
     # 12 heads of 64, f32, the key-padding row of the prompts above.
@@ -3304,9 +3331,7 @@ def phase_towers(torch, TB, ET, li, dev, tmp):
         launches=out["bert"]["launches"]["block"], path="DistilBERT tower, one prompt batch",
         library_ms=_no_grad_ms(torch, lambda: mha(x, x, x, key_padding_mask=~mask,
                                                   need_weights=False)[0]),
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(8 * M * D * D + 4 * B * S * S * D, nbytes(x, *w, kpm, x),
-                         F32_FLOPS_PER_S))))
+        **_f32_bounds(8 * M * D * D, 4 * B * S * S * D, nbytes(x, *w, kpm, x)))
     print("18a #2 rate-0 entry at DistilBERT's shape", json.dumps(row))
     return assets, row, out
 
@@ -3386,12 +3411,12 @@ def phase_reference_import(torch, TB, ET, DB, li, dev, tmp, assets):
             if name == "flagship":  # 50 steps x 8 layers, 4 bf16 products each; CLIP: no kernel
                 want = {"fused_layer_inference": layers * 50, "fused_block_attention_inference": 0,
                         "fused_encoder_tail_inference": 0, "products.wgmma": 4 * layers * 50,
-                        "products.fma": 0}
+                        "products.tf32x3": 0}
             else:  # 196 frames in chunks of 40: 5 chunks x 10 steps x 8 layers, + the tower's 6
                 chunks = -(-196 // DIP_REF["pred_len"])
                 n = chunks * DIP_REF["diffusion_steps"] * layers
                 want = {"fused_layer_inference": 0, "fused_block_attention_inference": n + 6,
-                        "fused_encoder_tail_inference": n, "products.fma": 12}
+                        "fused_encoder_tail_inference": n, "products.tf32x3": 12}
             if any(counts[k] != v for k, v in want.items()):
                 raise AssertionError(f"18b {name}: cli.generate launched {counts}, expected "
                                      f"{want}")
@@ -3969,16 +3994,18 @@ def phase_train_busy(torch, dev, dip_step_ms, remat_rows, a2m_ms, smpl, steps=3)
     return rows
 
 
-def library_layer_ms(torch, dev):
+def library_layer_ms(torch, dev, dtype=None):
     """One nn.TransformerEncoderLayer forward (its fast path: eval, no grad)
-    at the sampling layer shape, bf16: kernel #1's library yardstick. Its ms
-    issued back to back and on the card alone (CUDA graph replay), as #1's."""
+    at the sampling layer shape, bf16 unless dtype is given: kernel #1's
+    library yardstick. Its ms issued back to back and on the card alone
+    (CUDA graph replay), as #1's."""
     from mdm_tpu_torch.scripts.gemm_probe import device_ms
 
+    dtype = dtype or torch.bfloat16
     D, F, H = FLAGSHIP["latent_dim"], FLAGSHIP["ff_size"], FLAGSHIP["num_heads"]
     layer = torch.nn.TransformerEncoderLayer(D, H, F, dropout=0.0, activation="gelu",
-                                             batch_first=True).to(dev, torch.bfloat16).eval()
-    x = torch.randn(64, 197, D, device=dev, dtype=torch.bfloat16)
+                                             batch_first=True).to(dev, dtype).eval()
+    x = torch.randn(64, 197, D, device=dev, dtype=dtype)
     with torch.inference_mode():
         return _time_ms(torch, lambda: layer(x)), device_ms(lambda: layer(x))
 
@@ -4406,6 +4433,366 @@ def phase_tensor_parallel_train(torch, tmp):
     return dict(rows, launches=rows["bfloat16"]["launches"])
 
 
+# Phase 21: the float32 route (compute_dtype="float32", every CLI's
+# default, and the DistilBERT tower): the CLI's training batch, and the f32
+# kernels' rows of the kernels line.
+F32_TRAIN_B = 64  # cli.train's default --batch_size (utils/parser.py)
+F32_WARM, F32_TIMED = 3, 10  # train steps before and under the CUDA events
+F32_FEW = 5  # diffusion steps of the pallas variant's f32 generate
+_GEMM, _CORE, _ENTRY = (f"mdm_tpu_torch/csrc/{f}" for f in ("gemm.cu", "attention_f32.cu",
+                                                               "attention.cu"))
+_ATTN_F32 = (_CORE, _ENTRY)  # the tile kernels, and the entry point that picks them
+F32_SOURCES = {  # the f32 row of each kernel -> (every source it runs, TPU kernel it replaces)
+    "fused_layer_inference": ((_GEMM, *_ATTN_F32, KERNEL_SOURCE), REPLACES),
+    "fused_train_attention_block.forward": ((*_ATTN_F32, _GEMM),
+                                            "mdm_tpu/ops/attention_train_block.py:286"),
+    "fused_train_attention_block.backward": ((*_ATTN_F32, _GEMM),
+                                             "mdm_tpu/ops/attention_train_block.py:334"),
+    "fused_encoder_tail.forward": ((_GEMM, "mdm_tpu_torch/csrc/encoder_tail.cu"),
+                                   "mdm_tpu/ops/encoder_tail.py:309"),
+    "fused_encoder_tail.backward": ((_GEMM, "mdm_tpu_torch/csrc/encoder_tail.cu"),
+                                    "mdm_tpu/ops/encoder_tail.py:358"),
+    "fused_dropout_attention.forward": (_ATTN_F32, "mdm_tpu/ops/attention_dropout.py:181"),
+    "fused_dropout_attention.backward": (_ATTN_F32, "mdm_tpu/ops/attention_dropout.py:214"),
+    "fused_attention": (_ATTN_F32, "mdm_tpu/ops/attention.py:76"),
+    "fused_attention_v2": (_ATTN_F32, "mdm_tpu/ops/attention_v2.py:69"),
+    "fused_attention_block": ((*_ATTN_F32, _GEMM), "mdm_tpu/ops/attention_block.py:84"),
+    "fused_block_attention_inference": ((*_ATTN_F32, _GEMM),
+                                        "mdm_tpu/ops/attention_train_block.py:286"),
+}
+
+
+def _f32_bounds(products, core, nbytes_):
+    """An f32 row's bounds, each the larger of the bytes over the HBM rate
+    and its FLOPs' time: ``bound_ms`` every FLOP (the products' and the
+    attention core's) as three TF32 passes at the tensor cores' peak, the
+    least time f32 accuracy takes on the card; ``scheme_bound_ms`` the
+    products so and the core at the f32 FMA peak, what these kernels run;
+    ``fma_bound_ms`` every FLOP at the FMA peak."""
+    bound_ms, by = bound(3 * (products + core), nbytes_, TF32_FLOPS_PER_S)
+    floor = bound(0, nbytes_)[0]
+    scheme = (3 * products / TF32_FLOPS_PER_S + core / F32_FLOPS_PER_S) * 1e3
+    return dict(bound_ms=bound_ms, bound_by=by, scheme_bound_ms=max(scheme, floor),
+                fma_bound_ms=bound(products + core, nbytes_, F32_FLOPS_PER_S)[0])
+
+
+def phase_f32_plan(torch):
+    """Phase 1b: the f32 attention core's plan as its kernels hold it
+    (mdm_attention_f32_plan) equal to _chain.attention_f32_plan, the model
+    the CPU tests hold under 227 KB, at every EDGE_DH; and each kernel's
+    resident blocks per SM at least the model's count (two where the
+    shared memory allows: the registers allow two)."""
+    from mdm_tpu_torch.ops import _chain
+
+    keys = ("instance", "padded_head_dim", "stages", "bytes", "kv_chunks")
+    plans = {}
+    for dh in EDGE_DH:
+        got, want = _chain.attention_f32_plan_on_card(dh), _chain.attention_f32_plan(dh)
+        if any(got[k] != want[k] for k in keys[:1 if got["instance"] == "wide" else None]):
+            raise AssertionError(f"1b f32 attention plan at Dh={dh}: the kernels hold {got}, "
+                                 f"_chain.attention_f32_plan says {want}")
+        if got["instance"] == "tiled":
+            short = {k: n for k, n in got["blocks_per_sm"].items()
+                     if n < _chain.f32_blocks_per_sm(got["bytes"][k])}
+            if short:
+                raise AssertionError(f"1b f32 attention at Dh={dh}: blocks per SM {short} below "
+                                     f"the plan's {got}")
+            plans[got["padded_head_dim"]] = {k: got[k] for k in ("stages", "bytes",
+                                                                  "blocks_per_sm")}
+    print(f"1b f32 attention plan, kernels = _chain.attention_f32_plan at Dh={list(EDGE_DH)} "
+          f"(above 256 the row kernels): {json.dumps(plans)}")
+
+
+def _twice_bitwise(torch, what, run):
+    """Two runs of run() (a tensor or a sequence of them) bitwise equal."""
+    one, two = run(), run()
+    one, two = ((t,) if torch.is_tensor(t) else tuple(t) for t in (one, two))
+    if not (len(one) == len(two) and all(torch.equal(a, b) for a, b in zip(one, two))):
+        raise AssertionError(f"{what}: two launches on the same inputs differ")
+
+
+def phase_f32_route(torch, TB, ET, li, dev):
+    """Phase 21, the float32 route. The f32 product kernel (3xTF32,
+    csrc/gemm.cu) at the edges of its tiling (gemm_probe.check_f32_edges);
+    each kernel's f32 instance against its plain version at its table shape
+    (#1 at B = 64, S = 197; #2/#3 and #4/#5 at the CLI's B = 64, S = 197,
+    rate 0.1; #7/#8 at the training shape; #10-#12 at the sampling
+    attention; #2's rate-0 entry at DistilBERT's [32, 64, 768], 12 heads)
+    within the unchanged F32_TOL / TRAIN_REL, two launches bitwise equal,
+    timed beside the plain version and one PyTorch call in f32 (TF32 off);
+    then the f32 paths at full width, their launches exact and timed with
+    CUDA events: MotionGenerator.generate at B = 32 (50 steps, CFG 2.5),
+    make_train_step at B = 64 (rate 0.1, AUTO), and, for #7/#8, #10-#12, the
+    drop variant's steps, the pallas variant's generate and the direct
+    entries in f32. Returns (the f32 rows of the kernels line, the paths'
+    numbers)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+    from mdm_tpu_torch import ops
+    from mdm_tpu_torch.diffusion import Schedule
+    from mdm_tpu_torch.models import MDM, Conditioning
+    from mdm_tpu_torch.ops import _chain
+    from mdm_tpu_torch.ops import attention as A
+    from mdm_tpu_torch.ops import attention_block as AB
+    from mdm_tpu_torch.ops import attention_dropout as AD
+    from mdm_tpu_torch.ops import attention_v2 as V2
+    from mdm_tpu_torch.sampling import GenerationConfig, MotionGenerator
+    from mdm_tpu_torch.scripts import bench_sample_kernels as BS
+    from mdm_tpu_torch.scripts import bench_train_kernels as BT
+    from mdm_tpu_torch.scripts import gemm_probe as GP
+    from mdm_tpu_torch.train import (OptimConfig, TrainStepConfig, create_train_state,
+                                     make_train_step, step_key)
+
+    f32, rel = torch.float32, TRAIN_REL["float32"]
+    t_phase = time.perf_counter()
+    products = lambda: sum(v for k, v in _chain.GEMM_LAUNCHES.items() if k != "wgmma")
+    g = torch.Generator().manual_seed(21)
+    r = lambda *shape, sc=1.0: _randn(torch, g, *shape, sc=sc).to(dev)
+    lib_ms = lambda fn: _no_grad_ms(torch, fn)
+    rows = {}
+
+    edges = GP.check_f32_edges()
+    print(f"21 f32 products vs plain at the tiling's edges: {json.dumps(edges)}; two runs "
+          f"bitwise equal")
+
+    # #1 at the sampling layer shape.
+    D, Fd, H = FLAGSHIP["latent_dim"], FLAGSHIP["ff_size"], FLAGSHIP["num_heads"]
+    Bl, S = 64, 197
+    layer = compare_layer(torch, li, Bl, S, D, Fd, H, f32, None)
+    x, ws, _ = _layer_inputs(torch, Bl, S, D, Fd, f32, None)
+    _twice_bitwise(torch, "21 #1 f32", lambda: li.fused_layer_inference(x, *ws, H))
+    M = Bl * S
+    lib, lib_dev = library_layer_ms(torch, dev, f32)
+    rows["fused_layer_inference"] = dict(
+        max_abs_err=layer["max_abs_err"], ms=layer["ms"], device_ms=layer["device_ms"],
+        plain_ms=layer["plain_ms"], library_ms=lib, library_device_ms=lib_dev,
+        shape=f"[{Bl}, {S}, {D}] f32, {H} heads", **_f32_bounds(
+            2 * M * (4 * D * D + 2 * D * Fd), 4 * Bl * S * S * D,
+            4 * (2 * M * D + 4 * D * D + 2 * D * Fd + 9 * D + Fd)))
+
+    # #2/#3 and #4/#5 at the CLI's training batch, rate 0.1, ragged mask.
+    shape = dict(TRAIN_SHAPE, B=F32_TRAIN_B)
+    Bt, Dt, Ht, Ft = shape["B"], shape["D"], shape["H"], shape["F"]
+    block, tail = phase_train_kernels(torch, TB, ET, shape, f32, "bool")
+    ops_b, dout_b, bits_b, kpm_b = _block_operands(torch, Bt, S, Dt, Ht, f32, "bool")
+    _twice_bitwise(torch, "21 #2/#3 f32", lambda: _fwd_bwd(
+        torch, lambda *o: TB.fused_train_attention_block(*o, Ht, RATE, 7, kpm_b), ops_b,
+        dout_b)[1])
+    ops_t, dz, _ = _tail_operands(torch, Bt, S, Dt, Ft, f32)
+    _twice_bitwise(torch, "21 #4/#5 f32", lambda: _fwd_bwd(
+        torch, lambda *o: ET.fused_encoder_tail(*o, RATE, 7), ops_t, dz)[1])
+    Mt = Bt * S
+    block_w, tail_w = 4 * (4 * Dt * Dt + 4 * Dt), 4 * (2 * Dt * Ft + Ft + 5 * Dt)
+    work = {  # name -> (products' FLOPs, the core's FLOPs, bytes), f32 operands
+        "fused_train_attention_block.forward": (8 * Mt * Dt * Dt, 4 * Bt * S * S * Dt,
+                                                8 * Mt * Dt + block_w + Bt * S),
+        "fused_train_attention_block.backward": (16 * Mt * Dt * Dt, 8 * Bt * S * S * Dt,
+                                                 12 * Mt * Dt + 2 * block_w + Bt * S),
+        "fused_encoder_tail.forward": (4 * Mt * Dt * Ft, 0, 12 * Mt * Dt + tail_w),
+        "fused_encoder_tail.backward": (8 * Mt * Dt * Ft, 0, 20 * Mt * Dt + 2 * tail_w),
+    }
+    for name, row in (("fused_train_attention_block", block), ("fused_encoder_tail", tail)):
+        for d, key in (("forward", "fwd"), ("backward", "bwd")):
+            rows[f"{name}.{d}"] = dict(
+                max_abs_err=row[f"max_abs_err_{key}"], ms=row[f"{key}_ms"],
+                device_ms=row.get(f"{key}_device_ms"), plain_ms=row[f"{key}_plain_ms"],
+                library_ms=row.get(f"library_{key}_ms"), shape=f"[{Bt}, {S}, {Dt}] f32",
+                **_f32_bounds(*work[f"{name}.{d}"]))
+
+    # #7/#8 at the training shape.
+    B7, D7, H7 = TRAIN_SHAPE["B"], TRAIN_SHAPE["D"], TRAIN_SHAPE["H"]
+    _, dout7, bits7, kpm7 = _block_operands(torch, B7, S, D7, H7, f32, "bool")
+    q7, k7, v7 = r(B7, S, D7), r(B7, S, D7), r(B7, S, D7)
+    chain = compare_train_chain(
+        torch, "dropout attention f32",
+        lambda *o: AD.fused_dropout_attention(*o, H7, RATE, 0, kpm7, bits7),
+        lambda: AD.dropout_attention_reference(q7, k7, v7, H7, RATE, bits7, kpm7),
+        lambda: AD.dropout_attention_bwd_reference(q7, k7, v7, H7, dout7, RATE, bits7, kpm7),
+        [q7, k7, v7], dout7, f32, ["dq", "dk", "dv"],
+        drawn=lambda *o: AD.fused_dropout_attention(*o, H7, RATE, 0, kpm7))
+    _twice_bitwise(torch, "21 #7/#8 f32", lambda: _fwd_bwd(
+        torch, lambda *o: AD.fused_dropout_attention(*o, H7, RATE, 5, kpm7), [q7, k7, v7],
+        dout7)[1])
+    mask7 = torch.where(kpm7, -1e9, 0.0)[:, None, None, :]
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(
+        _heads(q, H7), _heads(k, H7), _heads(v, H7), attn_mask=mask7, dropout_p=RATE)
+    leaves = [t.clone().requires_grad_() for t in (q7, k7, v7)]
+    sdpa_out = sdpa(*leaves)
+    sdpa_bwd = _time_ms(torch, lambda: torch.autograd.grad(sdpa_out, leaves, _heads(dout7, H7),
+                                                            retain_graph=True))
+    core = 4 * B7 * S * S * D7
+    for key, d, flops, moved, lib in (
+            ("fwd", "forward", core, 4 * (4 * B7 * S * D7) + B7 * S, lib_ms(lambda: sdpa(q7, k7,
+                                                                                          v7))),
+            ("bwd", "backward", 2 * core, 4 * (7 * B7 * S * D7) + B7 * S, sdpa_bwd)):
+        rows[f"fused_dropout_attention.{d}"] = dict(
+            max_abs_err=chain[f"max_abs_err_{key}"], ms=chain[f"{key}_ms"],
+            device_ms=chain.get(f"{key}_device_ms"), plain_ms=chain[f"{key}_plain_ms"],
+            library_ms=lib, shape=f"[{B7}, {S}, {D7}] f32, rate {RATE}",
+            **_f32_bounds(0, flops, moved))
+
+    # #10-#12 at the sampling attention, ragged mask.
+    B, S, D, H = (ATTN_SHAPE[k] for k in ("B", "S", "D", "H"))
+    q, k, v = r(B, S, D), r(B, S, D), r(B, S, D)
+    kpm = _ragged_mask(torch, B, S).to(dev)
+    bias_row = torch.where(kpm, -1e9, 0.0)[:, None, None, :]
+    qh, kh, vh = (_heads(t, H).contiguous() for t in (q, k, v))
+    full = r(B, H, S, S)
+    x = r(B, S, D)
+    wb = [t for _ in range(4) for t in (r(D, D, sc=D ** -0.5), r(D, sc=0.1))]
+    mha = _torch_mha(torch, *AB._packed(*wb[:7]), wb[7], H, 0.0).eval()
+    core, qkv_bytes = 4 * B * S * S * D, 4 * 4 * B * S * D
+    for name, kernel, plain, library, flops, moved in (
+            ("fused_attention", lambda: A.fused_attention(qh, kh, vh, full),
+             lambda: A.xla_attention(qh, kh, vh, full),
+             lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=full), (0, core),
+             qkv_bytes + 4 * B * H * S * S),
+            ("fused_attention_v2", lambda: V2.fused_attention_v2(q, k, v, H, kpm),
+             lambda: V2.attention_v2_reference(q, k, v, H, kpm),
+             lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias_row), (0, core),
+             qkv_bytes + B * S),
+            ("fused_attention_block", lambda: AB.fused_attention_block(x, *wb, H, kpm),
+             lambda: AB.attention_block_reference(x, *wb, H, kpm),
+             lambda: mha(x, x, x, key_padding_mask=kpm, need_weights=False)[0],
+             (8 * B * S * D * D, core), 4 * (2 * B * S * D + 4 * D * D + 4 * D) + B * S)):
+        row = compare_forward(torch, f"{name} f32", kernel, plain, rel, timed=True)
+        with torch.no_grad():
+            _twice_bitwise(torch, f"21 {name} f32", kernel)
+            rows[name] = dict(row, library_ms=lib_ms(library),
+                          shape=f"[{B}, {S}, {D}] f32, {H} heads", **_f32_bounds(*flops, moved))
+
+    # #2's rate-0 entry at DistilBERT's self-attention, a ragged padding row.
+    Bb, Sb, Db, Hb = (BERT_SHAPE[k] for k in ("B", "S", "D", "H"))
+    xb = r(Bb, Sb, Db)
+    wbt = [r(3 * Db, Db, sc=Db ** -0.5), r(3 * Db, sc=0.1), r(Db, Db, sc=Db ** -0.5),
+           r(Db, sc=0.1)]
+    pad = _ragged_mask(torch, Bb, Sb).to(dev)
+    kpm_b = torch.where(pad, -1e9, 0.0)
+    entry = lambda: TB.fused_block_attention_inference(xb, *wbt, Hb, key_padding_mask=kpm_b)
+    row = compare_forward(torch, "fused_block_attention_inference (DistilBERT) f32", entry,
+                          lambda: TB.train_attention_block_reference(xb, *wbt, Hb,
+                                                                     key_padding_mask=kpm_b),
+                          rel, timed=True)
+    with torch.no_grad():
+        _twice_bitwise(torch, "21 #2 DistilBERT f32", entry)
+    mha_b = _torch_mha(torch, *wbt, Hb, 0.0).eval()
+    Mb = Bb * Sb
+    rows["fused_block_attention_inference"] = dict(
+        row, shape=f"[{Bb}, {Sb}, {Db}] f32, {Hb} heads, key-padding row",
+        library_ms=lib_ms(lambda: mha_b(xb, xb, xb, key_padding_mask=pad,
+                                        need_weights=False)[0]),
+        **_f32_bounds(8 * Mb * Db * Db, 4 * Bb * Sb * Sb * Db,
+                      4 * (2 * Mb * Db + 4 * Db * Db + 4 * Db) + 4 * Mb))
+    check_s = time.perf_counter() - t_phase
+
+    # The paths at full width, f32: generate at B = 32 (its launches from zero).
+    layers, steps, Bg, T = FLAGSHIP["num_layers"], 50, 32, 196
+    model = MDM(dataclasses.replace(BS.FLAGSHIP, compute_dtype="float32")).init_weights(
+        torch.Generator().manual_seed(0)).to(dev)
+    gen = MotionGenerator(model, Schedule.create("cosine", 1000, str(steps)),
+                          GenerationConfig(guidance_scale=2.5))
+    text = np.random.default_rng(0).normal(size=(Bg, 512)).astype(np.float32)
+    cond = Conditioning(frames_mask=torch.ones(Bg, T, dtype=torch.bool, device=dev),
+                        text_embed=torch.from_numpy(text).to(dev))
+    li.LAUNCHES = 0
+    _zero(_chain.GEMM_LAUNCHES)
+    out1 = gen.generate(cond, Bg, T, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    launches = {"fused_layer_inference": li.LAUNCHES, "products.f32": products(),
+                "products.wgmma": _chain.GEMM_LAUNCHES["wgmma"]}
+    want = {"fused_layer_inference": layers * steps, "products.f32": 4 * layers * steps,
+            "products.wgmma": 0}
+    if launches != want:
+        raise AssertionError(f"21 f32 generate launched {launches}, expected {want}")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out2 = gen.generate(cond, Bg, T, torch.Generator(dev).manual_seed(0))
+    end.record()
+    torch.cuda.synchronize()
+    joints = out2["joints"]
+    if tuple(joints.shape) != (Bg, T, 22, 3) or not torch.isfinite(joints).all():
+        raise AssertionError(f"21 f32 generate: bad joints {tuple(joints.shape)}")
+    if not torch.equal(out1["features"], out2["features"]):
+        raise AssertionError("21 f32 generate: the same seed gave different samples")
+    paths = dict(generate_s_per_sample=start.elapsed_time(end) / 1000 / Bg,
+                 generate_launches=launches)
+
+    # make_train_step at B = 64, rate 0.1, AUTO: launches over the warm steps.
+    fcfg = dataclasses.replace(BT.FLAGSHIP, compute_dtype="float32")
+
+    def trainer():
+        model = MDM(fcfg).init_weights(torch.Generator().manual_seed(0)).to(dev)
+        optim = OptimConfig(lr=1e-4)
+        xs = np.random.default_rng(0).normal(size=(F32_TRAIN_B, T, fcfg.njoints))
+        batch = {"x": torch.from_numpy(xs.astype(np.float32)).to(dev),
+                 "mask": torch.ones(F32_TRAIN_B, T, dtype=torch.bool, device=dev),
+                 "cond": Conditioning(text_embed=torch.zeros(F32_TRAIN_B, 512, device=dev))}
+        return (create_train_state(model, optim),
+                make_train_step(Schedule.create("cosine", 1000).to(dev),
+                                TrainStepConfig(optim=optim)), batch)
+
+    state, step, batch = trainer()
+    for counts in (TB.LAUNCHES, ET.LAUNCHES, _chain.GEMM_LAUNCHES):
+        _zero(counts)
+    for i in range(F32_WARM):
+        _, m = step(state, batch, step_key(0, i))
+    train_launches = {f"{n}.{d}": c[d] for n, c in (("fused_train_attention_block", TB.LAUNCHES),
+                                                     ("fused_encoder_tail", ET.LAUNCHES))
+                      for d in ("fwd", "bwd")}
+    n = layers * F32_WARM
+    if (any(v != n for v in train_launches.values()) or products() != 12 * n
+            or _chain.GEMM_LAUNCHES["wgmma"] or not torch.isfinite(m["loss"])):
+        raise AssertionError(f"21 f32 train steps launched {train_launches}, products "
+                             f"{dict(_chain.GEMM_LAUNCHES)} (expected {n} each and {12 * n} f32 "
+                             f"products), loss {m['loss']}")
+    step_ms, losses = _run_steps(torch, step, state, batch,
+                                 [step_key(1, i) for i in range(F32_TIMED)])
+    paths.update(train_step_ms=step_ms, train_launches=dict(train_launches, products=12 * n),
+                 train_loss=float(losses[-1]))
+
+    # #7/#8 on the drop variant's f32 steps, #11 on the pallas variant's f32
+    # generate, #10 and #12 as direct entries once per layer.
+    with ops.pinned(**BT.VARIANTS["drop"]):
+        state, step, batch = trainer()
+        AD.LAUNCHES.update(fwd=0, bwd=0)
+        for i in range(2):
+            _, m = step(state, batch, step_key(2, i))
+        drop = dict(AD.LAUNCHES)
+    if drop != {"fwd": 2 * layers, "bwd": 2 * layers} or not torch.isfinite(m["loss"]):
+        raise AssertionError(f"21 f32 drop steps launched #7/#8 {drop}, loss {m['loss']}")
+    with ops.pinned(**BS.VARIANTS["pallas"]):
+        few = MotionGenerator(model, Schedule.create("cosine", 1000, str(F32_FEW)),
+                              GenerationConfig(guidance_scale=2.5))
+        V2.LAUNCHES = 0
+        few.generate(cond, Bg, T, torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+    if V2.LAUNCHES != layers * F32_FEW:
+        raise AssertionError(f"21 f32 pallas generate launched #11 {V2.LAUNCHES} times")
+    A.LAUNCHES = AB.LAUNCHES = 0
+    with torch.no_grad():
+        for _ in range(layers):
+            A.fused_attention(qh, kh, vh, bias_row)
+            AB.fused_attention_block(x, *wb, H, kpm)
+    torch.cuda.synchronize()
+    paths["route_launches"] = {
+        "fused_dropout_attention.forward": drop["fwd"],
+        "fused_dropout_attention.backward": drop["bwd"], "fused_attention_v2": V2.LAUNCHES,
+        "fused_attention": A.LAUNCHES, "fused_attention_block": AB.LAUNCHES}
+    launches = dict(paths["route_launches"],
+                    fused_layer_inference=paths["generate_launches"]["fused_layer_inference"],
+                    **{f"{k}.{d}": train_launches[f"{k}.{dk}"]
+                       for k in ("fused_train_attention_block", "fused_encoder_tail")
+                       for d, dk in (("forward", "fwd"), ("backward", "bwd"))})
+    for name, row in rows.items():
+        sources, replaces = F32_SOURCES[name]
+        row.update(name=f"{name} (f32)", route="cuda", source=sources[0], sources=list(sources),
+                   replaces=replaces, launches=launches.get(name, 0))
+    paths.update(check_s=check_s, phase_s=time.perf_counter() - t_phase)
+    print("21 f32 route", json.dumps(dict(paths=paths, rows=rows)))
+    return rows, paths
+
+
 def main():
     # Before cuBLAS starts: the workspace setting PyTorch documents for
     # reproducible runs, which the classifier stages' cuDNN GRUs need to
@@ -4416,6 +4803,9 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible; nothing was run")
+    f32_only = sys.argv[1:] == ["--f32-route"]
+    if sys.argv[1:] and not f32_only:
+        sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --f32-route)")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mdm_tpu_torch.diffusion import Schedule
     from mdm_tpu_torch.models import MDM, Conditioning, MDMConfig
@@ -4488,6 +4878,9 @@ def main():
         print(f"ptxas, attention above Dh 256, {kernel}: "
               f"{json.dumps(_build.ptxas_report(log, kernel))}")
     print(f"ptxas, wgmma products: {json.dumps(_build.ptxas_report(log, GP.KERNEL))}")
+    print(f"ptxas, f32 products: {json.dumps(_build.ptxas_report(log, 'gemm_f32_tf32x3'))}")
+    for kernel in ("attn_fwd_f32_tiled", "attn_bwd_dq_f32_tiled", "attn_bwd_dkv_f32_tiled"):
+        print(f"ptxas, f32 attention {kernel}: {json.dumps(_build.ptxas_report(log, kernel))}")
     print(f"ptxas, dump: {json.dumps(_build.ptxas_report(log, 'philox_dump'))}")
     tail_ptxas = {k: _build.ptxas_report(log, k) for k in TAIL_KERNELS}
     print(f"ptxas, encoder tail: {json.dumps(tail_ptxas)}")
@@ -4497,6 +4890,11 @@ def main():
         raise AssertionError(f"encoder tail kernels spill or are missing: {tail_spills}")
 
     stamp("phases 0-1")
+    if f32_only:  # phase 21 alone (python3 chip_smoke.py --f32-route)
+        phase_f32_route(torch, TB, ET, li, dev)
+        stamp("phase 21")
+        return
+    phase_f32_plan(torch)
 
     # Phase 2a: the wgmma product kernel against the plain product at the
     # edges of its tiling, every form: x . W^T (M on both sides of 128 rows
@@ -4573,7 +4971,7 @@ def main():
         raise AssertionError(f"generate launched the layer kernels {li.LAUNCHES} times, "
                              f"expected {per_forward} layers x {steps} steps")
     products = dict(_chain.GEMM_LAUNCHES)  # 4 per layer call: q/k/v, out, linear1, linear2
-    if products != {"wgmma": 4 * per_forward * steps, "fma": 0}:
+    if products != {"wgmma": 4 * per_forward * steps, "tf32x3": 0}:
         raise AssertionError(f"generate's products launched {products}, expected "
                              f"{4 * per_forward * steps} on the wgmma kernel and none elsewhere")
     print(f"generate's products: {products}")
@@ -4750,6 +5148,9 @@ def main():
     print("phase 20", json.dumps(dict(offset=offset_row, world_of_one=world_one,
                                       two_ranks=two_ranks, tp_train=tp_train)))
     stamp("phase 20")
+    # Phase 21: the float32 route; its paths' launches counted from zero.
+    f32_rows, f32_paths = phase_f32_route(torch, TB, ET, li, dev)
+    stamp("phase 21")
     par_one, par_two, par_tp = world_one["launches"], two_ranks["launches"], tp_train["launches"]
     sampling_paths = {"sampling (phases 3-4)": kernels[0]["launches"],
                       "cli.generate (phase 15)": cli["generate"]["fused_layer_inference"],
@@ -4890,6 +5291,17 @@ def main():
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=sum(paths.values()), launches_by_path=paths,
                             path="; ".join(paths), **dip_entries[name], **extra))
+    # The f32 instances (phase 21): launches on the f32 paths, #2's rate-0
+    # entry on the DistilBERT tower's batch (phase 18a).
+    f32_rows["fused_block_attention_inference"].update(
+        launches=towers["bert"]["launches"]["block"],
+        path="DistilBERT tower, one batch of 32 prompts (phase 18a)")
+    for name, row in f32_rows.items():
+        row.setdefault("path", "the float32 route (phase 21)")
+        kernels.append(row)
+    print(f"the float32 route (phase 21): generate B=32 {f32_paths['generate_s_per_sample']:.6f} "
+          f"s/sample, train step B={F32_TRAIN_B} {f32_paths['train_step_ms']:.3f} ms/step, "
+          f"DistilBERT batch {towers['bert']['ms_events']:.3f} ms (CUDA events, phase 18a)")
     print(f"s/sample at B=32: layer kernel {gen_ms / 1000 / B:.6f}, pallas variant "
           f"{pallas_s:.6f}, DiP {dip_ms[32] / 1000 / 32:.6f} (B=1: {dip_ms[1] / 1000:.6f}); "
           f"10-step samplers {json.dumps({k: r['s_per_sample'] for k, r in sampler_rows.items()})}"

@@ -46,7 +46,7 @@
 // true dh columns, zero the rest of each shared-memory tile (zero columns
 // change no product) and store only the true columns. The rows are 16-byte
 // copies where every row start is 16-byte aligned and dh a multiple of 8
-// (vec_rows, decided per launch); otherwise 2-byte loads and stores, in
+// (4 in f32; vec_rows, decided per launch); otherwise 2-byte loads and stores, in
 // instances of their own (two-pass forwards; a head of 4 values packed in
 // a row starts 8 bytes on), so that the 16-byte ones keep no branch for
 // them.
@@ -78,11 +78,18 @@
 //   split their output columns over blocks of 128 (256) or 64 (192), each
 //   recomputing the scores. Dh=128: 214 registers (dq) and 255 (dk/dv), no
 //   spills; two blocks of 4 warps per SM (mdm_attention_bwd_occupancy).
-// The f32 path is scalar FMA, one block per row, any head dim and any S
-// (below). Bound on an H100 at the flagship shapes (S=197, Dh=128): the forward by the bytes of its operands
-// (#7, #10, #11), its products a quarter of that time; the backward (#8)
-// by the bytes too (0.062 ms), but it runs nine score-sized products where
-// the bound counts four, and an exp and two Philox words per element.
+// The f32 path (attention_f32.cu) is tiled as the bf16 one, in exact f32
+// FMA: register-blocked score tiles, the online row statistics in
+// registers, each logit once per pass of the forward and q . k^T and dO .
+// v^T three times per element in the backward, for every head dim up to
+// 256 and any S; above 256 the row kernels below (the f32 wide instance).
+// Bound on an H100 at the flagship shapes (S=197, Dh=128): the bf16
+// forward by the bytes of its operands (#7, #10, #11), its products a
+// quarter of that time; the backward (#8) by the bytes too (0.062 ms), but
+// it runs nine score-sized products where the bound counts four, and an exp
+// and two Philox words per element; the f32 core by its products' three
+// TF32 passes at 495 TFLOP/s (f32 accuracy on the tensor cores), where the
+// f32 FMA it runs would take them at 67.
 // Philox (one word per element, ~60 integer instructions) is a floor the
 // bound omits, ~0.05-0.1 ms per draw at B=128, H=4.
 
@@ -96,13 +103,15 @@ using namespace mdm::attn;
 
 namespace {
 
-// ------------------------------------------------------------ float32 path
-// One block per row. Nothing Dh- or S-long is staged whole: the q and dO
-// rows are read through L1 by every thread, the row's statistics come from
-// an online max and exp-sum (merged over the block), and the S-long rows of
-// p (and dlog) pass through shared memory AF_CHUNK keys at a time, each
-// chunk's products added to the output row in global memory by the thread
-// that owns its column. So every head dim and every S runs.
+// ------------------------------------------------- float32, head dims > 256
+// The f32 wide instance: one block per row. Nothing Dh- or S-long is
+// staged whole: the q and dO rows are read through L1 by every thread, the
+// row's statistics come from an online max and exp-sum (merged over the
+// block), and the S-long rows of p (and dlog) pass through shared memory
+// AF_CHUNK keys at a time, each chunk's products added to the output row in
+// global memory by the thread that owns its column. So every head dim and
+// every S runs; each logit is computed twice (statistics, then p), in the
+// backward three times, all scalar.
 constexpr int AF_THREADS = 128, AF_CHUNK = 1024;
 
 __device__ float block_reduce(float v, float* red, bool is_max) {
@@ -152,7 +161,7 @@ __device__ void row_stats_f32(const Attn<float>& a, const float* qrow, const flo
 }
 
 __global__ void __launch_bounds__(AF_THREADS)
-attn_fwd_f32(Attn<float> a, float* __restrict__ out, View ov) {
+attn_fwd_f32_rows(Attn<float> a, float* __restrict__ out, View ov) {
   __shared__ float ps[AF_CHUNK];  // p * keep of one chunk of keys
   __shared__ float red[33];
   const int i = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -179,8 +188,8 @@ attn_fwd_f32(Attn<float> a, float* __restrict__ out, View ov) {
 }
 
 __global__ void __launch_bounds__(AF_THREADS)
-attn_bwd_dq_f32(Attn<float> a, const float* __restrict__ dout, float* __restrict__ ctx, View ov,
-                float* __restrict__ dq, float* __restrict__ stats, int B) {
+attn_bwd_dq_f32_rows(Attn<float> a, const float* __restrict__ dout, float* __restrict__ ctx,
+                     View ov, float* __restrict__ dq, float* __restrict__ stats, int B) {
   __shared__ float ws[AF_CHUNK];  // w = p * keep of one chunk of keys
   __shared__ float gs[AF_CHUNK];  // dlog of the chunk
   __shared__ float red[33];
@@ -234,9 +243,9 @@ attn_bwd_dq_f32(Attn<float> a, const float* __restrict__ dout, float* __restrict
 }
 
 __global__ void __launch_bounds__(AF_THREADS, 4)  // (AF_THREADS) alone spills 16 bytes
-attn_bwd_dkv_f32(Attn<float> a, const float* __restrict__ dout, View ov,
-                 const float* __restrict__ stats, float* __restrict__ dk,
-                 float* __restrict__ dv, int B) {
+attn_bwd_dkv_f32_rows(Attn<float> a, const float* __restrict__ dout, View ov,
+                      const float* __restrict__ stats, float* __restrict__ dk,
+                      float* __restrict__ dv, int B) {
   __shared__ float ws[AF_CHUNK];  // w over one chunk of queries
   __shared__ float gs[AF_CHUNK];  // dlog over the chunk
   const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -271,12 +280,16 @@ attn_bwd_dkv_f32(Attn<float> a, const float* __restrict__ dout, View ov,
   }
 }
 
-// Whether every row of every bf16 operand starts 16-byte aligned and holds
-// a multiple of 8 values: the tiles' 16-byte copies and stores (load_tile).
-bool vec_rows(const Call& c) {
+// Whether every row of every operand starts 16-byte aligned and holds a
+// multiple of `per16` values (16 bytes of the dtype: 8 bf16, 4 f32): the
+// tiles' 16-byte copies and stores (load_tile, attention_f32.cu's
+// load_rows).
+bool vec_rows(const Call& c, int per16) {
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const auto view8 = [](const View& v) { return v.sb % 8 == 0 && v.sh % 8 == 0 && v.ld % 8 == 0; };
-  return c.Dh % 8 == 0 && view8(c.in) && view8(c.ov) && aligned(c.q) && aligned(c.k) &&
+  const auto view = [per16](const View& v) {
+    return v.sb % per16 == 0 && v.sh % per16 == 0 && v.ld % per16 == 0;
+  };
+  return c.Dh % per16 == 0 && view(c.in) && view(c.ov) && aligned(c.q) && aligned(c.k) &&
          aligned(c.v) && aligned(c.out) && aligned(c.dout) && aligned(c.dq) && aligned(c.dk) &&
          aligned(c.dv);
 }
@@ -288,27 +301,28 @@ cudaError_t dispatch(const Call& c, bool backward, cudaStream_t st) {
   if (c.dtype == 1) {
     const Attn<bf16> a{static_cast<const bf16*>(c.q), static_cast<const bf16*>(c.k),
                        static_cast<const bf16*>(c.v), c.in, c.bias, c.S, c.H, c.Dh, scale,
-                       c.drop, vec_rows(c)};
+                       c.drop, vec_rows(c, 8)};
     return backward ? launch_bwd(a, c, st) : launch_fwd(a, c, st);
   }
   // float32 inputs: f32 outputs only.
   if (c.dtype != 0 || c.out_dtype != 0) return cudaErrorInvalidValue;
   const Attn<float> a{static_cast<const float*>(c.q), static_cast<const float*>(c.k),
                       static_cast<const float*>(c.v), c.in, c.bias, c.S, c.H, c.Dh, scale, c.drop,
-                      false};
+                      vec_rows(c, 4)};
+  if (c.Dh <= MAX_TILE_DH) return launch_f32_tiled(a, c, backward, st);
   dim3 grid(c.S, c.H, c.B);
   if (!backward) {
-    attn_fwd_f32<<<grid, AF_THREADS, 0, st>>>(a, static_cast<float*>(c.out), c.ov);
+    attn_fwd_f32_rows<<<grid, AF_THREADS, 0, st>>>(a, static_cast<float*>(c.out), c.ov);
     return cudaGetLastError();
   }
   const float* dout = static_cast<const float*>(c.dout);
-  attn_bwd_dq_f32<<<grid, AF_THREADS, 0, st>>>(a, dout, static_cast<float*>(c.out), c.ov,
-                                               static_cast<float*>(c.dq), c.stats, c.B);
+  attn_bwd_dq_f32_rows<<<grid, AF_THREADS, 0, st>>>(a, dout, static_cast<float*>(c.out), c.ov,
+                                                    static_cast<float*>(c.dq), c.stats, c.B);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn_bwd_dkv_f32<<<grid, AF_THREADS, 0, st>>>(a, dout, c.ov, c.stats,
-                                                static_cast<float*>(c.dk),
-                                                static_cast<float*>(c.dv), c.B);
+  attn_bwd_dkv_f32_rows<<<grid, AF_THREADS, 0, st>>>(a, dout, c.ov, c.stats,
+                                                     static_cast<float*>(c.dk),
+                                                     static_cast<float*>(c.dv), c.B);
   return cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
-// What the attention core's three sources share (attention.cu: the f32
-// path and the C entry points; attention_fwd.cu: the bf16 forward;
-// attention_bwd.cu: the bf16 backward): the operand views, the bias and
+// What the attention core's sources share (attention.cu: the f32 row
+// kernels above head dim 256 and the C entry points; attention_fwd.cu: the
+// bf16 forward; attention_bwd.cu: the bf16 backward; attention_f32.cu: the
+// f32 tile kernels): the operand views, the bias and
 // dropout arguments, and the mma.sync m16n8k16 fragment helpers. The design
 // is described at the top of attention.cu.
 #pragma once
@@ -68,7 +69,9 @@ struct Attn {
   int S, H, dh;  // dh: the true head dim
   float scale;
   Dropout drop;
-  bool vec;  // every row start 16-byte aligned and dh % 8 == 0: the 16-byte instances (load_tile)
+  // every row start 16-byte aligned and dh a whole number of 16 bytes (8 bf16,
+  // 4 f32; vec_rows): the 16-byte instances (load_tile, attention_f32.cu's load_rows)
+  bool vec;
 
   __device__ __forceinline__ float keep(int b, int h, int i, int j) const {
     return drop.keep((((size_t)b * H + h) * S + i) * S + j, b, h, i, j);
@@ -100,6 +103,10 @@ cudaError_t bwd_occupancy(int dh, int form, int kernel, int* blocks);
 // attention_wide.cu: head dims above MAX_TILE_DH
 cudaError_t launch_fwd_wide(const Attn<bf16>& a, const Call& c, cudaStream_t st);
 cudaError_t launch_bwd_wide(const Attn<bf16>& a, const Call& c, cudaStream_t st);
+// attention_f32.cu: f32 head dims up to MAX_TILE_DH, forward (and, when
+// backward, the backward after the forward into c.out where it is not null)
+cudaError_t launch_f32_tiled(const Attn<float>& a, const Call& c, bool backward,
+                             cudaStream_t st);
 
 template <typename K>
 cudaError_t opt_in(K kernel, bool& done, int bytes) {

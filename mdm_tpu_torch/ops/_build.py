@@ -26,7 +26,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"  # the default; build_dir() is the one in force
 SOURCES = ("layer_inference.cu", "gemm.cu", "gemm_sm90.cu", "attention_fwd.cu", "attention_bwd.cu",
-           "attention_wide.cu", "attention.cu", "encoder_tail.cu", "dropout_bits.cu")
+           "attention_wide.cu", "attention_f32.cu", "attention.cu", "encoder_tail.cu",
+           "dropout_bits.cu")
 HEADERS = ("common.cuh", "philox.cuh", "attention.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,6 +49,7 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _P],
     "mdm_attention_fwd_occupancy": [_I, _I, _I, _I, _P],
     "mdm_attention_bwd_occupancy": [_I, _I, _I, _P],
+    "mdm_attention_f32_plan": [_I, _P],
     "mdm_tail_ln1_fwd": [_P, _P, *_DROP, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mdm_tail_gelu_dropout": [_P, *_DROP, _P, _P, _I, _I, _I, _I, _P],
     "mdm_tail_ln2_fwd": [_P, _P, *_DROP, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -24,7 +24,14 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 96, 128, 192, 256)  # the attention tile kernels' instances (padded head dims)
 _SMS = 132  # H100 SXM streaming multiprocessors: the split-K target
 WGMMA_TILE = (128, 128, 64)  # csrc/gemm_sm90.cu's block tile (rows, columns, K depth)
-GEMM_LAUNCHES = {"wgmma": 0, "fma": 0}  # launches per product kernel (see gemm_kernel)
+GEMM_LAUNCHES = {"wgmma": 0, "tf32x3": 0}  # launches per product kernel (see gemm_kernel)
+# The f32 attention tile kernels (csrc/attention_f32.cu): a block of 128
+# threads owns 64 rows and streams 32-row tiles; rows of Dh + 4 floats and
+# score tiles of 32 + 8. attention_f32_plan models their plan on the CPU;
+# on the card attention_f32_plan_on_card reads the kernels' own.
+F32_ATTN_TILE = dict(rows=64, cols=32, threads=128, pad=4, score_pad=8)
+MAX_SMEM = 232448  # bytes of shared memory an H100 block may take (csrc/attention.cuh)
+SM_SMEM = 233472  # an H100 SM's shared memory, 1 KB of it reserved a block
 
 
 def dev(t: torch.Tensor, dt: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -102,8 +109,8 @@ def gemm_kernel(a: torch.Tensor, b: torch.Tensor, *, a_km: bool = False, b_kn: b
                 bias: Optional[torch.Tensor] = None, r: Optional[torch.Tensor] = None,
                 out_f32: bool = False, gelu: bool = False, splits: int = 1) -> str:
     """The kernel that runs ``gemm``'s product, by a fixed rule: "wgmma"
-    (``csrc/gemm_sm90.cu``) for every bf16 product, "fma" (``csrc/gemm.cu``)
-    for every float32 one.
+    (``csrc/gemm_sm90.cu``) for every bf16 product, "tf32x3"
+    (``csrc/gemm.cu``: 3xTF32 on the tensor cores) for every float32 one.
 
     Raises ValueError on an operand the kernel cannot take, never routing it
     elsewhere: for either kernel split-K into anything but f32 without bias,
@@ -127,7 +134,7 @@ def gemm_kernel(a: torch.Tensor, b: torch.Tensor, *, a_km: bool = False, b_kn: b
         if dt != torch.float32 and (splits - 1) * split_rows(K, splits) >= K:
             raise ValueError(f"gemm: {splits} splits of K={K} leave one empty")
     if dt == torch.float32:
-        return "fma"
+        return "tf32x3"
     if a_km and not b_kn:
         raise ValueError("gemm: the wgmma kernel has no A^T . B^T form")
     if gelu and (a_km or b_kn):
@@ -230,14 +237,74 @@ def row_bias_strides(S: int):
 
 def check_head_dim(D: int, num_heads: int, what: str) -> int:
     """D // num_heads, or ValueError where D does not split into num_heads
-    heads. Every head dim runs in bf16: up to 256 in the least of
+    heads. Every head dim runs, at every S: up to 256 in the least of
     HEAD_DIMS that holds it (16-byte row copies where the rows allow them,
-    2-byte ones otherwise), above 256 in the wide kernels
-    (csrc/attention_wide.cu); in f32 every one, at every S (the f32
-    path streams its rows)."""
+    2- or 4-byte ones otherwise), in bf16 (csrc/attention_fwd.cu,
+    attention_bwd.cu) and f32 (csrc/attention_f32.cu); above 256 in the wide
+    kernels (bf16: csrc/attention_wide.cu; f32: the row kernels of
+    csrc/attention.cu). ``attention_f32_plan`` gives the f32 instances."""
     if num_heads < 1 or D % num_heads:
         raise ValueError(f"{what}: d_model {D} is not divisible by {num_heads} heads")
     return D // num_heads
+
+
+def padded_head_dim(head_dim: int) -> int:
+    """The tile instance a head dim runs in: the least of HEAD_DIMS that
+    holds it, 0 above 256 (csrc/attention.cuh::padded_head_dim)."""
+    return next((d for d in HEAD_DIMS if head_dim <= d), 0)
+
+
+def f32_blocks_per_sm(nbytes: int) -> int:
+    """csrc/attention_f32.cu::blocks_per_sm: blocks of 128 threads taking
+    nbytes of shared memory that an SM holds, at most two (the register
+    file's room at up to 255 registers a thread), 0 past MAX_SMEM."""
+    return 0 if nbytes > MAX_SMEM else min(2, SM_SMEM // (nbytes + 1024))
+
+
+def attention_f32_plan(head_dim: int) -> dict:
+    """csrc/attention_f32.cu's plan for f32 inputs of a head dim: the
+    instance ("tiled" up to 256, "wide" above: the row kernels of
+    csrc/attention.cu, one block per row, static shared memory), its padded
+    head dim, tile sizes, and per kernel (forward, dq, dk/dv) the ring's
+    stages (two, unless one stage puts more blocks on an SM by
+    f32_blocks_per_sm, or two do not fit) and its shared bytes; dk/dv's
+    output column chunks (two above 128, each block recomputing the
+    scores)."""
+    dh = padded_head_dim(head_dim)
+    t = F32_ATTN_TILE
+    if not dh:  # AF_CHUNK floats of probabilities (and of dlog), and the reduction's 33
+        return dict(instance="wide", padded_head_dim=None, rows=1, threads=128,
+                    bytes=dict(fwd=4 * (1024 + 33), dq=4 * (2 * 1024 + 33), dkv=4 * 2 * 1024),
+                    stages=None, kv_chunks=1)
+    ld = dh + t["pad"]
+    own, tile = 4 * t["rows"] * ld, 4 * t["cols"] * ld
+    score, stats = 4 * t["rows"] * (t["cols"] + t["score_pad"]), 4 * 3 * t["cols"]
+    need = dict(fwd=lambda st: own + st * 2 * tile + score,
+                dq=lambda st: 2 * own + st * 2 * tile + score,
+                dkv=lambda st: 2 * own + st * (2 * tile + stats) + 2 * score)
+    blocks = lambda f, st: f32_blocks_per_sm(f(st))
+    stages = {k: 2 if 0 < blocks(f, 2) >= blocks(f, 1) else 1 for k, f in need.items()}
+    return dict(instance="tiled", padded_head_dim=dh, rows=t["rows"], cols=t["cols"],
+                threads=t["threads"], bytes={k: f(stages[k]) for k, f in need.items()},
+                stages=stages, kv_chunks=1 if dh <= 128 else 2)
+
+
+def attention_f32_plan_on_card(head_dim: int) -> dict:
+    """The f32 core's plan as its kernels hold it (mdm_attention_f32_plan):
+    ``attention_f32_plan``'s padded head dim, stages, bytes and column
+    chunks, and each kernel's resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); above 256 only the
+    instance."""
+    plan = (ctypes.c_int * 11)()
+    _build.check(_build.load_library().mdm_attention_f32_plan(head_dim, ctypes.addressof(plan)),
+                 "attention f32 plan")
+    if not plan[0]:
+        return dict(instance="wide")
+    kernels = ("fwd", "dq", "dkv")
+    return dict(instance="tiled", padded_head_dim=plan[0],
+                stages={k: plan[1 + i] for i, k in enumerate(kernels)},
+                bytes={k: plan[4 + i] for i, k in enumerate(kernels)}, kv_chunks=plan[7],
+                blocks_per_sm={k: plan[8 + i] for i, k in enumerate(kernels)})
 
 
 def attention_fwd(q, k, v, view, out, out_view, B: int, S: int, H: int, head_dim: int,

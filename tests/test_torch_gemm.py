@@ -1,7 +1,8 @@
 """mdm_tpu_torch.ops._chain's products: which kernel takes each product
 form of the layer, the attention block, the encoder tail and their
 backwards, what the wgmma kernel refuses (raising, never rerouting), its
-tile plan, and the build log's names for its instances.
+tile plan, the build log's names for its instances, and the f32 kernel's
+precision scheme (3xTF32, emulated in torch).
 
 The kernels themselves run only on the card: chip_smoke.py holds them
 against ``a.float() @ w.float().T + b`` there. Here the operands are CPU
@@ -62,13 +63,13 @@ FORMS = [
     # split-K is the kernel's on every form
     ("x W^T split-K", lambda: (_t(M, D), _t(D, D), dict(out_f32=True, splits=2)), "wgmma"),
     ("dY^T X with K = 1", lambda: (_t(1, D), _t(1, D), dict(a_km=True, b_kn=True)), "wgmma"),
-    # float32 (compute_dtype="float32") -> FMA, every form
+    # float32 (compute_dtype="float32") -> 3xTF32, every form
     ("f32 qkv", lambda: (_t(M, D, dt=f32), _t(3 * D, D, dt=f32), dict(bias=_t(3 * D, dt=f32))),
-     "fma"),
+     "tf32x3"),
     ("f32 dWqkv", lambda: (_t(M, 3 * D, dt=f32), _t(M, D, dt=f32),
-                           dict(a_km=True, b_kn=True, splits=2)), "fma"),
+                           dict(a_km=True, b_kn=True, splits=2)), "tf32x3"),
     ("f32 dy", lambda: (_t(M, F, dt=f32), _t(F, D, dt=f32), dict(b_kn=True, r=_t(M, D, dt=f32))),
-     "fma"),
+     "tf32x3"),
 ]
 
 
@@ -220,13 +221,16 @@ def test_ptxas_report_names_each_wgmma_instance():
         "    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
         "ptxas info    : Used 154 registers",
         "ptxas info    : Compiling entry function "
-        "'_ZN12_GLOBAL__N_117gemm_f32_fmaILb0ELb0EEEvPKfS2_S2_S2_Pfiiiib' for 'sm_90a'",
-        "ptxas info    : Used 76 registers"])
+        "'_ZN12_GLOBAL__N_115gemm_f32_tf32x3ILb0ELb1ELb1EEEvPKfS2_S2_S2_Pfiiiib' for 'sm_90a'",
+        "ptxas info    : Used 176 registers"])
     assert _build.ptxas_report(log, "gemm_bf16_wgmma") == {
         "gemm_bf16_wgmma<bf16, 1, false, false>": dict(spill_stores=0, spill_loads=0,
                                                        registers=168),
         "gemm_bf16_wgmma<float, 0, true, true>": dict(spill_stores=8, spill_loads=12,
                                                       registers=154)}
+    # the f32 kernel's instances by (A stored [K, M], B stored [K, N], 16-byte copies)
+    assert _build.ptxas_report(log, "gemm_f32_tf32x3") == {
+        "gemm_f32_tf32x3<false, true, true>": dict(registers=176)}
     assert _build.instance_name(mangled.format("fLi2ELb0ELb1E"), "gemm_bf16_wgmma") == \
         "gemm_bf16_wgmma<float, 2, false, true>"
     assert _build.instance_name("_Z3foov", "gemm_bf16_wgmma") == "_Z3foov"
@@ -241,3 +245,92 @@ def test_the_wgmma_kernel_is_built_and_bound():
     assert _build.SIGNATURES["mdm_gemm_wgmma"][-1] is _build.SIGNATURES["mdm_gemm_f32"][-1]
     assert "mdm_gemm" not in _build.SIGNATURES  # bf16 products are the wgmma kernel's alone
     assert "mdm_attention_rowmask" not in _build.SIGNATURES
+
+
+# The f32 kernel's arithmetic (csrc/gemm.cu, gemm_f32_tf32x3), emulated:
+# each operand split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna),
+# lo.hi + hi.lo + hi.hi per m16n8k8 step on the tensor cores (the
+# products exact, their sum with the accumulator truncated toward zero to
+# f32, as the tensor cores round), each 32-deep K tile summed from zero
+# and added to the f32 accumulator with an ordinary rounding add.
+TILE_K = 32
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: 10 explicit mantissa bits, rounded to nearest on the
+    13 dropped bits, ties away from zero (sign and magnitude: the carry may
+    reach the exponent)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mma_steps(acc: torch.Tensor, terms, k0: int, k1: int) -> torch.Tensor:
+    """acc after the m16n8k8 steps over K [k0, k1) of each (a, b) term in
+    turn: per step the 8 products and acc summed exactly (f64 holds them),
+    then truncated toward zero to f32."""
+    for s in range(k0, k1, 8):
+        for a, b in terms:
+            exact = acc.double() + a[:, s:s + 8].double() @ b[s:s + 8].double()
+            f = exact.float()
+            acc = torch.where(f.double().abs() > exact.abs(), torch.nextafter(f, torch.zeros_like(f)),
+                              f)
+    return acc
+
+
+def product_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    al, bl = tf32_rna(a - ah), tf32_rna(b - bh)
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for k0 in range(0, a.shape[1], TILE_K):
+        part = _mma_steps(torch.zeros_like(acc), ((al, bh), (ah, bl), (ah, bh)), k0,
+                          min(a.shape[1], k0 + TILE_K))
+        acc = acc + part
+    return acc
+
+
+def product_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One TF32 pass into one accumulator: what TF32 matmuls do."""
+    return _mma_steps(torch.zeros(a.shape[0], b.shape[1]), ((tf32_rna(a), tf32_rna(b)),), 0,
+                      a.shape[1])
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    one = 1.0
+    x = torch.tensor([one + 2 ** -11, -(one + 2 ** -11), one + 2 ** -12, one + 3 * 2 ** -11,
+                      2 - 2 ** -12, 0.0, -0.0])
+    want = torch.tensor([one + 2 ** -10, -(one + 2 ** -10), one, one + 2 ** -9, 2.0, 0.0, -0.0])
+    got = tf32_rna(x)
+    assert torch.equal(got, want) and torch.equal(torch.signbit(got), torch.signbit(want))
+    v = torch.randn(1000, generator=torch.Generator().manual_seed(0))
+    hi = tf32_rna(v)
+    assert (hi.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert ((v - hi).abs() <= v.abs() * 2 ** -11).all()
+
+
+# The main paths' reduction depths: K = 512 (the projections), 1024 (the
+# FFN's second product), 3072 (DistilBERT's), and one split-K chunk of the
+# weight gradients over B x S = 128 x 197 rows (splits_for gives 8: 3168
+# rows, whole 32-row steps).
+PRECISION_K = (512, 1024, 3072, 128 * 197 // 8 + 16)
+
+
+@pytest.mark.parametrize("K", PRECISION_K)
+@pytest.mark.parametrize("data", ["normal", "positive"])
+def test_3xtf32_holds_the_f32_tolerance_and_1xtf32_does_not(K, data):
+    """At 64 x 64 outputs of a product of depth K, against the f64 product:
+    3xTF32 within TRAIN_REL["float32"] of max |product| (f32-level), one
+    TF32 pass outside it. "positive": activations after a GELU (one-signed
+    sums, where truncation's bias builds up)."""
+    from chip_smoke import TRAIN_REL
+
+    g = torch.Generator().manual_seed(K)
+    a = torch.randn(64, K, generator=g)
+    if data == "positive":
+        a = torch.nn.functional.gelu(a)
+    b = torch.randn(K, 64, generator=g) * K ** -0.5
+    exact = a.double() @ b.double()
+    scale = exact.abs().max()
+    err3 = ((product_3xtf32(a, b).double() - exact).abs().max() / scale).item()
+    err1 = ((product_1xtf32(a, b).double() - exact).abs().max() / scale).item()
+    assert err3 <= TRAIN_REL["float32"] / 10, err3
+    assert err1 > TRAIN_REL["float32"], err1
