@@ -10,7 +10,8 @@ original-process timesteps; a stateful one (cached CFG) receives and
 returns its ``model_state``: ``model_fn(x, t, state) -> (out, state)``.
 Noise is drawn from an explicit ``torch.Generator``, or taken from
 ``step_noise`` so that tests can feed the ancestral loop and the JAX scan
-identical noise.
+identical noise. Each step of every loop runs inside a ``sample.step``
+span (utils/tracing.py).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..utils.tracing import span
 from . import gaussian as G
 from .schedule import MeanType, Schedule, VarType
 
@@ -119,18 +121,20 @@ def p_sample_loop(
     x, indices = _init_state(sched, noise, init_image, config.skip_timesteps)
     dumps = []
     for step, i in enumerate(indices):
-        t = _steps(i, x)
-        out, model_state = _p_mean_variance_step(sched, model_fn, cond_fn, config, x, t,
-                                                 inpainting_mask, inpainted_motion, model_state)
-        mean = out.mean
-        if cond_fn is not None and config.guidance_mode == "mean":
-            mean = G.condition_mean(cond_fn(x, sched.model_timesteps(t)), out)
-        if step_noise is not None:
-            ns = step_noise[step]
-        else:
-            ns = _step_noise(generator, x, config.const_noise)
-        nonzero = float(i != 0)
-        x = mean + nonzero * torch.exp(0.5 * out.log_variance) * ns
+        with span("sample.step"):
+            t = _steps(i, x)
+            out, model_state = _p_mean_variance_step(sched, model_fn, cond_fn, config, x, t,
+                                                     inpainting_mask, inpainted_motion,
+                                                     model_state)
+            mean = out.mean
+            if cond_fn is not None and config.guidance_mode == "mean":
+                mean = G.condition_mean(cond_fn(x, sched.model_timesteps(t)), out)
+            if step_noise is not None:
+                ns = step_noise[step]
+            else:
+                ns = _step_noise(generator, x, config.const_noise)
+            nonzero = float(i != 0)
+            x = mean + nonzero * torch.exp(0.5 * out.log_variance) * ns
         if dump_steps is not None:
             dumps.append(x)
     if dump_steps is not None:
@@ -155,20 +159,21 @@ def ddim_sample_loop(
     nd = noise.dim()
     x, indices = _init_state(sched, noise, init_image, config.skip_timesteps)
     for i in indices:
-        t = _steps(i, x)
-        out, model_state = _p_mean_variance_step(sched, model_fn, cond_fn, config, x, t,
-                                                 inpainting_mask, inpainted_motion, model_state,
-                                                 force_score=True)
-        eps = G.predict_eps_from_xstart(sched, x, t, out.pred_xstart)
-        alpha_bar = G.extract(sched.alphas_cumprod, t, nd)
-        alpha_bar_prev = G.extract(sched.alphas_cumprod_prev, t, nd)
-        sigma = (config.eta * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
-                 * torch.sqrt(1 - alpha_bar / alpha_bar_prev))
-        x = out.pred_xstart * torch.sqrt(alpha_bar_prev) + torch.sqrt(
-            1 - alpha_bar_prev - sigma ** 2) * eps
-        if config.eta != 0.0 and i != 0:
-            x = x + sigma * torch.randn(x.shape, generator=generator, device=x.device,
-                                        dtype=x.dtype)
+        with span("sample.step"):
+            t = _steps(i, x)
+            out, model_state = _p_mean_variance_step(sched, model_fn, cond_fn, config, x, t,
+                                                     inpainting_mask, inpainted_motion,
+                                                     model_state, force_score=True)
+            eps = G.predict_eps_from_xstart(sched, x, t, out.pred_xstart)
+            alpha_bar = G.extract(sched.alphas_cumprod, t, nd)
+            alpha_bar_prev = G.extract(sched.alphas_cumprod_prev, t, nd)
+            sigma = (config.eta * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+                     * torch.sqrt(1 - alpha_bar / alpha_bar_prev))
+            x = out.pred_xstart * torch.sqrt(alpha_bar_prev) + torch.sqrt(
+                1 - alpha_bar_prev - sigma ** 2) * eps
+            if config.eta != 0.0 and i != 0:
+                x = x + sigma * torch.randn(x.shape, generator=generator, device=x.device,
+                                            dtype=x.dtype)
     return x
 
 
@@ -182,12 +187,14 @@ def ddim_reverse_sample_loop(
     nd = x0.dim()
     x = x0
     for i in range(sched.num_timesteps):
-        t = _steps(i, x)
-        out, _ = _p_mean_variance_step(sched, model_fn, None, config, x, t, None, None)
-        eps = ((G.extract(sched.sqrt_recip_alphas_cumprod, t, nd) * x - out.pred_xstart)
-               / G.extract(sched.sqrt_recipm1_alphas_cumprod, t, nd))
-        alpha_bar_next = G.extract(sched.alphas_cumprod_next, t, nd)
-        x = out.pred_xstart * torch.sqrt(alpha_bar_next) + torch.sqrt(1 - alpha_bar_next) * eps
+        with span("sample.step"):
+            t = _steps(i, x)
+            out, _ = _p_mean_variance_step(sched, model_fn, None, config, x, t, None, None)
+            eps = ((G.extract(sched.sqrt_recip_alphas_cumprod, t, nd) * x - out.pred_xstart)
+                   / G.extract(sched.sqrt_recipm1_alphas_cumprod, t, nd))
+            alpha_bar_next = G.extract(sched.alphas_cumprod_next, t, nd)
+            x = (out.pred_xstart * torch.sqrt(alpha_bar_next)
+                 + torch.sqrt(1 - alpha_bar_next) * eps)
     return x
 
 
@@ -223,29 +230,31 @@ def plms_sample_loop(
         alpha_bar_prev = G.extract(sched.alphas_cumprod_prev, t, nd)
         return pred_prime * torch.sqrt(alpha_bar_prev) + torch.sqrt(1 - alpha_bar_prev) * eps_prime
 
-    t0 = _steps(indices[0], x)
-    eps0, out0 = model_eps(x, t0)
-    eps_prime = eps0
-    if order > 1:
-        alpha_bar_prev = G.extract(sched.alphas_cumprod_prev, t0, nd)
-        euler = out0.pred_xstart * torch.sqrt(alpha_bar_prev) + torch.sqrt(
-            1 - alpha_bar_prev) * eps0
-        eps2, _ = model_eps(euler, t0 - 1)
-        eps_prime = (eps0 + eps2) / 2
-    x = mean_from_eps(eps_prime, x, t0) if indices[0] != 0 else out0.pred_xstart
+    with span("sample.step"):
+        t0 = _steps(indices[0], x)
+        eps0, out0 = model_eps(x, t0)
+        eps_prime = eps0
+        if order > 1:
+            alpha_bar_prev = G.extract(sched.alphas_cumprod_prev, t0, nd)
+            euler = out0.pred_xstart * torch.sqrt(alpha_bar_prev) + torch.sqrt(
+                1 - alpha_bar_prev) * eps0
+            eps2, _ = model_eps(euler, t0 - 1)
+            eps_prime = (eps0 + eps2) / 2
+        x = mean_from_eps(eps_prime, x, t0) if indices[0] != 0 else out0.pred_xstart
 
     ring = [eps0] * order  # past epsilons, most recent last
     count = 1
     for i in indices[1:]:
-        t = _steps(i, x)
-        eps, out = model_eps(x, t)
-        ring = ring[1:] + [eps]
-        count = min(count + 1, order)
-        coeffs = _AB_COEFFS[count]
-        eps_prime = torch.zeros_like(eps)
-        for k, c in enumerate(coeffs):
-            eps_prime = eps_prime + c * ring[order - len(coeffs) + k]
-        x = mean_from_eps(eps_prime, x, t) if i != 0 else out.pred_xstart
+        with span("sample.step"):
+            t = _steps(i, x)
+            eps, out = model_eps(x, t)
+            ring = ring[1:] + [eps]
+            count = min(count + 1, order)
+            coeffs = _AB_COEFFS[count]
+            eps_prime = torch.zeros_like(eps)
+            for k, c in enumerate(coeffs):
+                eps_prime = eps_prime + c * ring[order - len(coeffs) + k]
+            x = mean_from_eps(eps_prime, x, t) if i != 0 else out.pred_xstart
     return x
 
 
@@ -281,17 +290,20 @@ def dpmpp_2m_sample_loop(
         h = lam[i_to] - lam[i_from]
         return (sigma[i_to] / sigma[i_from]) * x - alpha[i_to] * torch.expm1(-h) * d_tilde
 
-    d_prev, model_state = pred_x0(x, indices[0], model_state)
-    if len(indices) == 1:
-        return d_prev  # single step: the x0 prediction
-    x = solver_update(x, d_prev, indices[0], indices[1])
+    with span("sample.step"):
+        d_prev, model_state = pred_x0(x, indices[0], model_state)
+        if len(indices) == 1:
+            return d_prev  # single step: the x0 prediction
+        x = solver_update(x, d_prev, indices[0], indices[1])
     for i_prev2, i_prev, i_next in zip(indices, indices[1:], indices[2:]):
-        d_cur, model_state = pred_x0(x, i_prev, model_state)
-        r = (lam[i_prev] - lam[i_prev2]) / (lam[i_next] - lam[i_prev])
-        d_tilde = (1.0 + 1.0 / (2.0 * r)) * d_cur - (1.0 / (2.0 * r)) * d_prev
-        x = solver_update(x, d_tilde, i_prev, i_next)
-        d_prev = d_cur
-    return pred_x0(x, indices[-1], model_state)[0]
+        with span("sample.step"):
+            d_cur, model_state = pred_x0(x, i_prev, model_state)
+            r = (lam[i_prev] - lam[i_prev2]) / (lam[i_next] - lam[i_prev])
+            d_tilde = (1.0 + 1.0 / (2.0 * r)) * d_cur - (1.0 / (2.0 * r)) * d_prev
+            x = solver_update(x, d_tilde, i_prev, i_next)
+            d_prev = d_cur
+    with span("sample.step"):
+        return pred_x0(x, indices[-1], model_state)[0]
 
 
 SAMPLERS = {

@@ -40,6 +40,10 @@ backward reruns its forward, *g*'s all-reduces included: every rank runs
 the same graph, so each reruns them in the same order and the ranks'
 collectives still pair up. Without a group (one process, data
 parallelism) neither collective exists.
+
+Spans (utils/tracing.py): ``denoiser.layer`` around each layer call of a
+stack, and a decoder layer's ``denoiser.self_attn`` (with its dropout and
+first LayerNorm), ``denoiser.cross_attn`` and ``denoiser.tail``.
 """
 from __future__ import annotations
 
@@ -61,6 +65,7 @@ from ..ops.dropout_bits import (dropout_bits, keep_factors, sequence_dropout_bit
                                 tail_dropout_bits)
 from ..ops.encoder_tail import fused_encoder_tail, fused_encoder_tail_inference
 from ..ops.layer_inference import fused_layer_inference
+from ..utils.tracing import span
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -444,16 +449,19 @@ class TransformerDecoderLayer(nn.Module):
         if seeds is None:
             seeds = layer_seeds(None, self.N_SEEDS, 0.0 if deterministic else self.dropout)
         s_self, s_out, s_cross, s_tail = seeds
-        attn = self.self_attn(tgt, tgt, tgt, tgt_bias, deterministic, s_self)
-        if not deterministic and self.dropout > 0.0:
-            bits = sequence_dropout_bits(s_out, *attn.shape, device=attn.device,
-                                         batch_offset=ops.shard_seed_offset())
-            attn = _drop(attn, keep_factors(bits, self.dropout))
-        cdt = self.compute_dtype or attn.dtype
-        tgt = self.norm1((tgt + attn).float()).to(cdt)
-        cross = self.multihead_attn(tgt, memory, memory, memory_bias, deterministic, s_cross)
-        return _tail(self, tgt.to(cross.dtype), cross, (self.norm2, self.norm3), deterministic,
-                     s_tail)
+        with span("denoiser.self_attn"):
+            attn = self.self_attn(tgt, tgt, tgt, tgt_bias, deterministic, s_self)
+            if not deterministic and self.dropout > 0.0:
+                bits = sequence_dropout_bits(s_out, *attn.shape, device=attn.device,
+                                             batch_offset=ops.shard_seed_offset())
+                attn = _drop(attn, keep_factors(bits, self.dropout))
+            cdt = self.compute_dtype or attn.dtype
+            tgt = self.norm1((tgt + attn).float()).to(cdt)
+        with span("denoiser.cross_attn"):
+            cross = self.multihead_attn(tgt, memory, memory, memory_bias, deterministic, s_cross)
+        with span("denoiser.tail"):
+            return _tail(self, tgt.to(cross.dtype), cross, (self.norm2, self.norm3),
+                         deterministic, s_tail)
 
 
 def _run_layers(layers: nn.ModuleList, x: torch.Tensor, args: tuple, deterministic: bool,
@@ -470,11 +478,12 @@ def _run_layers(layers: nn.ModuleList, x: torch.Tensor, args: tuple, determinist
     up as they did in the forward."""
     for layer in layers:
         seeds = None if deterministic else layer_seeds(rng, layer.N_SEEDS, layer.dropout)
-        if remat and torch.is_grad_enabled():
-            x = checkpoint(layer, x, *args, deterministic, seeds, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
-            x = layer(x, *args, deterministic, seeds)
+        with span("denoiser.layer"):
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, *args, deterministic, seeds, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, *args, deterministic, seeds)
     return x
 
 

@@ -17,6 +17,7 @@ CPU ``torch.Generator``: the sequence dropout's seed, then each layer's
 Every mask comes from the Philox stream of ops/dropout_bits.py keyed on its
 seed, so the card and the CPU drop the same elements in a step.
 ``remat`` rematerialises each transformer layer in the backward.
+``MDM.forward`` is one ``denoiser.forward`` span (utils/tracing.py).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from torch import nn
 from .. import ops
 from ..core.goals import ALL_GOAL_JOINT_NAMES, extended_goal_names
 from ..ops.dropout_bits import keep_threshold, sequence_dropout_bits
+from ..utils.tracing import traced
 from .layers import (TimestepEmbedder, TransformerDecoder, TransformerEncoder, draw_seeds,
                      init_weights_)
 
@@ -307,6 +309,7 @@ class MDM(nn.Module):
             pad = torch.cat([torch.zeros_like(pad[:, :1]), pad], dim=1)
         return torch.cat([time_emb[:, None, :], text_emb], dim=1), pad
 
+    @traced("denoiser.forward")
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 cond: Conditioning = Conditioning(), deterministic: bool = True,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -20,6 +20,7 @@ width divisible by 128 (768, 12 heads of 64), so under AUTO it is the rate-0
 attention block (kernel #2's ``fused_block_attention_inference``), f32, six
 launches per prompt batch. CLIP's causal bias is a full [1, 1, 77, 77],
 which no kernel takes: it stays on the einsum route, as in mdm_tpu.
+Each tower's forward is one ``text.encode`` span (utils/tracing.py).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.tracing import traced
 from .layers import MultiHeadAttention, gelu_exact, key_padding_bias
 
 
@@ -131,6 +133,7 @@ class ClipTextEncoder(nn.Module):
         nn.init.normal_(self.positional_embedding, std=0.01)
         nn.init.normal_(self.text_projection, std=0.02)
 
+    @traced("text.encode")
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         B, L = tokens.shape
         tokens = tokens.long()
@@ -242,6 +245,7 @@ class DistilBertEncoder(nn.Module):
         self.transformer.layer = nn.ModuleList(
             DistilBertLayer(cfg.dim, cfg.n_heads, cfg.hidden_dim) for _ in range(cfg.n_layers))
 
+    @traced("text.encode")
     def forward(self, tokens: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         L = tokens.shape[1]
         emb = self.embeddings

@@ -23,6 +23,9 @@ JAX package's shard_map sampling (:141-157, :225-229, :288-364):
 - tensor parallel (a model axis above 1): each rank holds its Megatron
   part of the denoiser (parallel/tp_rules.py) and runs the whole batch on
   the einsum attention and the plain tail; AUTO turns the kernels off.
+
+Spans (utils/tracing.py): ``generate`` is one ``sample.request``, each of
+DiP's chunks a ``sample.chunk``, the decoding to joints ``sample.decode``.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from ..core import hml_codec
 from ..diffusion.samplers import SAMPLERS, SamplerConfig
 from ..diffusion.schedule import Schedule
 from ..models.mdm import MDM, Conditioning, cfg_denoiser, cfg_denoiser_cached
+from ..utils.tracing import span, traced
 
 STATS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "assets", "stats")
 
@@ -283,27 +287,31 @@ class MotionGenerator:
         shape = (batch_size, mcfg.pred_len, mcfg.input_feats)
         chunks = []
         for i in range(n_chunks):
-            chunk_cond = per_chunk_cond(i, base).to(self.device) if per_chunk_cond else base
-            noise = (torch.randn(shape, generator=generator, device=self.device)
-                     if chunk_noise is None else chunk_noise[i].to(self.device))
-            kwargs = {}
-            if chunk_step_noise is not None:
-                kwargs["step_noise"] = chunk_step_noise[i].to(self.device)
-            sample = self._sample(chunk_cond.replace(prefix=prefix), noise, generator, **kwargs)
-            chunks.append(sample)
-            prefix = torch.cat([prefix, sample], dim=1)[:, -mcfg.context_len:]
+            with span("sample.chunk"):
+                chunk_cond = per_chunk_cond(i, base).to(self.device) if per_chunk_cond else base
+                noise = (torch.randn(shape, generator=generator, device=self.device)
+                         if chunk_noise is None else chunk_noise[i].to(self.device))
+                kwargs = {}
+                if chunk_step_noise is not None:
+                    kwargs["step_noise"] = chunk_step_noise[i].to(self.device)
+                sample = self._sample(chunk_cond.replace(prefix=prefix), noise, generator,
+                                      **kwargs)
+                chunks.append(sample)
+                prefix = torch.cat([prefix, sample], dim=1)[:, -mcfg.context_len:]
         gen = torch.cat(chunks, dim=1)
         if self.config.autoregressive_include_prefix:
             gen = torch.cat([init_prefix, gen], dim=1)
         return gen[:, :required_frames]
 
     @torch.inference_mode()
+    @traced("sample.decode")
     def features_to_joints(self, feats: torch.Tensor) -> torch.Tensor:
         """Denormalize + decode hml_vec features to joints [B, T, J, 3]."""
         if self.mean is None:
             raise ValueError("features_to_joints needs hml_vec norm stats")
         return hml_codec.recover_from_ric(feats * self.std + self.mean, self.joints_num)
 
+    @traced("sample.request")
     def generate(self, cond: Conditioning, batch_size: int, num_frames: int,
                  generator: Optional[torch.Generator] = None, **kwargs):
         """Full pipeline -> dict(features, joints). With ``autoregressive``

@@ -16,7 +16,9 @@ kernel reduction runs in a fixed order. Metric sums stay on the device
 until a log window closes, so the host reads the card once per window.
 
 With ``profile_trace_dir`` set, steps 2..6 run under torch.profiler
-(train/profiling.py) and their trace is written there.
+(train/profiling.py) and their trace is written there, the program's spans
+in it (utils/tracing.py: ``train.batch`` around each batch from the
+loader, and the step's own).
 
 Env hook: MDM_TPU_TRAINING_TEST=1 stops after the first save (the
 reference's DIFFUSION_TRAINING_TEST seam, training_loop.py:241).
@@ -32,6 +34,7 @@ import torch
 
 from ..parallel.mesh import Mesh, mesh_grid, shard_batch
 from ..parallel.multihost import barrier, is_primary
+from ..utils.tracing import span
 from .checkpoints import find_resume_checkpoint, restore_checkpoint, save_args, save_checkpoint
 from .logger import KVLogger
 from .platforms import NoPlatform, TrainPlatform
@@ -119,7 +122,9 @@ class TrainLoop:
             while self.step < cfg.num_steps:
                 if cfg.profile_trace_dir and self.step == 2 and prof is None:
                     prof = start_trace(cfg.profile_trace_dir)
-                batch = shard_batch(next(self.data_iter), self.mesh)
+                with span("train.batch"):
+                    batch = next(self.data_iter)
+                batch = shard_batch(batch, self.mesh)
                 if batch_size is None:
                     # the global batch: every rank holds its rows
                     batch_size = (int(batch["x"].shape[0]) * self.mesh.data_parallel

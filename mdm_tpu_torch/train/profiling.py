@@ -1,29 +1,13 @@
-"""Profiling helpers: wall-clock KV scopes, device traces and named regions.
+"""Device traces: counterpart of mdm_tpu/train/profiling.py's ``trace``.
 
-Counterpart of mdm_tpu/train/profiling.py. ``timed`` is the reference's
-wall-clock scope (diffusion/logger.py:293-317); ``trace`` records a
-``torch.profiler`` trace (host and, where a card is visible, CUDA kernel
-activity) into a directory that TensorBoard's profiler plugin reads, and
-``annotate`` names a region in that trace and, on the card, in NVTX.
+``trace`` records a ``torch.profiler`` trace (host and, where a card is
+visible, CUDA kernel activity) into a directory that TensorBoard's
+profiler plugin reads. The program's named regions in it are the spans of
+``utils/tracing.py``.
 """
 from __future__ import annotations
 
 import contextlib
-import time
-
-
-@contextlib.contextmanager
-def timed(name: str, logger=None):
-    """Wall-clock scope; logs `wait_<name>` like the reference profile_kv."""
-    start = time.perf_counter()
-    try:
-        yield
-    finally:
-        elapsed = time.perf_counter() - start
-        if logger is not None:
-            logger.logkv_mean(f"wait_{name}", elapsed)
-        else:
-            print(f"[profile] {name}: {elapsed:.3f}s")
 
 
 def start_trace(log_dir: str):
@@ -60,15 +44,3 @@ def trace(log_dir: str = "save/profile_trace"):
     finally:
         stop_trace(prof, log_dir)
 
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named region: a ``record_function`` range in the profiler's trace
-    and, when a card is visible, an NVTX range."""
-    import torch
-
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(torch.profiler.record_function(name))
-        if torch.cuda.is_available():
-            stack.enter_context(torch.cuda.nvtx.range(name))
-        yield

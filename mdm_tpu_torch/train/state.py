@@ -31,6 +31,8 @@ from typing import Any, Dict, Iterable, Optional, Sequence
 import torch
 from torch import nn
 
+from ..utils.tracing import traced
+
 
 @dataclass(frozen=True)
 class OptimConfig:
@@ -114,10 +116,12 @@ def tree_norm(state: TrainState, tensors: Dict[str, torch.Tensor]) -> torch.Tens
     return global_norm(tensors.values(), state.tp.is_split(tensors), state.tp.mesh.model_group)
 
 
+@traced("train.update")
 @torch.no_grad()
 def apply_gradients(state: TrainState, config: OptimConfig) -> TrainState:
     """One AdamW update from the parameters' ``.grad`` (clipped in place
-    first when ``grad_clip`` > 0), then the EMA; advances ``state.step``."""
+    first when ``grad_clip`` > 0), then the EMA; advances ``state.step``.
+    Each call is one ``train.update`` span."""
     params = [p for p in state.model.parameters() if p.grad is not None]
     if config.grad_clip > 0:
         norm = tree_norm(state, {n: p.grad for n, p in state.model.named_parameters()

@@ -45,6 +45,11 @@ CPU generator seeded with it gives the model's dropout seeds, and a device
 generator seeded from that gives t, the noise and the condition
 dropouts. ``draws`` replaces those draws, so tests can feed the step the
 draws that the JAX step made.
+
+Spans (utils/tracing.py): the step is one ``train.step`` holding, in
+order, ``train.draws`` (with q_sample), ``train.forward`` (the model and the losses),
+``train.backward``, ``train.reduce`` (the sum over ranks and the norms) and
+``train.update`` (``apply_gradients``).
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ from .. import ops
 from ..diffusion import gaussian as G
 from ..diffusion.losses import LossConfig, training_losses
 from ..diffusion.schedule import Schedule
+from ..utils.tracing import span
 from .resample import LossAwareState, loss_aware_sample_t, loss_aware_update, uniform_sample_t
 from .state import OptimConfig, TrainState, apply_gradients, tree_norm
 
@@ -153,7 +159,7 @@ def make_train_step(sched: Schedule, config: TrainStepConfig, *,
             raise ValueError(f"a state split over {split_over or 1} model-parallel rank(s) on a "
                              f"step over {mesh.model_parallel if mesh else 1}: split a state for "
                              "a tensor-parallel mesh with tp_rules.shard_state_")
-        with ops.mesh_kernels(tensor_parallel):
+        with span("train.step"), ops.mesh_kernels(tensor_parallel):
             return _step(state, batch, key, sampler_state, draws)
 
     def _step(state, batch, key, sampler_state, draws):
@@ -165,26 +171,27 @@ def make_train_step(sched: Schedule, config: TrainStepConfig, *,
         device, b = x_start.device, x_start.shape[0]
         B = b if mesh is None else b * mesh.data_parallel
         rows = slice(0, B) if mesh is None else mesh.rows(B)
-        rng, gen = step_generators(key, device)
-        weights = torch.ones((B,), dtype=torch.float32, device=device)
         draw_target = config.cond_mask_prob > 0 and cond.target_cond is not None
-        if draws is not None:
-            t, noise, drop = draws["t"], draws["noise"], draws["cond_drop"]
-            target_uncond = draws["target_uncond"] if draw_target else None
-        else:
-            if loss_aware:
-                t, weights = loss_aware_sample_t(gen, sampler_state, B)
+        with span("train.draws"):
+            rng, gen = step_generators(key, device)
+            weights = torch.ones((B,), dtype=torch.float32, device=device)
+            if draws is not None:
+                t, noise, drop = draws["t"], draws["noise"], draws["cond_drop"]
+                target_uncond = draws["target_uncond"] if draw_target else None
             else:
-                t, weights = uniform_sample_t(gen, B, sched.num_timesteps, device)
-            noise = torch.randn((B,) + tuple(x_start.shape[1:]), generator=gen, device=device,
-                                dtype=x_start.dtype)
-            drop = torch.rand((B,), generator=gen, device=device) < config.cond_mask_prob
-            # The target's condition dropout is its own Bernoulli draw, as
-            # the reference's mask_cond of the target embedding.
-            target_uncond = (torch.rand((B,), generator=gen, device=device)
-                             < config.cond_mask_prob) if draw_target else None
-        t, weights, noise, drop = (v.to(device)[rows] for v in (t, weights, noise, drop))
-        x_t = G.q_sample(sched, x_start, t, noise)
+                if loss_aware:
+                    t, weights = loss_aware_sample_t(gen, sampler_state, B)
+                else:
+                    t, weights = uniform_sample_t(gen, B, sched.num_timesteps, device)
+                noise = torch.randn((B,) + tuple(x_start.shape[1:]), generator=gen,
+                                    device=device, dtype=x_start.dtype)
+                drop = torch.rand((B,), generator=gen, device=device) < config.cond_mask_prob
+                # The target's condition dropout is its own Bernoulli draw, as
+                # the reference's mask_cond of the target embedding.
+                target_uncond = (torch.rand((B,), generator=gen, device=device)
+                                 < config.cond_mask_prob) if draw_target else None
+            t, weights, noise, drop = (v.to(device)[rows] for v in (t, weights, noise, drop))
+            x_t = G.q_sample(sched, x_start, t, noise)
         if config.cond_mask_prob > 0:
             cond = cond.replace(cond_drop=drop, frames_mask=mask)
             if draw_target:
@@ -199,16 +206,20 @@ def make_train_step(sched: Schedule, config: TrainStepConfig, *,
         for p in named.values():
             p.grad = None
         with ops.sharded_rows(rows.start):
-            model_out = model(x_t, sched.model_timesteps(t), cond, deterministic=False, rng=rng)
-            terms = training_losses(sched, model_out, x_start, x_t, t, noise, mask[..., None],
-                                    config.loss, get_xyz=get_xyz, target_loss_fn=target_loss_fn)
-            partial = weights * terms["loss"]
-            # the local partial of the global mean
-            loss = partial.mean() if B == b else partial.sum() / B
-            loss.backward()
+            with span("train.forward"):
+                model_out = model(x_t, sched.model_timesteps(t), cond, deterministic=False,
+                                  rng=rng)
+                terms = training_losses(sched, model_out, x_start, x_t, t, noise,
+                                        mask[..., None], config.loss, get_xyz=get_xyz,
+                                        target_loss_fn=target_loss_fn)
+                partial = weights * terms["loss"]
+                # the local partial of the global mean
+                loss = partial.mean() if B == b else partial.sum() / B
+            with span("train.backward"):
+                loss.backward()
 
         names = sorted(terms)
-        with torch.no_grad():
+        with torch.no_grad(), span("train.reduce"):
             grads = {n: p.grad for n, p in named.items() if p.grad is not None}
             loss, table = _sum_over_ranks(
                 mesh, list(grads.values()), loss.detach(),

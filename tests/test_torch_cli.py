@@ -253,7 +253,11 @@ def test_text_encoder_contract(tmp_path):
 
 
 def test_profile_trace_dir_traces_steps_2_to_6(tmp_path, synthetic_humanml):
+    """The trace of steps 2..6 holds the program's spans: five of each of
+    ``train.step`` and ``train.batch``; a span opened under ``profiling.trace``
+    is in its trace too."""
     from mdm_tpu_torch.train import profiling
+    from mdm_tpu_torch.utils.tracing import span
 
     trace_dir = tmp_path / "trace"
     _train(str(tmp_path / "run"), synthetic_humanml, "--num_steps", "8", "--save_interval", "8",
@@ -262,10 +266,14 @@ def test_profile_trace_dir_traces_steps_2_to_6(tmp_path, synthetic_humanml):
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any("ProfilerStep" in e.get("name", "") or e.get("cat") == "cpu_op" for e in events)
+    names = [e.get("name") for e in events if e.get("ph") == "X"]
+    assert names.count("train.step") == 5 and names.count("train.batch") == 5
     with profiling.trace(str(tmp_path / "t2")):
-        with profiling.annotate("region"):
+        with span("region"):
             torch.ones(4).sum()
-    assert list((tmp_path / "t2").glob("*.pt.trace.json"))
+    traces = list((tmp_path / "t2").glob("*.pt.trace.json"))
+    assert traces and any(e.get("name") == "region"
+                          for e in json.loads(traces[0].read_text())["traceEvents"])
 
 
 OPTIONS = {

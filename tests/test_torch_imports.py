@@ -180,7 +180,7 @@ SLICE = {"ops._mask", "ops.layer_inference", "ops._build", "models.layers", "mod
          "cli.eval_unconstrained", "scripts.a2m_rehearsal", "models.text_encoders",
          "models.convert", "cli.convert_text_encoders", "cli.convert_checkpoint",
          "visualize.prior", "visualize.joints2smpl", "cli.render_mesh",
-         "eval.train_t2m_generator", "utils.compile_cache"}
+         "eval.train_t2m_generator", "utils.compile_cache", "utils.tracing"}
 
 
 def test_port_runs_with_jax_and_flax_blocked():
