@@ -34,7 +34,11 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   dumped bits; the attention forward and backward cores at the edges of
   their tiling (S = 1, 64, 65, 256, 257; every instance's head dim and
   padded ones, input or output dtype, bias form and dropout mode) with
-  their occupancy; #10 and #12 called as direct entry points; the sampling
+  their occupancy; each key walk, which stops at its batch element's last
+  live key, bitwise equal to the full walk (scripts/key_walk_check.py: the
+  six tile kernels, ragged and no-live key-padding rows, dropout off and
+  on) and its score tiles counted as the rows' extents give;
+  #10 and #12 called as direct entry points; the sampling
   shootout's ``pallas`` variant (v2 attention + fused tail) through
   MotionGenerator.generate at B=32 x 50 steps, and its ``block``/``tail``
   variants; the training shootout's ``drop`` variant (dropout attention
@@ -1372,6 +1376,21 @@ def phase_backward_edges(torch, dev):
           f"full bias) vs plain, worst {json.dumps(worst)} of max |plain| (bounds "
           f"{json.dumps(BWD_REL)}); two runs and Philox vs injected dump bitwise equal")
     return worst
+
+
+def phase_key_walk(dev):
+    """Phase 9, the walk's extent: the six tile kernels with their key walks
+    stopped at each batch element's last live key, bitwise equal to the
+    full walk that a -9.9e8 bias forces (scripts/key_walk_check.py), and
+    the score tiles counted under a profiler as the rows' extents give.
+    Comparisons, counted on no path."""
+    from mdm_tpu_torch.scripts import key_walk_check
+
+    got = key_walk_check.check(dev)
+    print(f"attention key walk: {got['cases']} cases (bf16/f32 x Dh 128/192 x dropout off/on x "
+          f"forward/backward) bitwise equal to the full walk at key extents {got['extents']}; "
+          f"score tiles walked {got['walked_share']:.4f} of a full walk, counted as the extents "
+          f"give")
 
 
 def phase_f32_long_rows(torch, dev):
@@ -5059,6 +5078,7 @@ def main():
     attention = phase_attention_kernels(torch, dev)
     phase_forward_edges(torch, dev)
     phase_backward_edges(torch, dev)
+    phase_key_walk(dev)
     phase_f32_long_rows(torch, dev)
     direct = phase_direct_entries(torch, model, dev)
     v2_launches, pallas_s = phase_sampling_variants(torch, dev, gen_ms / 1000 / B)

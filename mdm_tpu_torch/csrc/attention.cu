@@ -92,6 +92,30 @@
 // f32 FMA it runs would take them at 67.
 // Philox (one word per element, ~60 integer instructions) is a floor the
 // bound omits, ~0.05-0.1 ms per draw at B=128, H=4.
+//
+// The walk's extent (attention.cuh::live_extent). A key-padding row's dead
+// keys carry -1e9 (ops/_mask.py), and MDM's live keys are a prefix (the
+// condition token and the motion's frames), so a row walks only up to its
+// last live key. Each tile kernel reads its batch element's S-float row once,
+// while its first tiles are in flight, and takes one past the last key whose
+// bias is above -1e9 (NaN counts as live) as the extent: the forward and dq
+// kernels walk the key tiles up to it, and a dk/dv block whose keys all lie
+// past it stores zero dk and dv. No launch, argument or host work is added.
+// The result is bitwise the full walk's wherever the row has a live key: a
+// skipped logit is below the row max by about 1e9, so its exp is 0 in f32
+// (ex2.approx and expf flush it), the max and the sums it would have met
+// are unchanged (a max over smaller values; + 0; an online rescale by
+// exp(0) = 1), its keep word is not drawn and no other moves (Philox is
+// keyed on the element), and a zero probability adds 0 . v, 0 . dO and
+// 0 . q. That holds while every live logit exceeds every dead one by less
+// than about 1e9 - 88, which finite activations meet. A row with no live
+// key keeps the full walk (its softmax over the masked logits), as do no
+// bias and a full [S, S] bias (CLIP's causal mask). Tiles are skipped
+// whole, so what still bounds the core is the live tiles' work: at MDM's
+// lengths 40-196 a row walks 2.32 of 4 key tiles, the last one partly
+// masked, and the f32 core computes exactly in FMA (attention_f32.cu).
+// While a profiler records, each block adds its walked and full score
+// tiles to a counter (count_tiles), the engagement the benchmark reads.
 
 #include <cstdint>
 
@@ -301,14 +325,14 @@ cudaError_t dispatch(const Call& c, bool backward, cudaStream_t st) {
   if (c.dtype == 1) {
     const Attn<bf16> a{static_cast<const bf16*>(c.q), static_cast<const bf16*>(c.k),
                        static_cast<const bf16*>(c.v), c.in, c.bias, c.S, c.H, c.Dh, scale,
-                       c.drop, vec_rows(c, 8)};
+                       c.drop, vec_rows(c, 8), c.tiles};
     return backward ? launch_bwd(a, c, st) : launch_fwd(a, c, st);
   }
   // float32 inputs: f32 outputs only.
   if (c.dtype != 0 || c.out_dtype != 0) return cudaErrorInvalidValue;
   const Attn<float> a{static_cast<const float*>(c.q), static_cast<const float*>(c.k),
                       static_cast<const float*>(c.v), c.in, c.bias, c.S, c.H, c.Dh, scale, c.drop,
-                      vec_rows(c, 4)};
+                      vec_rows(c, 4), c.tiles};
   if (c.Dh <= MAX_TILE_DH) return launch_f32_tiled(a, c, backward, st);
   dim3 grid(c.S, c.H, c.B);
   if (!backward) {
@@ -337,16 +361,19 @@ Dropout make_drop(const void* bits, int seed, int boff, unsigned thr, float inv_
 // (sb, sh, ld); out and dout the view (osb, osh, old); bias is additive
 // f32 with strides (bb, bh, bi), or null. mode: 0 no dropout, 1 injected
 // bits ([B, H, S, S] uint32), 2 in-kernel Philox keyed on seed, with boff
-// added to the batch index of its counter. Dh: any head dim from 1.
+// added to the batch index of its counter. Dh: any head dim from 1. tiles:
+// null, or an int64 [2] that the tile kernels' blocks add their walked and
+// full (query tile, key tile) score tiles to (count_tiles).
 extern "C" int mdm_attention_fwd(const void* q, const void* k, const void* v, long long sb,
                                  long long sh, int ld, const void* bias, long long bb,
                                  long long bh, int bi, const void* bits, int seed, int boff,
                                  unsigned thr, float inv_keep, int mode, void* out, long long osb,
-                                 long long osh, int old, int out_dtype, int B, int S, int H,
-                                 int Dh, int dtype, void* stream) {
+                                 long long osh, int old, int out_dtype, void* tiles, int B, int S,
+                                 int H, int Dh, int dtype, void* stream) {
   const Call c{q, k, v, View{sb, sh, ld}, Bias{static_cast<const float*>(bias), bb, bh, bi},
                make_drop(bits, seed, boff, thr, inv_keep, mode), out, View{osb, osh, old},
-               out_dtype, nullptr, nullptr, nullptr, nullptr, nullptr, B, S, H, Dh, dtype};
+               out_dtype, nullptr, nullptr, nullptr, nullptr, nullptr, B, S, H, Dh, dtype,
+               static_cast<unsigned long long*>(tiles)};
   return (int)dispatch(c, false, static_cast<cudaStream_t>(stream));
 }
 
@@ -372,16 +399,18 @@ extern "C" int mdm_attention_bwd_occupancy(int Dh, int form, int kernel, int* bl
 // Writes dq, dk, dv (through the q/k/v view, in dtype), the row statistics
 // stats (f32 [3, B*H*S]: bf16 inputs max, 1/sum, delta; f32 inputs max,
 // sum, delta) and, when ctx is not null, the forward's out recomputed into
-// ctx (dtype, through the out view).
+// ctx (dtype, through the out view); tiles as mdm_attention_fwd's, over
+// every kernel of the call.
 extern "C" int mdm_attention_bwd(const void* q, const void* k, const void* v, long long sb,
                                  long long sh, int ld, const void* bias, long long bb,
                                  long long bh, int bi, const void* bits, int seed, int boff,
                                  unsigned thr, float inv_keep, int mode, const void* dout, void* ctx,
                                  long long osb, long long osh, int old, void* dq, void* dk,
-                                 void* dv, void* stats, int B, int S, int H, int Dh,
+                                 void* dv, void* stats, void* tiles, int B, int S, int H, int Dh,
                                  int dtype, void* stream) {
   const Call c{q, k, v, View{sb, sh, ld}, Bias{static_cast<const float*>(bias), bb, bh, bi},
                make_drop(bits, seed, boff, thr, inv_keep, mode), ctx, View{osb, osh, old}, dtype,
-               dout, dq, dk, dv, static_cast<float*>(stats), B, S, H, Dh, dtype};
+               dout, dq, dk, dv, static_cast<float*>(stats), B, S, H, Dh, dtype,
+               static_cast<unsigned long long*>(tiles)};
   return (int)dispatch(c, true, static_cast<cudaStream_t>(stream));
 }

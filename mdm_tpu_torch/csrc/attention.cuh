@@ -72,6 +72,8 @@ struct Attn {
   // every row start 16-byte aligned and dh a whole number of 16 bytes (8 bf16,
   // 4 f32; vec_rows): the 16-byte instances (load_tile, attention_f32.cu's load_rows)
   bool vec;
+  // the launch's key-tile counter while a profiler records (count_tiles), else null
+  unsigned long long* tiles;
 
   __device__ __forceinline__ float keep(int b, int h, int i, int j) const {
     return drop.keep((((size_t)b * H + h) * S + i) * S + j, b, h, i, j);
@@ -92,6 +94,7 @@ struct Call {
   void *dq, *dk, *dv;
   float* stats;
   int B, S, H, Dh, dtype;
+  unsigned long long* tiles;  // Attn::tiles
 };
 
 // attention_fwd.cu
@@ -114,6 +117,60 @@ cudaError_t opt_in(K kernel, bool& done, int bytes) {
   const cudaError_t e = mdm::allow_smem(kernel, bytes);
   done = e == cudaSuccess;
   return e;
+}
+
+// ------------------------------------------------------- the walk's extent
+// A key is dead where its key-padding bias is DEAD_BIAS or below (what
+// ops/_mask.py's row_bias_contrib writes for a masked key; -inf too), live
+// otherwise (NaN too). Where a row has a live key, exp(x * scale - 1e9 - m)
+// is 0 in f32 for its dead keys, so the key tiles past its last live key
+// add exact zeros to every sum and product: each walk stops there.
+constexpr float DEAD_BIAS = -1e9f;
+
+// Whether a walk over tiles of `tile` keys can stop short: a key-padding
+// row (bias form 1) over more than one tile.
+__host__ __device__ __forceinline__ bool shortens(const Bias& bias, int S, int tile) {
+  return bias_form(bias) == 1 && S > tile;
+}
+
+// This thread's first value of the key-padding row at bias.p + row (key
+// threadIdx.x) for live_extent. A kernel loads it before it issues its
+// first copies, so that the row's read is in flight beside them.
+__device__ __forceinline__ float first_bias(const Bias& bias, long long row, int S, int tile) {
+  return shortens(bias, S, tile) && (int)threadIdx.x < S ? bias.p[row + threadIdx.x] : 0.0f;
+}
+
+// One past the last live key of the row (first: this thread's first_bias);
+// S where the walk cannot stop short (no bias, a full [S, S] tile, a row
+// within one tile), and for a row with no live key (its softmax runs over
+// the masked logits, as a full walk gives it). Every thread of the block
+// (NW warps) calls it: the rest of a coalesced read of the S values, a
+// warp max and one barrier.
+template <int NW>
+__device__ __forceinline__ int live_extent(const Bias& bias, long long row, int S, int tile,
+                                           float first) {
+  if (!shortens(bias, S, tile)) return S;
+  static __shared__ int last_of[NW];
+  int last = (int)threadIdx.x < S && !(first <= DEAD_BIAS) ? (int)threadIdx.x : -1;
+  for (int j = threadIdx.x + 32 * NW; j < S; j += 32 * NW)
+    if (!(bias.p[row + j] <= DEAD_BIAS)) last = j;
+  last = __reduce_max_sync(0xffffffffu, last);
+  if ((threadIdx.x & 31) == 0) last_of[threadIdx.x >> 5] = last;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < NW; ++w) last = max(last, last_of[w]);
+  return last < 0 ? S : last + 1;
+}
+
+// The engagement counter: a block adds the (query tile, key tile) score
+// tiles it computed and those a full walk would have to tiles[0] and
+// tiles[1]. Null (no atomic) unless the launch's caller saw a profiler
+// recording (ops/_chain.py::key_tile_counter).
+__device__ __forceinline__ void count_tiles(unsigned long long* tiles, int walked, int full) {
+  if (tiles && threadIdx.x == 0) {
+    atomicAdd(tiles, (unsigned long long)walked);
+    atomicAdd(tiles + 1, (unsigned long long)full);
+  }
 }
 
 // ------------------------------------------------------------ device helpers

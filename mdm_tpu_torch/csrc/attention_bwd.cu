@@ -3,6 +3,10 @@
 // statistics, and a dk/dv kernel per 64-row key tile that reads them. Both
 // run 4 warps of mma.sync m16n8k16 with every score, probability and dlog
 // fragment in registers, and bring their tiles through a cp.async ring.
+// Both stop at the batch element's live extent (live_extent): the dq
+// kernel's two walks end at its last live 64-key tile, and a dk/dv block
+// whose keys all lie past it stores zero dk and dv (its p is exactly 0)
+// without walking a query tile.
 
 #include "attention.cuh"
 
@@ -89,7 +93,9 @@ attn_bwd_dq_bf16(Attn<bf16> a, const bf16* __restrict__ dout, View ov, bf16* __r
   const int S = a.S, ld = a.in.ld, dh = a.dh;
   const size_t hb = a.in.head(b, h);
   const bf16 *kb = a.k + hb, *vb = a.v + hb;
-  const int nkt = (S + AT - 1) / AT, total = 4 * nkt;  // two walks of (V, K) tile pairs
+  // Two walks of (V, K) tile pairs over the key tiles up to the live extent
+  // (set once tiles 0 and 1, V and K tile 0 at any extent, are in flight).
+  int nkt = (S + AT - 1) / AT, total = 4 * nkt;
   const long long bias0 = (long long)b * a.bias.bb + (long long)h * a.bias.bh;
   const int i0 = q0 + warp * 16 + g;       // this thread's rows: i0, i0 + 8
   const bool active = q0 + warp * 16 < S;  // the warp has a row below S
@@ -119,10 +125,15 @@ attn_bwd_dq_bf16(Attn<bf16> a, const bf16* __restrict__ dout, View ov, bf16* __r
     ++u;
     return st;
   };
+  const float fb = first_bias(a.bias, bias0, S, AT);
   load_tile<DH, VEC>(Qs, a.q + hb, ld, q0, S, dh);  // Q and dO ride in group 0 with tile 0
   load_tile<DH, VEC>(Cs, dout + ov.head(b, h), ov.ld, q0, S, dh);
   issue(0, 0);
   if (nst == 3) issue(1, 1);
+  const int full = nkt;
+  nkt = (live_extent<AT_THREADS / 32>(a.bias, bias0, S, AT, fb) + AT - 1) / AT;
+  total = 4 * nkt;
+  count_tiles(a.tiles, nkt, full);
 
   int rb[2];
   bias_rows(rb, a, form, bias0, i0);
@@ -248,7 +259,7 @@ attn_bwd_dkv_bf16(Attn<bf16> a, const bf16* __restrict__ dout, View ov,
   const long long bias0 = (long long)b * a.bias.bb + (long long)h * a.bias.bh;
   const int j0 = k0 + warp * 16 + g;       // this thread's keys: j0, j0 + 8
   const bool active = k0 + warp * 16 < S;  // the warp has a key below S
-  const int nqt = (S + AT - 1) / AT;
+  int nqt = (S + AT - 1) / AT;  // 0 once the block's keys prove to lie past the live extent
   // A bias value (query i, key j) of a staged row starts at (o & 3) of
   // flat offset o = bias0 + i*bi + k0 (load_bias): ob + i*b3 modulo 4.
   const int ob = (int)((bias0 + k0) & 3), b3 = (int)(a.bias.bi & 3);
@@ -270,10 +281,14 @@ attn_bwd_dkv_bf16(Attn<bf16> a, const bf16* __restrict__ dout, View ov,
     }
     mdm::cp_async_commit();
   };
+  const float fb = first_bias(a.bias, bias0, S, AT);
   load_tile<DH, VEC>(Ks, a.k + hb, ld, k0, S, dh);  // K, V and the row ride in group 0 with tile 0
   load_tile<DH, VEC>(Vs, a.v + hb, ld, k0, S, dh);
   if (form == 1) load_bias(rowb, a.bias.p, bias0, 0, 0, k0, S, false);
   issue(0, 0);
+  const int full = nqt;
+  if (k0 >= live_extent<AT_THREADS / 32>(a.bias, bias0, S, AT, fb)) nqt = 0;
+  count_tiles(a.tiles, nqt, full);
 
   float gk[DC / 8][4], gv[DC / 8][4];
 #pragma unroll
@@ -339,6 +354,7 @@ attn_bwd_dkv_bf16(Attn<bf16> a, const bf16* __restrict__ dout, View ov,
     __syncthreads();
     if (nst == 1) issue(qt + 1, 0);
   }
+  if (!nqt) mdm::cp_async_wait<0>();  // a block past the extent: its copies land before it exits
   if (active) {
     store_out<DC, VEC>(gk, dk + hb + chunk * DC, ld, j0, S, dh - chunk * DC);
     store_out<DC, VEC>(gv, dv + hb + chunk * DC, ld, j0, S, dh - chunk * DC);

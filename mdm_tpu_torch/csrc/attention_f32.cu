@@ -34,6 +34,10 @@
 //   a fixed order, two runs bitwise equal. The recomputed out (ctx) is this
 //   forward's own launch.
 // exp is expf and p = e / l a division, as the row kernels compute them.
+// Every walk stops at the batch element's live extent (live_extent, its
+// key-padding row read while the block's own rows are in flight): the
+// forward and dq walk the 32-key tiles up to its last live key, and a
+// dk/dv block whose 64 keys all lie past it stores zero dk and dv.
 // Bound on an H100 (flagship S = 197, Dh = 128, B = 64, H = 4: 5.1 GFLOP
 // forward): 0.031 ms, the products' three TF32 passes at 495 TFLOP/s (f32
 // accuracy on the tensor cores) and the bytes alike; 0.076 ms at the 67
@@ -238,12 +242,12 @@ __device__ __forceinline__ void store_rows(const float (&o)[4][DC / 8], const fl
   }
 }
 
-// A ring of `nst` (1 or 2) stages over `total` tiles: step(u, stage) after
-// tile u has landed for every thread; tile u + 1 in flight meanwhile when
-// nst is 2. issue(u, slot) starts tile u (nothing past total) and commits.
+// A ring of `nst` (1 or 2) stages over `total` tiles, tile 0 already
+// issued into stage 0: step(u, stage) after tile u has landed for every
+// thread; tile u + 1 in flight meanwhile when nst is 2. issue(u, slot)
+// starts tile u (nothing past total) and commits.
 template <typename Issue, typename Step>
 __device__ __forceinline__ void walk(int total, int nst, Issue issue, Step step) {
-  issue(0, 0);
 #pragma unroll 1
   for (int u = 0; u < total; ++u) {
     mdm::cp_async_wait<0>();
@@ -270,9 +274,10 @@ attn_fwd_f32_tiled(Attn<float> a, float* __restrict__ out, View ov) {
   const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
   const int S = a.S, ld = a.in.ld, dh = a.dh;
   const size_t hb = a.in.head(b, h);
-  const int nkt = (S + FC - 1) / FC;
+  const long long bias0 = (long long)b * a.bias.bb + (long long)h * a.bias.bh;
 
-  load_rows<FR, DH, VEC>(Qs, a.q + hb, ld, q0, S, dh);  // rides in group 0 with tile 0
+  const float fb = first_bias(a.bias, bias0, S, FC);
+  int nkt = (S + FC - 1) / FC;  // the key tiles walked: up to the live extent once it is read
   auto issue = [&](int kt, int slot) {
     if (kt < nkt) {
       float* st = ring + slot * 2 * FC * LD;
@@ -281,6 +286,11 @@ attn_fwd_f32_tiled(Attn<float> a, float* __restrict__ out, View ov) {
     }
     mdm::cp_async_commit();
   };
+  load_rows<FR, DH, VEC>(Qs, a.q + hb, ld, q0, S, dh);  // rides in group 0 with tile 0
+  issue(0, 0);
+  const int full = nkt;
+  nkt = (live_extent<FT / 32>(a.bias, bias0, S, FC, fb) + FC - 1) / FC;
+  count_tiles(a.tiles, nkt, full);
   float o[4][DH / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -340,10 +350,10 @@ attn_bwd_dq_f32_tiled(Attn<float> a, const float* __restrict__ dout, View ov,
   const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
   const int S = a.S, ld = a.in.ld, dh = a.dh;
   const size_t hb = a.in.head(b, h);
-  const int nkt = (S + FC - 1) / FC;
+  const long long bias0 = (long long)b * a.bias.bb + (long long)h * a.bias.bh;
 
-  load_rows<FR, DH, VEC>(Qs, a.q + hb, ld, q0, S, dh);  // Q and dO ride in group 0
-  load_rows<FR, DH, VEC>(Cs, dout + ov.head(b, h), ov.ld, q0, S, dh);
+  const float fb = first_bias(a.bias, bias0, S, FC);
+  int nkt = (S + FC - 1) / FC;  // the key tiles of a walk: up to the live extent once it is read
   auto issue = [&](int u, int slot) {
     if (u < 2 * nkt) {
       const int kt = u % nkt;
@@ -353,6 +363,12 @@ attn_bwd_dq_f32_tiled(Attn<float> a, const float* __restrict__ dout, View ov,
     }
     mdm::cp_async_commit();
   };
+  load_rows<FR, DH, VEC>(Qs, a.q + hb, ld, q0, S, dh);  // Q and dO ride in group 0
+  load_rows<FR, DH, VEC>(Cs, dout + ov.head(b, h), ov.ld, q0, S, dh);
+  issue(0, 0);  // key tile 0 at any extent
+  const int full = nkt;
+  nkt = (live_extent<FT / 32>(a.bias, bias0, S, FC, fb) + FC - 1) / FC;
+  count_tiles(a.tiles, nkt, full);
   float m[4], l[4], A[4], delta[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = A[i] = delta[i] = 0.0f;
@@ -449,10 +465,10 @@ attn_bwd_dkv_f32_tiled(Attn<float> a, const float* __restrict__ dout, View ov,
   const size_t hb = a.in.head(b, h), cb = ov.head(b, h);
   const size_t n = (size_t)B * a.H * S;
   const float* srow = stats + ((size_t)b * a.H + h) * S;
-  const int nqt = (S + FC - 1) / FC;
+  const long long bias0 = (long long)b * a.bias.bb + (long long)h * a.bias.bh;
 
-  load_rows<FR, DH, VEC>(Ks, a.k + hb, ld, k0, S, dh);  // K and V ride in group 0
-  load_rows<FR, DH, VEC>(Vs, a.v + hb, ld, k0, S, dh);
+  const float fb = first_bias(a.bias, bias0, S, FR);
+  int nqt = (S + FC - 1) / FC;  // 0 once the block's keys prove to lie past the live extent
   auto issue = [&](int qt, int slot) {
     if (qt < nqt) {
       float* st = ring + slot * STAGE;
@@ -467,6 +483,12 @@ attn_bwd_dkv_f32_tiled(Attn<float> a, const float* __restrict__ dout, View ov,
     }
     mdm::cp_async_commit();
   };
+  load_rows<FR, DH, VEC>(Ks, a.k + hb, ld, k0, S, dh);  // K and V ride in group 0
+  load_rows<FR, DH, VEC>(Vs, a.v + hb, ld, k0, S, dh);
+  issue(0, 0);
+  const int full = nqt;
+  if (k0 >= live_extent<FT / 32>(a.bias, bias0, S, FR, fb)) nqt = 0;
+  count_tiles(a.tiles, nqt, full);
   float gk[4][DC / 8], gv[4][DC / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -501,6 +523,7 @@ attn_bwd_dkv_f32_tiled(Attn<float> a, const float* __restrict__ dout, View ov,
     tile_product<DH, DC>(gv, Ws, Cs + chunk * DC);
     tile_product<DH, DC>(gk, Gs, Qs + chunk * DC);
   });
+  if (!nqt) mdm::cp_async_wait<0>();  // a block past the extent: its copies land before it exits
   const float one[4] = {1.0f, 1.0f, 1.0f, 1.0f};
   store_rows<DC, VEC>(gk, one, dk + hb, ld, k0, S, chunk * DC, dh);
   store_rows<DC, VEC>(gv, one, dv + hb, ld, k0, S, chunk * DC, dh);

@@ -1,7 +1,10 @@
 // The bf16 forward of the attention core (see attention.cu for the design):
 // one block of 4 warps per 64-row query tile, mma.sync m16n8k16 from
 // ldmatrix, the row's logits in registers up to S = 256 (RESIDENT) for the
-// head dims up to 128, two passes over the keys otherwise.
+// head dims up to 128, two passes over the keys otherwise. The key walk
+// stops at the batch element's last live 64-key tile (live_extent: its
+// key-padding row, read while the stream's first two tiles are in flight);
+// the stream, the keep draws and the resident tiles follow it.
 
 #include "attention.cuh"
 
@@ -53,7 +56,9 @@ attn_fwd_bf16(Attn<bf16> a, OT* __restrict__ out, View ov) {
   const int S = a.S, ld = a.in.ld, dh = a.dh;
   const size_t hb = a.in.head(b, h);
   const bf16 *kb = a.k + hb, *vb = a.v + hb;
-  const int nkt = (S + AT - 1) / AT, total = (RESIDENT ? 2 : 3) * nkt;  // tiles in the stream
+  // Key tiles walked and tiles in the stream: a full walk's until the live
+  // extent is read, with the stream's first tiles in flight.
+  int nkt = (S + AT - 1) / AT, total = (RESIDENT ? 2 : 3) * nkt;
   const long long bias0 = (long long)b * a.bias.bb + (long long)h * a.bias.bh;
   const int i0 = q0 + warp * 16 + g;       // this thread's rows: i0, i0 + 8
   const bool active = q0 + warp * 16 < S;  // the warp has a row below S
@@ -90,9 +95,21 @@ attn_fwd_bf16(Attn<bf16> a, OT* __restrict__ out, View ov) {
     ++u;
     return st;
   };
+  const float fb = first_bias(a.bias, bias0, S, AT);
   load_tile<DH, VEC>(Qs, a.q + hb, ld, q0, S, dh);  // rides in group 0 with tile 0
   issue(0, 0, false);
   if (nst == 3) issue(1, 1, false);
+  const int full = nkt;
+  nkt = (live_extent<AT_THREADS / 32>(a.bias, bias0, S, AT, fb) + AT - 1) / AT;
+  total = (RESIDENT ? 2 : 3) * nkt;
+  count_tiles(a.tiles, nkt, full);
+  if (nst == 3 && nkt == 1 && full > 1) {
+    // Tile 1 of a one-tile walk is not key tile 1 (the value tile 0, or key
+    // tile 0 again): once every copy has landed, fetch it over key tile 1.
+    mdm::cp_async_wait<0>();
+    __syncthreads();
+    issue(1, 1, false);
+  }
 
   int rb[2];
   bias_rows(rb, a, form, bias0, i0);

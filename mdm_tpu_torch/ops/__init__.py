@@ -21,9 +21,15 @@ to be taken.
 global batch rows from b0: every dropout site then passes b0 as its
 ``batch_offset``, so a data-parallel rank draws exactly its rows of the
 one-process masks (the counterpart of ``shard_seed_offset``).
+
+Beside the modules' launch counts, ``attention_key_tiles()`` reads and
+resets the attention core's engagement, counted while a ``torch.profiler``
+records: the score tiles its blocks computed, and those a walk over every
+key would have (each walk stops at its batch element's last live key).
 """
 import contextlib
 
+from ._chain import attention_key_tiles  # noqa: F401  (the attention core's counter)
 from ._mask import row_bias_contrib  # noqa: F401
 from .attention import fused_attention, xla_attention  # noqa: F401
 from .attention_block import attention_block_reference, fused_attention_block  # noqa: F401

@@ -43,10 +43,10 @@ SIGNATURES = {
     "mdm_colsum": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mdm_gemm_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mdm_gemm_wgmma_occupancy": [_I, _I, _I, _I, _P],
-    "mdm_attention_fwd": [_P, _P, _P, *_VIEW, _P, *_VIEW, *_DROP, _P, *_VIEW, _I,
+    "mdm_attention_fwd": [_P, _P, _P, *_VIEW, _P, *_VIEW, *_DROP, _P, *_VIEW, _I, _P,
                           _I, _I, _I, _I, _I, _P],
     "mdm_attention_bwd": [_P, _P, _P, *_VIEW, _P, *_VIEW, *_DROP, _P, _P, *_VIEW, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _P],
+                          _P, _I, _I, _I, _I, _I, _P],
     "mdm_attention_fwd_occupancy": [_I, _I, _I, _I, _P],
     "mdm_attention_bwd_occupancy": [_I, _I, _I, _P],
     "mdm_attention_f32_plan": [_I, _P],

@@ -16,6 +16,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
 from . import _build
 from .dropout_bits import keep_threshold
@@ -307,6 +308,39 @@ def attention_f32_plan_on_card(head_dim: int) -> dict:
                 blocks_per_sm={k: plan[8 + i] for i, k in enumerate(kernels)})
 
 
+# Per card, the attention core's engagement while a profiler records: an
+# int64 [2] of the (query tile, key tile) score tiles its blocks walked and
+# of those a full walk would have (csrc/attention.cuh::count_tiles).
+_KEY_TILES: dict = {}
+
+
+def key_tile_counter(x: torch.Tensor):
+    """The address of x's card's counter while a torch.profiler records
+    (the test of ``utils/tracing.span``), else None: the kernels then
+    execute no atomic. A new counter is copied from pinned host memory, so
+    making it inside a traced window launches no kernel."""
+    if not _profiler._is_profiler_enabled:
+        return None
+    buf = _KEY_TILES.get(x.device)
+    if buf is None:
+        zeros = torch.zeros(2, dtype=torch.int64, pin_memory=True)
+        buf = _KEY_TILES[x.device] = zeros.to(x.device, non_blocking=True)
+    return buf.data_ptr()
+
+
+def attention_key_tiles():
+    """(walked, full): the score tiles the attention core's blocks computed,
+    and those a full walk over every key would have, in the launches made
+    while a profiler recorded since the last call, summed over the cards;
+    then forgets them. Synchronises with each counted card."""
+    walked = full = 0
+    for buf in _KEY_TILES.values():
+        w, f = buf.tolist()
+        walked, full = walked + w, full + f
+    _KEY_TILES.clear()
+    return walked, full
+
+
 def attention_fwd(q, k, v, view, out, out_view, B: int, S: int, H: int, head_dim: int,
                   bias=None, bias_strides=(0, 0, 0), drop=(None, 0, 0, 0, 1.0, 0)) -> None:
     """out = dropout(softmax(q k^T / sqrt(Dh) + bias)) v per (batch, head)
@@ -316,8 +350,9 @@ def attention_fwd(q, k, v, view, out, out_view, B: int, S: int, H: int, head_dim
     column blocks in a packed tensor that starts with q)."""
     lib = _build.load_library()
     _build.check(lib.mdm_attention_fwd(ptr(q), ptr(k), ptr(v), *view, ptr(bias), *bias_strides,
-                                       *drop, ptr(out), *out_view, DTYPES[out.dtype], B, S, H,
-                                       head_dim, check_dtype(q, "attention"), stream(q)),
+                                       *drop, ptr(out), *out_view, DTYPES[out.dtype],
+                                       key_tile_counter(q), B, S, H, head_dim,
+                                       check_dtype(q, "attention"), stream(q)),
                  "attention forward")
 
 
@@ -361,8 +396,8 @@ def attention_bwd(q, k, v, view, dout, out_view, dq, dk, dv, B: int, S: int, H: 
     lib = _build.load_library()
     _build.check(lib.mdm_attention_bwd(ptr(q), ptr(k), ptr(v), *view, ptr(bias), *bias_strides,
                                        *drop, ptr(dout), ptr(ctx), *out_view, ptr(dq), ptr(dk),
-                                       ptr(dv), ptr(stats), B, S, H, head_dim,
-                                       check_dtype(q, "attention"), stream(q)),
+                                       ptr(dv), ptr(stats), key_tile_counter(q), B, S, H,
+                                       head_dim, check_dtype(q, "attention"), stream(q)),
                  "attention backward")
 
 
