@@ -181,6 +181,16 @@ port's two paths at the flagship width (latent 512, 8 layers, 4 heads, ff
   f32 kernel, none on wgmma), timed with CUDA events; and #7/#8, #10-#12
   launched on their f32 routes. ``python3 chip_smoke.py --f32-route`` runs
   the build and this phase alone.
+- DiT-XL (phase 22; ``arch="dit"``, 28 x 1152, 16 heads of 72): the
+  adaptive LayerNorm row kernel (``ops/adaln.py``) against its plain version
+  at its edges and, timed with its bytes bound, at the cell
+  dit_xl_humanml.generate_b128's [256, 196, 1152]; the wgmma products with
+  the tanh-GELU epilogue at DiT's fc1 and the f32 product's tanh instance;
+  the rate-0 attention block at heads of 72 (the 96 instance); the model in
+  bf16 and f32 against the plain DiT; the bf16 forward at the cell's batch
+  and ``MotionGenerator.generate`` / ``cli.generate --arch dit``, their
+  launches exact. ``python3 chip_smoke.py --dit`` runs the build and this
+  phase alone.
 
 Each path checks that every layer call went through its kernels, and the
 sampling and training paths that every product, forward and backward,
@@ -4812,6 +4822,221 @@ def phase_f32_route(torch, TB, ET, li, dev):
     return rows, paths
 
 
+DIT_XL = dict(latent_dim=1152, ff_size=4608, num_layers=28, num_heads=16)  # DiT-XL's widths
+DIT_CELL = (128, 196)  # dit_xl_humanml.generate_b128: prompts, frames (a guided batch of 256)
+DIT_REL = 0.05  # a bf16 DiT-XL forward against the f32 plain one, per motion (rel. L2)
+
+
+def _dit_weights(torch, model, seed=22):
+    """Random weights for every parameter of a DiT: N(0, 1 / fan_in) for a
+    weight, N(0, 0.02^2) for a bias (the benchmark's draw), so that every
+    modulation and gate does work (DiT's own init zeroes them)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            sc = p.shape[-1] ** -0.5 if p.dim() > 1 else 0.02
+            p.copy_(torch.randn(p.shape, generator=g, device="cuda") * sc)
+    return model.eval()
+
+
+def _dit_cond(torch, B, S, seed=23):
+    from mdm_tpu_torch.models import Conditioning
+
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(40, S + 1, (B,), generator=g)
+    mask = torch.arange(S)[None, :] < lengths[:, None]
+    return Conditioning(text_embed=torch.randn(B, 512, generator=g).cuda(), frames_mask=mask.cuda())
+
+
+def phase_dit(torch, dev):
+    """Phase 22: DiT's kernels and model at DiT-XL's widths (the cell
+    dit_xl_humanml.generate_b128). (a) ``adaln_modulate`` against its plain
+    version at the edges (D 8, 144, 1152, 2056 x with and without the
+    residual x bf16 / f32; f32 at D 1152 reads the row's last chunks twice)
+    and, timed, at the cell's [256, 196, 1152] bf16 with its bytes bound;
+    (b) the wgmma product with the tanh-GELU epilogue (fc1: N 4608, K 1152)
+    at M 1, 129, 12608 and the cell's 50176 against the plain product, its
+    occupancy, and the f32 product's tanh instance at M 394; (c) the rate-0
+    attention block at 16 heads of 72 (the 96 instance) with ragged key
+    padding against its plain version, timed; (d) a DiT-XL forward in bf16
+    and in f32 against the float32 plain DiT (benchmark/reference/dit.py's
+    function, imported here as a plain torch reference) on 2 x 4 rows, and
+    the bf16 forward at the cell's batch timed with its launches;
+    (e) ``MotionGenerator.generate`` at the cell's 128 prompts, 50 steps,
+    and ``cli.generate --arch dit`` at 4 prompts, with their launches."""
+    from mdm_tpu_torch.models import MDM, MDMConfig
+    from mdm_tpu_torch.models.mdm import cfg_denoiser
+    from mdm_tpu_torch.ops import _chain
+    from mdm_tpu_torch.ops import adaln as AD
+    from mdm_tpu_torch.ops import attention_train_block as TB
+    from mdm_tpu_torch.scripts.gemm_probe import device_ms
+
+    out = {"adaln": [], "gemm_tanh": [], "attention": {}, "forward": {}, "generate": {}}
+    g = torch.Generator(device="cuda").manual_seed(22)
+    rnd = lambda *shape, dt=torch.float32: torch.randn(*shape, generator=g, device=dev).to(dt)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (a) the adaptive LayerNorm
+    for dt in (bf16, f32):
+        for D in (8, 144, 1152, 2056):
+            for res in (False, True):
+                B, S = 3, 37
+                x, y = rnd(B, S, D, dt=dt), rnd(B, S, D, dt=dt)
+                mod = rnd(B, 6 * D + 4)  # a row stride past the blocks, as the stacked product's
+                gate, shift, scale = (mod[:, k * D:(k + 1) * D] for k in (2, 3, 4))
+                got = AD.adaln_modulate(x, y if res else None, gate, shift, scale)
+                want = AD.adaln_modulate_reference(x, y if res else None, gate, shift, scale)
+                rel = 2 ** -7 if dt == bf16 else 1e-5
+                row = dict(D=D, residual=res, dtype=str(dt).split(".")[-1],
+                           h=_rel_check(torch, f"adaln h D={D}", got[1], want[1], rel)[1])
+                if res:
+                    row["x"] = _rel_check(torch, f"adaln x D={D}", got[0], want[0], rel)[1]
+                out["adaln"].append(row)
+    (B, S), D, F = DIT_CELL, DIT_XL["latent_dim"], DIT_XL["ff_size"]
+    M = 2 * B * S
+    x, y = rnd(2 * B, S, D, dt=bf16), rnd(2 * B, S, D, dt=bf16)
+    mod = rnd(2 * B, 28 * 6 * D + 2 * D)
+    gate, shift, scale = (mod[:, (27 * 6 + k) * D:(27 * 6 + k + 1) * D] for k in (5, 6, 7))
+    for res in (False, True):
+        yy, gg = (y, gate) if res else (None, None)
+        kernel = lambda: AD.adaln_modulate(x, yy, gg, shift, scale)
+        plain = lambda: AD.adaln_modulate_reference(x, yy, gg, shift, scale)
+        err = _rel_check(torch, "adaln at the cell", kernel()[1], plain()[1], 2 ** -7)[1]
+        p1, k1, k2, p2 = (_time_ms(torch, f) for f in (plain, kernel, kernel, plain))
+        nbytes_ = (4 if res else 2) * 2 * M * D + (3 if res else 2) * 4 * 2 * B * D
+        out["adaln"].append(dict(shape=[2 * B, S, D], residual=res, rel_err=err,
+                                 ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                                 device_ms=device_ms(kernel), bound_ms=bound(10 * M * D, nbytes_)[0],
+                                 bound_by="bytes"))
+    print("22a adaln", json.dumps(out["adaln"]))
+    # (b) the tanh-GELU epilogue
+    w, bias = rnd(F, D, dt=bf16) * D ** -0.5, rnd(F, dt=bf16) * 0.1
+    plain_tanh = lambda a, w_, b_: torch.nn.functional.gelu(
+        a.float() @ w_.float().T + b_.float(), approximate="tanh")
+    for rows in (1, 129, 12608, M):
+        a = rnd(rows, D, dt=bf16)
+        kernel = lambda: _chain.gemm(a, w, bias=bias, gelu="tanh")
+        err = _rel_check(torch, f"gemm tanh M={rows}", kernel(), plain_tanh(a, w, bias), 2 ** -7)[1]
+        row = dict(M=rows, N=F, K=D, rel_err=err)
+        if rows == M:
+            p1, k1, k2, p2 = (_time_ms(torch, f) for f in (
+                lambda: plain_tanh(a, w, bias), kernel, kernel, lambda: plain_tanh(a, w, bias)))
+            exact = lambda: _chain.gemm(a, w, bias=bias, gelu=True)
+            row.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, device_ms=device_ms(kernel),
+                       exact_gelu_device_ms=device_ms(exact),
+                       bound_ms=bound(2 * rows * D * F, 2 * (rows * D + D * F + rows * F))[0],
+                       bound_by="operations",
+                       library_ms=_time_ms(torch, lambda: torch.nn.functional.gelu(
+                           torch.nn.functional.linear(a, w, bias), approximate="tanh")))
+        out["gemm_tanh"].append(row)
+    a32, w32, b32 = rnd(394, D), rnd(F, D) * D ** -0.5, rnd(F) * 0.1
+    err = _rel_check(torch, "gemm f32 tanh", _chain.gemm(a32, w32, bias=b32, gelu="tanh"),
+                     plain_tanh(a32, w32, b32), 1e-4)[1]
+    out["gemm_tanh"].append(dict(M=394, N=F, K=D, dtype="float32", rel_err=err,
+                                 occupancy_bf16=_chain.wgmma_occupancy(False, "tanh")))
+    print("22b gemm tanh", json.dumps(out["gemm_tanh"]))
+    # (c) the attention at 16 heads of 72: the 96 instance, ragged key padding
+    H = DIT_XL["num_heads"]
+    cond = _dit_cond(torch, 2 * B, S)
+    kpm = ~cond.frames_mask
+    h = rnd(2 * B, S, D, dt=bf16)
+    wqkv, bqkv = rnd(3 * D, D, dt=bf16) * D ** -0.5, rnd(3 * D, dt=bf16) * 0.02
+    wo, bo = rnd(D, D, dt=bf16) * D ** -0.5, rnd(D, dt=bf16) * 0.02
+    out["attention"] = compare_forward(
+        torch, "DiT-XL rate-0 block, 16 heads of 72",
+        lambda: TB.fused_block_attention_inference(h, wqkv, bqkv, wo, bo, H, key_padding_mask=kpm),
+        lambda: TB.train_attention_block_reference(h, wqkv, bqkv, wo, bo, H,
+                                                   key_padding_mask=kpm), 2 ** -5, timed=True)
+    out["attention"]["padded_head_dim"] = _chain.padded_head_dim(D // H)
+    # (d) the model against the plain DiT
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from benchmark.reference import dit as plain_dit
+    from benchmark.reference.precision import Precision
+
+    den = dict(DIT_XL, njoints=263, nfeats=1, text_dim=512, mask_frames=True)
+    keys = ("latent_dim", "ff_size", "num_layers", "num_heads", "njoints", "nfeats", "text_dim",
+            "mask_frames")
+    models = {}
+    for dtype in ("bfloat16", "float32"):
+        with torch.device(dev):
+            models[dtype] = MDM(MDMConfig(arch="dit", compute_dtype=dtype,
+                                          **{k: den[k] for k in keys})).to(dev)
+        _dit_weights(torch, models[dtype])
+    P = {k: v.float() for k, v in models["float32"].state_dict().items()}
+    models["bfloat16"].load_state_dict(P)
+    small = _dit_cond(torch, 8, S, seed=24)
+    xs, ts = rnd(8, S, 263), torch.randint(0, 50, (8,), device=dev)
+    with torch.no_grad():
+        want = plain_dit.dit_forward(P, den, xs, ts, small.text_embed, prec=Precision("f32"),
+                                     frames_mask=small.frames_mask)
+        for dtype, model in models.items():
+            got = model(xs, ts, small)
+            rel = ((got - want).flatten(1).norm(dim=1) / want.flatten(1).norm(dim=1)).max().item()
+            if not rel <= (DIT_REL if dtype == "bfloat16" else 1e-4):
+                raise AssertionError(f"DiT-XL {dtype} forward vs plain: rel {rel}")
+            out["forward"][f"{dtype} vs plain, per motion"] = rel
+    del models["float32"]
+    torch.cuda.empty_cache()
+    model = models["bfloat16"]
+    x2 = rnd(2 * B, S, 263)
+    t2 = torch.randint(0, 50, (2 * B,), device=dev)
+    cond2 = cond.replace(cond_drop=torch.arange(2 * B, device=dev) >= B)
+    counts = lambda: (AD.LAUNCHES, _chain.GEMM_LAUNCHES["wgmma"], TB.LAUNCHES["fwd"])
+    with torch.inference_mode():
+        c0 = counts()
+        model(x2, t2, cond2)
+        c1 = counts()
+        fwd_ms = _time_ms(torch, lambda: model(x2, t2, cond2), iters=5)
+        fwd_dev = device_ms(lambda: model(x2, t2, cond2), calls=3, replays=2)
+    launches = dict(zip(("adaln", "wgmma", "attention block"), (b - a for a, b in zip(c0, c1))))
+    want_launches = dict(adaln=1 + 2 * 28, wgmma=4 * 28 + 1, **{"attention block": 28})
+    if launches != want_launches:
+        raise AssertionError(f"a DiT-XL forward launched {launches}, not {want_launches}")
+    out["forward"].update(batch=[2 * B, S], ms=fwd_ms, device_ms=fwd_dev, launches=launches,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print("22d forward", json.dumps(out["forward"]))
+    # (e) the generation path
+    from mdm_tpu_torch.diffusion import Schedule
+    from mdm_tpu_torch.sampling import GenerationConfig, MotionGenerator
+
+    gen = MotionGenerator(model, Schedule.create("cosine", 50), GenerationConfig(guidance_scale=2.5))
+    c_req = _dit_cond(torch, B, S, seed=25)
+    gen.generate(c_req, B, S, torch.Generator(dev).manual_seed(1))
+    c0 = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gen.generate(c_req, B, S, torch.Generator(dev).manual_seed(2))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    c1 = counts()
+    if not torch.isfinite(res["joints"]).all() or c1[0] - c0[0] != 50 * 57:
+        raise AssertionError(f"generate: finite {torch.isfinite(res['joints']).all()}, "
+                             f"adaln launches {c1[0] - c0[0]}")
+    out["generate"] = dict(prompts=B, steps=50, s=gen_s, motions_per_s=B / gen_s,
+                           launches=dict(zip(("adaln", "wgmma", "attention block"),
+                                             (b - a for a, b in zip(c0, c1)))))
+    del gen, model, models
+    torch.cuda.empty_cache()
+    from mdm_tpu_torch.cli import generate as gen_cli
+
+    os.environ["MDM_TPU_NO_RENDER"] = "1"
+    with tempfile.TemporaryDirectory() as tmp:
+        c0 = counts()
+        gen_cli.main(["--model_path", os.path.join(tmp, "none"), "--arch", "dit", "--layers", "28",
+                      "--latent_dim", "1152", "--ff_size", "4608", "--num_heads", "16",
+                      "--compute_dtype", "bfloat16", "--text_encoder_type", "hash",
+                      "--text_prompt", "a person walks", "--num_samples", "4",
+                      "--num_repetitions", "1", "--diffusion_steps", "50", "--motion_length",
+                      "9.8", "--output_dir", tmp, "--device", "0"])
+        c1 = counts()
+        saved = np.load(os.path.join(tmp, "results.npy"), allow_pickle=True).item()
+    out["generate"]["cli.generate"] = dict(motion=list(saved["motion"].shape), launches=dict(zip(
+        ("adaln", "wgmma", "attention block"), (b - a for a, b in zip(c0, c1)))))
+    if c1[0] - c0[0] != 50 * 57:
+        raise AssertionError(f"cli.generate --arch dit: {c1[0] - c0[0]} adaln launches")
+    print("22e generate", json.dumps(out["generate"]))
+    return out
+
+
 def main():
     # Before cuBLAS starts: the workspace setting PyTorch documents for
     # reproducible runs, which the classifier stages' cuDNN GRUs need to
@@ -4823,8 +5048,9 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible; nothing was run")
     f32_only = sys.argv[1:] == ["--f32-route"]
-    if sys.argv[1:] and not f32_only:
-        sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --f32-route)")
+    dit_only = sys.argv[1:] == ["--dit"]
+    if sys.argv[1:] and not (f32_only or dit_only):
+        sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, --f32-route or --dit)")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mdm_tpu_torch.diffusion import Schedule
     from mdm_tpu_torch.models import MDM, Conditioning, MDMConfig
@@ -4912,6 +5138,11 @@ def main():
     if f32_only:  # phase 21 alone (python3 chip_smoke.py --f32-route)
         phase_f32_route(torch, TB, ET, li, dev)
         stamp("phase 21")
+        return
+    if dit_only:  # phase 22 alone (python3 chip_smoke.py --dit)
+        print(f"ptxas, adaln: {json.dumps(_build.ptxas_report(log, 'adaln_modulate'))}")
+        phase_dit(torch, dev)
+        stamp("phase 22")
         return
     phase_f32_plan(torch)
 
@@ -5171,6 +5402,11 @@ def main():
     # Phase 21: the float32 route; its paths' launches counted from zero.
     f32_rows, f32_paths = phase_f32_route(torch, TB, ET, li, dev)
     stamp("phase 21")
+    # Phase 22: DiT-XL (arch="dit"): the adaptive LayerNorm, the tanh-GELU
+    # products, the attention at heads of 72, the model and its generation.
+    print(f"ptxas, adaln: {json.dumps(_build.ptxas_report(log, 'adaln_modulate'))}")
+    phase_dit(torch, dev)
+    stamp("phase 22")
     par_one, par_two, par_tp = world_one["launches"], two_ranks["launches"], tp_train["launches"]
     sampling_paths = {"sampling (phases 3-4)": kernels[0]["launches"],
                       "cli.generate (phase 15)": cli["generate"]["fused_layer_inference"],

@@ -58,6 +58,9 @@ def main(argv=None):
     # Multi-process activation comes first: the rank's device follows it.
     maybe_initialize_distributed()
     args = train_args(argv)
+    if args.arch == "dit":
+        raise SystemExit("--arch dit is generation only: training it needs the backward of its "
+                         "kernels (ops/adaln.py), which the port does not have yet")
     device = select_device(args)
     if os.path.exists(args.save_dir) and os.listdir(args.save_dir) and not args.overwrite:
         if not any(f.startswith("ckpt_") for f in os.listdir(args.save_dir)):

@@ -32,6 +32,12 @@ __device__ __forceinline__ float gelu_exact(float u) {
   return u * 0.5f * (1.0f + erff(u * kInvSqrt2));
 }
 
+// GELU's tanh form, 0.5 u (1 + tanh(sqrt(2/pi) (u + 0.044715 u^3))): DiT's
+// MLP (torch's F.gelu(approximate="tanh")).
+__device__ __forceinline__ float gelu_tanh(float u) {
+  return 0.5f * u * (1.0f + tanhf(0.7978845608028654f * (u + 0.044715f * u * u * u)));
+}
+
 // d gelu / du = Phi(u) + u phi(u), exact (encoder_tail.py::_gelu_grad_f32).
 __device__ __forceinline__ float gelu_grad(float u) {
   const float phi = expf(-0.5f * u * u) * kInvSqrt2Pi;

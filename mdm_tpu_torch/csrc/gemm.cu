@@ -117,8 +117,9 @@ __device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4], u
 
 // C[M, N] (or split z's partial) = act(op(A) . op(B) + bias) + R over K
 // range [z * kchunk, min(K, (z + 1) * kchunk)). AKM: A stored [K, M];
-// BKN: B stored [K, N]; VEC: 16-byte copies (see above).
-template <bool AKM, bool BKN, bool VEC>
+// BKN: B stored [K, N]; VEC: 16-byte copies (see above); TANH: gelu is
+// GELU's tanh form (DiT's MLP) in place of the exact one.
+template <bool AKM, bool BKN, bool VEC, bool TANH = false>
 __global__ void __launch_bounds__(TTHREADS)
 gemm_f32_tf32x3(const float* __restrict__ A, const float* __restrict__ B,
                 const float* __restrict__ bias, const float* __restrict__ R,
@@ -223,7 +224,7 @@ gemm_f32_tf32x3(const float* __restrict__ A, const float* __restrict__ B,
           if (gc < N) {
             float v = acc[i][j][2 * e2 + e1];
             if (bias) v += bias[gc];
-            if (gelu) v = mdm::gelu_exact(v);
+            if (gelu) v = TANH ? mdm::gelu_tanh(v) : mdm::gelu_exact(v);
             if (R) v += R[(size_t)gr * N + gc];
             C[(size_t)gr * N + gc] = v;
           }
@@ -231,17 +232,17 @@ gemm_f32_tf32x3(const float* __restrict__ A, const float* __restrict__ B,
     }
 }
 
-template <bool AKM, bool BKN, bool VEC>
+template <bool AKM, bool BKN, bool VEC, bool TANH = false>
 cudaError_t launch_tf32x3(dim3 grid, cudaStream_t st, const float* A, const float* B,
                           const float* bias, const float* R, float* C, int M, int N, int K,
                           int kchunk, bool gelu) {
   static bool done = false;  // more than 48 KB of shared memory: opt in once
   if (!done) {
-    const cudaError_t e = mdm::allow_smem(gemm_f32_tf32x3<AKM, BKN, VEC>, T_SMEM);
+    const cudaError_t e = mdm::allow_smem(gemm_f32_tf32x3<AKM, BKN, VEC, TANH>, T_SMEM);
     if (e != cudaSuccess) return e;
     done = true;
   }
-  gemm_f32_tf32x3<AKM, BKN, VEC><<<grid, TTHREADS, T_SMEM, st>>>(A, B, bias, R, C, M, N, K,
+  gemm_f32_tf32x3<AKM, BKN, VEC, TANH><<<grid, TTHREADS, T_SMEM, st>>>(A, B, bias, R, C, M, N, K,
                                                                  kchunk, gelu);
   return cudaGetLastError();
 }
@@ -249,7 +250,9 @@ cudaError_t launch_tf32x3(dim3 grid, cudaStream_t st, const float* A, const floa
 template <bool VEC>
 cudaError_t launch_layout(bool a_km, bool b_kn, dim3 grid, cudaStream_t st, const float* A,
                           const float* B, const float* bias, const float* R, float* C, int M,
-                          int N, int K, int kchunk, bool gelu) {
+                          int N, int K, int kchunk, int gelu) {
+  if (!a_km && !b_kn && gelu == 2)
+    return launch_tf32x3<false, false, VEC, true>(grid, st, A, B, bias, R, C, M, N, K, kchunk, true);
   if (!a_km && !b_kn)
     return launch_tf32x3<false, false, VEC>(grid, st, A, B, bias, R, C, M, N, K, kchunk, gelu);
   if (!a_km && b_kn)
@@ -328,14 +331,17 @@ cudaError_t sum_splits(const float* work, float* out, size_t n, int splits, cuda
 }  // namespace mdm
 
 // Float32 A, B, bias, R and C (the bf16 products are mdm_gemm_wgmma's).
-// gelu: the exact GELU after the bias. splits > 1: split-K over `work` (f32
+// gelu: 1 the exact GELU after the bias, 2 its tanh form (A [M, K] and B [N, K]
+// only). splits > 1: split-K over `work` (f32
 // [splits, M, N]) in chunks of whole 32-row steps; then bias and R null and
 // gelu 0.
 extern "C" int mdm_gemm_f32(const void* a, const void* b, const void* bias, const void* r,
                             void* c, void* work, int M, int N, int K, int a_km, int b_kn,
                             int splits, int gelu, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || N <= 0 || K <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || K <= 0 || splits < 1 || gelu < 0 || gelu > 2 ||
+      (gelu == 2 && (a_km || b_kn)))
+    return (int)cudaErrorInvalidValue;
   if (splits > 1 && (bias || r || gelu || !work)) return (int)cudaErrorInvalidValue;
   const int kchunk = splits > 1 ? ((K + splits - 1) / splits + 31) / 32 * 32 : K;
   const float *A = static_cast<const float*>(a), *B = static_cast<const float*>(b);

@@ -1,6 +1,7 @@
 // Every bf16 matrix product of the kernel chains on Hopper's own path:
 //
-//   C[M,N] = act(op(A) . op(B) (+ bias[N])) (+ R[M,N]),  act: identity or exact GELU
+//   C[M,N] = act(op(A) . op(B) (+ bias[N])) (+ R[M,N]),  act: identity, exact GELU or
+//                                                          GELU's tanh form (DiT's MLP)
 //   op(A): A stored [M,K] (K-major), or [K,M] (TA, M-major: the dW = dY^T X form)
 //   op(B): B stored [N,K] (K-major, a torch weight: x W^T), or [K,N] (TB,
 //          N-major: the backward's dY W and dY^T X forms)
@@ -216,11 +217,12 @@ __device__ __forceinline__ void store_pair(unsigned char* p, float v0, float v1,
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
 }
 
-// The epilogue of an instance: + bias (any), then the exact GELU (x . W^T)
-// or + the f32 residual (dY . W). Each is an instance of its own: a kernel
-// that also held the residual's path, even behind one branch per item,
-// ran the x . W^T products 2-7% slower.
-enum Epi { PLAIN, GELU, RESIDUAL };
+// The epilogue of an instance: + bias (any), then the exact GELU or its tanh
+// form (x . W^T) or + the f32 residual (dY . W). Each is an instance of its
+// own: a kernel that also held the residual's path, even behind one branch
+// per item, ran the x . W^T products 2-7% slower. GELU_TANH (DiT) comes last
+// so that the other instances keep their numbers and their code.
+enum Epi { PLAIN, GELU, RESIDUAL, GELU_TANH };
 
 // A warpgroup's 64 x 128 outputs from its accumulators (rows r0.., columns
 // n0..) into its staging tile, in f32, rounded to TO.
@@ -246,6 +248,10 @@ __device__ __forceinline__ void epilogue(const float (&acc)[64], unsigned char* 
       if constexpr (EPI == GELU) {
         v0 = mdm::gelu_exact(v0);
         v1 = mdm::gelu_exact(v1);
+      }
+      if constexpr (EPI == GELU_TANH) {
+        v0 = mdm::gelu_tanh(v0);
+        v1 = mdm::gelu_tanh(v1);
       }
       if constexpr (EPI == RESIDUAL) {
         const int r = r0 + row + 8 * i;
@@ -482,13 +488,16 @@ cudaError_t launch(const void* a, const void* b, const void* bias, const float* 
   return cudaGetLastError();
 }
 
-// The instances, each storing bf16 or f32: x . W^T plain or with GELU,
-// dY . W plain or with the residual, dY^T . X plain; the epilogue of a
-// (form, gelu, residual) no instance has: cudaErrorInvalidValue.
+// The instances, each storing bf16 or f32: x . W^T plain, with the exact
+// GELU (gelu 1) or with its tanh form (gelu 2), dY . W plain or with the
+// residual, dY^T . X plain; the epilogue of a (form, gelu, residual) no
+// instance has: cudaErrorInvalidValue.
 template <typename TO>
 cudaError_t dispatch(int a_km, int b_kn, int gelu, const void* a, const void* b,
                      const void* bias, const float* r, void* c, int M, int N, int K, int splits,
                      int kchunk, int grid, cudaStream_t st) {
+  if (!a_km && !b_kn && !r && gelu == 2)
+    return launch<TO, GELU_TANH, false, false>(a, b, bias, r, c, M, N, K, splits, kchunk, grid, st);
   if (!a_km && !b_kn && !r)
     return gelu ? launch<TO, GELU, false, false>(a, b, bias, r, c, M, N, K, splits, kchunk, grid, st)
                 : launch<TO, PLAIN, false, false>(a, b, bias, r, c, M, N, K, splits, kchunk, grid, st);
@@ -510,6 +519,7 @@ cudaError_t occupancy_of(int* blocks) {
 
 template <typename TO>
 cudaError_t occupancy(int a_km, int b_kn, int gelu, int* blocks) {
+  if (!a_km && !b_kn && gelu == 2) return occupancy_of<TO, GELU_TANH, false, false>(blocks);
   if (!a_km && !b_kn)
     return gelu ? occupancy_of<TO, GELU, false, false>(blocks)
                 : occupancy_of<TO, PLAIN, false, false>(blocks);
@@ -523,8 +533,8 @@ cudaError_t occupancy(int a_km, int b_kn, int gelu, int* blocks) {
 // C = act(op(A) . op(B) + bias) + R: op(A) is A [M, K], or A^T of A stored
 // [K, M] when a_km; op(B) is B^T of B [N, K], or B stored [K, N] when b_kn.
 // A, B and bias [N] (or null) bf16, R [M, N] f32 (or null); C [M, N] f32
-// when out_f32, else bf16; gelu: the exact GELU after the bias (the x . W^T
-// form only); R: the dY . W form only. splits > 1: split-K into `work` (f32
+// when out_f32, else bf16; gelu: 1 the exact GELU after the bias, 2 its tanh
+// form (the x . W^T form only); R: the dY . W form only. splits > 1: split-K into `work` (f32
 // [splits, M, N]), summed in split order into C; then C is f32, bias and R
 // null, gelu 0. kchunk: the K rows of each split, a whole number of 64-deep
 // K tiles with none empty (ops/_chain.py::split_rows; K or more when splits
@@ -537,7 +547,7 @@ extern "C" int mdm_gemm_wgmma(const void* a, const void* b, const void* bias, co
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0 || N % 8 || (a_km ? M : K) % 8 || (b_kn ? N : K) % 8 ||
-      grid <= 0 || splits < 1 || kchunk <= 0 || kchunk % BK ||
+      grid <= 0 || splits < 1 || kchunk <= 0 || kchunk % BK || gelu < 0 || gelu > 2 ||
       (long long)(splits - 1) * kchunk >= K || (long long)splits * kchunk < K)
     return (int)cudaErrorInvalidValue;
   if (splits > 1 && (!out_f32 || bias || r || gelu || !work))
@@ -554,7 +564,7 @@ extern "C" int mdm_gemm_wgmma(const void* a, const void* b, const void* bias, co
 }
 
 // Resident blocks per SM of the instance of the form (a_km, b_kn) storing
-// f32 (out_f32) or bf16, with or without GELU:
+// f32 (out_f32) or bf16, without GELU (gelu 0), with it (1) or its tanh form (2):
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor.
 extern "C" int mdm_gemm_wgmma_occupancy(int a_km, int b_kn, int out_f32, int gelu, int* blocks) {
   return (int)(out_f32 ? occupancy<float>(a_km, b_kn, gelu, blocks)

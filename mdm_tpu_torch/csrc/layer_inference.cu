@@ -1,5 +1,6 @@
-// The residual LayerNorm of the sampling layer chain, and the error string
-// every binding reads. With the products of gemm_sm90.cu and the attention
+// The residual LayerNorm of the sampling layer chain, DiT's adaptive
+// LayerNorm (adaln_modulate, below), and the error string every binding
+// reads. With the products of gemm_sm90.cu and the attention
 // core of attention.cu it replaces the Pallas whole-layer kernel
 // mdm_tpu/ops/layer_inference.py::fused_layer_inference (_layer_kernel).
 //
@@ -181,6 +182,123 @@ cudaError_t launch_layernorm(const void* a, const void* r, const void* g, const 
   return cudaSuccess;
 }
 
+// DiT's adaptive LayerNorm (AdaLN-Zero, Peebles & Xie 2022), a row kernel
+// of residual_layernorm's design: per row of x [M, D], M = B * S, of sample
+// b = row / S,
+//
+//   x' = x + gate[b] * y                          (RES: the gated residual)
+//   h  = LN(x') * (1 + scale[b]) + shift[b]       (LayerNorm without affine)
+//
+// gate, shift and scale are f32 rows [B, ld] of the stacked modulation
+// product (models/mdm.py), each pointer at its own column block. x, y, x'
+// and h are T; x' is rounded to T, the LayerNorm reads the f32 sum. No TPU
+// kernel has it: DiT is no configuration of the JAX package. It fuses what
+// DiT runs as four elementwise passes and a LayerNorm, so a row is read and
+// written once: bound by bytes (8 a bf16 value with the residual, 4
+// without), which the warp-per-row layout moves in 16-byte loads. The
+// variance is two-pass, from the values held in registers.
+template <typename T, int CH, bool RES>
+__global__ void __launch_bounds__(256)
+adaln_modulate(const T* __restrict__ x, const T* __restrict__ y, const float* __restrict__ gate,
+               const float* __restrict__ shift, const float* __restrict__ scale, int ld,
+               T* __restrict__ x_out, T* __restrict__ h, int M, int S, int D, float eps) {
+  constexpr int V = 16 / sizeof(T);  // values per chunk
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const size_t off = (size_t)row * D, mod = (size_t)(row / S) * ld;
+  // the row's f32 sum at col; the first time (store) it also writes x'
+  auto load_sum = [&](int col, float* s, bool store) {
+    load_n<V>(x + off + col, s);
+    if constexpr (RES) {
+      float yv[V], g[V];
+      load_n<V>(y + off + col, yv);
+      load_n<V>(gate + mod + col, g);
+#pragma unroll
+      for (int i = 0; i < V; ++i) s[i] += g[i] * yv[i];
+      if (store) store_n<V>(x_out + off + col, s);
+    }
+  };
+  float s[CH][V];
+  float sum = 0.0f;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int col = (lane + 32 * c) * V;
+    if (col < D) {
+      load_sum(col, s[c], true);
+#pragma unroll
+      for (int i = 0; i < V; ++i) sum += s[c][i];
+    }
+  }
+  for (int col = (lane + 32 * CH) * V; col < D; col += 32 * V) {
+    float t[V];
+    load_sum(col, t, true);
+#pragma unroll
+    for (int i = 0; i < V; ++i) sum += t[i];
+  }
+  const float mu = warp_sum(sum) / D;
+  float sq = 0.0f;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int col = (lane + 32 * c) * V;
+    if (col < D) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) sq += (s[c][i] - mu) * (s[c][i] - mu);
+    }
+  }
+  for (int col = (lane + 32 * CH) * V; col < D; col += 32 * V) {
+    float t[V];
+    load_sum(col, t, false);
+#pragma unroll
+    for (int i = 0; i < V; ++i) sq += (t[i] - mu) * (t[i] - mu);
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / D + eps);
+  auto modulate = [&](const float* v, int col) {
+    float sh[V], sc[V], o[V];
+    load_n<V>(shift + mod + col, sh);
+    load_n<V>(scale + mod + col, sc);
+#pragma unroll
+    for (int i = 0; i < V; ++i) o[i] = (v[i] - mu) * rstd * (1.0f + sc[i]) + sh[i];
+    store_n<V>(h + off + col, o);
+  };
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int col = (lane + 32 * c) * V;
+    if (col < D) modulate(s[c], col);
+  }
+  for (int col = (lane + 32 * CH) * V; col < D; col += 32 * V) {
+    float t[V];
+    load_sum(col, t, false);
+    modulate(t, col);
+  }
+}
+
+template <typename T, int CH>
+void launch_adaln(bool res, const void* x, const void* y, const float* gate, const float* shift,
+                  const float* scale, int ld, void* x_out, void* h, int M, int S, int D,
+                  float eps, cudaStream_t st) {
+  const dim3 grid((M + 7) / 8);
+  const T *X = static_cast<const T*>(x), *Y = static_cast<const T*>(y);
+  T *XO = static_cast<T*>(x_out), *H = static_cast<T*>(h);
+  if (res)
+    adaln_modulate<T, CH, true><<<grid, 256, 0, st>>>(X, Y, gate, shift, scale, ld, XO, H, M, S, D, eps);
+  else
+    adaln_modulate<T, CH, false><<<grid, 256, 0, st>>>(X, Y, gate, shift, scale, ld, XO, H, M, S, D, eps);
+}
+
+// The instance whose CH chunks per lane cover D (as launch_layernorm's).
+template <typename T>
+void dispatch_adaln(bool res, const void* x, const void* y, const float* gate,
+                    const float* shift, const float* scale, int ld, void* x_out, void* h, int M,
+                    int S, int D, float eps, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const int chunks = (D / V + 31) / 32;
+  if (chunks <= 1) launch_adaln<T, 1>(res, x, y, gate, shift, scale, ld, x_out, h, M, S, D, eps, st);
+  else if (chunks <= 2) launch_adaln<T, 2>(res, x, y, gate, shift, scale, ld, x_out, h, M, S, D, eps, st);
+  else if (chunks <= 4) launch_adaln<T, 4>(res, x, y, gate, shift, scale, ld, x_out, h, M, S, D, eps, st);
+  else launch_adaln<T, 8>(res, x, y, gate, shift, scale, ld, x_out, h, M, S, D, eps, st);
+}
+
 }  // namespace
 
 extern "C" const char* mdm_error_string(int err) {
@@ -207,5 +325,28 @@ extern "C" int mdm_residual_layernorm(const void* a, const void* r, const void* 
   else
     return (int)cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// DiT's adaptive LayerNorm (adaln_modulate above): x [M, D], y [M, D] (or
+// null: the LayerNorm and the modulation alone, x_out unused), x_out and h
+// [M, D], all of dtype (0 = float32, 1 = bfloat16); gate (with y), shift and
+// scale f32, the row of sample b at + b * ld, M = B * S. D a multiple of 8,
+// ld of 4; every pointer 16-byte aligned.
+extern "C" int mdm_adaln_modulate(const void* x, const void* y, const void* gate,
+                                  const void* shift, const void* scale, int ld, void* x_out,
+                                  void* h, int M, int S, int D, float eps, int dtype,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool res = y != nullptr;
+  if (M <= 0 || S <= 0 || M % S || D <= 0 || D % 8 || ld < D || ld % 4 || !shift || !scale ||
+      !h || (res && (!gate || !x_out)) || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  const float *g = static_cast<const float*>(gate), *sh = static_cast<const float*>(shift),
+              *sc = static_cast<const float*>(scale);
+  if (dtype == 0)
+    dispatch_adaln<float>(res, x, y, g, sh, sc, ld, x_out, h, M, S, D, eps, st);
+  else
+    dispatch_adaln<bf16>(res, x, y, g, sh, sc, ld, x_out, h, M, S, D, eps, st);
   return (int)cudaGetLastError();
 }

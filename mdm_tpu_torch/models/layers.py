@@ -41,9 +41,14 @@ the same graph, so each reruns them in the same order and the ranks'
 collectives still pair up. Without a group (one process, data
 parallelism) neither collective exists.
 
+``DiTBlock`` is DiT's AdaLN-Zero block (models/mdm.py's ``arch="dit"``),
+forward only, through ops/adaln.py.
+
 Spans (utils/tracing.py): ``denoiser.layer`` around each layer call of a
 stack, and a decoder layer's ``denoiser.self_attn`` (with its dropout and
-first LayerNorm), ``denoiser.cross_attn`` and ``denoiser.tail``.
+first LayerNorm), ``denoiser.cross_attn`` and ``denoiser.tail``; a DiT
+block's ``denoiser.self_attn`` (the attention and the adaptive LayerNorm
+after it) and ``denoiser.tail`` (the MLP and the one after it).
 """
 from __future__ import annotations
 
@@ -57,6 +62,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import ops
+from ..ops.adaln import adaln_modulate, gelu_tanh_mlp
 from ..ops.attention_dropout import fused_dropout_attention
 from ..ops.attention_train_block import (fused_block_attention_inference,
                                          fused_train_attention_block)
@@ -525,6 +531,74 @@ class TransformerDecoder(nn.Module):
         the encoder's."""
         args = (memory, key_padding_bias(tgt_padding_mask), key_padding_bias(memory_padding_mask))
         return _run_layers(self.layers, tgt, args, deterministic, rng, self.remat)
+
+
+class DiTAttention(nn.Module):
+    """timm's ``Attention`` as DiT holds it: a packed ``qkv`` [3D, D] (q, k,
+    v, each heads of D / H) and ``proj``, both with biases."""
+
+    def __init__(self, d_model: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(d_model, 3 * d_model)
+        self.proj = nn.Linear(d_model, d_model)
+
+
+class DiTMlp(nn.Module):
+    """timm's ``Mlp``: ``fc1``, GELU's tanh form, ``fc2``."""
+
+    def __init__(self, d_model: int, ff_size: int):
+        super().__init__()
+        self.fc1 = nn.Linear(d_model, ff_size)
+        self.fc2 = nn.Linear(ff_size, d_model)
+
+
+class DiTBlock(nn.Module):
+    """DiT's block with adaptive LayerNorm-Zero conditioning (DiT ``models.py``
+    ``DiTBlock``, its parameter names): from the condition c,
+    ``adaLN_modulation`` = (SiLU, Linear(D, 6D)) gives per sample (shift1,
+    scale1, gate1, shift2, scale2, gate2), and
+
+        x <- x + gate1 * attn(LN(x) * (1 + scale1) + shift1)
+        x <- x + gate2 * mlp(LN(x) * (1 + scale2) + shift2)
+
+    with no LayerNorm affine (eps 1e-6). The model computes every block's
+    modulation in one product before the loop (ops/adaln.py::modulation),
+    so a call takes this block's six rows ``mod`` [B, 6D] and the next
+    LayerNorm's shift and scale (the next block's first, or the final
+    layer's): the block's input h is its first modulated LayerNorm, and it
+    returns (x, the next one). Forward only."""
+
+    def __init__(self, d_model: int, num_heads: int, ff_size: int):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError(f"DiTBlock: d_model {d_model} does not split into {num_heads} heads")
+        self.attn = DiTAttention(d_model, num_heads)
+        self.mlp = DiTMlp(d_model, ff_size)
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(d_model, 6 * d_model))
+        self._cast = None  # (key, the products' weights in the compute dtype)
+
+    def _params(self):
+        a, m = self.attn, self.mlp
+        return (a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias, m.fc1.weight, m.fc1.bias,
+                m.fc2.weight, m.fc2.bias)
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor, mod: torch.Tensor,
+                next_shift: torch.Tensor, next_scale: torch.Tensor,
+                key_bias: Optional[torch.Tensor] = None):
+        """x, h [B, S, D] in the compute dtype, which the products take their
+        weights in; ``mod`` f32 [B, 6D] (a view of the stacked modulation);
+        ``key_bias`` f32 [B, S] additive key padding."""
+        D = x.shape[-1]
+        _, _, g1, sh2, sc2, g2 = (mod[:, i * D:(i + 1) * D] for i in range(6))
+        wqkv, bqkv, wo, bo, w1, b1, w2, b2 = _cached_cast(self, self._params(), x.dtype)
+        with span("denoiser.self_attn"):
+            a = fused_block_attention_inference(h, wqkv, bqkv, wo, bo, self.attn.num_heads,
+                                                key_padding_mask=key_bias)
+            x, h = adaln_modulate(x, a, g1, sh2, sc2)
+        with span("denoiser.tail"):
+            y = gelu_tanh_mlp(h, w1, b1, w2, b2)
+            return adaln_modulate(x, y, g2, next_shift, next_scale)
 
 
 class TimestepEmbedder(nn.Module):

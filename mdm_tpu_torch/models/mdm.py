@@ -18,25 +18,40 @@ Every mask comes from the Philox stream of ops/dropout_bits.py keyed on its
 seed, so the card and the CPU drop the same elements in a step.
 ``remat`` rematerialises each transformer layer in the backward.
 ``MDM.forward`` is one ``denoiser.forward`` span (utils/tracing.py).
+
+``arch="dit"`` is DiT (Peebles & Xie, arXiv:2212.09748; facebookresearch/DiT
+``models.py``) over motion frames, for generation: the condition c =
+MLP_t(freq256(t)) + W_text . text modulates every block (AdaLN-Zero,
+layers.py::DiTBlock), positions are DiT's fixed 1-D sin-cos table, each
+frame is a token (S = the frames, no condition token), and the final layer
+is Linear(LN(x) (1 + scale) + shift), predicting x0 with no learned sigma.
+The timestep and text embedding and the one product that gives every
+block's modulation are one ``denoiser.condition`` span. Parameter names are
+DiT's (``t_embedder``, ``y_embedder`` for its label table, ``x_embedder``,
+``blocks``, ``final_layer``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from .. import ops
 from ..core.goals import ALL_GOAL_JOINT_NAMES, extended_goal_names
+from ..ops._mask import row_bias_contrib
+from ..ops.adaln import adaln_modulate, modulation
 from ..ops.dropout_bits import keep_threshold, sequence_dropout_bits
-from ..utils.tracing import traced
-from .layers import (TimestepEmbedder, TransformerDecoder, TransformerEncoder, draw_seeds,
-                     init_weights_)
+from ..utils.tracing import span, traced
+from .layers import (DiTBlock, TimestepEmbedder, TransformerDecoder, TransformerEncoder,
+                     draw_seeds, init_weights_)
 
 _SUPPORTED = {
-    "arch": ("trans_enc", "trans_dec", "gru"),
+    "arch": ("trans_enc", "trans_dec", "gru", "dit"),
     "cond_mode": ("text", "action", "no_cond"),
     "data_rep": ("hml_vec", "rot6d", "xyz", "rot_vel"),
 }
@@ -51,7 +66,7 @@ class MDMConfig:
     num_layers: int = 8
     num_heads: int = 4
     data_rep: str = "hml_vec"  # hml_vec | rot6d | xyz | rot_vel
-    arch: str = "trans_enc"  # trans_enc | trans_dec | gru
+    arch: str = "trans_enc"  # trans_enc | trans_dec | gru | dit
     cond_mode: str = "text"  # text | action | no_cond
     text_dim: int = 512  # CLIP pooled width (768 for DistilBERT tokens)
     text_tokens: bool = False  # True: [B, L, text_dim] token memory (BERT)
@@ -235,6 +250,48 @@ class OutputProcess(nn.Module):
         return torch.cat([self.poseFinal(h[:, :1]), self.velFinal(h[:, 1:])], dim=1)
 
 
+def timestep_frequencies(t: torch.Tensor, dim: int = 256,
+                         max_period: float = 10000.0) -> torch.Tensor:
+    """DiT's ``TimestepEmbedder.timestep_embedding``: [cos, sin] of t times
+    dim / 2 frequencies from 1 down to 1 / max_period, in f32, [B, dim]."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    args = t[:, None].float() * freqs[None]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def sincos_1d(length: int, d: int) -> torch.Tensor:
+    """DiT's ``get_1d_sincos_pos_embed_from_grid`` over positions 0..length-1:
+    [sin | cos] of position x 1 / 10000^(i / (d / 2)), built in f64, f32."""
+    omega = 1.0 / 10000 ** (np.arange(d // 2, dtype=np.float64) / (d / 2.0))
+    out = np.arange(length, dtype=np.float64)[:, None] * omega[None]
+    return torch.from_numpy(np.concatenate([np.sin(out), np.cos(out)], axis=1).astype(np.float32))
+
+
+class DiTTimestepEmbedder(nn.Module):
+    """freq256(t), then Linear(256, d), SiLU, Linear(d, d) (DiT's names)."""
+
+    FREQ_DIM = 256
+
+    def __init__(self, d: int):
+        super().__init__()
+        self.mlp = nn.Sequential(nn.Linear(self.FREQ_DIM, d), nn.SiLU(), nn.Linear(d, d))
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        return self.mlp(timestep_frequencies(t, self.FREQ_DIM))
+
+
+class DiTFinalLayer(nn.Module):
+    """Linear(LN(x) (1 + scale) + shift), (shift, scale) from
+    ``adaLN_modulation`` = (SiLU, Linear(d, 2d)) of the condition."""
+
+    def __init__(self, d: int, out_feats: int):
+        super().__init__()
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(d, 2 * d))
+        self.linear = nn.Linear(d, out_feats)
+
+
 class MDM(nn.Module):
     """Motion Diffusion Model denoiser: (x_t, t, cond) -> x0_hat."""
 
@@ -250,6 +307,9 @@ class MDM(nn.Module):
         self.config = config
         self.compute_dtype = getattr(torch, config.compute_dtype)
         d = config.latent_dim
+        if config.arch == "dit":
+            self._build_dit(config)
+            return
         self.embed_timestep = TimestepEmbedder(d, config.pos_embed_max_len)
         if config.multi_target_cond:
             self.embed_target_cond = EmbedTargetLoc(d, config.goal_names,
@@ -272,10 +332,47 @@ class MDM(nn.Module):
             self.gru = nn.GRU(d, d, num_layers=config.num_layers, batch_first=True)
         self.output_process = OutputProcess(config.data_rep, config.input_feats, d)
 
+    def _build_dit(self, config: MDMConfig) -> None:
+        if (config.cond_mode != "text" or config.text_tokens or config.is_prefix_comp
+                or config.multi_target_cond or config.data_rep == "rot_vel"):
+            raise ValueError("arch='dit' takes a pooled text condition: no token memory, action, "
+                             "unconditioned model, prefix completion, goals or rot_vel")
+        d = config.latent_dim
+        self.t_embedder = DiTTimestepEmbedder(d)
+        self.y_embedder = nn.Linear(config.text_dim, d)
+        self.x_embedder = nn.Linear(config.input_feats, d)
+        self.register_buffer("pos_embed", sincos_1d(config.pos_embed_max_len, d),
+                             persistent=False)
+        self.blocks = nn.ModuleList(DiTBlock(d, config.num_heads, config.ff_size)
+                                    for _ in range(config.num_layers))
+        self.final_layer = DiTFinalLayer(d, config.input_feats)
+        self._mod_cast = None  # (key, the stacked modulation weight and bias in the compute dtype)
+
+    def _init_dit(self, generator: torch.Generator) -> None:
+        """DiT's ``initialize_weights``: Xavier-uniform linears with zero
+        biases, N(0, 0.02^2) for the timestep MLP, and zero (AdaLN-Zero) for
+        every modulation linear and the output linear, so that each block
+        starts as the identity and the model's output at zero. The text
+        projection, in place of DiT's label table, is a linear like the others."""
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, nn.Linear):
+                    bound = math.sqrt(6.0 / (m.in_features + m.out_features))
+                    m.weight.copy_((torch.rand(m.weight.shape, generator=generator) * 2 - 1) * bound)
+                    m.bias.zero_()
+            for lin in (self.t_embedder.mlp[0], self.t_embedder.mlp[2]):
+                lin.weight.copy_(torch.randn(lin.weight.shape, generator=generator) * 0.02)
+            for lin in self._modulation_linears() + [self.final_layer.linear]:
+                lin.weight.zero_()
+                lin.bias.zero_()
+
     def init_weights(self, generator: torch.Generator) -> "MDM":
         """Seeded random weights drawn from a CPU ``generator``: flax's
         defaults (``init_weights_``), then its normal(1.0) for the action
-        table and the goal rows' mixing weights."""
+        table and the goal rows' mixing weights; DiT's own for ``dit``."""
+        if self.config.arch == "dit":
+            self._init_dit(generator)
+            return self
         init_weights_(self, generator)
         tables = [m.action_embedding for m in self.modules() if isinstance(m, EmbedAction)]
         tables += [m.weights for m in self.modules() if isinstance(m, _MixWeights)]
@@ -309,6 +406,48 @@ class MDM(nn.Module):
             pad = torch.cat([torch.zeros_like(pad[:, :1]), pad], dim=1)
         return torch.cat([time_emb[:, None, :], text_emb], dim=1), pad
 
+    def _modulation_linears(self) -> List[nn.Linear]:
+        return [b.adaLN_modulation[1] for b in self.blocks] + [self.final_layer.adaLN_modulation[1]]
+
+    def _modulation_weights(self, dt: torch.dtype):
+        """Every block's modulation linear and the final layer's, stacked
+        [L 6d + 2d, d] with their biases, in dt: made once and kept until a
+        parameter is replaced or updated in place (sampling only)."""
+        lins = self._modulation_linears()
+        key = (dt,) + tuple((p.data_ptr(), p._version) for m in lins for p in (m.weight, m.bias))
+        if self._mod_cast is None or self._mod_cast[0] != key:
+            with torch.no_grad():
+                self._mod_cast = (key, torch.cat([m.weight for m in lins]).to(dt),
+                                  torch.cat([m.bias for m in lins]).to(dt))
+        return self._mod_cast[1:]
+
+    def _dit_forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: Conditioning,
+                     deterministic: bool) -> torch.Tensor:
+        """DiT's forward (module docstring): x [B, S, F] -> x0_hat [B, S, F]."""
+        cfg = self.config
+        if not deterministic or torch.is_grad_enabled():
+            raise ValueError("arch='dit' runs forward only, for sampling under torch.no_grad() "
+                             "or inference_mode(): its kernels have no backward yet")
+        S, d, cdt = x.shape[1], cfg.latent_dim, self.compute_dtype
+        with span("denoiser.condition"):
+            if cond.text_embed is None:
+                raise ValueError("cond_mode='text' requires Conditioning.text_embed")
+            c = (self.t_embedder(timesteps)
+                 + self.y_embedder(_mask_cond(cond.text_embed.float(), cond.cond_drop)))
+            mod = modulation(c, *self._modulation_weights(cdt), cdt)  # [B, L 6d + 2d] f32
+        rows = lambda k: mod[:, k * d:(k + 1) * d]  # the k-th [B, d] block of rows
+        key_bias = None
+        if cfg.mask_frames and cond.frames_mask is not None:
+            key_bias = row_bias_contrib(~cond.frames_mask[:, :S])
+        h = (self.x_embedder(x.float()) + self.pos_embed[:S]).to(cdt)
+        _, hm = adaln_modulate(h, None, None, rows(0), rows(1))
+        for i, block in enumerate(self.blocks):
+            nxt = 6 * (i + 1)  # the next block's shift and scale, or the final layer's
+            with span("denoiser.layer"):
+                h, hm = block(h, hm, mod[:, 6 * i * d:nxt * d], rows(nxt), rows(nxt + 1),
+                              key_bias)
+        return self.final_layer.linear(hm.float())
+
     @traced("denoiser.forward")
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 cond: Conditioning = Conditioning(), deterministic: bool = True,
@@ -318,6 +457,8 @@ class MDM(nn.Module):
         With prefix completion ``x`` holds the predicted frames only: the
         model prepends ``cond.prefix`` and returns the frames after it."""
         cfg = self.config
+        if cfg.arch == "dit":
+            return self._dit_forward(x, timesteps, cond, deterministic)
         B = x.shape[0]
         cdt = self.compute_dtype
         time_emb = self.embed_timestep(timesteps)  # [B, d]

@@ -39,6 +39,7 @@ _VIEW = [_L, _L, _I]  # batch, head and row strides of an attention operand (att
 # name -> argtypes of each exported C function; every one returns a cudaError_t.
 SIGNATURES = {
     "mdm_residual_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mdm_adaln_modulate": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P],
     "mdm_gemm_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mdm_colsum": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mdm_gemm_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],

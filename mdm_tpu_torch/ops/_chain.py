@@ -26,6 +26,7 @@ HEAD_DIMS = (32, 64, 96, 128, 192, 256)  # the attention tile kernels' instances
 _SMS = 132  # H100 SXM streaming multiprocessors: the split-K target
 WGMMA_TILE = (128, 128, 64)  # csrc/gemm_sm90.cu's block tile (rows, columns, K depth)
 GEMM_LAUNCHES = {"wgmma": 0, "tf32x3": 0}  # launches per product kernel (see gemm_kernel)
+GELU_FORMS = {False: 0, True: 1, "tanh": 2}  # gemm's gelu: none, exact (erf), DiT's tanh form
 # The f32 attention tile kernels (csrc/attention_f32.cu): a block of 128
 # threads owns 64 rows and streams 32-row tiles; rows of Dh + 4 floats and
 # score tiles of 32 + 8. attention_f32_plan models their plan on the CPU;
@@ -176,10 +177,11 @@ def _sm_count(index: int) -> int:
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, a_km: bool = False, b_kn: bool = False,
          bias: Optional[torch.Tensor] = None, r: Optional[torch.Tensor] = None,
-         out_f32: bool = False, gelu: bool = False, splits: int = 1) -> torch.Tensor:
+         out_f32: bool = False, gelu=False, splits: int = 1) -> torch.Tensor:
     """C = act(op(A) . op(B) (+ bias)) (+ r), f32 accumulation, on the
     kernel ``gemm_kernel`` names (one more in its ``GEMM_LAUNCHES``); act is
-    the exact GELU when gelu, else the identity.
+    the exact GELU when gelu is True, its tanh form when gelu is "tanh"
+    (``GELU_FORMS``), else the identity.
 
     op(A) is A [M, K], or A^T when a_km (A stored [K, M]); op(B) is B^T for
     a torch weight B [N, K], or B itself when b_kn (B stored [K, N]). C is
@@ -189,6 +191,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, a_km: bool = False, b_kn: bool = F
     N = b.shape[1] if b_kn else b.shape[0]
     if (b.shape[0] if b_kn else b.shape[1]) != K:
         raise ValueError(f"gemm: inner dimensions differ, {tuple(a.shape)} and {tuple(b.shape)}")
+    act = GELU_FORMS[gelu]
     kernel = gemm_kernel(a, b, a_km=a_km, b_kn=b_kn, bias=bias, r=r, out_f32=out_f32, gelu=gelu,
                          splits=splits)
     out = torch.empty((M, N), dtype=torch.float32 if out_f32 else a.dtype, device=a.device)
@@ -198,23 +201,23 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, a_km: bool = False, b_kn: bool = F
     if kernel == "wgmma":
         grid = _wgmma_grid(M, N, _sm_count(a.get_device()), splits)
         _build.check(lib.mdm_gemm_wgmma(ptr(a), ptr(b), ptr(bias), ptr(r), ptr(out), ptr(work),
-                                        M, N, K, int(a_km), int(b_kn), int(out_f32), int(gelu),
+                                        M, N, K, int(a_km), int(b_kn), int(out_f32), act,
                                         splits, split_rows(K, splits), grid, stream(a)), "gemm")
     else:
         _build.check(lib.mdm_gemm_f32(ptr(a), ptr(b), ptr(bias), ptr(r), ptr(out), ptr(work), M,
-                                      N, K, int(a_km), int(b_kn), splits, int(gelu), stream(a)),
+                                      N, K, int(a_km), int(b_kn), splits, act, stream(a)),
                      "gemm")
     GEMM_LAUNCHES[kernel] += 1
     return out
 
 
-def wgmma_occupancy(out_f32: bool, gelu: bool, a_km: bool = False, b_kn: bool = False) -> int:
+def wgmma_occupancy(out_f32: bool, gelu, a_km: bool = False, b_kn: bool = False) -> int:
     """Resident blocks per SM of the wgmma product kernel's instance of the
-    form (a_km, b_kn) storing f32 or bf16, with or without GELU:
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    form (a_km, b_kn) storing f32 or bf16, with or without GELU (a key of
+    ``GELU_FORMS``): cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
     blocks = ctypes.c_int(0)
     _build.check(_build.load_library().mdm_gemm_wgmma_occupancy(
-        int(a_km), int(b_kn), int(out_f32), int(gelu), ctypes.addressof(blocks)),
+        int(a_km), int(b_kn), int(out_f32), GELU_FORMS[gelu], ctypes.addressof(blocks)),
         "gemm occupancy")
     return blocks.value
 

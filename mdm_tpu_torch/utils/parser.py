@@ -91,7 +91,9 @@ def add_diffusion_options(parser):
 
 def add_model_options(parser):
     g = parser.add_argument_group("model")
-    g.add_argument("--arch", default="trans_enc", choices=["trans_enc", "trans_dec", "gru"])
+    # dit: DiT's AdaLN-Zero blocks (models/mdm.py), generation only (DiT-XL: --layers 28
+    # --latent_dim 1152 --ff_size 4608 --num_heads 16)
+    g.add_argument("--arch", default="trans_enc", choices=["trans_enc", "trans_dec", "gru", "dit"])
     # 'hash': deterministic asset-free embeddings (beyond-reference; for
     # smoke runs and new-dataset bootstrapping without CLIP/BERT weights).
     g.add_argument("--text_encoder_type", default="clip",
